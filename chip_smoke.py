@@ -8,14 +8,30 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   2. build: the CUDA kernels, from resolution_pde_tpu_torch/csrc;
   3. K1, the fused FeedForward kernel, against its plain PyTorch version at
      the serving shape (bf16) and at a small ragged f32 shape;
-  4. K2, the fused spectral axis pass, against its plain version: bf16 at
+  4. K1b, its backward kernel, against the plain backward: bf16 at the
+     train shape with LayerNorm, f32 at a ragged shape without, and the
+     saved-pre-activation variant (ff_impl 'fused_saved');
+  5. K2, the fused spectral axis pass, against its plain version: bf16 at
      the serving shape and at W = 64 (both axes, the H pass read in place),
      and its f32 mode (K3) at the serving shape;
-  5. the slice: FFNO2D at the width of bench.py (random weights from a
-     seed) behind ServingEngine on the GPU, warmed, then serving predict
-     and forecast requests with the launch counters showing that both
-     kernels ran; then one predict in bf16 and one in the f32-exact mode,
-     each against the same weights on the CPU through the plain versions.
+  6. the K2/K3 adjoint (the same kernel, transposed factors) against the
+     plain adjoint, bf16 and f32 at the train shape; the two-axis conv's
+     input and weight gradients against the same on the CPU; in f32 the
+     adjoint and the weight gradient against autograd of the plain pass;
+  7. the serving slice: FFNO2D at the width of bench.py (random weights
+     from a seed) behind ServingEngine on the GPU, warmed, then serving
+     predict and forecast requests with the launch counters showing that
+     both kernels ran; then one predict in bf16 and one in the f32-exact
+     mode, each against the same weights on the CPU through the plain
+     versions;
+  8. the train slice: the same model trained through the port's Trainer on
+     bench.py's synthetic task (8 x 256², y = x rolled by 7 along W): 3
+     warm steps and 20 timed ones, each launching every kernel of the step
+     the counted number of times; every parameter's gradient finite and
+     non-zero; one step's gradients at 128² in bf16 and in the f32-exact
+     mode against the same weights on the CPU in f32; 3 steps of
+     'fused_saved'; and a resume from a checkpoint repeating two steps'
+     losses bit for bit.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it, it exits 1 and
 prints no result. Plain versions run with TF32 off.
@@ -27,6 +43,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -118,6 +135,65 @@ def check_fused_ff(gen) -> dict:
     return bench
 
 
+def check_fused_ff_bwd(gen) -> dict:
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff
+
+    def case(n, dims, *, ln, approx, dtype, tol, label, save=False):
+        ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
+              for i in range(len(dims) - 1)]
+        bs = [randn((d,), gen, 0.1) for d in dims[1:]]
+        lnp = (1.0 + randn((dims[-1],), gen, 0.1),
+               randn((dims[-1],), gen, 0.1)) if ln else None
+        x = randn((n, dims[0]), gen, dtype=dtype)
+        g = randn((n, dims[-1]), gen, dtype=dtype)
+        kw = dict(approx_gelu=approx, compute_dtype=dtype)
+        zs, zs_ref = None, None
+        if save:
+            _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp,
+                                                   save_acts=True, **kw)
+            _, zs_ref = fused_ff.fused_feedforward_reference(
+                x, ks, bs, lnp, save_acts=True, **kw)
+            err = rel_l2(zs, torch.cat(zs_ref, dim=1))
+            require(err <= tol, f"K1 saved pre-activations {label}: {err}")
+        got = fused_ff.fused_feedforward_bwd(x, g, ks, bs, lnp, zs_saved=zs,
+                                             **kw)
+        ref = fused_ff.fused_feedforward_bwd_reference(x, g, ks, bs, lnp,
+                                                       zs_saved=zs_ref, **kw)
+        torch.cuda.synchronize()
+        names = (["dx"] + [f"dW{i}" for i in range(len(ks))]
+                 + [f"db{i}" for i in range(len(bs))]
+                 + (["dln_scale", "dln_bias"] if ln else []))
+        flat = lambda r: [r[0], *r[1], *r[2], *(r[3] or ())]  # noqa: E731
+        errs = {k: rel_l2(a, b) for k, a, b in zip(names, flat(got),
+                                                    flat(ref))}
+        mx = max(max_abs(a, b) for a, b in zip(flat(got), flat(ref)))
+        ms = time_ms(lambda: fused_ff.fused_feedforward_bwd(
+            x, g, ks, bs, lnp, zs_saved=zs, **kw), reps=10)
+        plain = time_ms(lambda: fused_ff.fused_feedforward_bwd_reference(
+            x, g, ks, bs, lnp, zs_saved=zs_ref, **kw), reps=10)
+        log("K1b", case=label, rows=n, dims="->".join(map(str, dims)),
+            rel_l2=",".join(f"{k}:{v:.3e}" for k, v in errs.items()),
+            max_abs=f"{mx:.3e}", tol=tol, ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}")
+        require(all(bool(torch.isfinite(a.float()).all()) for a in flat(got)),
+                f"K1b {label}: non-finite gradient")
+        bad = {k: v for k, v in errs.items() if not v <= tol}
+        require(not bad, f"K1b {label}: rel_l2 above {tol}: {bad}")
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+
+    hidden = WIDTH * FACTOR
+    dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
+    # bf16 dx: a rounding flip of a bf16 value moves it by one bf16 ulp;
+    # the f32 sums of dW, db and dLN differ only in their order
+    bench = case(BATCH * RES * RES, dims, ln=True, approx=True,
+                 dtype=torch.bfloat16, tol=1e-2, label="train_bf16")
+    case(1000, [24, 40, 40, 24], ln=False, approx=False,
+         dtype=torch.float32, tol=1e-5, label="ragged_f32")
+    case(BATCH * RES * RES, dims, ln=True, approx=True,
+         dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
+    return bench
+
+
 def check_spectral(gen) -> tuple:
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
@@ -165,7 +241,91 @@ def check_spectral(gen) -> tuple:
     return bf16, f32
 
 
-def build_model(device, compute_dtype, spectral_impl, gen=None):
+def check_spectral_adjoint(gen) -> tuple:
+    from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
+
+    def one_pass(shape, dtype, tol, label):
+        b, h, w, c = shape
+        m = min(MODES, w // 2 + 1)
+        cuda = torch.device("cuda")
+        f2t, i2t = sm.adjoint_factors(w, m, "ortho", cuda)
+        wpk = sm.pack_mix_weight(randn((c, c, MODES, 2), gen, 0.1), m)
+        g = randn(shape, gen, dtype=dtype)
+        got = sm.spectral_axis_adjoint(g, f2t, i2t, wpk, 2, dtype)
+        ref = sm.spectral_adjoint_reference(
+            g.reshape(b * h, w, c), f2t, i2t, wpk, dtype).reshape(shape)
+        torch.cuda.synchronize()
+        err, mx = rel_l2(got, ref), max_abs(got, ref)
+        ms = time_ms(lambda: sm.spectral_axis_adjoint(g, f2t, i2t, wpk, 2,
+                                                      dtype))
+        plain = time_ms(lambda: sm.spectral_adjoint_reference(
+            g.reshape(b * h, w, c), f2t, i2t, wpk, dtype))
+        f2, i2 = sm.packed_factors(w, m, "ortho", cuda)
+        x = randn(shape, gen, dtype=dtype)
+        wg_ms = time_ms(lambda: sm.spectral_weight_grad(x, g, f2, i2, 2,
+                                                        dtype))
+        log("K2adj", case=label, rows=b * h, W=w, C=c, m=m,
+            rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol,
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            weight_grad_ms=f"{wg_ms:.4f}")
+        require(bool(torch.isfinite(got.float()).all()) and err <= tol,
+                f"K2 adjoint {label}: rel_l2 {err} > {tol}")
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+
+    # as the forward pass: bf16 intermediates rounded in both, a flip moves
+    # an element by one bf16 ulp; f32 differs only in the order of sums
+    bf16 = one_pass((BATCH, RES, RES, WIDTH), torch.bfloat16, 1e-2,
+                    "train_bf16")
+    f32 = one_pass((BATCH, RES, RES, WIDTH), torch.float32, 1e-4,
+                   "train_f32")
+
+    # f32 at the train shape: the adjoint kernel and the weight gradient
+    # against autograd of the plain pass (an independent derivation)
+    m = MODES
+    cuda = torch.device("cuda")
+    f2, i2 = sm.packed_factors(RES, m, "ortho", cuda)
+    x = randn((BATCH, RES, RES, WIDTH), gen)
+    g = randn((BATCH, RES, RES, WIDTH), gen)
+    wpk = sm.pack_mix_weight(randn((WIDTH, WIDTH, MODES, 2), gen, 0.1), m)
+    xr = x.reshape(-1, RES, WIDTH).requires_grad_()
+    wr = wpk.clone().requires_grad_()
+    sm.spectral_pass_reference(xr, f2, i2, wr, torch.float32).backward(
+        g.reshape(-1, RES, WIDTH))
+    dx = sm.spectral_axis_adjoint(g, *sm.adjoint_factors(RES, m, "ortho",
+                                                         cuda), wpk, 2,
+                                  torch.float32)
+    dw = sm.spectral_weight_grad(x, g, f2, i2, 2, torch.float32)
+    ex = rel_l2(dx.reshape(xr.shape), xr.grad)
+    ew = rel_l2(dw, wr.grad)
+    log("K2adj", case="f32_vs_autograd", dx_rel_l2=f"{ex:.3e}",
+        dwpk_rel_l2=f"{ew:.3e}", tol=1e-4)
+    require(ex <= 1e-4 and ew <= 1e-4, f"f32 adjoint vs autograd: {ex} {ew}")
+
+    # both axes at 48 x 64 (m = 25 / 33) through the conv's autograd
+    # Function: dx (the H adjoint added into the W adjoint) and both
+    # weights' gradients against the same inputs on the CPU
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        x = randn((BATCH, 48, 64, WIDTH), gen, dtype=dtype)
+        g = randn((BATCH, 48, 64, WIDTH), gen, dtype=dtype)
+        wy = randn((WIDTH, WIDTH, MODES, 2), gen, 0.1)
+        wx = randn((WIDTH, WIDTH, MODES, 2), gen, 0.1)
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_()
+                      for t in (x, wy, wx)]
+            sm.factorized_spectral_conv_2d_pallas2(
+                *leaves, MODES, compute_dtype=dtype).backward(g.to(dev))
+            grads.append([t.grad.cpu() for t in leaves])
+        errs = [rel_l2(a, b) for a, b in zip(*grads)]
+        log("K2adj", case=f"both_axes_{str(dtype)[6:]}", shape="8x48x64x64",
+            m="25/33", dx_rel_l2=f"{errs[0]:.3e}",
+            dwy_rel_l2=f"{errs[1]:.3e}", dwx_rel_l2=f"{errs[2]:.3e}", tol=tol)
+        require(max(errs) <= tol, f"conv gradients {dtype}: {errs}")
+    return bf16, f32
+
+
+def build_model(device, compute_dtype, spectral_impl, gen=None,
+                ff_impl="fused"):
     from resolution_pde_tpu_torch.models import FFNO2D
 
     return FFNO2D(in_channels=1, out_channels=1, width=WIDTH,
@@ -173,7 +333,7 @@ def build_model(device, compute_dtype, spectral_impl, gen=None):
                   ff_weight_norm=True, n_ff_layers=FF_LAYERS,
                   layer_norm=True, dropout=0.0, compute_dtype=compute_dtype,
                   spectral_impl=spectral_impl, approx_gelu=True,
-                  ff_impl="fused", device=device, generator=gen)
+                  ff_impl=ff_impl, device=device, generator=gen)
 
 
 def run_slice(gen) -> dict:
@@ -259,6 +419,141 @@ def run_slice(gen) -> dict:
     return launched
 
 
+def _counts():
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+
+    return (fused_ff.launches, fused_ff.bwd_launches, spectral_mix.launches,
+            spectral_mix.adjoint_launches)
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.detach().float().reshape(-1).cpu()
+                      for p in model.parameters()])
+
+
+def run_train() -> dict:
+    """The train slice. Every kernel launch counted here comes from a
+    Trainer step; returns the launches by kernel and precision."""
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+    from resolution_pde_tpu_torch.ops.losses import relative_l2
+    from resolution_pde_tpu_torch.train import (Trainer, restore_checkpoint,
+                                                save_checkpoint)
+
+    per_step = [LAYERS, LAYERS, 2 * LAYERS, 2 * LAYERS]  # K1, K1b, K2, adj
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32)
+    y = np.roll(x, 7, axis=-1)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    init = build_model("cpu", torch.bfloat16, "pallas2",
+                       torch.Generator().manual_seed(SEED + 1)).state_dict()
+
+    def trainer_for(compute_dtype, spectral_impl, ff_impl="fused"):
+        model = build_model("cuda", compute_dtype, spectral_impl,
+                            ff_impl=ff_impl)
+        model.load_state_dict(init)
+        trainer = Trainer(model, learning_rate=1e-3)
+        return trainer, trainer.init()
+
+    def step(trainer, state, xb, yb, what):
+        before = _counts()
+        state, loss = trainer.train_step(state, xb, yb)
+        d = [a - b for a, b in zip(_counts(), before)]
+        require(d == per_step, f"{what}: a step launched (K1, K1b, K2, "
+                f"adjoint) {d}, expected {per_step}")
+        return state, loss
+
+    # the main path: every launch counted from here comes from train steps
+    fused_ff.launches = fused_ff.bwd_launches = 0
+    spectral_mix.launches = spectral_mix.adjoint_launches = 0
+    launched = {"bf16": [0, 0, 0, 0], "f32": [0, 0, 0, 0]}
+
+    def tally(key, before):
+        launched[key] = [t + a - b for t, a, b in
+                         zip(launched[key], _counts(), before)]
+
+    before = _counts()
+    trainer, state = trainer_for(torch.bfloat16, "pallas2")
+    for _ in range(3):
+        state, loss = step(trainer, state, xd, yd, "warm step")
+    warm = float(loss)
+    require(np.isfinite(warm), f"non-finite warm loss {warm}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(20):
+        t = time.perf_counter()
+        state, loss = step(trainer, state, xd, yd, "timed step")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    log("train", cell=f"{BATCH}x{RES}^2 bf16", warm_loss=f"{warm:.6f}",
+        first_loss=f"{losses[0]:.6f}", last_loss=f"{losses[-1]:.6f}",
+        median_step_ms=f"{step_ms:.3f}",
+        samples_per_s=f"{BATCH / step_ms * 1e3:.2f}",
+        max_memory_allocated_mb=f"{peak / 2**20:.1f}")
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, p in state.model.named_parameters():
+        gr = p.grad
+        require(gr is not None and bool(torch.isfinite(gr).all())
+                and float(gr.abs().sum()) > 0,
+                f"parameter {name}: gradient missing, non-finite or zero")
+
+    # resume: save at this step, run 2, restore, run the same 2 again
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, state)
+        first = []
+        for _ in range(2):
+            state, loss = step(trainer, state, xd, yd, "resume step")
+            first.append(float(loss))
+        state, _ = restore_checkpoint(tmp, state)
+        again = []
+        for _ in range(2):
+            state, loss = step(trainer, state, xd, yd, "resumed step")
+            again.append(float(loss))
+    log("train", resume_losses=first, repeated=again)
+    require(first == again, f"resume not exact: {first} vs {again}")
+
+    # 3 steps with the pre-activations saved instead of recomputed
+    trainer, state = trainer_for(torch.bfloat16, "pallas2", "fused_saved")
+    saved, saved_ms = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        state, loss = step(trainer, state, xd, yd, "fused_saved step")
+        saved.append(float(loss))  # syncs
+        saved_ms.append((time.perf_counter() - t) * 1e3)
+    log("train", fused_saved_losses=[f"{v:.6f}" for v in saved],
+        fused_saved_step_ms=[f"{v:.3f}" for v in saved_ms])
+    require(all(np.isfinite(saved)), f"fused_saved losses {saved}")
+
+    # one step's gradients at 128², batch 2, from the initial weights
+    x128 = rng.standard_normal((2, 1, 128, 128)).astype(np.float32)
+    y128 = np.roll(x128, 7, axis=-1)
+    cpu = build_model("cpu", None, "pallas2")
+    cpu.load_state_dict(init)
+    relative_l2(cpu(torch.from_numpy(x128)),
+                torch.from_numpy(y128)).backward()
+    ref = _flat_grads(cpu)
+    trainer, state = trainer_for(torch.bfloat16, "pallas2")
+    state, _ = step(trainer, state, x128, y128, "bf16 gradient step")
+    err16 = rel_l2(_flat_grads(state.model), ref)
+    tally("bf16", before)
+    before = _counts()
+    trainer, state = trainer_for(None, "pallas")
+    state, _ = step(trainer, state, x128, y128, "f32 gradient step")
+    err32 = rel_l2(_flat_grads(state.model), ref)
+    tally("f32", before)
+    log("train", grads_bf16_vs_cpu_f32_rel_l2=f"{err16:.3e}", tol=3e-2,
+        grads_f32_vs_cpu_f32_rel_l2=f"{err32:.3e}", tol32=1e-4)
+    require(err16 <= 3e-2, f"bf16 gradients vs CPU f32: {err16}")
+    require(err32 <= 1e-4, f"f32 gradients vs CPU f32: {err32}")
+    log("train", launches_k1=_counts()[0], launches_k1b=_counts()[1],
+        launches_k2=_counts()[2], launches_adjoint=_counts()[3])
+    return dict(launched=launched, step_ms=step_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -284,23 +579,38 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_fused_ff(gen)
+    k1b = check_fused_ff_bwd(gen)
     k2, k3 = check_spectral(gen)
-    launched = run_slice(gen)
+    adj16, adj32 = check_spectral_adjoint(gen)
+    served = run_slice(gen)
+    trained = run_train()["launched"]
 
+    sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     kernels = [
         dict(name="fused_ff_fwd", route="cuda",
              source="resolution_pde_tpu_torch/csrc/fused_ff.cu",
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
-             launches=launched["bf16"][0] + launched["f32"][0], **k1),
-        dict(name="spectral_pass_bf16", route="cuda",
-             source="resolution_pde_tpu_torch/csrc/spectral_mix.cu",
+             launches=(served["bf16"][0] + served["f32"][0]
+                       + trained["bf16"][0] + trained["f32"][0]), **k1),
+        dict(name="fused_ff_bwd", route="cuda",
+             source="resolution_pde_tpu_torch/csrc/fused_ff_bwd.cu",
+             replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
+             launches=trained["bf16"][1] + trained["f32"][1], **k1b),
+        dict(name="spectral_pass_bf16", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
-             launches=launched["bf16"][1], **k2),
-        dict(name="spectral_pass_f32", route="cuda",
-             source="resolution_pde_tpu_torch/csrc/spectral_mix.cu",
+             launches=served["bf16"][1] + trained["bf16"][2], **k2),
+        dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
-             launches=launched["f32"][1], **k3),
+             launches=served["f32"][1] + trained["f32"][2], **k3),
+        dict(name="spectral_adjoint_bf16", route="cuda", source=sm_src,
+             replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
+             launches=trained["bf16"][3], **adj16),
+        dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
+             replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
+             launches=trained["f32"][3], **adj32),
     ]
+    dead = [k["name"] for k in kernels if k["launches"] < 1]
+    require(not dead, f"kernels never launched on the main paths: {dead}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

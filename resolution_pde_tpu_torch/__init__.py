@@ -9,7 +9,8 @@ Subpackages:
   ops     -- grids, normalizers, losses, spectral convs, the CUDA kernels
   models  -- FFNO2D
   deploy  -- ServingEngine (bucketed inference)
-  utils   -- jax_bridge (JAX parameter trees -> state_dicts)
+  train   -- Trainer, LR schedules, checkpoints
+  utils   -- jax_bridge (JAX parameter and gradient trees -> state_dicts)
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-// Fused FFNO FeedForward, forward only.
+// Fused FFNO FeedForward, forward.
 //
 // Replaces the TPU kernel resolution_pde_tpu/ops/pallas/fused_ff.py
 // `_fwd_pallas` (entry `fused_feedforward`): per tile of rows it runs
@@ -7,6 +7,9 @@
 // with products in the compute type (bf16 or f32) accumulated in f32, the
 // bias, GELU, LayerNorm and residual in f32, each hidden activation rounded
 // to the compute type before the next product, and the output in x's type.
+// With `zs` given (the TPU kernel's save_zs), it also stores the first
+// n_save pre-activations in the compute type, packed per row, for the
+// backward (fused_ff_bwd.cu) to read instead of recomputing them.
 //
 // What bounds it on an H100: unfused, the (rows, hidden) activations make
 // several round trips through device memory (at the serving shape each is
@@ -22,14 +25,12 @@
 // tensor-core MMA, TMA staging of the weights and pipelining are later work,
 // so this kernel is bound by its instruction issue, not by memory.
 
-#include "common.cuh"
+#include "fused_ff.cuh"
 
 namespace rpde {
 namespace {
 
-constexpr int kMaxLayers = 32;
 constexpr int kMaxTileRows = 64;
-constexpr float kLnEps = 1e-5f;  // torch.nn.LayerNorm default
 
 struct FFParams {
   int n_layers;
@@ -39,20 +40,17 @@ struct FFParams {
   int dims[kMaxLayers + 1];
   long long w_off[kMaxLayers];  // element offset of layer l in the packed weights
   int b_off[kMaxLayers];        // element offset of layer l in the packed biases
+  int n_save;                   // pre-activations stored to zs (0 without zs)
+  int zs_ld;                    // per-row elements of zs
+  int zs_off[kMaxLayers];       // per-row offset of layer l's pre-activation in zs
 };
 
-__device__ __forceinline__ float gelu(float z, bool approx) {
-  if (approx) {
-    const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
-    return 0.5f * z * (1.0f + tanhf(u));
-  }
-  return 0.5f * z * (1.0f + erff(z * 0.7071067811865476f));
-}
-
-template <typename CD, typename IO>
+// kSave: also store the first n_save pre-activations to zs (a separate
+// instantiation, so the forward without it compiles as if zs did not exist)
+template <typename CD, typename IO, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
-                    IO* __restrict__ out, const CD* __restrict__ w,
+                    IO* __restrict__ out, CD* __restrict__ zs, const CD* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ ln_s,
                     const float* __restrict__ ln_b, long long n_rows, FFParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -86,18 +84,25 @@ fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
     const CD* h = hin;
     auto a = [h, K](int, int i, int k) { return to_f(h[i * K + k]); };
     auto bm = [wl, N](int, int k, int j) { return to_f(wl[k * N + j]); };
+    // the saved pre-activation of layer l, for rows of the tile, or null
+    CD* zl = kSave && l < p.n_save ? zs + row0 * p.zs_ld + p.zs_off[l] : nullptr;
+    const int zs_ld = p.zs_ld;
     if (l < n_layers - 1) {
       CD* ho = hout;
-      gemm(1, tr, N, K, a, bm, [ho, bl, N, approx](int, int i, int j, float acc) {
-        ho[i * N + j] = from_f<CD>(gelu(acc + bl[j], approx));
+      gemm(1, tr, N, K, a, bm, [=](int, int i, int j, float acc) {
+        const float z = acc + bl[j];
+        if (kSave && zl != nullptr && i < rows) zl[i * zs_ld + j] = from_f<CD>(z);
+        ho[i * N + j] = from_f<CD>(gelu(z, approx));
       });
       __syncthreads();
       CD* t = hin;
       hin = hout;
       hout = t;
     } else {
-      gemm(1, tr, N, K, a, bm, [zf, bl, N](int, int i, int j, float acc) {
-        zf[i * N + j] = acc + bl[j];
+      gemm(1, tr, N, K, a, bm, [=](int, int i, int j, float acc) {
+        const float z = acc + bl[j];
+        if (kSave && zl != nullptr && i < rows) zl[i * zs_ld + j] = from_f<CD>(z);
+        zf[i * N + j] = z;
       });
       __syncthreads();
     }
@@ -132,18 +137,20 @@ fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
 }
 
 template <typename CD, typename IO>
-cudaError_t launch(const void* x, const void* residual, void* out, const void* w,
+cudaError_t launch(const void* x, const void* residual, void* out, void* zs, const void* w,
                    const float* b, const float* ln_s, const float* ln_b,
                    long long n_rows, const FFParams& p, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = fused_ff_fwd_kernel<CD, IO>;
+  auto kernel = zs != nullptr ? fused_ff_fwd_kernel<CD, IO, true>
+                              : fused_ff_fwd_kernel<CD, IO, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long blocks = (n_rows + p.tile_rows - 1) / p.tile_rows;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const IO*>(x), static_cast<const IO*>(residual),
-      static_cast<IO*>(out), static_cast<const CD*>(w), b, ln_s, ln_b, n_rows, p);
+      static_cast<IO*>(out), static_cast<CD*>(zs), static_cast<const CD*>(w), b, ln_s,
+      ln_b, n_rows, p);
   return cudaGetLastError();
 }
 
@@ -154,9 +161,13 @@ cudaError_t launch(const void* x, const void* residual, void* out, const void* w
 // in the io type; w: every layer's (dims[l], dims[l+1]) row-major kernel,
 // packed one after another in the compute type; b: the biases packed in f32;
 // ln_s, ln_b: (dims[n_layers],) f32, both null for no LayerNorm; residual may
-// be null. Returns a cudaError_t.
+// be null. zs, if not null: (n_rows, dims[1] + ... + dims[n_save]) in the
+// compute type, receiving the pre-activations of the first n_save layers
+// (n_save = n_layers with LayerNorm, n_layers - 1 without). Returns a
+// cudaError_t.
 extern "C" int rpde_fused_ff_forward(int cd_bf16, int io_bf16, const void* x,
-                                     const void* residual, void* out, const void* w,
+                                     const void* residual, void* out, void* zs,
+                                     const void* w,
                                      const float* b, const float* ln_s,
                                      const float* ln_b, const int* dims, int n_layers,
                                      long long n_rows, int approx_gelu, void* stream) {
@@ -190,12 +201,19 @@ extern "C" int rpde_fused_ff_forward(int cd_bf16, int io_bf16, const void* x,
   }
   if (tr < 1) return cudaErrorInvalidValue;
   p.tile_rows = tr;
+  if (zs != nullptr) {
+    p.n_save = ln_s != nullptr ? n_layers : n_layers - 1;
+    for (int l = 0; l < p.n_save; ++l) {
+      p.zs_off[l] = p.zs_ld;
+      p.zs_ld += dims[l + 1];
+    }
+  }
   auto s = static_cast<cudaStream_t>(stream);
   if (cd_bf16 && io_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, residual, out, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
   if (cd_bf16)
-    return launch<__nv_bfloat16, float>(x, residual, out, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<__nv_bfloat16, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
   if (io_bf16)
-    return launch<float, __nv_bfloat16>(x, residual, out, w, b, ln_s, ln_b, n_rows, p, smem, s);
-  return launch<float, float>(x, residual, out, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<float, __nv_bfloat16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
+  return launch<float, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
 }

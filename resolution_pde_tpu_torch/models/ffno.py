@@ -12,10 +12,14 @@ The names are the JAX package's, so one config selects the counterpart.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from resolution_pde_tpu_torch.models.layers import (FeedForward, WNDense,
+from resolution_pde_tpu_torch.models.layers import (Dropout, FeedForward,
+                                                    WNDense,
                                                     xavier_normal_init)
 from resolution_pde_tpu_torch.ops.grids import concat_grid_2d
 from resolution_pde_tpu_torch.ops.kernels.spectral_mix import (
@@ -81,22 +85,55 @@ class FSpectralConv2d(nn.Module):
         return self.backcast_ff(x, residual=residual)
 
 
+@contextlib.contextmanager
+def _replay(generators, states):
+    """Run the block with each generator at its recorded state, then put
+    every generator back where it was."""
+    now = [g.get_state() for g in generators]
+    for g, s in zip(generators, states):
+        g.set_state(s)
+    try:
+        yield
+    finally:
+        for g, s in zip(generators, now):
+            g.set_state(s)
+
+
+def _remat(layer, x, residual):
+    """``layer(x, residual=...)`` under activation checkpointing: its
+    activations are dropped after the forward and recomputed in the
+    backward. The recompute draws the same dropout masks, since every
+    dropout generator of the layer is replayed from its state at the
+    forward (torch.utils.checkpoint replays only torch's default ones)."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+    states = [g.get_state() for g in gens]
+    return checkpoint(
+        lambda a, r: layer(a, residual=r), x, residual, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _replay(gens, states)))
+
+
 class FFNO2D(nn.Module):
     """2D FFNO. Input (B, C_in, H, W) -> (B, C_out, H, W), in the input's
     dtype. The grid concat is linspace(0, 1) per axis; the in/out
     projections are weight-normed when ``ff_weight_norm``. Parameters are
-    drawn from ``generator`` on the CPU and then moved to ``device``."""
+    drawn from ``generator`` on the CPU and then moved to ``device``.
+    ``remat`` recomputes each Fourier layer's activations in the backward
+    instead of keeping them (the JAX package's ``nn.remat`` per layer)."""
 
     def __init__(self, in_channels: int, out_channels: int, width: int = 64,
                  n_layers: int = 4, n_modes: int = 16, factor: int = 4,
                  ff_weight_norm: bool = False, n_ff_layers: int = 2,
                  layer_norm: bool = False, dropout: float = 0.0,
                  mode: str = "full", use_grid: bool = True,
-                 compute_dtype=None, spectral_impl: str = "fft",
-                 approx_gelu: bool = False, ff_impl: str = "dense", *,
-                 device=None, generator: torch.Generator | None = None):
+                 remat: bool = False, compute_dtype=None,
+                 spectral_impl: str = "fft", approx_gelu: bool = False,
+                 ff_impl: str = "dense", *, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.use_grid = use_grid
+        self.remat = remat
         self.compute_dtype = compute_dtype
         g = generator
         self.in_proj = WNDense(in_channels + (2 if use_grid else 0), width,
@@ -119,10 +156,11 @@ class FFNO2D(nn.Module):
         if self.use_grid:
             x = concat_grid_2d(x, 0.0, 1.0)
         x = self.in_proj(x)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.fourier_layers:
-            if layer.backcast_ff.fused:
-                x = layer(x, residual=x)  # residual add inside the kernel
-            else:
-                x = x + layer(x)
+            # the residual add runs inside the kernel when the FF is fused
+            residual = x if layer.backcast_ff.fused else None
+            y = _remat(layer, x, residual) if remat else layer(x, residual)
+            x = y if residual is not None else x + y
         x = self.out_proj(x)
         return x.permute(0, 3, 1, 2).to(in_dtype)

@@ -114,6 +114,28 @@ class WNDense(nn.Module):
         return _dense(x, weight, self.bias, self.dtype or x.dtype)
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask is drawn from ``generator`` (a ``torch.Generator``
+    on the activations' device, set by the trainer), or from torch's
+    default generator while it is None: the training run's random stream is
+    then one object that a checkpoint saves and restores."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, device=x.device,
+                          generator=self.generator) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+FF_IMPLS = ("dense", "fused", "fused_saved")
+
+
 class FeedForward(nn.Module):
     """FFNO feed-forward: n_layers linear layers with ``factor`` expansion.
 
@@ -122,9 +144,11 @@ class FeedForward(nn.Module):
     reference. Like the reference, it ignores ``ff_weight_norm``.
 
     ff_impl 'fused' runs the chain (and the residual add) in the fused
-    kernel when dropout is 0; otherwise the dense path runs, adding the bias
-    in the compute dtype and the residual outside. The two paths round at
-    different points, as in the JAX package.
+    kernels when dropout is 0, recomputing the hidden activations in the
+    backward; 'fused_saved' saves the pre-activations in the forward
+    instead. Otherwise the dense path runs, adding the bias in the compute
+    dtype and the residual outside. The paths round at different points,
+    as in the JAX package.
     """
 
     def __init__(self, dim: int, factor: int = 4, n_layers: int = 2,
@@ -132,9 +156,9 @@ class FeedForward(nn.Module):
                  dropout: float = 0.0, dtype=None, approx_gelu: bool = False,
                  ff_impl: str = "dense", generator=None):
         super().__init__()
-        if ff_impl not in ("dense", "fused"):
-            raise ValueError(f"unknown ff_impl {ff_impl!r}; expected 'dense' "
-                             "or 'fused'")
+        if ff_impl not in FF_IMPLS:
+            raise ValueError(f"unknown ff_impl {ff_impl!r}; expected one of "
+                             f"{', '.join(FF_IMPLS)}")
         self.dropout = dropout
         self.dtype = dtype
         self.approx_gelu = approx_gelu
@@ -146,7 +170,7 @@ class FeedForward(nn.Module):
             out_dim = dim if j == n_layers - 1 else dim * factor
             mods = [TorchLinear(in_dim, out_dim, dtype=dtype,
                                 generator=generator),
-                    nn.Dropout(dropout),
+                    Dropout(dropout),
                     nn.GELU("tanh" if approx_gelu else "none")
                     if j < n_layers - 1 else nn.Identity()]
             if layer_norm and j == n_layers - 1:
@@ -168,7 +192,8 @@ class FeedForward(nn.Module):
                   if self.layer_norm else None)
             return fused_feedforward(x, kernels, biases, ln, residual,
                                      approx_gelu=self.approx_gelu,
-                                     compute_dtype=cd)
+                                     compute_dtype=cd,
+                                     save_acts=self.ff_impl == "fused_saved")
         n = len(self.layers)
         for j, seq in enumerate(self.layers):
             x = seq[1](seq[0](x))  # linear, dropout

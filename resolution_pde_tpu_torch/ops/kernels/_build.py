@@ -29,8 +29,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the library's entry points (argtypes, restype int)
 _SIGNATURES = {
-    "rpde_fused_ff_forward": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
-                              _I, _P],
+    "rpde_fused_ff_forward": [_I, _I, *[_P] * 9, _I, _L, _I, _P],
+    "rpde_fused_ff_backward": [_I, _I, *[_P] * 11, _I, _L, _I, _I, _P],
     "rpde_spectral_pass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _I, _P],
 }

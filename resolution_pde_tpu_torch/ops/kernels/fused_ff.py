@@ -1,15 +1,19 @@
-"""Fused FFNO FeedForward: the hand-written CUDA kernel and its plain version.
+"""Fused FFNO FeedForward: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of resolution_pde_tpu/ops/pallas/fused_ff.py (forward only):
+Counterpart of resolution_pde_tpu/ops/pallas/fused_ff.py:
 ``Dense -> GELU -> ... -> Dense [-> LayerNorm] [+ residual]`` over the
 rows of ``x``, with products in ``compute_dtype`` accumulated in f32, bias,
 GELU, LayerNorm (eps 1e-5) and residual in f32, each hidden activation
-rounded to ``compute_dtype`` and the output in x's dtype. The kernel is
-``csrc/fused_ff.cu``.
+rounded to ``compute_dtype`` and the output in x's dtype. The forward
+kernel is ``csrc/fused_ff.cu``; the backward kernel, which recomputes the
+hidden activations per tile (or reads the pre-activations the forward
+saved) and reduces the weight gradients over the rows in a fixed order, is
+``csrc/fused_ff_bwd.cu``.
 
-``fused_feedforward`` runs the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor; it never falls back from one to the
-other. The backward kernel (training) is not ported yet.
+``fused_feedforward`` is a ``torch.autograd.Function``: for a tensor on the
+CPU it runs the plain forward and the plain backward below, and for a CUDA
+tensor it launches the kernels; it never falls back from one to the other,
+and it never differentiates the plain forward with autograd.
 """
 
 from __future__ import annotations
@@ -22,12 +26,14 @@ import torch
 from resolution_pde_tpu_torch.ops.kernels import _build
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default (reference parity)
-MAX_LAYERS = 32  # kMaxLayers of csrc/fused_ff.cu
+MAX_LAYERS = 32  # kMaxLayers of csrc/fused_ff.cuh
 _SQRT_2_OVER_PI = 0.7978845608028654
 _INV_SQRT_2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
-# number of kernel launches in this process (the plain version never counts)
-launches = 0
+# kernel launches in this process (the plain versions never count)
+launches = 0       # forward, csrc/fused_ff.cu
+bwd_launches = 0   # backward, csrc/fused_ff_bwd.cu
 
 
 def _gelu(z: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -37,23 +43,47 @@ def _gelu(z: torch.Tensor, approx: bool) -> torch.Tensor:
     return 0.5 * z * (1.0 + torch.erf(z * _INV_SQRT_2))
 
 
+def _gelu_grad(z: torch.Tensor, approx: bool) -> torch.Tensor:
+    if approx:
+        z2 = z * z
+        t = torch.tanh(_SQRT_2_OVER_PI * (z + 0.044715 * z * z2))
+        du = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * z2)
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+    cdf = 0.5 * (1.0 + torch.erf(z * _INV_SQRT_2))
+    return cdf + z * (_INV_SQRT_2PI * torch.exp(-0.5 * z * z))
+
+
+def _n_saved(n_layers: int, has_ln: bool) -> int:
+    """Pre-activations the forward saves for the backward: without
+    LayerNorm the backward never reads the last layer's."""
+    return n_layers if has_ln else n_layers - 1
+
+
 def fused_feedforward_reference(x, kernels, biases, ln=None, residual=None, *,
                                 approx_gelu: bool = True,
-                                compute_dtype=torch.bfloat16):
-    """Plain PyTorch version of the kernel, with its rounding points.
+                                compute_dtype=torch.bfloat16,
+                                save_acts: bool = False):
+    """Plain PyTorch version of the forward kernel, with its rounding points.
 
     x: (..., C_in). kernels: (in_i, out_i) matrices; biases: (out_i,);
     ln: optional (scale, bias), each (C_out,); residual: optional
     (..., C_out). Products take their inputs rounded to ``compute_dtype``
     and multiply them in f32, which is exact for bf16 inputs, so the sum is
-    the kernel's f32 accumulation up to its order.
+    the kernel's f32 accumulation up to its order. With ``save_acts`` it
+    returns ``(out, zs)``: the pre-activations, (N, out_i) each, rounded to
+    ``compute_dtype``, of every layer with LayerNorm and of all but the
+    last without.
     """
     cd = compute_dtype
     c_out = kernels[-1].shape[1]
+    n_save = _n_saved(len(kernels), ln is not None)
     h = x.reshape(-1, x.shape[-1]).to(cd)
     z = None
+    zs = []
     for i, (k, b) in enumerate(zip(kernels, biases)):
         z = h.float() @ k.to(cd).float() + b.float()
+        if save_acts and i < n_save:
+            zs.append(z.to(cd))
         if i < len(kernels) - 1:
             h = _gelu(z, approx_gelu).to(cd)
     if ln is not None:
@@ -63,37 +93,74 @@ def fused_feedforward_reference(x, kernels, biases, ln=None, residual=None, *,
         z = zc * torch.rsqrt(var + LN_EPS) * ln[0].float() + ln[1].float()
     if residual is not None:
         z = z + residual.reshape(-1, c_out).float()
-    return z.to(x.dtype).reshape(*x.shape[:-1], c_out)
+    out = z.to(x.dtype).reshape(*x.shape[:-1], c_out)
+    return (out, zs) if save_acts else out
+
+
+def fused_feedforward_bwd_reference(x, g, kernels, biases, ln=None, *,
+                                    approx_gelu: bool = True,
+                                    compute_dtype=torch.bfloat16,
+                                    zs_saved=None):
+    """Plain PyTorch version of the backward kernel, with the JAX kernel's
+    rounding points: the hidden activations recomputed as the forward does
+    (or rebuilt from ``zs_saved``, the forward's ``save_acts`` output), the
+    LayerNorm backward and the GELU gradient in f32, each dz rounded to
+    ``compute_dtype`` before both its products, dx in x's dtype, and the
+    weight, bias and LayerNorm gradients summed in f32 and cast to each
+    parameter's dtype. g: the cotangent of the output, (..., C_out).
+    Returns (dx, dks, dbs, dln); dln is None without LayerNorm. The
+    residual's gradient is g itself."""
+    cd = compute_dtype
+    n_layers = len(kernels)
+    h = x.reshape(-1, x.shape[-1]).to(cd)
+    if zs_saved is not None:
+        if len(zs_saved) != _n_saved(n_layers, ln is not None):
+            raise ValueError(f"zs_saved holds {len(zs_saved)} tensors; "
+                             f"{_n_saved(n_layers, ln is not None)} expected")
+        zs = [z.reshape(h.shape[0], -1).float() for z in zs_saved]
+        hs = [h] + [_gelu(zs[i], approx_gelu).to(cd)
+                    for i in range(n_layers - 1)]
+    else:
+        hs, zs = [], []
+        for i, (k, b) in enumerate(zip(kernels, biases)):
+            hs.append(h)
+            z = h.float() @ k.to(cd).float() + b.float()
+            zs.append(z)
+            if i < n_layers - 1:
+                h = _gelu(z, approx_gelu).to(cd)
+    gg = g.reshape(h.shape[0], -1).float()
+    dln = None
+    if ln is not None:
+        z = zs[-1]
+        mu = z.mean(dim=-1, keepdim=True)
+        zc = z - mu
+        var = (zc * zc).mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + LN_EPS)
+        xhat = zc * rstd
+        dxhat = gg * ln[0].float()
+        dz = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+        dln = ((gg * xhat).sum(0).to(ln[0].dtype), gg.sum(0).to(ln[1].dtype))
+    else:
+        dz = gg
+    dks, dbs = [None] * n_layers, [None] * n_layers
+    dh = None
+    for i in reversed(range(n_layers)):
+        dz_c = dz.to(cd).float()
+        dks[i] = (hs[i].float().t() @ dz_c).to(kernels[i].dtype)
+        dbs[i] = dz.sum(0).to(biases[i].dtype)
+        dh = dz_c @ kernels[i].to(cd).float().t()
+        if i > 0:
+            dz = dh * _gelu_grad(zs[i - 1], approx_gelu)
+    dx = dh.to(x.dtype).reshape(x.shape)
+    return dx, dks, dbs, dln
 
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def fused_feedforward(x, kernels, biases, ln=None, residual=None, *,
-                      approx_gelu: bool = True, compute_dtype=torch.bfloat16,
-                      save_acts: bool = False):
-    """Fused Dense->GELU->...->Dense[->LayerNorm][+residual] chain.
-
-    Arguments as ``fused_feedforward_reference``. ``save_acts`` stores the
-    pre-activations for a backward pass, which is training and not ported:
-    it raises.
-    """
-    if save_acts:
-        raise NotImplementedError("save_acts is training-only; the fused "
-                                  "FeedForward backward is not ported yet")
-    if x.device.type == "cpu":
-        return fused_feedforward_reference(
-            x, kernels, biases, ln, residual, approx_gelu=approx_gelu,
-            compute_dtype=compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_feedforward runs on cpu or cuda, not "
-                         f"{x.device}")
-    return _launch(x, kernels, biases, ln, residual, approx_gelu,
-                   compute_dtype)
-
-
-def _launch(x, kernels, biases, ln, residual, approx_gelu, cd):
-    global launches
+def _chain_dims(x, kernels, biases, ln, residual, cd) -> list:
+    """Check what the kernels take; return the chain's widths."""
     if cd not in _IO_DTYPES or x.dtype not in _IO_DTYPES:
         raise ValueError(f"fused_feedforward kernel takes float32/bfloat16, "
                          f"got x {x.dtype}, compute_dtype {cd}")
@@ -110,7 +177,6 @@ def _launch(x, kernels, biases, ln, residual, approx_gelu, cd):
     c_out = dims[-1]
     if not x.is_contiguous():
         raise ValueError("fused_feedforward kernel needs a contiguous x")
-    n = math.prod(x.shape[:-1])
     tensors = [x, *kernels, *biases]
     if residual is not None:
         if residual.shape != (*x.shape[:-1], c_out):
@@ -127,26 +193,189 @@ def _launch(x, kernels, biases, ln, residual, approx_gelu, cd):
     if any(t.device != x.device for t in tensors):
         raise ValueError("fused_feedforward: all tensors must be on "
                          f"{x.device}")
+    return dims
 
-    out = torch.empty((*x.shape[:-1], c_out), dtype=x.dtype, device=x.device)
+
+def _packed_weights(kernels, cd, transpose: bool = False) -> torch.Tensor:
+    """Every layer's kernel in ``cd``, packed one after another row-major:
+    (in, out) each, or (out, in) with ``transpose``."""
+    return torch.cat([(k.t() if transpose else k).to(cd).contiguous()
+                      .reshape(-1) for k in kernels])
+
+
+def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
+                          approx_gelu: bool = True,
+                          compute_dtype=torch.bfloat16,
+                          save_acts: bool = False):
+    """The forward kernel (CUDA tensors), with the arguments of
+    ``fused_feedforward_reference``. Returns (out, zs): zs is None, or with
+    ``save_acts`` the saved pre-activations packed per row, (N, sum of
+    their widths) in ``compute_dtype``, as ``fused_feedforward_bwd`` reads
+    them."""
+    global launches
+    cd, save = compute_dtype, save_acts
+    dims = _chain_dims(x, kernels, biases, ln, residual, cd)
+    n = math.prod(x.shape[:-1])
+    out = torch.empty((*x.shape[:-1], dims[-1]), dtype=x.dtype,
+                      device=x.device)
+    zs = None
+    if save:
+        width = sum(dims[1:_n_saved(len(kernels), ln is not None) + 1])
+        zs = torch.empty((n, width), dtype=cd, device=x.device)
     if n == 0:
-        return out
-    w = torch.cat([k.detach().to(cd).reshape(-1) for k in kernels])
-    b = torch.cat([t.detach().float().reshape(-1) for t in biases])
-    ln_s = ln_b = None
-    if ln is not None:
-        ln_s = ln[0].detach().float().contiguous()
-        ln_b = ln[1].detach().float().contiguous()
+        return out, zs
+    w = _packed_weights(kernels, cd)
+    b = torch.cat([t.float().reshape(-1) for t in biases])
+    ln_s = ln[0].float().contiguous() if ln is not None else None
+    ln_b = ln[1].float().contiguous() if ln is not None else None
     c_dims = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(x.device):
         err = _build.library().rpde_fused_ff_forward(
             int(cd == torch.bfloat16), int(x.dtype == torch.bfloat16),
             x.data_ptr(), residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), zs.data_ptr() if save and zs.numel() else None,
+            w.data_ptr(), b.data_ptr(),
             ln_s.data_ptr() if ln_s is not None else None,
             ln_b.data_ptr() if ln_b is not None else None,
             c_dims, len(kernels), n, int(bool(approx_gelu)),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rpde_fused_ff_forward")
     launches += 1
-    return out
+    return out, zs
+
+
+def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
+                          approx_gelu: bool = True,
+                          compute_dtype=torch.bfloat16, zs_saved=None):
+    """The backward kernel (CUDA tensors), with the arguments and results of
+    ``fused_feedforward_bwd_reference``; ``zs_saved`` is the packed
+    (N, sum of widths) tensor the forward kernel saved, or None to
+    recompute. Each weight gradient is summed per block over its row tiles
+    into its own f32 slab, and the slabs are summed in block order by a
+    second kernel: no atomics, so a run repeats bit for bit."""
+    global bwd_launches
+    cd = compute_dtype
+    dims = _chain_dims(x, kernels, biases, ln, None, cd)
+    n_layers, c_out = len(kernels), dims[-1]
+    n = math.prod(x.shape[:-1])
+    g = g.reshape(n, c_out).contiguous()
+    if g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be a {x.dtype} tensor on {x.device}")
+    if zs_saved is not None:
+        width = sum(dims[1:_n_saved(n_layers, ln is not None) + 1])
+        if (zs_saved.shape != (n, width) or zs_saved.dtype != cd
+                or not zs_saved.is_contiguous()):
+            raise ValueError(f"zs_saved must be a contiguous ({n}, {width}) "
+                             f"{cd} tensor")
+    n_w = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    n_b = sum(dims[1:])
+    size = n_w + n_b + (2 * c_out if ln is not None else 0)
+    dx = torch.empty_like(x)
+    grads = torch.zeros(size, dtype=torch.float32, device=x.device)
+    if n > 0:
+        max_blocks = 2 * torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        partials = torch.empty(max_blocks * size, dtype=torch.float32,
+                               device=x.device)
+        w = _packed_weights(kernels, cd)
+        wt = _packed_weights(kernels, cd, transpose=True)
+        b = torch.cat([t.float().reshape(-1) for t in biases])
+        ln_s = ln[0].float().contiguous() if ln is not None else None
+        c_dims = (ctypes.c_int * len(dims))(*dims)
+        with torch.cuda.device(x.device):
+            err = _build.library().rpde_fused_ff_backward(
+                int(cd == torch.bfloat16), int(x.dtype == torch.bfloat16),
+                x.data_ptr(), g.data_ptr(),
+                zs_saved.data_ptr() if zs_saved is not None
+                and zs_saved.numel() else None,
+                dx.data_ptr(), w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                ln_s.data_ptr() if ln_s is not None else None,
+                partials.data_ptr(), grads.data_ptr(), c_dims, n_layers, n,
+                int(bool(approx_gelu)), max_blocks,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "rpde_fused_ff_backward")
+        bwd_launches += 1
+    dks, off = [], 0
+    for k, (a, b) in zip(kernels, zip(dims[:-1], dims[1:])):
+        dks.append(grads[off:off + a * b].view(a, b).to(k.dtype))
+        off += a * b
+    dbs = []
+    for bias, d in zip(biases, dims[1:]):
+        dbs.append(grads[off:off + d].to(bias.dtype))
+        off += d
+    dln = None
+    if ln is not None:
+        dln = (grads[off:off + c_out].to(ln[0].dtype),
+               grads[off + c_out:off + 2 * c_out].to(ln[1].dtype))
+    return dx, dks, dbs, dln
+
+
+class FusedFeedForward(torch.autograd.Function):
+    """The fused FeedForward with its backward: kernels for CUDA tensors,
+    the plain versions for CPU tensors. ``opts`` is
+    (approx_gelu, compute_dtype, save_acts)."""
+
+    @staticmethod
+    def forward(ctx, opts, x, residual, ln_s, ln_b, *params):
+        approx, cd, save_acts = opts
+        n_layers = len(params) // 2
+        kernels, biases = params[:n_layers], params[n_layers:]
+        ln = (ln_s, ln_b) if ln_s is not None else None
+        # pre-activations are saved only where a backward will read them
+        save = save_acts and any(ctx.needs_input_grad)
+        if x.device.type == "cpu":
+            out = fused_feedforward_reference(
+                x, kernels, biases, ln, residual, approx_gelu=approx,
+                compute_dtype=cd, save_acts=save)
+            out, zs = out if save else (out, [])
+        else:
+            out, zs = fused_feedforward_fwd(
+                x, kernels, biases, ln, residual, approx_gelu=approx,
+                compute_dtype=cd, save_acts=save)
+            zs = [zs] if save else []
+        ctx.opts = (approx, cd, save)
+        ctx.n_layers = n_layers
+        ctx.has_residual = residual is not None
+        ctx.save_for_backward(x, ln_s, ln_b, *params, *zs)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        approx, cd, save = ctx.opts
+        x, ln_s, ln_b, *rest = ctx.saved_tensors
+        n = ctx.n_layers
+        kernels, biases, zs = rest[:n], rest[n:2 * n], rest[2 * n:]
+        ln = (ln_s, ln_b) if ln_s is not None else None
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            dx, dks, dbs, dln = fused_feedforward_bwd_reference(
+                x, g, kernels, biases, ln, approx_gelu=approx,
+                compute_dtype=cd, zs_saved=zs if save else None)
+        else:
+            dx, dks, dbs, dln = fused_feedforward_bwd(
+                x, g, kernels, biases, ln, approx_gelu=approx,
+                compute_dtype=cd, zs_saved=zs[0] if save else None)
+        # the residual enters the output additively: its cotangent is g
+        dres = g if ctx.has_residual else None
+        dln_s, dln_b = dln if dln is not None else (None, None)
+        return (None, dx, dres, dln_s, dln_b, *dks, *dbs)
+
+
+def fused_feedforward(x, kernels, biases, ln=None, residual=None, *,
+                      approx_gelu: bool = True, compute_dtype=torch.bfloat16,
+                      save_acts: bool = False):
+    """Fused Dense->GELU->...->Dense[->LayerNorm][+residual] chain,
+    differentiable through ``FusedFeedForward``.
+
+    Arguments as ``fused_feedforward_reference``. ``save_acts`` keeps the
+    pre-activations (in ``compute_dtype``) for the backward, which then
+    skips its recompute products (the JAX package's ff_impl
+    'fused_saved'); it changes nothing when no gradient is needed.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_feedforward runs on cpu or cuda, not "
+                         f"{x.device}")
+    ln_s, ln_b = ln if ln is not None else (None, None)
+    return FusedFeedForward.apply(
+        (bool(approx_gelu), compute_dtype, bool(save_acts)), x, residual,
+        ln_s, ln_b, *kernels, *biases)

@@ -1,0 +1,93 @@
+"""Checkpoints with ``torch.save``: exact resume of a training run.
+
+Counterpart of resolution_pde_tpu/train/checkpoint.py. A checkpoint is a
+directory holding ``state.pt`` (the parameters, the optimizer state, the
+step, the dropout generator's state, and optionally the epoch history and
+a free-form ``extra`` payload such as ``ReduceLROnPlateau.state_dict()``)
+and ``manifest.json``, the named structure of the parameters, which makes a
+restore into a mismatched model fail loudly. The JAX package's
+``block=False`` asynchronous save is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import torch
+
+# bump when the checkpoint payload layout changes
+CHECKPOINT_FORMAT_VERSION = 1
+_PAYLOAD = "state.pt"
+_MANIFEST = "manifest.json"
+
+
+def _manifest(model) -> list:
+    """[name, shape] of every entry of the model's state_dict."""
+    return [[k, list(v.shape)] for k, v in model.state_dict().items()]
+
+
+def save_checkpoint(path: str, state, history: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> None:
+    """Save a TrainState (+ scalar history) to ``path`` (a directory).
+    history: e.g. ``dataclasses.asdict(History)``; empty series are left
+    out. The payload is written to a temporary file and renamed into place,
+    so a crash never leaves half a checkpoint under the name."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "format_version": CHECKPOINT_FORMAT_VERSION,
+        "params": state.model.state_dict(),
+        "opt_state": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "dropout_generator": state.dropout_generator.get_state(),
+    }
+    if history is not None:
+        payload["history"] = {k: [float(a) for a in v]
+                              for k, v in history.items() if v}
+    if extra is not None:
+        payload["extra"] = extra
+    tmp = os.path.join(path, _PAYLOAD + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, _PAYLOAD))
+    with open(os.path.join(path, _MANIFEST), "w") as f:
+        json.dump({"format_version": CHECKPOINT_FORMAT_VERSION,
+                   "params": _manifest(state.model)}, f)
+
+
+def restore_checkpoint(path: str, state, with_extra: bool = False):
+    """Restore into ``state`` (a TrainState of the same model), in place.
+
+    Returns (state, history_dict_or_None), or with ``with_extra=True``
+    (state, history, extra_dict_or_None).
+    """
+    path = os.path.abspath(path)
+    manifest_path = os.path.join(path, _MANIFEST)
+    if os.path.exists(manifest_path):
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        want = _manifest(state.model)
+        got = [list(g) for g in manifest.get("params", [])]
+        if got != want:
+            missing = [w[0] for w in want
+                       if w[0] not in {g[0] for g in got}]
+            extra_keys = [g[0] for g in got
+                          if g[0] not in {w[0] for w in want}]
+            shape_diffs = [
+                (w[0], g[1], w[1])
+                for w, g in zip(want, got) if w[0] == g[0] and w[1] != g[1]]
+            raise ValueError(
+                "checkpoint param structure does not match the model: "
+                f"missing={missing[:5]} unexpected={extra_keys[:5]} "
+                f"shape_mismatches={shape_diffs[:5]} "
+                f"(checkpoint format v{manifest.get('format_version')})")
+    payload = torch.load(os.path.join(path, _PAYLOAD), map_location="cpu",
+                         weights_only=True)
+    state.model.load_state_dict(payload["params"])
+    state.optimizer.load_state_dict(payload["opt_state"])
+    state.step = int(payload["step"])
+    state.dropout_generator.set_state(payload["dropout_generator"])
+    if with_extra:
+        return state, payload.get("history"), payload.get("extra")
+    return state, payload.get("history")

@@ -12,7 +12,9 @@ the leaves; a tree of JAX arrays works too, read through ``np.asarray``):
 
 ``ffno2d_state_dict`` maps it to the port's parameter names, which are the
 reference PyTorch code's, so ``resolution_pde_tpu.utils.torch_import.
-import_ffno2d`` maps the result back. No JAX import is needed here.
+import_ffno2d`` maps the result back. A gradient tree from ``jax.grad`` has
+the params' structure, so it maps the same way, onto the names of
+``model.named_parameters()``. No JAX import is needed here.
 """
 
 from __future__ import annotations

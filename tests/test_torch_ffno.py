@@ -120,4 +120,4 @@ def test_unknown_impls_raise():
     with pytest.raises(ValueError, match="fft, pallas, pallas2"):
         FFNO2D(**CFG, spectral_impl="dft_v5")
     with pytest.raises(ValueError, match="ff_impl"):
-        FFNO2D(**CFG, ff_impl="fused_saved")
+        FFNO2D(**CFG, ff_impl="pallas")

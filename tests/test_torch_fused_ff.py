@@ -83,9 +83,16 @@ def test_fused_ff_bf16_reference_matches_jax():
 
 
 def test_fused_ff_save_acts_raises():
+    """The backward refuses saved pre-activations that do not match the
+    chain: without LayerNorm the forward saves all but the last layer's."""
     x, ks, bs, ln, res = _inputs(2, 4, False, False)
-    with pytest.raises(NotImplementedError):
-        fused_ff.fused_feedforward(torch.from_numpy(x),
-                                   [torch.from_numpy(k) for k in ks],
-                                   [torch.from_numpy(b) for b in bs],
-                                   save_acts=True)
+    t = torch.from_numpy
+    _, zs = fused_ff.fused_feedforward_reference(
+        t(x), [t(k) for k in ks], [t(b) for b in bs], save_acts=True,
+        compute_dtype=torch.float32)
+    assert len(zs) == 1
+    g = torch.ones(x.shape)
+    with pytest.raises(ValueError, match="zs_saved"):
+        fused_ff.fused_feedforward_bwd_reference(
+            t(x), g, [t(k) for k in ks], [t(b) for b in bs],
+            compute_dtype=torch.float32, zs_saved=zs * 2)

@@ -32,6 +32,10 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.deploy",
     "resolution_pde_tpu_torch.deploy.serving",
     "resolution_pde_tpu_torch.utils.jax_bridge",
+    "resolution_pde_tpu_torch.train",
+    "resolution_pde_tpu_torch.train.schedules",
+    "resolution_pde_tpu_torch.train.trainer",
+    "resolution_pde_tpu_torch.train.checkpoint",
 ]
 CFG = dict(in_channels=1, out_channels=1, width=4, n_layers=2, n_modes=4,
            factor=2, n_ff_layers=2, layer_norm=True)
@@ -71,6 +75,26 @@ def test_cpu_runs_plain_versions_and_launches_nothing(spectral_impl,
     assert np.isfinite(eng.predict(x)).all()
     assert np.isfinite(eng.forecast(x, 2)).all()
     assert (fused_ff.launches, spectral_mix.launches) == start == (0, 0)
+
+
+@pytest.mark.parametrize("ff_impl", ["fused", "fused_saved"])
+def test_cpu_train_step_launches_nothing(ff_impl):
+    """A train step on the CPU runs the plain forwards and backwards through
+    the kernels' autograd Functions and launches no kernel."""
+    from resolution_pde_tpu_torch.train import Trainer
+
+    counters = (fused_ff.launches, fused_ff.bwd_launches,
+                spectral_mix.launches, spectral_mix.adjoint_launches)
+    trainer = Trainer(FFNO2D(**CFG, spectral_impl="pallas2", ff_impl=ff_impl,
+                             compute_dtype=torch.bfloat16))
+    state = trainer.init()
+    x = np.random.default_rng(0).standard_normal((2, 1, 8, 12))
+    state, loss = trainer.train_step(state, x, np.roll(x, 1, axis=-1))
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in state.model.parameters())
+    assert (fused_ff.launches, fused_ff.bwd_launches, spectral_mix.launches,
+            spectral_mix.adjoint_launches) == counters == (0, 0, 0, 0)
 
 
 def test_wrappers_refuse_other_devices():
