@@ -31,15 +31,30 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      non-zero; one step's gradients at 128² in bf16 and in the f32-exact
      mode against the same weights on the CPU in f32; 3 steps of
      'fused_saved'; and a resume from a checkpoint repeating two steps'
-     losses bit for bit.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Needs CUDA: without it, it exits 1 and
-prints no result. Plain versions run with TF32 off.
+     losses bit for bit;
+  9. K4, the S4D Vandermonde reduction, and K5, the four Cauchy sums of
+     the S4 DPLR kernel, against their plain versions at the S4 serving
+     shapes and at a small ragged shape, timed in CUDA graphs;
+ 10. the S4 serving slice: S4Model at the width of configs/model/s4_1d.yaml
+     (mode dplr, K5) and s4d_1d.yaml (mode diag, K4), random weights from
+     a seed, on the kernels' route behind ServingEngine on the GPU, warmed
+     at batch 16 x L in {128, 256, 512}, serving predict requests (one of
+     batch 5) with each launching its kernel once per layer; one predict
+     against the same weights on the CPU through the plain versions and
+     against the jnp route on the GPU; backward() through the kernels'
+     route must raise.
+The line before the last is the kernels' JSON record, each kernel with its
+time, its plain version's, its launches on the main paths and its bound
+(the larger of its bytes over 3.35 TB/s and its operations over the peak
+rate of their type); the last line is {"ok": true, "device": {...}}. Needs
+CUDA: without it, it exits 1 and prints no result. Plain versions run with
+TF32 off.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,6 +67,18 @@ import torch
 # bench.py:73-110: the flagship FFNO2D serving width
 WIDTH, LAYERS, MODES, FACTOR, FF_LAYERS, BATCH, RES = 64, 4, 64, 4, 3, 8, 256
 SEED = 0
+# resolution_pde_tpu/configs/model/s4_1d.yaml and s4d_1d.yaml (d_input 15
+# = the KS window, d_model 64, 4 layers, dropout 0.2, prenorm false; the
+# S4 layers' default d_state 64, bidirectional, so 2 kernel channels);
+# configs/training/default.yaml batch 16; configs/dataset/ks_s4.yaml
+# original_res 512 (KS at 128, 256 and 512 points)
+S4 = dict(d_input=15, d_output=1, d_model=64, n_layers=4, dropout=0.2,
+          prenorm=False)
+S4_STATE, S4_BATCH, S4_LENGTHS = 64, 16, (128, 256, 512)
+
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and
+# f32 (CUDA-core) FLOP/s
+HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
 def log(phase: str, **fields) -> None:
@@ -90,6 +117,74 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events; the median per
+    call. For kernels of microseconds, whose eager launches leave the
+    device idle between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM_BYTES_S and
+    the operations over ``peak``; and which of the two it is. A kernel
+    whose cost no single PyTorch call reproduces has library_ms None."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def _ff_cost(n, dims, ln, residual, dtype, passes):
+    """FeedForward products (``passes`` times the forward's: 1 forward, 3
+    for the recompute backward) and bytes: the activations in ``dtype``
+    (x and out, and a residual, for the forward; x, g and dx for the
+    backward), the f32 parameters (and their gradients for the backward)."""
+    e = torch.finfo(dtype).bits // 8
+    macs = sum(a * b for a, b in zip(dims, dims[1:]))
+    params = macs + sum(dims[1:]) + (2 * dims[-1] if ln else 0)
+    acts = n * ((2 * dims[0] + dims[-1]) if passes > 1
+                else (dims[0] + dims[-1])) * e
+    nbytes = (acts + (n * dims[-1] * e if residual else 0)
+              + params * 4 * (2 if passes > 1 else 1))
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    return bound(2.0 * n * macs * passes, nbytes, peak)
+
+
+def _pass_cost(shape, m, dtype):
+    """One spectral axis pass over (B, H, W, C) along W (forward or
+    adjoint): the DFT, mix and inverse products, and x, out and the factors
+    and packed weight in ``dtype``."""
+    b, h, w, c = shape
+    r, e = b * h, torch.finfo(dtype).bits // 8
+    ops = 2.0 * r * (c * w * 2 * m + m * 2 * c * 2 * c + c * 2 * m * w)
+    nbytes = (2 * r * w * c + 2 * w * 2 * m + m * 4 * c * c) * e
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    return bound(ops, nbytes, peak)
+
+
 def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
     return (torch.randn(shape, generator=gen) * scale).to(device=device,
                                                           dtype=dtype)
@@ -120,7 +215,8 @@ def check_fused_ff(gen) -> dict:
             ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K1 {label}: rel_l2 {err} > {tol}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **_ff_cost(n, dims, ln, residual, dtype, 1))
 
     hidden = WIDTH * FACTOR
     dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
@@ -179,7 +275,8 @@ def check_fused_ff_bwd(gen) -> dict:
                 f"K1b {label}: non-finite gradient")
         bad = {k: v for k, v in errs.items() if not v <= tol}
         require(not bad, f"K1b {label}: rel_l2 above {tol}: {bad}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **_ff_cost(n, dims, ln, False, dtype, 3))
 
     hidden = WIDTH * FACTOR
     dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
@@ -216,7 +313,8 @@ def check_spectral(gen) -> tuple:
             ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K2 {label}: rel_l2 {err} > {tol}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **_pass_cost(shape, m, dtype))
 
     # bf16: intermediates are rounded to bf16 in both; a rounding flip moves
     # an element by up to one bf16 ulp
@@ -270,7 +368,8 @@ def check_spectral_adjoint(gen) -> tuple:
             weight_grad_ms=f"{wg_ms:.4f}")
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K2 adjoint {label}: rel_l2 {err} > {tol}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain)
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **_pass_cost(shape, m, dtype))
 
     # as the forward pass: bf16 intermediates rounded in both, a flip moves
     # an element by one bf16 ulp; f32 differs only in the order of sums
@@ -451,7 +550,7 @@ def run_train() -> dict:
         model = build_model("cuda", compute_dtype, spectral_impl,
                             ff_impl=ff_impl)
         model.load_state_dict(init)
-        trainer = Trainer(model, learning_rate=1e-3)
+        trainer = Trainer(model, learning_rate=1e-3, device="cuda")
         return trainer, trainer.init()
 
     def step(trainer, state, xb, yb, what):
@@ -554,6 +653,201 @@ def run_train() -> dict:
     return dict(launched=launched, step_ms=step_ms)
 
 
+def _log_uniform_dt(h, gen):
+    """log-uniform timesteps in [1e-3, 1e-1], as the S4 layers draw them."""
+    u = torch.rand(h, generator=gen)
+    return u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)
+
+
+def _close(got, ref, rtol, atol) -> bool:
+    return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def check_s4_kernels(gen) -> tuple:
+    """K4 and K5 against their plain versions on the card, on the operands
+    the S4 layers give them: the slice's shapes (2 kernel channels x 64
+    features = 128 rows; K4 N/2 = 32, K5 N = 64; L = 512) and a ragged
+    18 rows x N 8 x L 40. Times are device times in CUDA graphs (eager
+    calls of a few microseconds leave the device idle between them)."""
+    from resolution_pde_tpu_torch.ops import ssm
+    from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
+
+    def k4(ch, h, n_half, L, label):
+        # S4D-Lin A = -1/2 + i pi n (the s4d_1d layers' init), random C
+        A = torch.complex(torch.full((h, n_half), -0.5),
+                          np.pi * torch.arange(n_half).float().expand(h, -1))
+        C = torch.complex(torch.randn((ch, h, n_half), generator=gen),
+                          torch.randn((ch, h, n_half), generator=gen))
+        planes = [t.cuda() for t in vandermonde.s4d_operands(
+            C, A, _log_uniform_dt(h, gen))]
+        got = vandermonde.vandermonde(*planes, L)
+        ref = vandermonde.vandermonde_reference(*planes, L)
+        torch.cuda.synchronize()
+        err, mx = rel_l2(got, ref), max_abs(got, ref)
+        ok = _close(got, ref, 1e-3, 1e-4)
+        ms = graph_ms(lambda: vandermonde.vandermonde(*planes, L))
+        plain = graph_ms(lambda: vandermonde.vandermonde_reference(*planes,
+                                                                   L))
+        eager = time_ms(lambda: vandermonde.vandermonde(*planes, L))
+        rows = ch * h
+        log("K4", case=label, rows=rows, n=n_half, L=L, rel_l2=f"{err:.3e}",
+            max_abs=f"{mx:.3e}", tol="1e-5 and rtol 1e-3/atol 1e-4",
+            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            eager_call_ms=f"{eager:.5f}")
+        require(bool(torch.isfinite(got).all()) and err <= 1e-5 and ok,
+                f"K4 {label}: rel_l2 {err}, elementwise {ok}")
+        # per (row, n, l) term: 2 products for the exponents, exp, sin and
+        # cos (one operation each), 2 products and 2 multiply-adds
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **bound(11.0 * rows * n_half * L,
+                            4.0 * (4 * rows * n_half + rows * L), PEAK_F32))
+
+    def k5(ch, h, n, L, label):
+        # the s4_1d layers' HiPPO-LegS Lambda, P, B and a random C-tilde
+        lam, p, b, _ = ssm.make_dplr_hippo(n)
+        lam, p, b = (torch.from_numpy(np.broadcast_to(z, (ch * h, n)).astype(
+            np.complex64)) for z in (lam, p, b))
+        C = torch.complex(torch.randn((ch * h, n), generator=gen),
+                          torch.randn((ch * h, n), generator=gen)) * 0.5 ** 0.5
+        log_dt = _log_uniform_dt(h, gen).repeat(ch)
+        lam, p, b, C, log_dt = (t.cuda() for t in (lam, p, b, C, log_dt))
+        v, g, _ = cauchy.dplr_operands(lam, p, b, C, log_dt, L)
+        planes = [t.contiguous() for t in (v.real, v.imag, lam.real,
+                                           lam.imag, g.real, g.imag)]
+        got = torch.stack(cauchy.cauchy_sums(*planes))
+        ref = torch.stack(cauchy.cauchy_reference(*planes))
+        torch.cuda.synchronize()
+        err, mx = rel_l2(got, ref), max_abs(got, ref)
+        ok = _close(got, ref, 2e-4, 2e-5)
+        ms = graph_ms(lambda: cauchy.cauchy_sums(*planes))
+        plain = graph_ms(lambda: cauchy.cauchy_reference(*planes))
+        eager = time_ms(lambda: cauchy.cauchy_sums(*planes))
+        rows = ch * h
+        log("K5", case=label, rows=rows, n=n, L=L, rel_l2=f"{err:.3e}",
+            max_abs=f"{mx:.3e}", tol="1e-5 and rtol 2e-4/atol 2e-5",
+            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            eager_call_ms=f"{eager:.5f}")
+        require(bool(torch.isfinite(got).all()) and err <= 1e-5 and ok,
+                f"K5 {label}: rel_l2 {err}, elementwise {ok}")
+        # per (row, n, l) term: d (2), |d|^2 (3), the reciprocal (1), d/|d|^2
+        # (2), and per t two 2-term products summed in (8); bytes: v, Lambda
+        # and g planes in, the two (4, rows, L) planes out
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                    **bound(40.0 * rows * n * L,
+                            4.0 * (10 * rows * n + 10 * rows * L), PEAK_F32))
+
+    k4_out = k4(2, S4["d_model"], S4_STATE // 2, 512, "s4d_1d")
+    k4(2, 9, 8, 40, "ragged")
+    k5_out = k5(2, S4["d_model"], S4_STATE, 512, "s4_1d")
+    k5(2, 9, 8, 40, "ragged")
+    return k4_out, k5_out
+
+
+def build_s4(mode, kernel_impl, device, gen=None):
+    from resolution_pde_tpu_torch.models import S4Model
+
+    return S4Model(**S4, mode=mode, kernel_impl=kernel_impl, device=device,
+                   generator=gen)
+
+
+def run_s4_slice() -> dict:
+    """S4Model in both modes on the kernels' route behind ServingEngine on
+    the GPU. Every launch counted here comes from serving requests; returns
+    the launches of K5 (mode dplr) and K4 (mode diag)."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+    from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
+    from resolution_pde_tpu_torch.ops.normalizers import SimpleNormalizer
+
+    norms = dict(x_normalizer=SimpleNormalizer(0.1, 1.3),
+                 y_normalizer=SimpleNormalizer(-0.2, 0.9))
+    d_in, layers = S4["d_input"], S4["n_layers"]
+    launched = {}
+    for mode, kernel, other in (("dplr", cauchy, vandermonde),
+                                ("diag", vandermonde, cauchy)):
+        name = "K5" if mode == "dplr" else "K4"
+        model = build_s4(mode, "pallas", "cuda",
+                         torch.Generator().manual_seed(SEED))
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        eng = ServingEngine(model, device="cuda", **norms)
+        t0 = time.perf_counter()
+        eng.warmup(spatial_shapes=S4_LENGTHS, batch_sizes=[S4_BATCH],
+                   in_channels=d_in)
+        log("s4", mode=mode, warmup_s=f"{time.perf_counter() - t0:.3f}",
+            buckets=len(eng.buckets()))
+        rng = np.random.default_rng(SEED)
+        reqs = {n: rng.standard_normal((5 if n == 512 else S4_BATCH, d_in,
+                                        n)).astype(np.float32)
+                for n in S4_LENGTHS}
+        x256 = rng.standard_normal((2, d_in, 256)).astype(np.float32)
+
+        # the main path: every launch counted from here comes from requests
+        cauchy.launches = vandermonde.launches = 0
+
+        def predict(x, what):
+            before = kernel.launches
+            out = eng.predict(x)
+            d = kernel.launches - before
+            require(d == layers, f"{mode} {what}: {name} launched {d} times, "
+                    f"expected {layers}")
+            require(out.shape == (x.shape[0], 1, x.shape[2])
+                    and np.isfinite(out).all(),
+                    f"{mode} {what}: shape {out.shape} or non-finite")
+            return out
+
+        for n, x in reqs.items():
+            predict(x, f"predict of {x.shape[0]} at L {n}")
+        got = predict(x256, "predict of 2 at L 256")
+        for n in S4_LENGTHS:
+            x = rng.standard_normal((S4_BATCH, d_in, n)).astype(np.float32)
+            before = kernel.launches
+            times = []
+            for _ in range(10):
+                t = time.perf_counter()
+                eng.predict(x)
+                times.append((time.perf_counter() - t) * 1e3)
+            require(kernel.launches - before == 10 * layers,
+                    f"{mode}: 10 timed predicts at L {n} launched {name} "
+                    f"{kernel.launches - before} times")
+            log("latency", model=f"s4_{mode}", bucket=f"{S4_BATCH}x{n}",
+                median_ms=f"{statistics.median(times):.3f}")
+        launched[mode] = kernel.launches
+        require(other.launches == 0, f"{mode}: the other kernel launched")
+        log("s4", mode=mode, **{f"launches_{name}": kernel.launches})
+
+        # the same weights on the CPU through the plain versions, and on the
+        # card through the jnp route; a predict of 2 pads to the bucket of 16
+        cpu = build_s4(mode, "pallas", "cpu")
+        cpu.load_state_dict(state)
+        cpu_eng = ServingEngine(cpu, device="cpu", **norms)
+        cpu_eng.warmup(spatial_shapes=[256], batch_sizes=[2],
+                       in_channels=d_in)
+        err_cpu = rel_l2(torch.from_numpy(got),
+                         torch.from_numpy(cpu_eng.predict(x256)))
+        jnp_model = build_s4(mode, "jnp", "cuda")
+        jnp_model.load_state_dict(state)
+        jnp_eng = ServingEngine(jnp_model, device="cuda", **norms)
+        jnp_eng.warmup(spatial_shapes=[256], batch_sizes=[2],
+                       in_channels=d_in)
+        err_jnp = rel_l2(torch.from_numpy(got),
+                         torch.from_numpy(jnp_eng.predict(x256)))
+        log("s4", mode=mode, vs_cpu_plain_rel_l2=f"{err_cpu:.3e}",
+            vs_jnp_route_rel_l2=f"{err_jnp:.3e}", tol=1e-4)
+        require(err_cpu <= 1e-4, f"{mode} vs the CPU: {err_cpu}")
+        require(err_jnp <= 1e-4, f"{mode} vs the jnp route: {err_jnp}")
+
+        # the kernels are forward-only: a backward must raise, not return
+        # detached gradients
+        xb = torch.from_numpy(x256).cuda()
+        try:
+            model(xb).square().mean().backward()
+            raised = False
+        except NotImplementedError as e:
+            raised = "forward-only" in str(e)
+        require(raised, f"{mode}: backward() through the kernels' route "
+                "did not raise")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -584,6 +878,8 @@ def main() -> int:
     adj16, adj32 = check_spectral_adjoint(gen)
     served = run_slice(gen)
     trained = run_train()["launched"]
+    k4, k5 = check_s4_kernels(gen)
+    s4_served = run_s4_slice()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     kernels = [
@@ -608,6 +904,14 @@ def main() -> int:
         dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
              launches=trained["f32"][3], **adj32),
+        dict(name="s4d_vandermonde", route="cuda",
+             source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
+             replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",
+             launches=s4_served["diag"], **k4),
+        dict(name="cauchy", route="cuda",
+             source="resolution_pde_tpu_torch/csrc/cauchy.cu",
+             replaces="resolution_pde_tpu/ops/pallas/cauchy.py:52",
+             launches=s4_served["dplr"], **k5),
     ]
     dead = [k["name"] for k in kernels if k["launches"] < 1]
     require(not dead, f"kernels never launched on the main paths: {dead}")

@@ -6,8 +6,9 @@ imports JAX. Its hot ops are kernels written by hand for Hopper
 (``csrc/``), each beside a plain PyTorch version that runs on the CPU.
 
 Subpackages:
-  ops     -- grids, normalizers, losses, spectral convs, the CUDA kernels
-  models  -- FFNO2D
+  ops     -- grids, normalizers, losses, spectral convs, SSM kernels, the
+             CUDA kernels
+  models  -- FFNO2D; the 1D S4 family (S4Model, S4Block, S4D)
   deploy  -- ServingEngine (bucketed inference)
   train   -- Trainer, LR schedules, checkpoints
   utils   -- jax_bridge (JAX parameter and gradient trees -> state_dicts)

@@ -40,13 +40,13 @@ class ServingEngine:
         always f32.
     strict_buckets: raise LookupError on a request no warmed bucket covers,
         instead of warming one inside the serving path.
-    device: where the model runs; a CUDA device raises when CUDA is not
-        available.
+    device: where the model runs, the card unless the caller asks for
+        the CPU; a CUDA device raises when CUDA is not available.
     """
 
     def __init__(self, model, *, x_normalizer=None, y_normalizer=None,
                  compute_dtype=None, strict_buckets: bool = False,
-                 device="cpu"):
+                 device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"ServingEngine(device={str(device)!r}): CUDA "

@@ -1,2 +1,3 @@
 """Numerical ops of the port: grids, normalizers, losses, spectral convs,
-and the hand-written CUDA kernels (``ops.kernels``)."""
+SSM kernels (``ops.ssm``), and the hand-written CUDA kernels
+(``ops.kernels``)."""

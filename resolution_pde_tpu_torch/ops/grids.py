@@ -18,6 +18,14 @@ def grid_1d(n: int, lo: float = 0.0, hi: float = 1.0, *, dtype=torch.float32,
                           device=device).to(dtype)
 
 
+def concat_grid_1d(x: torch.Tensor, lo: float = 0.0,
+                   hi: float = 1.0) -> torch.Tensor:
+    """Append a coordinate channel. x: (B, X, C) -> (B, X, C+1)."""
+    b, n = x.shape[:2]
+    g = grid_1d(n, lo, hi, dtype=x.dtype, device=x.device)
+    return torch.cat([x, g[None, :, None].expand(b, n, 1)], dim=-1)
+
+
 def concat_grid_2d(x: torch.Tensor, lo: float = 0.0,
                    hi: float = 1.0) -> torch.Tensor:
     """Append two coordinate channels. x: (B, H, W, C) -> (B, H, W, C+2)."""

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``resolution_pde_tpu_torch/csrc`` are compiled with ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` per ``.cu`` file, all started
+together, and linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The library is built at first use, into
 ``build/kernels/`` beside the package, under a name keyed by a hash of the
 sources, so an edited source is rebuilt and an unchanged one is not.
@@ -21,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "rpde_fused_ff_backward": [_I, _I, *[_P] * 11, _I, _L, _I, _I, _P],
     "rpde_spectral_pass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _I, _P],
+    "rpde_vandermonde": [*[_P] * 5, _I, _I, _I, _P],
+    "rpde_cauchy": [*[_P] * 8, _I, _I, _I, _P],
 }
 
 
@@ -51,6 +54,21 @@ def _nvcc() -> str:
                        "from source on a machine with the CUDA toolkit")
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands at once; raise with every failure's output after
+    all of them have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def library_path() -> Path:
     """Path of the built library, compiling it first if it is missing."""
     digest = hashlib.sha256()
@@ -60,20 +78,16 @@ def library_path() -> Path:
     so = BUILD_DIR / f"librpde_kernels_{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in units]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                  for s, o in zip(units, objs)])
+        lib = str(Path(tmp) / so.name)
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, so)  # atomic: a concurrent build never sees half a file
     return so
 
 

@@ -1,0 +1,120 @@
+"""S4D kernel materialization (the log-Vandermonde reduction): the
+hand-written CUDA kernel and its plain version.
+
+Counterpart of resolution_pde_tpu/ops/pallas/vandermonde.py
+``s4d_kernel_pallas``. Per row r (a kernel channel folded with a feature)
+and position l:
+
+    K[r, l] = 2 sum_n (C'r[r, n] Re e^{dtA[r, n] l}
+                       - C'i[r, n] Im e^{dtA[r, n] l})
+
+on f32 real and imaginary planes, with C' = C (e^{dtA} - 1)/A computed in
+torch. The kernel is ``csrc/vandermonde.cu``: one thread per (row, l), the
+row's parameters staged in shared memory, ragged edges masked, so the JAX
+wrapper's padding has no counterpart. Channels fold into rows: one launch
+for all channels.
+
+Forward only, as in the JAX package, which has no backward for this
+kernel: ``Vandermonde.backward`` raises, and training takes the layers'
+``kernel_impl='jnp'`` route. ``vandermonde`` runs the plain version for a
+tensor on the CPU and launches the kernel for a CUDA tensor; it never falls
+back from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from resolution_pde_tpu_torch.ops.kernels import _build
+from resolution_pde_tpu_torch.ops.ssm import cexp
+
+# kernel launches in this process (the plain version never counts)
+launches = 0
+
+
+def vandermonde_reference(ar, ai, cr, ci, L: int) -> torch.Tensor:
+    """Plain PyTorch version: the TPU kernel's arithmetic on whole arrays.
+    ar, ai, cr, ci: (R, N) f32 -> (R, L) f32."""
+    ls = torch.arange(L, dtype=torch.float32, device=ar.device)
+    a = ar[:, :, None] * ls                          # (R, N, L)
+    b = ai[:, :, None] * ls
+    e = torch.exp(a)
+    re = e * torch.cos(b)
+    im = e * torch.sin(b)
+    return 2.0 * (torch.sum(cr[:, :, None] * re, dim=1)
+                  - torch.sum(ci[:, :, None] * im, dim=1))
+
+
+def _launch(ar, ai, cr, ci, L: int) -> torch.Tensor:
+    rows, n = ar.shape
+    out = torch.empty((rows, L), dtype=torch.float32, device=ar.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(ar.device):
+        err = _build.library().rpde_vandermonde(
+            ar.data_ptr(), ai.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            out.data_ptr(), rows, n, L,
+            torch.cuda.current_stream(ar.device).cuda_stream)
+    _build.check(err, "rpde_vandermonde")
+    return out
+
+
+class Vandermonde(torch.autograd.Function):
+    """The reduction as an autograd node whose backward raises: the JAX
+    package has no backward for this kernel, and a gradient that silently
+    stopped here would be wrong."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, cr, ci, L):
+        global launches
+        if ar.device.type == "cpu":
+            return vandermonde_reference(ar, ai, cr, ci, L)
+        out = _launch(ar, ai, cr, ci, L)
+        launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the S4D Vandermonde kernel is forward-only: the JAX package "
+            "has no backward for it; train through kernel_impl='jnp'")
+
+
+def vandermonde(ar, ai, cr, ci, L: int) -> torch.Tensor:
+    """K[r, l] = 2 sum_n (cr e^{ar l} cos(ai l) - ci e^{ar l} sin(ai l)).
+    ar, ai, cr, ci: (R, N) f32 planes on one device -> (R, L) f32."""
+    dev = ar.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"vandermonde runs on cpu or cuda, not {dev}")
+    planes = [t.to(torch.float32).contiguous() for t in (ar, ai, cr, ci)]
+    if any(t.shape != ar.shape or t.device != dev for t in planes) \
+            or ar.dim() != 2:
+        raise ValueError("vandermonde: ar, ai, cr, ci must be (R, N) "
+                         f"tensors on one device, got "
+                         f"{[tuple(t.shape) for t in (ar, ai, cr, ci)]}")
+    if L < 1:
+        raise ValueError(f"vandermonde: L must be >= 1, got {L}")
+    return Vandermonde.apply(*planes, int(L))
+
+
+def s4d_operands(C, A, log_dt):
+    """The reduction's f32 planes (ar, ai, cr, ci), each (rows, N), from
+    C: (H, N) or (CH, H, N) complex, A: (H, N) complex, log_dt: (H,):
+    dtA = A e^{log_dt} and C' = C (e^{dtA} - 1)/A, a multi-channel C's
+    channels folded into the rows."""
+    h, n = C.shape[-2:]
+    dtA = A * torch.exp(log_dt)[:, None]
+    c_scaled = C * (cexp(dtA) - 1.0) / A         # broadcasts over channels
+    rows = C.numel() // n
+    return (dtA.real.expand(rows // h, h, n).reshape(rows, n),
+            dtA.imag.expand(rows // h, h, n).reshape(rows, n),
+            c_scaled.real.reshape(rows, n), c_scaled.imag.reshape(rows, n))
+
+
+def s4d_kernel_pallas(C, A, log_dt, L: int) -> torch.Tensor:
+    """The S4D ZOH kernel through the reduction kernel (the JAX wrapper's
+    semantics). C: (H, N) or (CH, H, N) complex; A: (H, N) complex;
+    log_dt: (H,). Returns (H, L) / (CH, H, L) f32; a multi-channel C folds
+    its channels into the rows of one launch."""
+    out = vandermonde(*s4d_operands(C, A, log_dt), L)
+    return out.reshape(*C.shape[:-1], L)

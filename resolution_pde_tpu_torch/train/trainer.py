@@ -67,22 +67,27 @@ class History:
 
 
 class Trainer:
-    """Runs train and eval steps of ``model`` on the device its parameters
-    are on. ``model(x)`` returns a prediction with the layout of y (or
-    {'output': prediction})."""
+    """Runs train and eval steps of ``model`` on ``device``, the card unless
+    the caller asks for the CPU; the model is moved there, and a CUDA
+    device raises when CUDA is not available. ``model(x)`` returns a
+    prediction with the layout of y (or {'output': prediction})."""
 
     def __init__(self, model: nn.Module, learning_rate: float = 1e-3,
                  weight_decay: float = 1e-4, use_normalizer: bool = False,
                  y_normalizer=None, grad_clip: Optional[float] = None,
                  ssm_lr: Optional[float] = None, seed: int = 0,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, device="cuda"):
         if ssm_lr is not None:
             raise NotImplementedError(
                 "ssm_lr (the S4 family's parameter groups) is not ported")
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-        self.device = next(model.parameters()).device
-        self.model = model
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Trainer(device={str(device)!r}): CUDA is "
+                               "not available")
+        self.device = device
+        self.model = model.to(device)
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.use_normalizer = use_normalizer

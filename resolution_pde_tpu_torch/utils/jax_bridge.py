@@ -14,7 +14,18 @@ the leaves; a tree of JAX arrays works too, read through ``np.asarray``):
 reference PyTorch code's, so ``resolution_pde_tpu.utils.torch_import.
 import_ffno2d`` maps the result back. A gradient tree from ``jax.grad`` has
 the params' structure, so it maps the same way, onto the names of
-``model.named_parameters()``. No JAX import is needed here.
+``model.named_parameters()``.
+
+The JAX ``S4Model`` tree
+
+    {Dense_0, [LayerNorm_i,] S4Block_i: {FFTConvLayer_0: {DPLRKernelLayer_0
+     | S4DKernelLayer_0: {...}, D}, Dense_0, [input_gate, input_linear,
+     output_gate]}, Dense_1}
+
+maps to ``encoder``, ``norms.{i}``, ``s4_layers.{i}.layer.kernel.*``,
+``s4_layers.{i}.layer.D``, ``s4_layers.{i}.output_linear`` and ``decoder``
+(``s4_model_state_dict``); the kernel parameters keep their JAX names and
+shapes. No JAX import is needed here.
 """
 
 from __future__ import annotations
@@ -30,13 +41,19 @@ def _t(a, transpose: bool = False) -> torch.Tensor:
     return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
 
 
+def _dense(p: dict, prefix: str) -> dict:
+    """flax Dense {kernel (in, out), bias} -> Linear weight (out, in), bias."""
+    out = {f"{prefix}.weight": _t(p["kernel"], True)}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+    return out
+
+
 def _wn_dense(p: dict, prefix: str) -> dict:
-    if "v" in p:
-        out = {f"{prefix}.weight_v": _t(p["v"], True),
-               f"{prefix}.weight_g": _t(np.asarray(p["g"]).reshape(-1, 1))}
-    else:
-        p = p["TorchLinear_0"]
-        out = {f"{prefix}.weight": _t(p["kernel"], True)}
+    if "v" not in p:
+        return _dense(p["TorchLinear_0"], prefix)
+    out = {f"{prefix}.weight_v": _t(p["v"], True),
+           f"{prefix}.weight_g": _t(np.asarray(p["g"]).reshape(-1, 1))}
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(p["bias"])
     return out
@@ -67,12 +84,53 @@ def ffno2d_state_dict(params: dict) -> dict:
         ff = p["FeedForward_0"]
         dense = sorted(_index(k, "WNDense") for k in ff if k != "LayerNorm_0")
         for j in dense:
-            lin = ff[f"WNDense_{j}"]["TorchLinear_0"]
-            pre = f"{base}.backcast_ff.layers.{j}.0"
-            sd[f"{pre}.weight"] = _t(lin["kernel"], True)
-            sd[f"{pre}.bias"] = _t(lin["bias"])
+            sd.update(_dense(ff[f"WNDense_{j}"]["TorchLinear_0"],
+                             f"{base}.backcast_ff.layers.{j}.0"))
         if "LayerNorm_0" in ff:
             pre = f"{base}.backcast_ff.layers.{dense[-1]}.3"
             sd[f"{pre}.weight"] = _t(ff["LayerNorm_0"]["scale"])
             sd[f"{pre}.bias"] = _t(ff["LayerNorm_0"]["bias"])
+    return sd
+
+
+def fftconv_state_dict(p: dict, prefix: str = "") -> dict:
+    """JAX ``FFTConvLayer`` params -> the port's, under ``prefix``."""
+    pre = f"{prefix}." if prefix else ""
+    kernel = p.get("DPLRKernelLayer_0", p.get("S4DKernelLayer_0"))
+    if kernel is None:
+        raise KeyError(f"no kernel layer among {sorted(p)}")
+    sd = {f"{pre}kernel.{k}": _t(v) for k, v in kernel.items()}
+    sd[f"{pre}D"] = _t(p["D"])
+    return sd
+
+
+def s4_block_state_dict(p: dict, prefix: str = "") -> dict:
+    """JAX ``S4Block`` or ``S4D`` params -> the port's, under ``prefix``:
+    FFTConvLayer_0 -> layer, the final Dense_0 -> output_linear, the gate
+    and bottleneck Denses under their own names."""
+    pre = f"{prefix}." if prefix else ""
+    sd = fftconv_state_dict(p["FFTConvLayer_0"], f"{pre}layer")
+    if "Dense_0" in p:
+        sd.update(_dense(p["Dense_0"], f"{pre}output_linear"))
+    for name in ("input_gate", "input_linear", "output_gate"):
+        if name in p:
+            sd.update(_dense(p[name], f"{pre}{name}"))
+    return sd
+
+
+def s4_model_state_dict(params: dict) -> dict:
+    """JAX ``S4Model`` params (the ``params`` collection, or the variables
+    dict holding it) -> the port's ``S4Model`` state_dict (f32 tensors)."""
+    params = params.get("params", params)
+    sd = {}
+    sd.update(_dense(params["Dense_0"], "encoder"))
+    sd.update(_dense(params["Dense_1"], "decoder"))
+    for key, p in params.items():
+        if key.startswith("S4Block_"):
+            i = _index(key, "S4Block")
+            sd.update(s4_block_state_dict(p, f"s4_layers.{i}"))
+        elif key.startswith("LayerNorm_"):
+            i = _index(key, "LayerNorm")
+            sd[f"norms.{i}.weight"] = _t(p["scale"])
+            sd[f"norms.{i}.bias"] = _t(p["bias"])
     return sd

@@ -72,7 +72,7 @@ def main() -> int:
                    compute_dtype=torch.bfloat16, spectral_impl="pallas2",
                    approx_gelu=True, ff_impl="fused", device="cuda",
                    generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(model, learning_rate=1e-3)
+    trainer = Trainer(model, learning_rate=1e-3, device="cuda")
     state = trainer.init()
     x = np.random.default_rng(0).standard_normal((8, 1, 256, 256))
     xd = torch.from_numpy(x.astype(np.float32)).cuda()

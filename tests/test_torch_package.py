@@ -1,6 +1,7 @@
 """Hygiene of the port (resolution_pde_tpu_torch): it never imports JAX or
-the JAX package, refuses a CUDA device without CUDA, and on the CPU runs
-the plain versions and never launches a kernel.
+the JAX package, runs on the card unless asked for the CPU, refuses a CUDA
+device without CUDA, and on the CPU runs the plain versions and never
+launches a kernel.
 """
 
 import subprocess
@@ -12,8 +13,9 @@ import pytest
 import torch
 
 from resolution_pde_tpu_torch.deploy import ServingEngine
-from resolution_pde_tpu_torch.models import FFNO2D
-from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+from resolution_pde_tpu_torch.models import FFNO2D, S4Model
+from resolution_pde_tpu_torch.ops.kernels import (cauchy, fused_ff,
+                                                  spectral_mix, vandermonde)
 
 REPO = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
@@ -22,12 +24,16 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.ops.normalizers",
     "resolution_pde_tpu_torch.ops.losses",
     "resolution_pde_tpu_torch.ops.spectral",
+    "resolution_pde_tpu_torch.ops.ssm",
     "resolution_pde_tpu_torch.ops.kernels._build",
     "resolution_pde_tpu_torch.ops.kernels.fused_ff",
     "resolution_pde_tpu_torch.ops.kernels.spectral_mix",
+    "resolution_pde_tpu_torch.ops.kernels.vandermonde",
+    "resolution_pde_tpu_torch.ops.kernels.cauchy",
     "resolution_pde_tpu_torch.models",
     "resolution_pde_tpu_torch.models.layers",
     "resolution_pde_tpu_torch.models.ffno",
+    "resolution_pde_tpu_torch.models.s4",
     "resolution_pde_tpu_torch.models.registry",
     "resolution_pde_tpu_torch.deploy",
     "resolution_pde_tpu_torch.deploy.serving",
@@ -63,18 +69,49 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
         ServingEngine(FFNO2D(**CFG), device="cuda")
 
 
+def test_serving_engine_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(FFNO2D(**CFG))
+
+
+def test_trainer_defaults_to_the_card(monkeypatch):
+    from resolution_pde_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(FFNO2D(**CFG))
+
+
 @pytest.mark.parametrize("spectral_impl", ["fft", "pallas", "pallas2"])
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
 def test_cpu_runs_plain_versions_and_launches_nothing(spectral_impl,
                                                       compute_dtype):
     start = (fused_ff.launches, spectral_mix.launches)
     eng = ServingEngine(FFNO2D(**CFG, spectral_impl=spectral_impl,
-                               ff_impl="fused", compute_dtype=compute_dtype))
+                               ff_impl="fused", compute_dtype=compute_dtype),
+                        device="cpu")
     eng.warmup(spatial_shapes=[(8, 12)], batch_sizes=[2], rollout_steps=[2])
     x = np.random.default_rng(0).standard_normal((2, 1, 8, 12))
     assert np.isfinite(eng.predict(x)).all()
     assert np.isfinite(eng.forecast(x, 2)).all()
     assert (fused_ff.launches, spectral_mix.launches) == start == (0, 0)
+
+
+@pytest.mark.parametrize("mode", ["dplr", "diag"])
+def test_cpu_s4_serving_runs_plain_versions_and_launches_nothing(mode):
+    """S4Model on the kernels' route (kernel_impl 'pallas') behind the
+    ServingEngine on the CPU: finite outputs, no kernel launched."""
+    start = (vandermonde.launches, cauchy.launches)
+    model = S4Model(d_input=3, d_model=8, n_layers=2, mode=mode,
+                    kernel_impl="pallas",
+                    generator=torch.Generator().manual_seed(0))
+    eng = ServingEngine(model, device="cpu")
+    eng.warmup(spatial_shapes=[24], batch_sizes=[4], in_channels=3)
+    x = np.random.default_rng(0).standard_normal((3, 3, 24))
+    out = eng.predict(x)
+    assert out.shape == (3, 1, 24) and np.isfinite(out).all()
+    assert (vandermonde.launches, cauchy.launches) == start == (0, 0)
 
 
 @pytest.mark.parametrize("ff_impl", ["fused", "fused_saved"])
@@ -86,7 +123,7 @@ def test_cpu_train_step_launches_nothing(ff_impl):
     counters = (fused_ff.launches, fused_ff.bwd_launches,
                 spectral_mix.launches, spectral_mix.adjoint_launches)
     trainer = Trainer(FFNO2D(**CFG, spectral_impl="pallas2", ff_impl=ff_impl,
-                             compute_dtype=torch.bfloat16))
+                             compute_dtype=torch.bfloat16), device="cpu")
     state = trainer.init()
     x = np.random.default_rng(0).standard_normal((2, 1, 8, 12))
     state, loss = trainer.train_step(state, x, np.roll(x, 1, axis=-1))

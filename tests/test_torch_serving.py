@@ -42,7 +42,8 @@ def engines():
     model = FFNO2D(**CFG)
     model.load_state_dict(ffno2d_state_dict(variables))
     teng = ServingEngine(model, x_normalizer=SimpleNormalizer(*STATS["x"]),
-                         y_normalizer=SimpleNormalizer(*STATS["y"]))
+                         y_normalizer=SimpleNormalizer(*STATS["y"]),
+                         device="cpu")
     for eng in (jeng, teng):
         eng.warmup(spatial_shapes=[GRID], batch_sizes=[4], rollout_steps=[3])
     return jeng, teng
@@ -72,7 +73,8 @@ def test_forecast_matches_jax(engines):
 
 
 def test_strict_buckets_raise_on_a_miss():
-    teng = ServingEngine(FFNO2D(**CFG), strict_buckets=True)
+    teng = ServingEngine(FFNO2D(**CFG), strict_buckets=True,
+                         device="cpu")
     teng.warmup(spatial_shapes=[GRID], batch_sizes=[2])
     x = np.zeros((3, 1) + GRID, np.float32)
     with pytest.raises(LookupError):
@@ -82,7 +84,7 @@ def test_strict_buckets_raise_on_a_miss():
 
 
 def test_bucket_miss_warms_on_demand():
-    teng = ServingEngine(FFNO2D(**CFG))
+    teng = ServingEngine(FFNO2D(**CFG), device="cpu")
     x = np.zeros((2, 1, 8, 8), np.float32)
     with pytest.warns(RuntimeWarning, match="bucket miss"):
         out = teng.predict(x)

@@ -63,7 +63,7 @@ def test_loss_trajectory_matches_jax_trainer():
     jstate = jtrainer.init(x[:1])
     trainer = Trainer(FFNO2D(**CFG, **SLICE), learning_rate=1e-3,
                       use_normalizer=True,
-                      y_normalizer=SimpleNormalizer(*stats))
+                      y_normalizer=SimpleNormalizer(*stats), device="cpu")
     trainer.model.load_state_dict(ffno2d_state_dict(jstate.params))
     state = trainer.init()
     want, got = [], []
@@ -81,7 +81,7 @@ def test_loss_trajectory_matches_jax_trainer():
 def test_grad_clip_is_optax_clip_by_global_norm():
     rng = np.random.default_rng(1)
     shapes = [(3, 4), (5,), (2, 2, 2)]
-    trainer = Trainer(_model(), grad_clip=0.5)
+    trainer = Trainer(_model(), grad_clip=0.5, device="cpu")
     for scale in (0.01, 10.0):  # below the clip: unchanged; above: scaled
         grads = [(rng.standard_normal(s) * scale).astype(np.float32)
                  for s in shapes]
@@ -130,7 +130,7 @@ def test_plateau_matches_jax_and_round_trips():
 
 
 def _one_step(accum, x, y, weights=None):
-    trainer = Trainer(_model(), accum_steps=accum)
+    trainer = Trainer(_model(), accum_steps=accum, device="cpu")
     state = trainer.init()
     state, loss = trainer.train_step(state, x, y, weights)
     return float(loss), [p.detach().clone() for p in state.model.parameters()]
@@ -155,7 +155,8 @@ def test_accumulation_pads_and_weighs_real_rows():
 def test_normalizer_decode_before_loss():
     x, y = _data(seed=3)
     norm = SimpleNormalizer(0.5, 2.0)
-    trainer = Trainer(_model(), use_normalizer=True, y_normalizer=norm)
+    trainer = Trainer(_model(), use_normalizer=True, y_normalizer=norm,
+                      device="cpu")
     state = trainer.init()
     with torch.no_grad():
         pred = state.model.eval()(torch.from_numpy(x))
@@ -180,11 +181,11 @@ def test_checkpoint_resume_is_exact(tmp_path):
     run's, bit for bit, with dropout drawing from the saved generator."""
     kw = dict(ff_impl="dense", dropout=0.1)
     batches = [_data(seed=s) for s in range(4)]
-    trainer = Trainer(_model(**kw), seed=7)
+    trainer = Trainer(_model(**kw), seed=7, device="cpu")
     state = trainer.init()
     full = _run(trainer, state, batches)
 
-    trainer = Trainer(_model(**kw), seed=7)
+    trainer = Trainer(_model(**kw), seed=7, device="cpu")
     state = trainer.init()
     first = _run(trainer, state, batches[:2])
     save_checkpoint(str(tmp_path / "ck"), state,
@@ -192,7 +193,7 @@ def test_checkpoint_resume_is_exact(tmp_path):
                     extra={"plateau": {"lr": 1e-3, "best": 0.5,
                                        "num_bad": 1}})
 
-    trainer2 = Trainer(_model(seed=1, **kw), seed=99)
+    trainer2 = Trainer(_model(seed=1, **kw), seed=99, device="cpu")
     state2 = trainer2.init()
     state2, history, extra = restore_checkpoint(str(tmp_path / "ck"), state2,
                                                 with_extra=True)
@@ -201,7 +202,7 @@ def test_checkpoint_resume_is_exact(tmp_path):
     assert extra["plateau"]["num_bad"] == 1
     rest = _run(trainer2, state2, batches[2:])
     assert first + rest == full
-    trainer = Trainer(_model(**kw), seed=7)
+    trainer = Trainer(_model(**kw), seed=7, device="cpu")
     state = trainer.init()
     _run(trainer, state, batches)
     for a, b in zip(state.model.parameters(), state2.model.parameters()):
@@ -213,9 +214,9 @@ def test_checkpoint_resume_is_exact(tmp_path):
 
 
 def test_checkpoint_manifest_guard(tmp_path):
-    trainer = Trainer(_model())
+    trainer = Trainer(_model(), device="cpu")
     save_checkpoint(str(tmp_path / "ck"), trainer.init())
-    other = Trainer(FFNO2D(**dict(CFG, width=4), **SLICE))
+    other = Trainer(FFNO2D(**dict(CFG, width=4), **SLICE), device="cpu")
     with pytest.raises(ValueError, match="param structure does not match"):
         restore_checkpoint(str(tmp_path / "ck"), other.init())
 
@@ -227,7 +228,7 @@ def test_remat_equals_no_remat(kw):
     x, y = _data(seed=4)
     grads = []
     for remat in (False, True):
-        trainer = Trainer(_model(remat=remat, **kw))
+        trainer = Trainer(_model(remat=remat, **kw), device="cpu")
         state = trainer.init()
         state.model.train()
         loss = relative_l2(state.model(torch.from_numpy(x)),
@@ -243,7 +244,7 @@ def test_remat_equals_no_remat(kw):
 
 def test_fit_steps_schedules_and_calls_back():
     batches = [_data(seed=s, batch=2) for s in range(3)]
-    trainer = Trainer(_model(), learning_rate=1e-3)
+    trainer = Trainer(_model(), learning_rate=1e-3, device="cpu")
     state = trainer.init()
     seen = []
     state, hist = trainer.fit(
@@ -268,7 +269,7 @@ def test_dropout_draws_from_the_seeded_generator():
     kw = dict(ff_impl="dense", dropout=0.2)
     runs = []
     for seed in (3, 3, 4):
-        trainer = Trainer(_model(**kw), seed=seed)
+        trainer = Trainer(_model(**kw), seed=seed, device="cpu")
         state = trainer.init()
         runs.append(_run(trainer, state, [(x, y)] * 2))
     assert runs[0] == runs[1] and runs[0] != runs[2]
@@ -276,6 +277,6 @@ def test_dropout_draws_from_the_seeded_generator():
 
 def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ssm_lr"):
-        Trainer(_model(), ssm_lr=1e-4)
+        Trainer(_model(), ssm_lr=1e-4, device="cpu")
     with pytest.raises(ValueError, match="accum_steps"):
-        Trainer(_model(), accum_steps=0)
+        Trainer(_model(), accum_steps=0, device="cpu")
