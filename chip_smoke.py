@@ -8,9 +8,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   2. build: the CUDA kernels, from resolution_pde_tpu_torch/csrc;
   3. K1, the fused FeedForward kernel, against its plain PyTorch version at
      the serving shape (bf16) and at a small ragged f32 shape;
-  4. K1b, its backward kernel, against the plain backward: bf16 at the
-     train shape with LayerNorm, f32 at a ragged shape without, and the
-     saved-pre-activation variant (ff_impl 'fused_saved');
+  4. K1b, its backward kernel, against the plain backward: bf16 (its
+     tensor-core products) at the train shape with LayerNorm, at a ragged
+     shape without and at a ragged one-layer shape with; f32 (its CUDA-core
+     products) at the ragged shape and at the train shape; and the
+     saved-pre-activation variant in bf16 (ff_impl 'fused_saved');
   5. K2, the fused spectral axis pass, against its plain version: bf16 at
      the serving shape and at W = 64 (both axes, the H pass read in place),
      and its f32 mode (K3) at the serving shape;
@@ -157,15 +159,17 @@ def bound(ops: float, nbytes: float, peak: float) -> dict:
                 library_ms=None)
 
 
-def _ff_cost(n, dims, ln, residual, dtype, passes):
+def _ff_cost(n, dims, ln, residual, dtype, passes, saved=0):
     """FeedForward products (``passes`` times the forward's: 1 forward, 3
-    for the recompute backward) and bytes: the activations in ``dtype``
-    (x and out, and a residual, for the forward; x, g and dx for the
-    backward), the f32 parameters (and their gradients for the backward)."""
+    for the recompute backward, 2 for the backward that reads ``saved``
+    pre-activations a row) and bytes: the activations in ``dtype`` (x and
+    out, and a residual, for the forward; x, g and dx, and the saved
+    pre-activations, for the backward), the f32 parameters (and their
+    gradients for the backward)."""
     e = torch.finfo(dtype).bits // 8
     macs = sum(a * b for a, b in zip(dims, dims[1:]))
     params = macs + sum(dims[1:]) + (2 * dims[-1] if ln else 0)
-    acts = n * ((2 * dims[0] + dims[-1]) if passes > 1
+    acts = n * ((2 * dims[0] + dims[-1] + saved) if passes > 1
                 else (dims[0] + dims[-1])) * e
     nbytes = (acts + (n * dims[-1] * e if residual else 0)
               + params * 4 * (2 if passes > 1 else 1))
@@ -231,7 +235,10 @@ def check_fused_ff(gen) -> dict:
     return bench
 
 
-def check_fused_ff_bwd(gen) -> dict:
+def check_fused_ff_bwd(gen) -> tuple:
+    """K1b against its plain backward. Returns the bf16 (tensor cores) and
+    f32 (CUDA cores) records at the train shape, the bf16 one with the
+    saved-pre-activation variant's time, plain time and bound beside it."""
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
     def case(n, dims, *, ln, approx, dtype, tol, label, save=False):
@@ -275,20 +282,38 @@ def check_fused_ff_bwd(gen) -> dict:
                 f"K1b {label}: non-finite gradient")
         bad = {k: v for k, v in errs.items() if not v <= tol}
         require(not bad, f"K1b {label}: rel_l2 above {tol}: {bad}")
+        saved = zs.shape[1] if save else 0
         return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **_ff_cost(n, dims, ln, False, dtype, 3))
+                    **_ff_cost(n, dims, ln, False, dtype, 2 if save else 3,
+                               saved))
 
     hidden = WIDTH * FACTOR
     dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
-    # bf16 dx: a rounding flip of a bf16 value moves it by one bf16 ulp;
-    # the f32 sums of dW, db and dLN differ only in their order
+    ragged = [24, 40, 40, 24]
+    # bf16 (tensor cores): the products of bf16 values are exact in f32 in
+    # both, so dW, db and dLN differ only in the order of their f32 sums;
+    # a sum-order flip of a value rounded to bf16 (dx, a dz, a hidden h)
+    # moves it by one bf16 ulp (2^-8 relative)
     bench = case(BATCH * RES * RES, dims, ln=True, approx=True,
                  dtype=torch.bfloat16, tol=1e-2, label="train_bf16")
-    case(1000, [24, 40, 40, 24], ln=False, approx=False,
-         dtype=torch.float32, tol=1e-5, label="ragged_f32")
-    case(BATCH * RES * RES, dims, ln=True, approx=True,
-         dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
-    return bench
+    # widths and rows that no fragment or tile divides: the zero-filled
+    # fragments and the masked stores
+    case(1000, ragged, ln=False, approx=False, dtype=torch.bfloat16,
+         tol=1e-2, label="ragged_bf16")
+    case(1000, ragged[:2], ln=True, approx=True, dtype=torch.bfloat16,
+         tol=1e-2, label="ragged_bf16_ln_1layer")
+    # f32 (CUDA cores): only the order of the f32 sums differs; over the
+    # 524,288 rows of the train shape the sums are long, hence 1e-4 there
+    case(1000, ragged, ln=False, approx=False, dtype=torch.float32, tol=1e-5,
+         label="ragged_f32")
+    f32 = case(BATCH * RES * RES, dims, ln=True, approx=True,
+               dtype=torch.float32, tol=1e-4, label="train_f32")
+    saved = case(BATCH * RES * RES, dims, ln=True, approx=True,
+                 dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
+    bench.update(saved_ms=saved["ms"], saved_plain_ms=saved["plain_ms"],
+                 saved_bound_ms=saved["bound_ms"],
+                 saved_bound_by=saved["bound_by"])
+    return bench, f32
 
 
 def check_spectral(gen) -> tuple:
@@ -873,7 +898,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_fused_ff(gen)
-    k1b = check_fused_ff_bwd(gen)
+    k1b, k1b32 = check_fused_ff_bwd(gen)
     k2, k3 = check_spectral(gen)
     adj16, adj32 = check_spectral_adjoint(gen)
     served = run_slice(gen)
@@ -882,16 +907,19 @@ def main() -> int:
     s4_served = run_s4_slice()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
+    bwd_src = "resolution_pde_tpu_torch/csrc/fused_ff_bwd.cu"
     kernels = [
         dict(name="fused_ff_fwd", route="cuda",
              source="resolution_pde_tpu_torch/csrc/fused_ff.cu",
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=(served["bf16"][0] + served["f32"][0]
                        + trained["bf16"][0] + trained["f32"][0]), **k1),
-        dict(name="fused_ff_bwd", route="cuda",
-             source="resolution_pde_tpu_torch/csrc/fused_ff_bwd.cu",
+        dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["bf16"][1] + trained["f32"][1], **k1b),
+             launches=trained["bf16"][1], **k1b),
+        dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
+             replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
+             launches=trained["f32"][1], **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
              launches=served["bf16"][1] + trained["bf16"][2], **k2),

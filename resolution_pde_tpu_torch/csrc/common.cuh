@@ -1,11 +1,14 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// block_gemm is the one matrix-product routine both kernels use: every
-// thread of the block owns RM x RN outputs of a (batched) product and keeps
-// them in registers while it walks the contraction axis with IEEE f32 FMAs.
-// Operands are read through functors, so one routine serves every layout
-// the kernels stage in shared memory or read from global memory (L2).
-// The sum over k runs in order, so a result does not depend on the launch.
+// block_gemm is the CUDA-core matrix-product routine: the fused FeedForward
+// forward (fused_ff.cu), the spectral pass (spectral_mix.cu) and the f32
+// products of the FeedForward backward use it; the backward's bf16 products
+// run on the tensor cores instead (mma.cuh). Every thread of the block owns
+// RM x RN outputs of a (batched) product and keeps them in registers while
+// it walks the contraction axis with IEEE f32 FMAs. Operands are read
+// through functors, so one routine serves every layout the kernels stage in
+// shared memory or read from global memory (L2). The sum over k runs in
+// order, so a result does not depend on the launch.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -26,18 +26,42 @@
 // the end of the last tile are left out of every sum (the TPU pads them
 // with a zero cotangent instead).
 //
-// What bounds it on an H100: the products (three per layer: the recompute,
-// dW and dh, about 3 x 103 GFLOP at the bench shape of 524,288 rows,
-// 64 -> 256 -> 256 -> 64), on the CUDA cores in f32 FMA (block_gemm), as in
-// the forward kernel. A tile's z (f32) and dz stay in shared memory, with
-// only h_0 kept: each h_l (l >= 1) is rebuilt from z_{l-1} just before the
-// product that reads it, which leaves room for 64-row tiles (222 KB at
-// bench dims in bf16), where every product gets 8 x 8 register tiles. Only
-// x, g, dx (and the saved z) cross device memory, plus each block's slab,
-// read and written once per tile (396 KB at bench dims). Tensor cores, and
-// keeping the weight gradient in registers across tiles, are later work.
+// What bounds it on an H100. In bf16 (every FeedForward backward of the
+// bf16 train step) the three products a layer (the recompute, dW and dh,
+// about 3 x 103 GFLOP at the bench shape of 524,288 rows, 64 -> 256 -> 256
+// -> 64) run on the tensor cores (mma.cuh: mma.sync on ldmatrix fragments
+// and on weights read from L2), 0.3 ms of tensor-core time at the card's
+// peak. What is left is memory traffic and its latency: each 64-row tile
+// reads every weight twice from L2 (the recompute from `wt`, dh from `w`,
+// 393 KB at bench dims) and reads and rewrites its block's f32 slab (396
+// KB), some 9.7 GB a call; the 132 slabs (52 MB) do not stay in L2, so the
+// slab traffic goes to device memory. So:
+//   - a block has 16 warps (one block an SM: the tile takes the shared
+//     memory), to keep more loads in flight (in f32 too);
+//   - the slabs hold dW in the products' tile order (mma.cuh
+//     tile_order_index), so a lane reads and writes its sums as float4s
+//     and a warp moves 512 contiguous bytes at a time; the reduction puts
+//     them back in row-major order;
+//   - the weights are zero-padded to whole fragments by the caller, so
+//     their loads need no masks, and are loaded two steps ahead;
+//   - x and the saved zs are read 16 bytes a thread; the column sums of
+//     db and of the LayerNorm gradients use every thread of the block;
+//   - GELU and GELU' are calls in the unrolled epilogues, which keeps the
+//     kernel's code within what the instruction caches hold.
+// A tile's z (f32) and dz stay in shared memory, with only h_0 kept: each
+// h_l (l >= 1) is rebuilt from z_{l-1} just before the product that reads
+// it, which leaves room for 64-row tiles (all 227 KB at bench dims, the
+// bf16 rows padded to whole fragments plus 8 columns so that ldmatrix
+// meets no bank conflict). The bf16 buffers are zeroed once and dz is
+// zero on the rows past the end of the last tile, so the products run on
+// whole fragments. In f32 (the f32-exact mode, held to 1e-5) the products
+// stay on the CUDA cores in IEEE f32 FMAs (block_gemm) and the slabs
+// row-major.
+
+#include <type_traits>
 
 #include "fused_ff.cuh"
+#include "mma.cuh"
 
 namespace rpde {
 namespace {
@@ -45,72 +69,198 @@ namespace {
 constexpr int kBwdMaxTileRows = 64;
 // all of the 227 KB a block may use: one block an SM, the tile as tall as fits
 constexpr int kBwdSmemBudget = 232448;
+constexpr int kColumnSums = 3;  // the most column sums a pass takes (db, dLN)
+// 16 warps a block (one block an SM): 8 left the SM idle on the latency of
+// their loads from L2 and device memory
+constexpr int kBwdThreads = 512;
 
 struct BwdParams {
   int n_layers;
   int tile_rows;
   int approx_gelu;
   int has_ln;
+  int tiled_slab;                    // dW in the slabs in tile order (bf16)
   int dims[kMaxLayers + 1];
-  long long w_off[kMaxLayers];  // offset of layer l in the packed weights (and in dW)
-  int b_off[kMaxLayers];        // offset of layer l in the packed biases (and in db)
-  int z_off[kMaxLayers + 1];    // per-row offset of z_l in the z buffer (and in zs)
-  int z_ld, dz_ld;              // per-row elements of the z buffer and of h / dz
-  int zs_ld;                    // per-row elements of the saved zs (0: recompute)
-  long long db_base, ln_base;   // offsets of db and dLN in a slab
-  long long slab;               // elements of a slab
+  long long w_off[kMaxLayers + 1];   // offset of dW_l in grads (w_off[L]: all of dW)
+  long long wp_off[kMaxLayers];      // offset of layer l in the packed w and wt
+  long long sw_off[kMaxLayers + 1];  // offset of dW_l in a slab
+  int dw_wide[kMaxLayers];           // dW_l's warp tiles are mma.cuh's wide ones
+  int b_off[kMaxLayers];             // offset of layer l in the packed biases (and in db)
+  int z_off[kMaxLayers + 1];         // per-row offset of z_l in the z buffer (and in zs)
+  int z_ld, dz_ld;                   // row strides of the z buffer and of h / dz
+  int h0_ld;                         // row stride of h_0
+  int zs_ld;                         // per-row elements of the saved zs (0: recompute)
+  long long db_base, ln_base;        // offsets of db and dLN in a slab
+  long long slab;                    // floats of a slab, a multiple of 4
+  long long n_grads;                 // floats of grads
   long long n_tiles;
+  int smem_bytes;                    // dynamic shared memory, a multiple of 16
 };
 
+#ifdef RPDE_K1B_PHASES
+// Clock cycles of each phase of the kernel, from one barrier to the next,
+// summed over thread 0 of every block (scripts/torch_k1b_phases.py builds
+// the kernel with RPDE_K1B_PHASES; the library never does): 0 x -> h_0,
+// 1 the recompute or the saved zs, 2 the last layer's dz, then 3 + 3 l
+// dW_l, 4 + 3 l dh of layer l (dx for l = 0), 5 + 3 l db_{l-1} and
+// h_{l-1}, and kPhaseTail the end of a tile.
+constexpr int kPhaseTail = 3 + 3 * kMaxLayers;
+__device__ unsigned long long k1b_phase_cycles[kPhaseTail + 1];
+#endif
+
+// GELU and its derivative as calls: the tensor-core epilogues apply them to
+// each of a thread's 64 sums, unrolled, and inlined there they would swell
+// the kernel past what the instruction caches hold.
+__device__ __noinline__ float gelu_call(float z, bool approx) { return gelu(z, approx); }
+__device__ __noinline__ float gelu_grad_call(float z, bool approx) {
+  return gelu_grad(z, approx);
+}
+
+// dst[r * ld + c] = src[r * width + c] converted to D, for r < rows and
+// c < width; src is read 16 bytes a thread where it is 16-byte aligned,
+// those loads in flight together.
+template <typename D, typename S>
+__device__ void load_rows(D* dst, int ld, const S* __restrict__ src, int rows, int width) {
+  constexpr int kVec = 16 / sizeof(S);
+  const int n = rows * width;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int nv = n / kVec;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll 4
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      const uint4 u = __ldg(s4 + v);
+      const S* e = reinterpret_cast<const S*>(&u);
+      int r = (v * kVec) / width;
+      int c = v * kVec - r * width;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        dst[r * ld + c] = from_f<D>(to_f(e[q]));
+        if (++c == width) {
+          c = 0;
+          ++r;
+        }
+      }
+    }
+    done = nv * kVec;
+  }
+  for (int idx = done + threadIdx.x; idx < n; idx += blockDim.x) {
+    const int r = idx / width;
+    dst[r * ld + idx - r * width] = from_f<D>(to_f(src[idx]));
+  }
+}
+
+// For each column j < n: out(j, s), s[k] the sum over r < rows of what
+// row(r, j, s) adds into s[k]. With G = blockDim.x / n >= 2 the rows are
+// split into G groups (r = gi, gi + G, ...), each summed in order by its
+// own thread and the G sums then added in group order through scratch
+// (NS x blockDim.x floats); otherwise one thread sums a column in row
+// order. Every thread of the block calls it.
+template <int NS, typename RowFn, typename OutFn>
+__device__ void column_sums(int n, int rows, float* scratch, RowFn row, OutFn out) {
+  const int groups = static_cast<int>(blockDim.x) / n;
+  if (groups < 2) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      float s[NS] = {};
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) row(r, j, s);
+      out(j, s);
+    }
+    return;
+  }
+  const int gi = threadIdx.x / n;
+  if (gi < groups) {
+    const int j = threadIdx.x - gi * n;
+    float s[NS] = {};
+#pragma unroll 4
+    for (int r = gi; r < rows; r += groups) row(r, j, s);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) scratch[(k * groups + gi) * n + j] = s[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < n) {
+    float s[NS] = {};
+    for (int q = 0; q < groups; ++q)
+#pragma unroll
+      for (int k = 0; k < NS; ++k) s[k] += scratch[(k * groups + q) * n + threadIdx.x];
+    out(static_cast<int>(threadIdx.x), s);
+  }
+}
+
 template <typename CD, typename IO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
                     const CD* __restrict__ zs, IO* __restrict__ dx,
                     const CD* __restrict__ w, const CD* __restrict__ wt,
                     const float* __restrict__ b, const float* __restrict__ ln_s,
                     float* __restrict__ partials, long long n_rows, BwdParams p) {
+  // bf16 products on the tensor cores (mma.cuh), f32 ones on the CUDA cores
+  constexpr bool kTensorCores = std::is_same<CD, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tr = p.tile_rows;
   const int L = p.n_layers;
   const int c_in = p.dims[0];
   const int c_out = p.dims[L];
-  const int z_ld = p.z_ld, dz_ld = p.dz_ld;
+  const int z_ld = p.z_ld, dz_ld = p.dz_ld, h0_ld = p.h0_ld;
   float* zbuf = reinterpret_cast<float*>(smem);    // (tr, z_ld): z_l, then dz_l
   float* stats = zbuf + tr * z_ld;                 // (tr, 4): LayerNorm row statistics
-  CD* h0 = reinterpret_cast<CD*>(stats + tr * 4);  // (tr, c_in): h_0 = x
-  CD* hbuf = h0 + tr * c_in;                       // (tr, dz_ld): some h_l, l >= 1
+  CD* h0 = reinterpret_cast<CD*>(stats + tr * 4);  // (tr, h0_ld): h_0 = x
+  CD* hbuf = h0 + tr * h0_ld;                      // (tr, dz_ld): some h_l, l >= 1
   CD* dzc = hbuf + tr * dz_ld;                     // (tr, dz_ld): dz rounded to CD
+  float* scratch = reinterpret_cast<float*>(dzc + tr * dz_ld);  // column sums
   float* slab = partials + blockIdx.x * p.slab;
   const bool approx = p.approx_gelu != 0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
 
+  // the fragments read past the chain's widths and past the last tile's
+  // rows: finite from here on
+  for (int i = threadIdx.x; i < p.smem_bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+#ifdef RPDE_K1B_PHASES
+  long long t_mark = clock64();
+  auto mark = [&](int phase) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
+      atomicAdd(&k1b_phase_cycles[phase], static_cast<unsigned long long>(t - t_mark));
+      t_mark = t;
+    }
+  };
+#else
+  auto mark = [](int) {};
+#endif
+
   bool first = true;  // a block's first tile stores its sums, later tiles add
   for (long long tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const long long row0 = tile * tr;
     const int rows = static_cast<int>(min(static_cast<long long>(tr), n_rows - row0));
+    // the dW products contract over whole fragments of 16 rows
+    const int rows_pad = kTensorCores ? (rows + 15) / 16 * 16 : rows;
     auto add = [first](float* dst, float v) { *dst = first ? v : *dst + v; };
     // h_l = GELU(z_{l-1}) in CD, rebuilt into dst (row stride dz_ld)
     auto rebuild_h = [&](int l, CD* dst) {
       const int N = p.dims[l];
       const float* z = zbuf + p.z_off[l - 1];
-      for (int idx = threadIdx.x; idx < rows * N; idx += blockDim.x) {
-        const int r = idx / N;
-        const int j = idx - r * N;
-        dst[r * dz_ld + j] = from_f<CD>(gelu(z[r * z_ld + j], approx));
-      }
+      // a thread walks one column (or a few) down rows spaced by the
+      // block's threads per column: no division per element
+      const int per_row = min(N, static_cast<int>(blockDim.x));
+      const int r_step = static_cast<int>(blockDim.x) / per_row;
+      const int r_first = threadIdx.x / per_row;
+      if (r_first >= r_step) return;
+      for (int j = threadIdx.x - r_first * per_row; j < N; j += per_row)
+        for (int r = r_first; r < rows; r += r_step)
+          dst[r * dz_ld + j] = from_f<CD>(gelu(z[r * z_ld + j], approx));
     };
 
     // 1. h_0 = x in the compute type; z from zs or recomputed
-    for (int idx = threadIdx.x; idx < rows * c_in; idx += blockDim.x)
-      h0[idx] = from_f<CD>(to_f(x[row0 * c_in + idx]));
+    load_rows(h0, h0_ld, x + row0 * c_in, rows, c_in);
+    mark(0);
     if (p.zs_ld > 0) {
-      const int zs_ld = p.zs_ld;
-      for (int idx = threadIdx.x; idx < rows * zs_ld; idx += blockDim.x) {
-        const int r = idx / zs_ld;
-        zbuf[r * z_ld + (idx - r * zs_ld)] = to_f(zs[row0 * zs_ld + idx]);
-      }
+      load_rows(zbuf, z_ld, zs + row0 * p.zs_ld, rows, p.zs_ld);
     } else {
       __syncthreads();
       // the chain's inputs ping-pong between hbuf and dzc (free until step
@@ -119,29 +269,45 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       for (int l = 0; l < n_fwd; ++l) {
         const int K = p.dims[l];
         const int N = p.dims[l + 1];
-        const CD* wl = w + p.w_off[l];
         const float* bl = b + p.b_off[l];
         const CD* h = l == 0 ? h0 : (l % 2 == 1 ? hbuf : dzc);
-        const int h_ld = l == 0 ? c_in : dz_ld;
+        const int h_ld = l == 0 ? h0_ld : dz_ld;
         float* zl = zbuf + p.z_off[l];
         CD* hn = l < L - 1 ? (l % 2 == 0 ? hbuf : dzc) : nullptr;
-        gemm(1, rows, N, K,
-             [h, h_ld](int, int r, int k) { return to_f(h[r * h_ld + k]); },
-             [wl, N](int, int k, int j) { return to_f(wl[k * N + j]); },
-             [=](int, int r, int j, float acc) {
-               const float z = acc + bl[j];
-               zl[r * z_ld + j] = z;
-               if (hn != nullptr) hn[r * dz_ld + j] = from_f<CD>(gelu(z, approx));
-             });
+        auto store = [=](int r, int j, float acc) {
+          const float z = acc + __ldg(bl + j);
+          zl[r * z_ld + j] = z;
+          if (hn != nullptr) hn[r * dz_ld + j] = from_f<CD>(gelu_call(z, approx));
+        };
+        if constexpr (kTensorCores) {
+          // W_l[k][j] read from the transposed copy, k contiguous
+          const CD* wtl = wt + p.wp_off[l];
+          const int kp = (K + 15) / 16 * 16;
+          mma_gemm(
+              rows, N, K,
+              [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, h, h_ld, m0, k0); },
+              [wtl, kp](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wtl, kp, k0, n0); },
+              store);
+        } else {
+          const CD* wl = w + p.wp_off[l];
+          gemm(1, rows, N, K,
+               [h, h_ld](int, int r, int k) { return to_f(h[r * h_ld + k]); },
+               [wl, N](int, int k, int j) { return to_f(wl[k * N + j]); },
+               [=](int, int r, int j, float acc) { store(r, j, acc); });
+        }
         __syncthreads();
       }
     }
     __syncthreads();
 
+    mark(1);
+
     // 2. dz of the last layer, its bias gradient and the LayerNorm gradients
     const IO* gt = g + row0 * c_out;
+    float* db_last = slab + p.db_base + p.b_off[L - 1];
     if (p.has_ln) {
       const float* zl = zbuf + p.z_off[L - 1];
+#pragma unroll 4
       for (int r = warp; r < rows; r += n_warps) {  // one warp a row
         const float* z = zl + r * z_ld;
         float s = 0.f;
@@ -169,93 +335,211 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
         }
       }
       __syncthreads();
-      for (int j = threadIdx.x; j < c_out; j += blockDim.x) {  // one thread a column
-        float sdb = 0.f, sls = 0.f, slb = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float* st = stats + r * 4;
-          const float gv = to_f(gt[r * c_out + j]);
-          const float xhat = (zl[r * z_ld + j] - st[0]) * st[1];
-          const float dxhat = gv * ln_s[j];
-          const float dz = st[1] * (dxhat - st[2] - xhat * st[3]);
-          dzc[r * dz_ld + j] = from_f<CD>(dz);
-          sdb += dz;
-          sls += gv * xhat;
-          slb += gv;
-        }
-        add(slab + p.db_base + p.b_off[L - 1] + j, sdb);
-        add(slab + p.ln_base + j, sls);
-        add(slab + p.ln_base + c_out + j, slb);
-      }
+      column_sums<3>(
+          c_out, rows, scratch,
+          [&](int r, int j, float (&s)[3]) {
+            const float* st = stats + r * 4;
+            const float gv = to_f(gt[r * c_out + j]);
+            const float xhat = (zl[r * z_ld + j] - st[0]) * st[1];
+            const float dxhat = gv * __ldg(ln_s + j);
+            const float dz = st[1] * (dxhat - st[2] - xhat * st[3]);
+            dzc[r * dz_ld + j] = from_f<CD>(dz);
+            s[0] += dz;
+            s[1] += gv * xhat;
+            s[2] += gv;
+          },
+          [&](int j, const float (&s)[3]) {
+            add(db_last + j, s[0]);
+            add(slab + p.ln_base + j, s[1]);
+            add(slab + p.ln_base + c_out + j, s[2]);
+          });
     } else {
-      for (int j = threadIdx.x; j < c_out; j += blockDim.x) {
-        float sdb = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float gv = to_f(gt[r * c_out + j]);
-          dzc[r * dz_ld + j] = from_f<CD>(gv);
-          sdb += gv;
-        }
-        add(slab + p.db_base + p.b_off[L - 1] + j, sdb);
-      }
+      column_sums<1>(
+          c_out, rows, scratch,
+          [&](int r, int j, float (&s)[1]) {
+            const float gv = to_f(gt[r * c_out + j]);
+            dzc[r * dz_ld + j] = from_f<CD>(gv);
+            s[0] += gv;
+          },
+          [&](int j, const float (&s)[1]) { add(db_last + j, s[0]); });
     }
+    // dz is 0 on the rows past the tile's end (they stay so through step 3:
+    // no store reaches them)
+    for (int idx = threadIdx.x; idx < (rows_pad - rows) * dz_ld; idx += blockDim.x)
+      dzc[rows * dz_ld + idx] = from_f<CD>(0.f);
     if (L > 1) rebuild_h(L - 1, hbuf);
     __syncthreads();
+
+    mark(2);
 
     // 3. the chain backwards; on entry dzc holds dz_l and, for l >= 1, hbuf h_l
     for (int l = L - 1; l >= 0; --l) {
       const int K = p.dims[l];
       const int N = p.dims[l + 1];
       const CD* h = l == 0 ? h0 : hbuf;
-      const int h_ld = l == 0 ? c_in : dz_ld;
+      const int h_ld = l == 0 ? h0_ld : dz_ld;
       const CD* dz = dzc;
       // dW_l (K x N) += h_l^T dz over the tile's rows
-      float* dwl = slab + p.w_off[l];
-      gemm(1, K, N, rows,
-           [h, h_ld](int, int i, int r) { return to_f(h[r * h_ld + i]); },
-           [dz, dz_ld](int, int r, int j) { return to_f(dz[r * dz_ld + j]); },
-           [=](int, int i, int j, float acc) { add(dwl + i * N + j, acc); });
-      // dh (rows x K) = dz W_l^T, with W_l^T read from the transposed copy
-      const CD* wtl = wt + p.w_off[l];
-      auto a = [dz, dz_ld](int, int r, int k) { return to_f(dz[r * dz_ld + k]); };
-      auto bm = [wtl, K](int, int k, int i) { return to_f(wtl[k * K + i]); };
+      float* dwl = slab + p.sw_off[l];
+      if constexpr (kTensorCores) {
+        mma_gemm_add(
+            K, N, rows_pad,
+            [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a_trans(a, h, h_ld, m0, k0); },
+            [dz, dz_ld](uint32_t (&bf)[2], int k0, int n0) {
+              frag_b_trans(bf, dz, dz_ld, k0, n0);
+            },
+            dwl, !first, p.dw_wide[l] != 0);
+      } else {
+        gemm(1, K, N, rows,
+             [h, h_ld](int, int i, int r) { return to_f(h[r * h_ld + i]); },
+             [dz, dz_ld](int, int r, int j) { return to_f(dz[r * dz_ld + j]); },
+             [=](int, int i, int j, float acc) { add(dwl + i * N + j, acc); });
+      }
+      mark(3 + 3 * l);
+      // dh (rows x K) = dz W_l^T, handing each element to store
+      auto dh_product = [&](auto store) {
+        if constexpr (kTensorCores) {
+          // W_l^T[j][i] = W_l[i][j] read from the packed copy, j contiguous
+          const CD* wl = w + p.wp_off[l];
+          const int np = (N + 15) / 16 * 16;
+          mma_gemm(
+              rows, K, N,
+              [dz, dz_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, dz, dz_ld, m0, k0); },
+              [wl, np](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wl, np, k0, n0); },
+              store);
+        } else {
+          // W_l^T read from the transposed copy
+          const CD* wtl = wt + p.wp_off[l];
+          gemm(1, rows, K, N,
+               [dz, dz_ld](int, int r, int k) { return to_f(dz[r * dz_ld + k]); },
+               [wtl, K](int, int k, int i) { return to_f(wtl[k * K + i]); },
+               [=](int, int r, int i, float acc) { store(r, i, acc); });
+        }
+      };
       if (l > 0) {
         float* zp = zbuf + p.z_off[l - 1];
-        gemm(1, rows, K, N, a, bm, [=](int, int r, int i, float acc) {
+        dh_product([=](int r, int i, float acc) {
           float* z = zp + r * z_ld + i;
-          *z = acc * gelu_grad(*z, approx);  // dz_{l-1}, over z_{l-1}
+          *z = acc * gelu_grad_call(*z, approx);  // dz_{l-1}, over z_{l-1}
         });
+        mark(4 + 3 * l);
         __syncthreads();
-        for (int j = threadIdx.x; j < K; j += blockDim.x) {
-          float sdb = 0.f;
-          for (int r = 0; r < rows; ++r) {
-            const float v = zp[r * z_ld + j];
-            dzc[r * dz_ld + j] = from_f<CD>(v);
-            sdb += v;
-          }
-          add(slab + p.db_base + p.b_off[l - 1] + j, sdb);
-        }
+        column_sums<1>(
+            K, rows, scratch,
+            [&](int r, int j, float (&s)[1]) {
+              const float v = zp[r * z_ld + j];
+              dzc[r * dz_ld + j] = from_f<CD>(v);
+              s[0] += v;
+            },
+            [&](int j, const float (&s)[1]) {
+              add(slab + p.db_base + p.b_off[l - 1] + j, s[0]);
+            });
         if (l > 1) rebuild_h(l - 1, hbuf);
         __syncthreads();
+        mark(5 + 3 * l);
       } else {
         IO* dxt = dx + row0 * c_in;
-        gemm(1, rows, K, N, a, bm, [=](int, int r, int i, float acc) {
-          dxt[r * c_in + i] = from_f<IO>(acc);
-        });
+        dh_product([=](int r, int i, float acc) { dxt[r * c_in + i] = from_f<IO>(acc); });
+        mark(4);
       }
     }
     __syncthreads();
+#ifdef RPDE_K1B_PHASES
+    mark(kPhaseTail);
+#endif
     first = false;
   }
 }
 
-// out[e] = sum over blocks b = 0, 1, ... of partials[b][e], in that order
+// out[e] = sum over blocks b = 0, 1, ... of the slab element of partials[b]
+// that holds grads element e, in that order
 __global__ void __launch_bounds__(kThreads)
-reduce_slabs_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                    long long slab, int blocks) {
+reduce_slabs_kernel(const float* __restrict__ partials, float* __restrict__ out, BwdParams p,
+                    int blocks) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= slab) return;
-  float s = 0.f;
-  for (int bi = 0; bi < blocks; ++bi) s += partials[bi * slab + e];
-  out[e] = s;
+  if (e >= p.n_grads) return;
+  const int L = p.n_layers;
+  long long s = e - p.w_off[L] + p.db_base;  // db and dLN: row-major after dW
+  if (e < p.w_off[L]) {
+    int l = 0;
+    while (e >= p.w_off[l + 1]) ++l;
+    const long long k = e - p.w_off[l];
+    s = p.sw_off[l] + k;
+    if (p.tiled_slab) {
+      const int n = p.dims[l + 1];
+      const bool wide = p.dw_wide[l] != 0;
+      s = p.sw_off[l] + tile_order_index(static_cast<int>(k / n), static_cast<int>(k % n), n,
+                                         wide ? kWideMT : kNarrowMT, wide ? kWideNT : kNarrowNT);
+    }
+  }
+  float acc = 0.f;
+  for (int bi = 0; bi < blocks; ++bi) acc += partials[bi * p.slab + s];
+  out[e] = acc;
+}
+
+// Fills p's layout from the chain's widths: offsets, strides, the slab and
+// the tile of rows; its shared memory in smem. False if the widths are
+// invalid or no tile fits.
+bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
+          size_t& smem) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return false;
+  p = BwdParams{};
+  p.n_layers = n_layers;
+  p.has_ln = has_ln;
+  p.tiled_slab = bf16;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return false;
+    p.dims[l] = dims[l];
+  }
+  auto pad16 = [bf16](long long d) { return bf16 ? (d + 15) / 16 * 16 : d; };
+  long long wp = 0;
+  int b_off = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int k = dims[l], n = dims[l + 1];
+    p.wp_off[l] = wp;
+    p.b_off[l] = b_off;
+    p.z_off[l] = p.z_ld;
+    p.w_off[l + 1] = p.w_off[l] + static_cast<long long>(k) * n;
+    const bool wide = wide_warp_tiles(k, n, kBwdThreads / 32);
+    p.dw_wide[l] = wide;
+    p.sw_off[l + 1] =
+        p.sw_off[l] + (bf16 ? tile_order_size(k, n, wide ? kWideMT : kNarrowMT,
+                                              wide ? kWideNT : kNarrowNT)
+                            : static_cast<long long>(k) * n);
+    wp += pad16(k) * pad16(n);
+    b_off += n;
+    p.z_ld += n;
+    if (n > p.dz_ld) p.dz_ld = n;
+  }
+  p.z_off[n_layers] = p.z_ld;
+  p.db_base = p.sw_off[n_layers];
+  p.ln_base = p.db_base + b_off;
+  p.slab = (p.ln_base + (has_ln ? 2 * dims[n_layers] : 0) + 3) / 4 * 4;
+  p.n_grads = p.w_off[n_layers] + b_off + (has_ln ? 2 * dims[n_layers] : 0);
+  p.h0_ld = dims[0];
+  if (bf16) {
+    // tensor-core fragments: the bf16 rows padded to whole fragments of 16
+    // columns plus 8, so that the 8 rows an ldmatrix reads fall in 8
+    // different 16-byte bank groups; the f32 rows by 4 against conflicts
+    // in the epilogues' stores
+    p.h0_ld = static_cast<int>(pad16(dims[0])) + 8;
+    p.dz_ld = static_cast<int>(pad16(p.dz_ld)) + 8;
+    p.z_ld += 4;
+  }
+  const size_t cd_size = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  // largest tile of rows whose buffers fit the shared-memory budget
+  const size_t per_row = (static_cast<size_t>(p.z_ld) + 4) * sizeof(float) +
+                         (static_cast<size_t>(p.h0_ld) + 2 * p.dz_ld) * cd_size;
+  const size_t fixed = static_cast<size_t>(kColumnSums) * kBwdThreads * sizeof(float);
+  int tr = kBwdMaxTileRows;
+  while (tr > 1 && tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) tr /= 2;
+  if (tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) return false;
+  // the tensor-core products read whole fragments of 16 rows
+  if (bf16 && tr < 16) return false;
+  p.tile_rows = tr;
+  smem = (tr * per_row + fixed + 15) / 16 * 16;
+  p.smem_bytes = static_cast<int>(smem);
+  return true;
 }
 
 template <typename CD, typename IO>
@@ -272,7 +556,7 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads,
                                                            smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -281,19 +565,31 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
   long long blocks = static_cast<long long>(sms) * per_sm;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks > p.n_tiles) blocks = p.n_tiles;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(
       static_cast<const IO*>(x), static_cast<const IO*>(g), static_cast<const CD*>(zs),
       static_cast<IO*>(dx), static_cast<const CD*>(w), static_cast<const CD*>(wt), b, ln_s,
       partials, n_rows, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long rblocks = (p.slab + kThreads - 1) / kThreads;
+  const long long rblocks = (p.n_grads + kThreads - 1) / kThreads;
   reduce_slabs_kernel<<<static_cast<unsigned>(rblocks), kThreads, 0, stream>>>(
-      partials, grads, p.slab, static_cast<int>(blocks));
+      partials, grads, p, static_cast<int>(blocks));
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace rpde
+
+// Floats of one slab of the backward's scratch (partials) for the chain
+// dims[0] -> ... -> dims[n_layers] in the compute type (bf16 or f32), with
+// or without LayerNorm; -1 if the widths are invalid or no tile of rows
+// fits the shared memory.
+extern "C" int rpde_fused_ff_backward_slab(int cd_bf16, const int* dims, int n_layers,
+                                           int has_ln) {
+  rpde::BwdParams p;
+  size_t smem = 0;
+  if (!rpde::plan(p, cd_bf16 != 0, dims, n_layers, has_ln != 0, smem)) return -1;
+  return static_cast<int>(p.slab);
+}
 
 // x (n_rows, dims[0]), g (n_rows, dims[n_layers]) and dx (n_rows, dims[0]),
 // row-major in the io type. zs: null to recompute, or the forward kernel's
@@ -301,11 +597,12 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
 // compute type, n_save = n_layers with LayerNorm and n_layers - 1 without.
 // w: every layer's (dims[l], dims[l+1]) kernel packed row-major, and wt the
 // same kernels transposed, (dims[l+1], dims[l]) each, both in the compute
-// type; b: the biases packed in f32; ln_s: the LayerNorm scale (f32), null
-// for no LayerNorm. partials: max_blocks slabs of f32 scratch, each as
-// large as grads. grads (f32) receives dW_0 .. dW_{L-1} packed as w, then
-// db_0 .. db_{L-1} packed as b, then with LayerNorm dLN_scale and dLN_bias.
-// Returns a cudaError_t.
+// type; in bf16 each kernel is zero-padded to multiples of 16 in both of its
+// dimensions before it is packed. b: the biases packed in f32; ln_s: the
+// LayerNorm scale (f32), null for no LayerNorm. partials: max_blocks slabs
+// of f32 scratch, each of rpde_fused_ff_backward_slab floats. grads (f32)
+// receives dW_0 .. dW_{L-1} packed row-major, then db_0 .. db_{L-1} packed
+// as b, then with LayerNorm dLN_scale and dLN_bias. Returns a cudaError_t.
 extern "C" int rpde_fused_ff_backward(int cd_bf16, int io_bf16, const void* x,
                                       const void* g, const void* zs, void* dx,
                                       const void* w, const void* wt, const float* b,
@@ -313,42 +610,14 @@ extern "C" int rpde_fused_ff_backward(int cd_bf16, int io_bf16, const void* x,
                                       const int* dims, int n_layers, long long n_rows,
                                       int approx_gelu, int max_blocks, void* stream) {
   using namespace rpde;
-  if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 1 || max_blocks < 1)
+  if (n_rows < 1 || max_blocks < 1) return cudaErrorInvalidValue;
+  BwdParams p;
+  size_t smem = 0;
+  if (!plan(p, cd_bf16 != 0, dims, n_layers, ln_s != nullptr, smem))
     return cudaErrorInvalidValue;
-  BwdParams p{};
-  p.n_layers = n_layers;
   p.approx_gelu = approx_gelu;
-  p.has_ln = ln_s != nullptr;
-  long long w_off = 0;
-  int b_off = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1) return cudaErrorInvalidValue;
-    p.dims[l] = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    p.w_off[l] = w_off;
-    p.b_off[l] = b_off;
-    p.z_off[l] = p.z_ld;
-    w_off += static_cast<long long>(dims[l]) * dims[l + 1];
-    b_off += dims[l + 1];
-    p.z_ld += dims[l + 1];
-    if (dims[l + 1] > p.dz_ld) p.dz_ld = dims[l + 1];
-  }
-  p.z_off[n_layers] = p.z_ld;
   if (zs != nullptr) p.zs_ld = p.z_off[p.has_ln ? n_layers : n_layers - 1];
-  p.db_base = w_off;
-  p.ln_base = w_off + b_off;
-  p.slab = p.ln_base + (p.has_ln ? 2 * dims[n_layers] : 0);
-  const size_t cd_size = cd_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  // largest tile of rows whose buffers fit the shared-memory budget
-  const size_t per_row = (static_cast<size_t>(p.z_ld) + 4) * sizeof(float) +
-                         (static_cast<size_t>(dims[0]) + 2 * p.dz_ld) * cd_size;
-  int tr = kBwdMaxTileRows;
-  while (tr > 1 && tr * per_row > static_cast<size_t>(kBwdSmemBudget)) tr /= 2;
-  if (tr * per_row > static_cast<size_t>(kBwdSmemBudget)) return cudaErrorInvalidValue;
-  p.tile_rows = tr;
-  p.n_tiles = (n_rows + tr - 1) / tr;
-  const size_t smem = tr * per_row;
+  p.n_tiles = (n_rows + p.tile_rows - 1) / p.tile_rows;
   auto s = static_cast<cudaStream_t>(stream);
   if (cd_bf16 && io_bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, g, zs, dx, w, wt, b, ln_s, partials,
@@ -362,3 +631,13 @@ extern "C" int rpde_fused_ff_backward(int cd_bf16, int io_bf16, const void* x,
   return launch<float, float>(x, g, zs, dx, w, wt, b, ln_s, partials, grads, n_rows, p,
                               smem, max_blocks, s);
 }
+
+#ifdef RPDE_K1B_PHASES
+// Copies the phase counters into out (kPhaseTail + 1 of them), or with
+// reset sets them to 0. Returns a cudaError_t.
+extern "C" int rpde_k1b_phase_cycles(unsigned long long* out, int reset) {
+  unsigned long long zero[rpde::kPhaseTail + 1] = {};
+  if (reset) return cudaMemcpyToSymbol(rpde::k1b_phase_cycles, zero, sizeof(zero));
+  return cudaMemcpyFromSymbol(out, rpde::k1b_phase_cycles, sizeof(zero));
+}
+#endif

@@ -32,6 +32,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rpde_fused_ff_forward": [_I, _I, *[_P] * 9, _I, _L, _I, _P],
     "rpde_fused_ff_backward": [_I, _I, *[_P] * 11, _I, _L, _I, _I, _P],
+    "rpde_fused_ff_backward_slab": [_I, _P, _I, _I],
     "rpde_spectral_pass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _I, _P],
     "rpde_vandermonde": [*[_P] * 5, _I, _I, _I, _P],

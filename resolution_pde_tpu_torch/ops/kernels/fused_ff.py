@@ -196,11 +196,19 @@ def _chain_dims(x, kernels, biases, ln, residual, cd) -> list:
     return dims
 
 
-def _packed_weights(kernels, cd, transpose: bool = False) -> torch.Tensor:
+def _packed_weights(kernels, cd, transpose: bool = False,
+                    pad: int = 1) -> torch.Tensor:
     """Every layer's kernel in ``cd``, packed one after another row-major:
-    (in, out) each, or (out, in) with ``transpose``."""
-    return torch.cat([(k.t() if transpose else k).to(cd).contiguous()
-                      .reshape(-1) for k in kernels])
+    (in, out) each, or (out, in) with ``transpose``, each zero-padded to
+    multiples of ``pad`` in both dimensions."""
+    out = []
+    for k in kernels:
+        k = (k.t() if transpose else k).to(cd)
+        rows, cols = (-(-d // pad) * pad for d in k.shape)
+        k = torch.nn.functional.pad(k, (0, cols - k.shape[1],
+                                        0, rows - k.shape[0]))
+        out.append(k.contiguous().reshape(-1))
+    return torch.cat(out)
 
 
 def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
@@ -273,18 +281,27 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
     dx = torch.empty_like(x)
     grads = torch.zeros(size, dtype=torch.float32, device=x.device)
     if n > 0:
+        lib = _build.library()
+        bf16 = int(cd == torch.bfloat16)
+        c_dims = (ctypes.c_int * len(dims))(*dims)
+        slab = lib.rpde_fused_ff_backward_slab(bf16, c_dims, n_layers,
+                                               int(ln is not None))
+        if slab < 0:
+            raise ValueError(f"fused_feedforward backward: widths {dims} "
+                             "leave no tile of rows in shared memory")
         max_blocks = 2 * torch.cuda.get_device_properties(
             x.device).multi_processor_count
-        partials = torch.empty(max_blocks * size, dtype=torch.float32,
+        partials = torch.empty(max_blocks * slab, dtype=torch.float32,
                                device=x.device)
-        w = _packed_weights(kernels, cd)
-        wt = _packed_weights(kernels, cd, transpose=True)
+        # the tensor-core products read the weights in whole fragments
+        pad = 16 if bf16 else 1
+        w = _packed_weights(kernels, cd, pad=pad)
+        wt = _packed_weights(kernels, cd, transpose=True, pad=pad)
         b = torch.cat([t.float().reshape(-1) for t in biases])
         ln_s = ln[0].float().contiguous() if ln is not None else None
-        c_dims = (ctypes.c_int * len(dims))(*dims)
         with torch.cuda.device(x.device):
-            err = _build.library().rpde_fused_ff_backward(
-                int(cd == torch.bfloat16), int(x.dtype == torch.bfloat16),
+            err = lib.rpde_fused_ff_backward(
+                bf16, int(x.dtype == torch.bfloat16),
                 x.data_ptr(), g.data_ptr(),
                 zs_saved.data_ptr() if zs_saved is not None
                 and zs_saved.numel() else None,

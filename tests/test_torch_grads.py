@@ -39,19 +39,20 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _ff_inputs(n_layers, has_ln, has_res, seed):
+def _ff_inputs(n_layers, has_ln, has_res, seed, dims=None):
     rng = np.random.default_rng(seed)
-    dims = [DIM] + [DIM * FACTOR] * (n_layers - 1) + [DIM]
+    dims = dims or [DIM] + [DIM * FACTOR] * (n_layers - 1) + [DIM]
     ks = [(rng.standard_normal((dims[i], dims[i + 1])) * 0.4).astype(np.float32)
           for i in range(n_layers)]
     bs = [(rng.standard_normal(dims[i + 1]) * 0.1).astype(np.float32)
           for i in range(n_layers)]
-    ln = ((1.0 + 0.1 * rng.standard_normal(DIM)).astype(np.float32),
-          (0.1 * rng.standard_normal(DIM)).astype(np.float32)) if has_ln else None
+    c_in, c_out = dims[0], dims[-1]
+    ln = ((1.0 + 0.1 * rng.standard_normal(c_out)).astype(np.float32),
+          (0.1 * rng.standard_normal(c_out)).astype(np.float32)) if has_ln else None
     # 3 x 37 = 111 rows: a multiple of no row tile of either kernel
-    x = rng.standard_normal((3, 37, DIM)).astype(np.float32)
-    res = rng.standard_normal((3, 37, DIM)).astype(np.float32) if has_res else None
-    g = rng.standard_normal((3, 37, DIM)).astype(np.float32)
+    x = rng.standard_normal((3, 37, c_in)).astype(np.float32)
+    res = rng.standard_normal((3, 37, c_out)).astype(np.float32) if has_res else None
+    g = rng.standard_normal((3, 37, c_out)).astype(np.float32)
     return x, ks, bs, ln, res, g
 
 
@@ -137,6 +138,24 @@ def test_fused_ff_backward_bf16_matches_jax_vjp(save):
     want = _flat(_ff_grads_jax(*inputs, True, save, jnp.bfloat16))
     got = _flat(_ff_grads_torch(*inputs, True, save, torch.bfloat16))
     for name in want:
+        assert _rel(got[name], want[name]) <= 1e-2, name
+
+
+@pytest.mark.parametrize("has_ln", [False, True])
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("approx", [False, True])
+def test_fused_ff_backward_bf16_ragged_widths_match_jax_vjp(has_ln, save,
+                                                            approx):
+    """bf16 at widths that are no multiple of the tensor-core fragments
+    (24 -> 40 -> 40 -> 24, 111 rows): the function whose zero-filled
+    fragments and masked stores the CUDA kernel must reproduce."""
+    inputs = _ff_inputs(3, has_ln, False, seed=20 + 4 * has_ln + 2 * save
+                        + approx, dims=[24, 40, 40, 24])
+    want = _flat(_ff_grads_jax(*inputs, approx, save, jnp.bfloat16))
+    got = _flat(_ff_grads_torch(*inputs, approx, save, torch.bfloat16))
+    assert got.keys() == want.keys()
+    for name in want:
+        assert np.isfinite(got[name]).all(), name
         assert _rel(got[name], want[name]) <= 1e-2, name
 
 
@@ -385,3 +404,28 @@ def test_ffno2d_bf16_gradients_match_jax(jax_params):
     flat = lambda d: np.concatenate([d[k].float().numpy().ravel()  # noqa: E731
                                      for k in sorted(want)])
     assert _rel(flat(got), flat(want)) <= 1e-2
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_packed_weights_pad_to_whole_fragments(transpose):
+    """The bf16 backward kernel reads its weights in whole 16 x 16
+    fragments: each layer's kernel, packed as (in, out) or transposed, is
+    zero-padded to multiples of 16 in both dimensions; unpadded (pad 1) the
+    packing is the plain row-major one that the forward kernel and the f32
+    backward read."""
+    rng = np.random.default_rng(4)
+    ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((24, 40), (40, 24))]
+    w = fused_ff._packed_weights(ks, torch.bfloat16, transpose, pad=16)
+    assert w.dtype == torch.bfloat16 and w.numel() == 2 * 48 * 32
+    off = 0
+    for k in ks:
+        k = k.t() if transpose else k
+        rows, cols = (-(-d // 16) * 16 for d in k.shape)
+        block = w[off:off + rows * cols].view(rows, cols)
+        assert torch.equal(block[:k.shape[0], :k.shape[1]], k.to(torch.bfloat16))
+        assert not block[k.shape[0]:].any() and not block[:, k.shape[1]:].any()
+        off += rows * cols
+    plain = fused_ff._packed_weights(ks, torch.float32, transpose)
+    assert torch.equal(plain, torch.cat([(k.t() if transpose else k)
+                                         .reshape(-1) for k in ks]))
