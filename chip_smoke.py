@@ -6,8 +6,12 @@
 Phases, each printed on its own line; any failure raises (exit code != 0):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA kernels, from resolution_pde_tpu_torch/csrc;
-  3. K1, the fused FeedForward kernel, against its plain PyTorch version at
-     the serving shape (bf16) and at a small ragged f32 shape;
+  3. K1f, the fused FeedForward forward, against its plain PyTorch
+     version: bf16 (its tensor-core products) at the train shape (LayerNorm
+     and residual) and at ragged shapes (24->40->40->24 without either and
+     with the exact GELU; 24->40 with both; the saved pre-activations,
+     checked too; f32 x, residual and output); f32 (its CUDA-core products) at the ragged shape and at
+     the train shape;
   4. K1b, its backward kernel, against the plain backward: bf16 (its
      tensor-core products) at the train shape with LayerNorm, at a ragged
      shape without and at a ragged one-layer shape with; f32 (its CUDA-core
@@ -45,7 +49,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      against the same weights on the CPU through the plain versions and
      against the jnp route on the GPU; backward() through the kernels'
      route must raise.
-The line before the last is the kernels' JSON record, each kernel with its
+The line before the last is the kernels' JSON record (ten kernels; K1f and
+K1b each as a bf16 and an f32 entry), each kernel with its
 time, its plain version's, its launches on the main paths and its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the peak
 rate of their type); the last line is {"ok": true, "device": {...}}. Needs
@@ -194,20 +199,37 @@ def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
                                                           dtype=dtype)
 
 
-def check_fused_ff(gen) -> dict:
+def check_fused_ff(gen) -> tuple:
+    """K1f against its plain forward. Returns the bf16 (tensor cores) and
+    f32 (CUDA cores) records at the train shape."""
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
-    def case(n, dims, *, ln, residual, approx, dtype, tol, label):
+    def case(n, dims, *, ln, residual, approx, dtype, tol, label, save=False,
+             io=None):
+        # io: the type of x, the residual and the output (dtype if None)
+        io = io or dtype
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
               for i in range(len(dims) - 1)]
         bs = [randn((d,), gen, 0.1) for d in dims[1:]]
         lnp = (1.0 + randn((dims[-1],), gen, 0.1),
                randn((dims[-1],), gen, 0.1)) if ln else None
-        x = randn((n, dims[0]), gen, dtype=dtype)
-        res = randn((n, dims[-1]), gen, dtype=dtype) if residual else None
+        x = randn((n, dims[0]), gen, dtype=io)
+        res = randn((n, dims[-1]), gen, dtype=io) if residual else None
         kw = dict(approx_gelu=approx, compute_dtype=dtype)
-        got = fused_ff.fused_feedforward(x, ks, bs, lnp, res, **kw)
-        ref = fused_ff.fused_feedforward_reference(x, ks, bs, lnp, res, **kw)
+        extra = {}
+        if save:
+            got, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp, res,
+                                                     save_acts=True, **kw)
+            ref, zs_ref = fused_ff.fused_feedforward_reference(
+                x, ks, bs, lnp, res, save_acts=True, **kw)
+            zerr = rel_l2(zs, torch.cat(zs_ref, dim=1))
+            extra = dict(zs_rel_l2=f"{zerr:.3e}")
+            require(zerr <= tol, f"K1f {label}: saved pre-activations "
+                    f"rel_l2 {zerr} > {tol}")
+        else:
+            got = fused_ff.fused_feedforward(x, ks, bs, lnp, res, **kw)
+            ref = fused_ff.fused_feedforward_reference(x, ks, bs, lnp, res,
+                                                       **kw)
         torch.cuda.synchronize()
         err, mx = rel_l2(got, ref), max_abs(got, ref)
         ms = time_ms(lambda: fused_ff.fused_feedforward(x, ks, bs, lnp, res,
@@ -216,7 +238,7 @@ def check_fused_ff(gen) -> dict:
             x, ks, bs, lnp, res, **kw))
         log("K1", case=label, rows=n, dims="->".join(map(str, dims)),
             rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", **extra)
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K1 {label}: rel_l2 {err} > {tol}")
         return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
@@ -224,15 +246,34 @@ def check_fused_ff(gen) -> dict:
 
     hidden = WIDTH * FACTOR
     dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
-    # bf16 output: a rounding flip of a bf16 hidden activation or of the
-    # output itself moves an element by up to one bf16 ulp (2^-8 relative)
-    bench = case(BATCH * RES * RES, dims, ln=True, residual=True,
-                 approx=True, dtype=torch.bfloat16, tol=1e-2,
-                 label="serving_bf16")
-    # f32: only the order of the f32 sums differs
-    case(1000, [24, 40, 40, 24], ln=False, residual=False, approx=False,
+    ragged = [24, 40, 40, 24]
+    # bf16 (tensor cores): the products of bf16 values are exact in f32 in
+    # both, so only the order of the f32 sums differs; a rounding flip of a
+    # bf16 hidden activation or of the output then moves an element by up
+    # to one bf16 ulp (2^-8 relative)
+    bf16 = case(BATCH * RES * RES, dims, ln=True, residual=True, approx=True,
+                dtype=torch.bfloat16, tol=1e-2, label="train_bf16")
+    # widths and rows that no fragment or tile divides: the zero-filled
+    # fragments, the masked stores, one layer, the exact GELU and the
+    # saved pre-activations
+    case(1000, ragged, ln=False, residual=False, approx=False,
+         dtype=torch.bfloat16, tol=1e-2, label="ragged_bf16")
+    case(1000, ragged[:2], ln=True, residual=True, approx=True,
+         dtype=torch.bfloat16, tol=1e-2, label="ragged_bf16_ln_res_1layer")
+    case(1000, ragged, ln=True, residual=True, approx=True,
+         dtype=torch.bfloat16, tol=1e-2, label="ragged_bf16_saved", save=True)
+    # f32 x, residual and output with bf16 products: x rounded to bf16 as
+    # it is loaded, the f32 residual staged and the f32 stores
+    case(1000, ragged, ln=True, residual=True, approx=True,
+         dtype=torch.bfloat16, tol=1e-2, label="ragged_bf16_f32_io",
+         io=torch.float32)
+    # f32 (CUDA cores): IEEE f32 products in both, only the order of the
+    # sums differs; over the train shape's 256-term sums hence 1e-4 there
+    case(1000, ragged, ln=False, residual=False, approx=False,
          dtype=torch.float32, tol=1e-5, label="ragged_f32")
-    return bench
+    f32 = case(BATCH * RES * RES, dims, ln=True, residual=True, approx=True,
+               dtype=torch.float32, tol=1e-4, label="train_f32")
+    return bf16, f32
 
 
 def check_fused_ff_bwd(gen) -> tuple:
@@ -897,7 +938,7 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}")
 
     gen = torch.Generator().manual_seed(SEED)
-    k1 = check_fused_ff(gen)
+    k1, k1f32 = check_fused_ff(gen)
     k1b, k1b32 = check_fused_ff_bwd(gen)
     k2, k3 = check_spectral(gen)
     adj16, adj32 = check_spectral_adjoint(gen)
@@ -908,12 +949,14 @@ def main() -> int:
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     bwd_src = "resolution_pde_tpu_torch/csrc/fused_ff_bwd.cu"
+    fwd_src = "resolution_pde_tpu_torch/csrc/fused_ff.cu"
     kernels = [
-        dict(name="fused_ff_fwd", route="cuda",
-             source="resolution_pde_tpu_torch/csrc/fused_ff.cu",
+        dict(name="fused_ff_fwd_bf16", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
-             launches=(served["bf16"][0] + served["f32"][0]
-                       + trained["bf16"][0] + trained["f32"][0]), **k1),
+             launches=served["bf16"][0] + trained["bf16"][0], **k1),
+        dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
+             replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
+             launches=served["f32"][0] + trained["f32"][0], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["bf16"][1], **k1b),

@@ -1,11 +1,13 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// block_gemm is the CUDA-core matrix-product routine: the fused FeedForward
-// forward (fused_ff.cu), the spectral pass (spectral_mix.cu) and the f32
-// products of the FeedForward backward use it; the backward's bf16 products
-// run on the tensor cores instead (mma.cuh). Every thread of the block owns
-// RM x RN outputs of a (batched) product and keeps them in registers while
-// it walks the contraction axis with IEEE f32 FMAs. Operands are read
+// block_gemm is the CUDA-core matrix-product routine: the spectral pass
+// (spectral_mix.cu) and the f32 products of the fused FeedForward forward
+// and backward (fused_ff.cu, fused_ff_bwd.cu) use it; the FeedForward's
+// bf16 products run on the tensor cores instead (mma.cuh). load_rows
+// stages rows of a tile into shared memory for both FeedForward kernels.
+// In block_gemm every thread of the block owns RM x RN outputs of a
+// (batched) product and keeps them in registers while it walks the
+// contraction axis with IEEE f32 FMAs. Operands are read
 // through functors, so one routine serves every layout the kernels stage in
 // shared memory or read from global memory (L2). The sum over k runs in
 // order, so a result does not depend on the launch.
@@ -14,11 +16,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace rpde {
 
 constexpr int kThreads = 256;
 // dynamic shared memory a block may use (of the 227 KB Hopper offers)
 constexpr int kSmemBudget = 200 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -91,6 +99,40 @@ __device__ void gemm(int batch, int M, int N, int K, AFn a, BFn bm,
     block_gemm<8, 8>(batch, M, N, K, a, bm, store);
   } else {
     block_gemm<4, 4>(batch, M, N, K, a, bm, store);
+  }
+}
+
+// dst[r * ld + c] = src[r * width + c] converted to D, for r < rows and
+// c < width; src is read 16 bytes a thread where it is 16-byte aligned,
+// those loads in flight together.
+template <typename D, typename S>
+__device__ void load_rows(D* dst, int ld, const S* __restrict__ src, int rows, int width) {
+  constexpr int kVec = 16 / sizeof(S);
+  const int n = rows * width;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int nv = n / kVec;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll 4
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      const uint4 u = __ldg(s4 + v);
+      const S* e = reinterpret_cast<const S*>(&u);
+      int r = (v * kVec) / width;
+      int c = v * kVec - r * width;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        dst[r * ld + c] = from_f<D>(to_f(e[q]));
+        if (++c == width) {
+          c = 0;
+          ++r;
+        }
+      }
+    }
+    done = nv * kVec;
+  }
+  for (int idx = done + threadIdx.x; idx < n; idx += blockDim.x) {
+    const int r = idx / width;
+    dst[r * ld + idx - r * width] = from_f<D>(to_f(src[idx]));
   }
 }
 

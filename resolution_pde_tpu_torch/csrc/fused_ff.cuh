@@ -30,4 +30,12 @@ __device__ __forceinline__ float gelu_grad(float z, bool approx) {
   return cdf + z * (0.3989422804014327f * expf(-0.5f * z * z));
 }
 
+// GELU and its derivative as calls: the tensor-core epilogues apply them to
+// each of a thread's 64 sums, unrolled, and inlined there they would swell
+// the kernel past what the instruction caches hold.
+static __device__ __noinline__ float gelu_call(float z, bool approx) { return gelu(z, approx); }
+static __device__ __noinline__ float gelu_grad_call(float z, bool approx) {
+  return gelu_grad(z, approx);
+}
+
 }  // namespace rpde

@@ -108,48 +108,6 @@ constexpr int kPhaseTail = 3 + 3 * kMaxLayers;
 __device__ unsigned long long k1b_phase_cycles[kPhaseTail + 1];
 #endif
 
-// GELU and its derivative as calls: the tensor-core epilogues apply them to
-// each of a thread's 64 sums, unrolled, and inlined there they would swell
-// the kernel past what the instruction caches hold.
-__device__ __noinline__ float gelu_call(float z, bool approx) { return gelu(z, approx); }
-__device__ __noinline__ float gelu_grad_call(float z, bool approx) {
-  return gelu_grad(z, approx);
-}
-
-// dst[r * ld + c] = src[r * width + c] converted to D, for r < rows and
-// c < width; src is read 16 bytes a thread where it is 16-byte aligned,
-// those loads in flight together.
-template <typename D, typename S>
-__device__ void load_rows(D* dst, int ld, const S* __restrict__ src, int rows, int width) {
-  constexpr int kVec = 16 / sizeof(S);
-  const int n = rows * width;
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
-    const int nv = n / kVec;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-#pragma unroll 4
-    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-      const uint4 u = __ldg(s4 + v);
-      const S* e = reinterpret_cast<const S*>(&u);
-      int r = (v * kVec) / width;
-      int c = v * kVec - r * width;
-#pragma unroll
-      for (int q = 0; q < kVec; ++q) {
-        dst[r * ld + c] = from_f<D>(to_f(e[q]));
-        if (++c == width) {
-          c = 0;
-          ++r;
-        }
-      }
-    }
-    done = nv * kVec;
-  }
-  for (int idx = done + threadIdx.x; idx < n; idx += blockDim.x) {
-    const int r = idx / width;
-    dst[r * ld + idx - r * width] = from_f<D>(to_f(src[idx]));
-  }
-}
-
 // For each column j < n: out(j, s), s[k] the sum over r < rows of what
 // row(r, j, s) adds into s[k]. With G = blockDim.x / n >= 2 the rows are
 // split into G groups (r = gi, gi + G, ...), each summed in order by its

@@ -3,9 +3,9 @@
 // Serves the bf16 products of the fused FeedForward backward (fused_ff_bwd.cu,
 // which replaces resolution_pde_tpu/ops/pallas/fused_ff.py `_bwd_pallas`,
 // whose three products a layer run on the TPU's MXU in bf16 with f32
-// accumulation). block_gemm (common.cuh) does the same sums in scalar f32
-// FMAs on the CUDA cores, at 67 TFLOP/s at most on an H100; the tensor cores
-// offer 989 TFLOP/s in bf16.
+// accumulation) and forward (fused_ff.cu, `_fwd_pallas`). block_gemm
+// (common.cuh) does the same sums in scalar f32 FMAs on the CUDA cores, at
+// 67 TFLOP/s at most on an H100; the tensor cores offer 989 TFLOP/s in bf16.
 //
 // mma_gemm splits an (M x N) product into warp tiles of (16 MT) x (8 NT)
 // outputs, which the block's warps take in turn. A warp keeps its tile's
@@ -17,7 +17,10 @@
 // each (row, col, f32 sum) inside M x N to the caller's store, as
 // block_gemm's does, so bias, GELU and the rounding to bf16 stay with the
 // caller; mma_gemm_add instead adds the sums into f32 memory laid out in
-// the products' own tile order, a float4 a lane.
+// the products' own tile order, a float4 a lane. warp_tile_accumulate is
+// the step underneath, for a caller that owns its warp tiles: it adds one
+// range of the contraction into sums the caller keeps, so the operands can
+// arrive in slices (the forward streams its weights through shared memory).
 //
 // What bounds it: the latency of the operands' loads, not the tensor
 // cores. The fused backward gives each SM one block, whose products read
@@ -38,10 +41,6 @@
 #include "common.cuh"
 
 namespace rpde {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -113,43 +112,39 @@ __device__ __forceinline__ void frag_b_global(uint32_t (&b)[2], const __nv_bfloa
   b[1] = __ldg(p + 4);
 }
 
-// The sums acc of the warp tile of rows m0.. and columns n0.. of an (M x N)
-// product over K: acc[i][j] holds the fragment of rows m0 + 16 i..,
-// columns n0 + 8 j... load_a(a, m0, k0) fills the A fragment of rows m0..,
-// columns k0..; load_b(b, k0, n0) the B fragment of rows k0.., columns
-// n0... K is read in steps of 16: the loaders must give finite values up
-// to K rounded up to 16, and zeros past K in one of the two operands.
+// Adds into acc, the sums of the warp tile of rows m0.. and columns n0.. of
+// an (M x N) product, the terms of the contraction range [k_begin, k_end):
+// acc[i][j] holds the fragment of rows m0 + 16 i.., columns n0 + 8 j...
+// load_a(a, m0, k0) fills the A fragment of rows m0.., columns k0..;
+// load_b(b, k0, n0) the B fragment of rows k0.., columns n0... The range is
+// read in steps of 16 from k_begin (a multiple of 16): the loaders must
+// give finite values up to k_end rounded up to 16, and zeros past the
+// contraction's end in one of the two operands. B fragments are loaded BS
+// - 1 steps ahead, in a ring of BS steps: a load from L2 then has BS - 1
+// steps of products to arrive (BS = 1 loads each step's B just before its
+// products, for operands in shared memory).
 constexpr int kBStages = 3;
 
-template <int MT, int NT, typename LoadA, typename LoadB>
-__device__ __forceinline__ void warp_tile_sums(float (&acc)[MT][NT][4], int m0, int n0,
-                                               int M, int N, int K, LoadA& load_a,
-                                               LoadB& load_b) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  // B fragments in a ring of kBStages steps: the loads of step k + 16
-  // (kBStages - 1) are issued before the products of step k, so that a
-  // load from L2 has kBStages - 1 steps of products to arrive
-  uint32_t b[kBStages][NT][2];
+template <int MT, int NT, int BS, typename LoadA, typename LoadB>
+__device__ __forceinline__ void warp_tile_accumulate(float (&acc)[MT][NT][4], int m0, int n0,
+                                                     int M, int N, int k_begin, int k_end,
+                                                     LoadA& load_a, LoadB& load_b) {
+  uint32_t b[BS][NT][2];
   auto fetch_b = [&](uint32_t (&bs)[NT][2], int k0) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       if (n0 + 8 * j < N) load_b(bs[j], k0, n0 + 8 * j);
   };
 #pragma unroll
-  for (int st = 0; st < kBStages - 1; ++st)
-    if (16 * st < K) fetch_b(b[st], 16 * st);
-  for (int k0 = 0; k0 < K; k0 += 16 * kBStages) {
+  for (int st = 0; st < BS - 1; ++st)
+    if (k_begin + 16 * st < k_end) fetch_b(b[st], k_begin + 16 * st);
+  for (int k0 = k_begin; k0 < k_end; k0 += 16 * BS) {
 #pragma unroll
-    for (int st = 0; st < kBStages; ++st) {
+    for (int st = 0; st < BS; ++st) {
       const int k = k0 + 16 * st;
-      if (k >= K) break;
-      const int ahead = k + 16 * (kBStages - 1);
-      if (ahead < K) fetch_b(b[(st + kBStages - 1) % kBStages], ahead);
+      if (k >= k_end) break;
+      const int ahead = k + 16 * (BS - 1);
+      if (ahead < k_end) fetch_b(b[(st + BS - 1) % BS], ahead);
       uint32_t a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -163,6 +158,27 @@ __device__ __forceinline__ void warp_tile_sums(float (&acc)[MT][NT][4], int m0, 
       }
     }
   }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_sums(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+}
+
+// The sums acc of the warp tile of rows m0.. and columns n0.. of an (M x N)
+// product over the whole contraction K, as warp_tile_accumulate reads it,
+// with B fragments kBStages - 1 steps ahead.
+template <int MT, int NT, typename LoadA, typename LoadB>
+__device__ __forceinline__ void warp_tile_sums(float (&acc)[MT][NT][4], int m0, int n0,
+                                               int M, int N, int K, LoadA& load_a,
+                                               LoadB& load_b) {
+  zero_sums(acc);
+  warp_tile_accumulate<MT, NT, kBStages>(acc, m0, n0, M, N, 0, K, load_a, load_b);
 }
 
 // row and column of sum c of fragment (i, j) of a warp tile at (m0, n0)

@@ -53,6 +53,12 @@ ACTIVATIONS_S4 = {
     "identity": lambda x: x,
 }
 KERNEL_IMPLS = ("jnp", "pallas")
+# Parameter names of the state-space parameters, which the Trainer never
+# weight-decays (resolution_pde_tpu/models/s4.py SSM_PARAM_NAMES)
+SSM_PARAM_NAMES = (
+    "log_dt", "log_A_real", "A_imag",
+    "Lambda_log_neg_re", "Lambda_im", "P_vec", "B_vec",
+)
 
 
 def dense(in_features: int, features: int, generator=None) -> nn.Linear:

@@ -5,7 +5,9 @@ Counterpart of resolution_pde_tpu/ops/pallas/fused_ff.py:
 rows of ``x``, with products in ``compute_dtype`` accumulated in f32, bias,
 GELU, LayerNorm (eps 1e-5) and residual in f32, each hidden activation
 rounded to ``compute_dtype`` and the output in x's dtype. The forward
-kernel is ``csrc/fused_ff.cu``; the backward kernel, which recomputes the
+kernel is ``csrc/fused_ff.cu`` (bf16 products on the tensor cores, the
+weights streamed through shared memory; f32 products in IEEE f32 on the
+CUDA cores); the backward kernel, which recomputes the
 hidden activations per tile (or reads the pre-activations the forward
 saved) and reduces the weight gradients over the rows in a fixed order, is
 ``csrc/fused_ff_bwd.cu``.
@@ -211,6 +213,14 @@ def _packed_weights(kernels, cd, transpose: bool = False,
     return torch.cat(out)
 
 
+def _forward_weights(kernels, cd) -> torch.Tensor:
+    """The packing the forward kernel reads: row-major (in, out) kernels,
+    in bf16 (its tensor-core products, which stream each layer's weight in
+    slices of the contraction) each zero-padded to whole 16 x 16
+    fragments, as the backward's ``w``."""
+    return _packed_weights(kernels, cd, pad=16 if cd == torch.bfloat16 else 1)
+
+
 def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
                           approx_gelu: bool = True,
                           compute_dtype=torch.bfloat16,
@@ -232,7 +242,7 @@ def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
         zs = torch.empty((n, width), dtype=cd, device=x.device)
     if n == 0:
         return out, zs
-    w = _packed_weights(kernels, cd)
+    w = _forward_weights(kernels, cd)
     b = torch.cat([t.float().reshape(-1) for t in biases])
     ln_s = ln[0].float().contiguous() if ln is not None else None
     ln_b = ln[1].float().contiguous() if ln is not None else None

@@ -16,8 +16,11 @@ train/training.py:19-147):
   - ``evaluate``: per-batch mean relative L2 averaged over batches.
 
 The optimizer is the JAX package's optax chain (clip_by_global_norm,
-scale_by_adam, add_decayed_weights(1e-4), scale by -lr): that is
-``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay)``, with
+scale_by_adam, add_decayed_weights(1e-4) masked off the S4 state-space
+parameters (``models.s4.SSM_PARAM_NAMES``), scale by -lr): that is
+``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8)`` over two groups,
+``weight_decay`` for the others and 0 for those (an empty group is left
+out, so a model without them has one group), with
 the clip written out as optax writes it (scale by c / ||g|| when
 ||g|| >= c; ``clip_grad_norm_`` would add 1e-6 to the norm). Dropout draws
 from one ``torch.Generator`` on the device, seeded with ``seed + 1``, which
@@ -40,6 +43,7 @@ from torch import nn
 
 from resolution_pde_tpu_torch.models.layers import Dropout
 from resolution_pde_tpu_torch.models.registry import unwrap_output
+from resolution_pde_tpu_torch.models.s4 import SSM_PARAM_NAMES
 from resolution_pde_tpu_torch.ops.losses import relative_l2
 from resolution_pde_tpu_torch.train.schedules import ReduceLROnPlateau
 
@@ -102,9 +106,15 @@ class Trainer:
         """A fresh optimizer over the model's current parameters, step 0,
         and the dropout generator, which every Dropout of the model then
         draws from."""
-        opt = torch.optim.AdamW(self.model.parameters(),
-                                lr=self.learning_rate, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=self.weight_decay)
+        decayed, ssm = [], []
+        for name, p in self.model.named_parameters():
+            is_ssm = name.rsplit(".", 1)[-1] in SSM_PARAM_NAMES
+            (ssm if is_ssm else decayed).append(p)
+        groups = [g for g in (
+            dict(params=decayed, weight_decay=self.weight_decay),
+            dict(params=ssm, weight_decay=0.0)) if g["params"]]
+        opt = torch.optim.AdamW(groups, lr=self.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 1)
         for m in self.model.modules():

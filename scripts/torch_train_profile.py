@@ -10,7 +10,8 @@ Trainer, warms 3 steps, then records ``--steps`` steps with torch.profiler
 (CPU + CUDA activities, no host sync inside the window). Prints the card's
 name and power limit, the window's device span per step, the busy and idle
 shares, and device ms per step by kernel family:
-  K1f      fused_ff_fwd_kernel (the fused FeedForward forward)
+  K1f      fused_ff_fwd_mma_kernel and fused_ff_fwd_kernel (the fused
+           FeedForward forward, bf16 and f32)
   K1b      fused_ff_bwd_kernel + reduce_slabs_kernel (its backward)
   K2       spectral_pass_kernel launched in the forward pass
   K2adj    spectral_pass_kernel launched in the backward pass (the adjoint):
@@ -38,7 +39,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def _family(name: str) -> str:
-    if "fused_ff_fwd_kernel" in name:
+    if "fused_ff_fwd_mma_kernel" in name or "fused_ff_fwd_kernel" in name:
         return "K1f"
     if "fused_ff_bwd_kernel" in name or "reduce_slabs_kernel" in name:
         return "K1b"

@@ -13,7 +13,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from resolution_pde_tpu.ops.pallas.fused_ff import fused_feedforward  # noqa: E402
+from resolution_pde_tpu.ops.pallas.fused_ff import (  # noqa: E402
+    _fwd_pallas, fused_feedforward)
 from resolution_pde_tpu_torch.ops.kernels import fused_ff  # noqa: E402
 
 DIM, FACTOR = 8, 2
@@ -96,3 +97,47 @@ def test_fused_ff_save_acts_raises():
         fused_ff.fused_feedforward_bwd_reference(
             t(x), g, [t(k) for k in ks], [t(b) for b in bs],
             compute_dtype=torch.float32, zs_saved=zs * 2)
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("has_res", [True, False])
+@pytest.mark.parametrize("has_ln", [True, False])
+def test_fused_ff_bf16_reference_matches_pallas_ragged(has_ln, has_res, save):
+    """The bf16 plain forward that the CUDA kernel is held to on the card,
+    against the Pallas forward kernel (interpret mode) at widths no
+    fragment divides, 24 -> 40 -> 40 -> 24, 40 rows: the output and, with
+    save_acts, each saved pre-activation. Both round every hidden
+    activation (and the saved ones) to bf16 at the same points, so they
+    differ by rounding flips only (bound: relative L2 1e-2)."""
+    rng = np.random.default_rng(2)
+    dims = [24, 40, 40, 24]
+    ks = [(rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    bs = [(0.1 * rng.standard_normal(d)).astype(np.float32) for d in dims[1:]]
+    ln = ((1.0 + 0.1 * rng.standard_normal(24)).astype(np.float32),
+          (0.1 * rng.standard_normal(24)).astype(np.float32)) if has_ln else None
+    x = rng.standard_normal((40, 24)).astype(np.float32)
+    res = rng.standard_normal((40, 24)).astype(np.float32) if has_res else None
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    want = _fwd_pallas(
+        j(x).astype(jnp.bfloat16), [j(k) for k in ks], [j(b) for b in bs],
+        None if ln is None else tuple(j(a) for a in ln),
+        None if res is None else j(res).astype(jnp.bfloat16), n_layers=3,
+        has_ln=has_ln, approx_gelu=True, has_residual=has_res,
+        cd=jnp.bfloat16, interpret=True, save_zs=save)
+    want, want_zs = want if save else (want, ())
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = fused_ff.fused_feedforward_reference(
+        t(x).bfloat16(), [t(k) for k in ks], [t(b) for b in bs],
+        None if ln is None else tuple(t(a) for a in ln),
+        None if res is None else t(res).bfloat16(), approx_gelu=True,
+        compute_dtype=torch.bfloat16, save_acts=save)
+    got, got_zs = got if save else (got, [])
+    rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)  # noqa: E731
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))  # noqa: E731
+    assert got.dtype == torch.bfloat16 and got.shape == (40, 24)
+    assert rel(got.float().numpy(), f32(want)) <= 1e-2
+    assert len(got_zs) == len(want_zs) == ((3 if has_ln else 2) if save else 0)
+    for g, w in zip(got_zs, want_zs):
+        assert g.dtype == torch.bfloat16
+        assert rel(g.float().numpy(), f32(w)) <= 1e-2

@@ -411,8 +411,8 @@ def test_packed_weights_pad_to_whole_fragments(transpose):
     """The bf16 backward kernel reads its weights in whole 16 x 16
     fragments: each layer's kernel, packed as (in, out) or transposed, is
     zero-padded to multiples of 16 in both dimensions; unpadded (pad 1) the
-    packing is the plain row-major one that the forward kernel and the f32
-    backward read."""
+    packing is the plain row-major one that the f32 forward and backward
+    read."""
     rng = np.random.default_rng(4)
     ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
           for s in ((24, 40), (40, 24))]
@@ -429,3 +429,21 @@ def test_packed_weights_pad_to_whole_fragments(transpose):
     plain = fused_ff._packed_weights(ks, torch.float32, transpose)
     assert torch.equal(plain, torch.cat([(k.t() if transpose else k)
                                          .reshape(-1) for k in ks]))
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_forward_kernel_packing(cd):
+    """The forward kernel streams each layer's (in, out) kernel row-major:
+    in bf16 zero-padded to whole 16 x 16 fragments (the backward's ``w``,
+    not its transposed ``wt``), in f32 unpadded."""
+    rng = np.random.default_rng(5)
+    ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((24, 40), (40, 24))]
+    w = fused_ff._forward_weights(ks, cd)
+    assert w.dtype == cd
+    if cd == torch.bfloat16:
+        assert torch.equal(w, fused_ff._packed_weights(ks, cd, pad=16))
+        assert w.numel() == 32 * 48 + 48 * 32
+        assert not torch.equal(w, fused_ff._packed_weights(ks, cd, True, 16))
+    else:
+        assert torch.equal(w, torch.cat([k.reshape(-1) for k in ks]))

@@ -1,7 +1,8 @@
 """The port's training slice on the CPU: the Trainer's loss trajectory
-against the JAX package's Trainer from bridged weights, the schedules, the
-gradient clip, accumulation, the normalizer decode, checkpoints with exact
-resume, the manifest guard and remat.
+against the JAX package's Trainer from bridged weights (FFNO2D, and S4Model
+with its state-space parameters kept out of weight decay), the schedules,
+the gradient clip, accumulation, the normalizer decode, checkpoints with
+exact resume, the manifest guard and remat.
 
 Tolerances: the 5-step trajectory in f32 at 1e-4 relative per step (the
 two optimizers round differently); schedules exactly (the same float
@@ -20,18 +21,22 @@ import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
 from resolution_pde_tpu.models import FFNO2D as JaxFFNO2D  # noqa: E402
+from resolution_pde_tpu.models.s4 import S4Model as JaxS4Model  # noqa: E402
 from resolution_pde_tpu.ops.normalizers import (  # noqa: E402
     SimpleNormalizer as JaxNorm)
 from resolution_pde_tpu.parallel.mesh import make_mesh  # noqa: E402
 from resolution_pde_tpu.train import schedules as jsched  # noqa: E402
 from resolution_pde_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from resolution_pde_tpu_torch.models import FFNO2D  # noqa: E402
+from resolution_pde_tpu_torch.models.s4 import (  # noqa: E402
+    SSM_PARAM_NAMES, S4Model)
 from resolution_pde_tpu_torch.ops.losses import relative_l2  # noqa: E402
 from resolution_pde_tpu_torch.ops.normalizers import SimpleNormalizer  # noqa: E402
 from resolution_pde_tpu_torch.train import (  # noqa: E402
     ReduceLROnPlateau, Trainer, constant_lr, cosine_annealing_lr,
     get_schedule, restore_checkpoint, save_checkpoint, step_lr)
-from resolution_pde_tpu_torch.utils.jax_bridge import ffno2d_state_dict  # noqa: E402
+from resolution_pde_tpu_torch.utils.jax_bridge import (  # noqa: E402
+    ffno2d_state_dict, s4_model_state_dict)
 
 CFG = dict(in_channels=1, out_channels=1, width=6, n_layers=2, n_modes=6,
            factor=2, ff_weight_norm=True, n_ff_layers=3, layer_norm=True)
@@ -280,3 +285,71 @@ def test_trainer_refuses_what_is_not_ported():
         Trainer(_model(), ssm_lr=1e-4, device="cpu")
     with pytest.raises(ValueError, match="accum_steps"):
         Trainer(_model(), accum_steps=0, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["diag", "dplr"])
+def test_no_weight_decay_on_ssm_parameters(mode):
+    """As tests/test_s4.py:211 for the JAX Trainer: with zero gradients and
+    weight_decay 0.1, one AdamW step leaves every S4 state-space parameter
+    bit for bit and moves every nonzero other parameter (decay alone)."""
+    model = S4Model(d_input=1, d_output=1, d_model=8, n_layers=1,
+                    dropout=0.0, mode=mode, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, learning_rate=1e-2, weight_decay=0.1,
+                      device="cpu")
+    state = trainer.init()
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    n_ssm = n_decayed = 0
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in SSM_PARAM_NAMES:
+            assert torch.equal(p, before[name]), name
+            n_ssm += 1
+        elif bool(before[name].abs().max() > 0):
+            assert not torch.equal(p, before[name]), name
+            n_decayed += 1
+    assert n_ssm >= 2 and n_decayed > 0
+    assert [g["weight_decay"] for g in state.optimizer.param_groups] == [
+        0.1, 0.0]
+    trainer.set_lr(state, 3e-3)
+    assert trainer.current_lr(state) == 3e-3
+    assert all(g["lr"] == 3e-3 for g in state.optimizer.param_groups)
+
+
+def test_ffno_optimizer_keeps_one_group():
+    trainer = Trainer(_model(), device="cpu")
+    groups = trainer.init().optimizer.param_groups
+    assert len(groups) == 1 and groups[0]["weight_decay"] == 1e-4
+
+
+@pytest.mark.parametrize("mode", ["diag", "dplr"])
+def test_s4_loss_trajectory_matches_jax_trainer(mode):
+    """3 AdamW steps of S4Model (jnp route) from weights bridged from the
+    JAX Trainer's init, with lr 1e-2 and weight_decay 0.1 so that decaying
+    the state-space parameters would show: the per-step losses agree to
+    1e-4 relative (f32; the two optimizers and FFTs round differently)."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((4, 2, 32)).astype(np.float32)
+    y = np.roll(x[:, :1], 2, axis=-1)
+    kw = dict(d_input=2, d_output=1, d_model=8, n_layers=1, dropout=0.0,
+              mode=mode)
+    jtrainer = JaxTrainer(JaxS4Model(**kw), learning_rate=1e-2,
+                          weight_decay=0.1,
+                          mesh=make_mesh(devices=jax.devices()[:1]))
+    jstate = jtrainer.init(x[:1])
+    model = S4Model(**kw, kernel_impl="jnp", device="cpu")
+    model.load_state_dict(s4_model_state_dict(jstate.params))
+    trainer = Trainer(model, learning_rate=1e-2, weight_decay=0.1,
+                      device="cpu")
+    state = trainer.init()
+    want, got = [], []
+    for _ in range(3):
+        jstate, jl = jtrainer._train_step(jstate, jnp.asarray(x),
+                                          jnp.asarray(y), None)
+        want.append(float(jl))
+        state, loss = trainer.train_step(state, x, y)
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]
