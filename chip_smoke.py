@@ -17,13 +17,18 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      shape without and at a ragged one-layer shape with; f32 (its CUDA-core
      products) at the ragged shape and at the train shape; and the
      saved-pre-activation variant in bf16 (ff_impl 'fused_saved');
-  5. K2, the fused spectral axis pass, against its plain version: bf16 at
-     the serving shape and at W = 64 (both axes, the H pass read in place),
-     and its f32 mode (K3) at the serving shape;
-  6. the K2/K3 adjoint (the same kernel, transposed factors) against the
-     plain adjoint, bf16 and f32 at the train shape; the two-axis conv's
-     input and weight gradients against the same on the CPU; in f32 the
-     adjoint and the weight gradient against autograd of the plain pass;
+  5. K2, the fused spectral axis pass, against its plain version on the
+     card: bf16 (its tensor-core products) at the train shape along W and
+     along H read in place and added into acc, each timed, and at ragged
+     shapes (n = 32 with m = 17; n = 40; C = 24 -> O = 40 along H with acc;
+     f32 x and out; C = 5 -> O = 3); its f32 mode (K3) at the train shape;
+     and both axes at 48 x 64 against the CPU;
+  6. the K2/K3 adjoint (the same kernel, transposed factors and weight)
+     against the plain adjoint: bf16 at the train shape along W and along
+     H with acc, each timed, and 40 -> 24 channels; f32 at the train
+     shape; the two-axis conv's input and weight gradients against the
+     same on the CPU; in f32 the adjoint and the weight gradient against
+     autograd of the plain pass;
   7. the serving slice: FFNO2D at the width of bench.py (random weights
      from a seed) behind ServingEngine on the GPU, warmed, then serving
      predict and forecast requests with the launch counters showing that
@@ -50,10 +55,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      against the jnp route on the GPU; backward() through the kernels'
      route must raise.
 The line before the last is the kernels' JSON record (ten kernels; K1f and
-K1b each as a bf16 and an f32 entry), each kernel with its
-time, its plain version's, its launches on the main paths and its bound
-(the larger of its bytes over 3.35 TB/s and its operations over the peak
-rate of their type); the last line is {"ok": true, "device": {...}}. Needs
+K1b each as a bf16 and an f32 entry), each kernel with its time (the W
+pass's, for K2 and its adjoint), its plain version's, its launches on the
+main paths and its bound (the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate of their type); the bf16 K2 entries also
+give the H pass's (added into acc) as h_acc_*; the last line is
+{"ok": true, "device": {...}}. Needs
 CUDA: without it, it exits 1 and prints no result. Plain versions run with
 TF32 off.
 """
@@ -182,16 +189,16 @@ def _ff_cost(n, dims, ln, residual, dtype, passes, saved=0):
     return bound(2.0 * n * macs * passes, nbytes, peak)
 
 
-def _pass_cost(shape, m, dtype):
-    """One spectral axis pass over (B, H, W, C) along W (forward or
-    adjoint): the DFT, mix and inverse products, and x, out and the factors
-    and packed weight in ``dtype``."""
-    b, h, w, c = shape
-    r, e = b * h, torch.finfo(dtype).bits // 8
-    ops = 2.0 * r * (c * w * 2 * m + m * 2 * c * 2 * c + c * 2 * m * w)
-    nbytes = (2 * r * w * c + 2 * w * 2 * m + m * 4 * c * c) * e
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    return bound(ops, nbytes, peak)
+def _pass_cost(rows, n, c, o, m, io, cd, acc=False):
+    """One spectral axis pass (forward or adjoint) of ``rows`` rows of n
+    points, c channels in and o out: the DFT, mix and inverse products in
+    ``cd``; x and out in ``io`` (out read too with ``acc``), the two
+    factors and the weight's blocks a | b in ``cd``."""
+    e, ec = (torch.finfo(t).bits // 8 for t in (io, cd))
+    ops = 2.0 * rows * (c * n * 2 * m + m * 2 * c * 2 * o + o * 2 * m * n)
+    nbytes = (rows * n * (c + o * (2 if acc else 1)) * e
+              + (2 * n * 2 * m + m * 2 * c * o) * ec)
+    return bound(ops, nbytes, PEAK_BF16 if cd == torch.bfloat16 else PEAK_F32)
 
 
 def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
@@ -357,38 +364,89 @@ def check_fused_ff_bwd(gen) -> tuple:
     return bench, f32
 
 
+def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
+                  acc=False, adjoint=False, timed=False) -> dict:
+    """One axis pass (``adjoint``: its adjoint) of a channels-last (B, H, W,
+    C) tensor along ``axis`` to ``c_out`` channels, added into a random
+    ``acc`` when asked, against the plain version on the same inputs on
+    the card; timed beside it when ``timed``."""
+    from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
+
+    cuda = torch.device("cuda")
+    c, n = shape[3], shape[axis]
+    m = min(MODES, n // 2 + 1)
+    x = randn(shape, gen, dtype=io or cd)
+    if adjoint:  # the pass maps c_out channels to c; its adjoint c to c_out
+        wab = sm.mix_blocks(randn((c_out, c, MODES, 2), gen, 0.1), m)
+        f2, i2 = sm.adjoint_factors(n, m, "ortho", cuda)
+        plain_w = sm.pack_blocks(wab).transpose(1, 2)
+        run = sm.spectral_axis_adjoint
+    else:
+        wab = sm.mix_blocks(randn((c, c_out, MODES, 2), gen, 0.1), m)
+        f2, i2 = sm.packed_factors(n, m, "ortho", cuda)
+        plain_w = sm.pack_blocks(wab)
+        run = sm.spectral_axis_pass
+    out_shape = (*shape[:3], c_out)
+    acc0 = randn(out_shape, gen, dtype=x.dtype) if acc else None
+    got = run(x, wab, axis, "ortho", cd, acc=acc0.clone() if acc else None)
+    ref = sm._plain_axis_pass(x, f2, i2, plain_w, axis, cd,
+                              acc0.clone() if acc else None)
+    torch.cuda.synchronize()
+    err, mx = rel_l2(got, ref), max_abs(got, ref)
+    fields = dict(case=label, shape="x".join(map(str, shape)), axis=axis,
+                  C=c, O=c_out, m=m, acc=int(acc), rel_l2=f"{err:.3e}",
+                  max_abs=f"{mx:.3e}", tol=tol)
+    res = dict(max_abs_err=mx)
+    if timed:
+        buf = acc0.clone() if acc else None
+        ms = time_ms(lambda: run(x, wab, axis, "ortho", cd, acc=buf))
+        plain = time_ms(lambda: sm._plain_axis_pass(x, f2, i2, plain_w, axis,
+                                                    cd, buf))
+        res.update(ms=ms, plain_ms=plain,
+                   **_pass_cost(x.numel() // (n * c), n, c, c_out, m,
+                                x.dtype, cd, acc))
+        fields.update(ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                      bound_ms=f"{res['bound_ms']:.4f}")
+    log("K2adj" if adjoint else "K2", **fields)
+    require(got.shape == out_shape and bool(torch.isfinite(got.float()).all())
+            and err <= tol, f"K2 {label}: rel_l2 {err} > {tol}")
+    return res
+
+
+def _with_h(w_pass: dict, h_pass: dict) -> dict:
+    """The W pass's entry with the H pass's (acc) time, plain time and
+    bound beside it."""
+    return dict(w_pass, h_acc_ms=h_pass["ms"], h_acc_plain_ms=h_pass["plain_ms"],
+                h_acc_bound_ms=h_pass["bound_ms"])
+
+
 def check_spectral(gen) -> tuple:
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
-    def one_pass(shape, dtype, tol, label):
-        b, h, w, c = shape
-        m = min(MODES, w // 2 + 1)
-        f2, i2 = sm.packed_factors(w, m, "ortho", torch.device("cuda"))
-        wpk = sm.pack_mix_weight(randn((c, c, MODES, 2), gen, 0.1), m)
-        x = randn(shape, gen, dtype=dtype)
-        got = sm.spectral_axis_pass(x, f2, i2, wpk, 2, dtype)
-        ref = sm.spectral_pass_reference(
-            x.reshape(b * h, w, c), f2, i2, wpk, dtype).reshape(shape)
-        torch.cuda.synchronize()
-        err, mx = rel_l2(got, ref), max_abs(got, ref)
-        ms = time_ms(lambda: sm.spectral_axis_pass(x, f2, i2, wpk, 2, dtype))
-        plain = time_ms(lambda: sm.spectral_pass_reference(
-            x.reshape(b * h, w, c), f2, i2, wpk, dtype))
-        log("K2", case=label, rows=b * h, W=w, C=c, m=m,
-            rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
-        require(bool(torch.isfinite(got.float()).all()) and err <= tol,
-                f"K2 {label}: rel_l2 {err} > {tol}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **_pass_cost(shape, m, dtype))
-
+    train = (BATCH, RES, RES, WIDTH)
+    bf, f32 = torch.bfloat16, torch.float32
     # bf16: intermediates are rounded to bf16 in both; a rounding flip moves
-    # an element by up to one bf16 ulp
-    bf16 = one_pass((BATCH, RES, RES, WIDTH), torch.bfloat16, 1e-2,
-                    "serving_bf16")
+    # an element by up to one bf16 ulp. The train shape's two passes: W,
+    # and H read in place and added into acc
+    w16 = spectral_case(gen, train, WIDTH, 2, bf, 1e-2, "train_w_bf16",
+                        timed=True)
+    h16 = spectral_case(gen, train, WIDTH, 1, bf, 1e-2, "train_h_acc_bf16",
+                        acc=True, timed=True)
+    # ragged shapes of the tensor-core kernel: n = 32 (m = 17), n = 40 (not
+    # a multiple of 16), C = 24 -> O = 40 (the H pass, acc), bf16 products
+    # with f32 x and out
+    spectral_case(gen, (4, 16, 32, WIDTH), WIDTH, 2, bf, 1e-2, "n32_m17")
+    spectral_case(gen, (4, 16, 40, WIDTH), WIDTH, 2, bf, 1e-2, "n40")
+    spectral_case(gen, (4, 40, 32, 24), 40, 1, bf, 1e-2, "c24_o40_h_acc",
+                  acc=True)
+    spectral_case(gen, (4, 16, 64, WIDTH), WIDTH, 2, bf, 1e-2,
+                  "f32_io_bf16_products", io=f32)
+    # odd channel counts: x staged through registers, out stored a channel
+    # at a time
+    spectral_case(gen, (2, 8, 20, 5), 3, 2, bf, 1e-2, "c5_o3")
     # f32 mode (K3): IEEE f32 products in both, only the sum order differs
-    f32 = one_pass((BATCH, RES, RES, WIDTH), torch.float32, 1e-4,
-                   "serving_f32")
+    k3 = spectral_case(gen, train, WIDTH, 2, f32, 1e-4, "train_w_f32",
+                       timed=True)
 
     # both axes at W = 64 (m = 33) and H = 48 (m = 25): the H pass reads the
     # channels-last tensor in place and adds into the W pass's output
@@ -402,63 +460,43 @@ def check_spectral(gen) -> tuple:
     log("K2", case="both_axes_bf16", shape="8x48x64x64", m="25/33",
         rel_l2=f"{err:.3e}", tol=1e-2)
     require(err <= 1e-2, f"K2 both axes: rel_l2 {err}")
-    return bf16, f32
+    return _with_h(w16, h16), k3
 
 
 def check_spectral_adjoint(gen) -> tuple:
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
-    def one_pass(shape, dtype, tol, label):
-        b, h, w, c = shape
-        m = min(MODES, w // 2 + 1)
-        cuda = torch.device("cuda")
-        f2t, i2t = sm.adjoint_factors(w, m, "ortho", cuda)
-        wpk = sm.pack_mix_weight(randn((c, c, MODES, 2), gen, 0.1), m)
-        g = randn(shape, gen, dtype=dtype)
-        got = sm.spectral_axis_adjoint(g, f2t, i2t, wpk, 2, dtype)
-        ref = sm.spectral_adjoint_reference(
-            g.reshape(b * h, w, c), f2t, i2t, wpk, dtype).reshape(shape)
-        torch.cuda.synchronize()
-        err, mx = rel_l2(got, ref), max_abs(got, ref)
-        ms = time_ms(lambda: sm.spectral_axis_adjoint(g, f2t, i2t, wpk, 2,
-                                                      dtype))
-        plain = time_ms(lambda: sm.spectral_adjoint_reference(
-            g.reshape(b * h, w, c), f2t, i2t, wpk, dtype))
-        f2, i2 = sm.packed_factors(w, m, "ortho", cuda)
-        x = randn(shape, gen, dtype=dtype)
-        wg_ms = time_ms(lambda: sm.spectral_weight_grad(x, g, f2, i2, 2,
-                                                        dtype))
-        log("K2adj", case=label, rows=b * h, W=w, C=c, m=m,
-            rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            weight_grad_ms=f"{wg_ms:.4f}")
-        require(bool(torch.isfinite(got.float()).all()) and err <= tol,
-                f"K2 adjoint {label}: rel_l2 {err} > {tol}")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **_pass_cost(shape, m, dtype))
-
+    train = (BATCH, RES, RES, WIDTH)
+    bf, f32 = torch.bfloat16, torch.float32
     # as the forward pass: bf16 intermediates rounded in both, a flip moves
-    # an element by one bf16 ulp; f32 differs only in the order of sums
-    bf16 = one_pass((BATCH, RES, RES, WIDTH), torch.bfloat16, 1e-2,
-                    "train_bf16")
-    f32 = one_pass((BATCH, RES, RES, WIDTH), torch.float32, 1e-4,
-                   "train_f32")
+    # an element by one bf16 ulp; f32 differs only in the order of sums.
+    # The backward's two adjoints: W, and H added into it
+    w16 = spectral_case(gen, train, WIDTH, 2, bf, 1e-2, "train_w_bf16",
+                        adjoint=True, timed=True)
+    h16 = spectral_case(gen, train, WIDTH, 1, bf, 1e-2, "train_h_acc_bf16",
+                        acc=True, adjoint=True, timed=True)
+    spectral_case(gen, (4, 16, 48, 40), 24, 2, bf, 1e-2, "o40_to_c24",
+                  adjoint=True)
+    k3 = spectral_case(gen, train, WIDTH, 2, f32, 1e-4, "train_w_f32",
+                       adjoint=True, timed=True)
+    cuda = torch.device("cuda")
+    f2, i2 = sm.packed_factors(RES, MODES, "ortho", cuda)
+    x = randn(train, gen, dtype=bf)
+    g = randn(train, gen, dtype=bf)
+    wg_ms = time_ms(lambda: sm.spectral_weight_grad(x, g, f2, i2, 2, bf))
+    log("K2adj", case="weight_grad_bf16", ms=f"{wg_ms:.4f}")
 
     # f32 at the train shape: the adjoint kernel and the weight gradient
     # against autograd of the plain pass (an independent derivation)
     m = MODES
-    cuda = torch.device("cuda")
-    f2, i2 = sm.packed_factors(RES, m, "ortho", cuda)
     x = randn((BATCH, RES, RES, WIDTH), gen)
     g = randn((BATCH, RES, RES, WIDTH), gen)
-    wpk = sm.pack_mix_weight(randn((WIDTH, WIDTH, MODES, 2), gen, 0.1), m)
+    wab = sm.mix_blocks(randn((WIDTH, WIDTH, MODES, 2), gen, 0.1), m)
     xr = x.reshape(-1, RES, WIDTH).requires_grad_()
-    wr = wpk.clone().requires_grad_()
+    wr = sm.pack_blocks(wab).requires_grad_()
     sm.spectral_pass_reference(xr, f2, i2, wr, torch.float32).backward(
         g.reshape(-1, RES, WIDTH))
-    dx = sm.spectral_axis_adjoint(g, *sm.adjoint_factors(RES, m, "ortho",
-                                                         cuda), wpk, 2,
-                                  torch.float32)
+    dx = sm.spectral_axis_adjoint(g, wab, 2, "ortho", torch.float32)
     dw = sm.spectral_weight_grad(x, g, f2, i2, 2, torch.float32)
     ex = rel_l2(dx.reshape(xr.shape), xr.grad)
     ew = rel_l2(dw, wr.grad)
@@ -486,7 +524,7 @@ def check_spectral_adjoint(gen) -> tuple:
             m="25/33", dx_rel_l2=f"{errs[0]:.3e}",
             dwy_rel_l2=f"{errs[1]:.3e}", dwx_rel_l2=f"{errs[2]:.3e}", tol=tol)
         require(max(errs) <= tol, f"conv gradients {dtype}: {errs}")
-    return bf16, f32
+    return _with_h(w16, h16), k3
 
 
 def build_model(device, compute_dtype, spectral_impl, gen=None,

@@ -1,9 +1,9 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// block_gemm is the CUDA-core matrix-product routine: the spectral pass
-// (spectral_mix.cu) and the f32 products of the fused FeedForward forward
-// and backward (fused_ff.cu, fused_ff_bwd.cu) use it; the FeedForward's
-// bf16 products run on the tensor cores instead (mma.cuh). load_rows
+// block_gemm is the CUDA-core matrix-product routine: the f32 products of
+// the spectral pass (spectral_mix.cu) and of the fused FeedForward forward
+// and backward (fused_ff.cu, fused_ff_bwd.cu) use it; their bf16 products
+// run on the tensor cores instead (mma.cuh). load_rows
 // stages rows of a tile into shared memory for both FeedForward kernels.
 // In block_gemm every thread of the block owns RM x RN outputs of a
 // (batched) product and keeps them in registers while it walks the

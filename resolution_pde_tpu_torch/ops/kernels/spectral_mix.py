@@ -4,19 +4,32 @@ Counterpart of resolution_pde_tpu/ops/pallas/spectral_mix2.py (packed
 re/im, bf16 or f32) and, as its f32 mode, of ops/pallas/spectral_mix.py
 (forward only). Per row along one axis of n points: the truncated forward
 DFT ``(C, n) @ (n, 2m)``, the per-mode complex channel mix
-``(2C) @ (2C, 2O)`` with the packed weight of ``pack_mix_weight``, and the
+``(2C) @ (2C, 2O)`` with the packed weight [[a, b], [-b, a]], and the
 zero-padded inverse DFT ``(O, 2m) @ (2m, n)``; products in
 ``compute_dtype`` accumulated in f32, each intermediate rounded to
 ``compute_dtype``, the output in x's dtype. The kernel is
 ``csrc/spectral_mix.cu``; it reads both axes of a channels-last
 (B, H, W, C) tensor in place.
 
+The entry points take the mix weight as its blocks, (m, 2, C, O) = a | b
+per mode, the real and imaginary parts of a complex weight
+(``mix_blocks``), and not as a packed (m, 2C, 2O) matrix: the mix is a
+complex product, and the bf16 kernel streams only a and b and makes -b
+itself, so a packed matrix of any other form could not be told to it.
+The plain version multiplies by the packed form (``pack_blocks``), as
+the TPU kernel does. In bf16 the kernel runs its products on the tensor
+cores and takes its operands in its own layouts, prepared here: the DFT
+factors transposed and packed in fragment order (``kernel_factors``,
+cached by shape) and each mode's blocks padded (``kernel_weight``, once
+per launch).
+
 The op is linear in x, so its adjoint is the same pass with transposed
-factors (f2' = i2^T, i2' = f2^T, each mode's weight transposed), launched
-through the same kernel (``spectral_axis_adjoint``); the packed weight's
-gradient is two DFT products and a batched contraction, left to torch
-matmuls as the JAX package leaves it to XLA. ``SpectralConv2d`` wires both
-into one ``torch.autograd.Function`` around the two-axis conv.
+factors (f2' = i2^T, i2' = f2^T) and each mode's weight conjugated and
+transposed (``adjoint_blocks``), launched through the same kernel
+(``spectral_axis_adjoint``); the packed weight's gradient is two DFT
+products and a batched contraction, left to torch matmuls as the JAX
+package leaves it to XLA. ``SpectralConv2d`` wires both into one
+``torch.autograd.Function`` around the two-axis conv.
 
 ``spectral_axis_pass`` and ``spectral_axis_adjoint`` run the plain version
 for a tensor on the CPU and launch the kernel for a CUDA tensor; they never
@@ -41,15 +54,41 @@ adjoint_launches = 0  # adjoint passes (the same kernel, transposed factors)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def mix_blocks(weight: torch.Tensor, m: int) -> torch.Tensor:
+    """(C, O, n_modes, 2) real weight -> (m, 2, C, O), a view: for each of
+    the first m modes the blocks a = Re W_k and b = Im W_k of its complex
+    (C, O) mix weight, as the axis passes take it."""
+    return weight[:, :, :m].permute(2, 3, 0, 1)
+
+
+def pack_blocks(wab: torch.Tensor) -> torch.Tensor:
+    """(m, 2, C, O) blocks a | b -> (m, 2C, 2O) packed real mix matrix:
+    the complex product as blocks [[a, b], [-b, a]], K rows ordered (s, c)
+    and N columns ordered (t, o)."""
+    a, b = wab[:, 0], wab[:, 1]
+    return torch.cat([torch.cat([a, b], dim=2), torch.cat([-b, a], dim=2)],
+                     dim=1)
+
+
 def pack_mix_weight(weight: torch.Tensor, m: int) -> torch.Tensor:
-    """(C, O, n_modes, 2) real weight -> (m, 2C, 2O) packed real mix matrix:
-    the complex product as blocks [[wr, wi], [-wi, wr]], K rows ordered
-    (s, c) and N columns ordered (t, o)."""
-    wr, wi = weight[:, :, :m, 0], weight[:, :, :m, 1]
-    w5 = torch.stack([torch.stack([wr, wi], dim=2),
-                      torch.stack([-wi, wr], dim=2)], dim=2)  # (C,O,s,t,m)
-    c, o = weight.shape[0], weight.shape[1]
-    return w5.permute(4, 2, 0, 3, 1).reshape(m, 2 * c, 2 * o)
+    """(C, O, n_modes, 2) real weight -> (m, 2C, 2O) packed real mix
+    matrix, as the JAX package's ``pack_mix_weight``."""
+    return pack_blocks(mix_blocks(weight, m))
+
+
+def adjoint_blocks(wab: torch.Tensor) -> torch.Tensor:
+    """(m, 2, C, O) blocks of a pass -> (m, 2, O, C) blocks of its adjoint:
+    each mode's weight conjugated and transposed, a^T | -b^T, whose packed
+    form is the pass's packed matrix transposed per mode."""
+    return torch.stack([wab[:, 0].transpose(1, 2),
+                        -wab[:, 1].transpose(1, 2)], dim=1)
+
+
+def _blocks_grad(dwpk: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``pack_blocks``: d(m, 2C, 2O) -> d(m, 2, C, O)."""
+    c, o = dwpk.shape[1] // 2, dwpk.shape[2] // 2
+    return torch.stack([dwpk[:, :c, :o] + dwpk[:, c:, o:],
+                        dwpk[:, :c, o:] - dwpk[:, c:, :o]], dim=1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -67,6 +106,62 @@ def adjoint_factors(n: int, m: int, norm: str, device: torch.device):
     in i2's, contiguous. Shared between callers, so read-only."""
     f2, i2 = packed_factors(n, m, norm, device)
     return i2.t().contiguous(), f2.t().contiguous()
+
+
+def _fragment_order(a: torch.Tensor) -> torch.Tensor:
+    """(M, K) -> bf16 (M16 * K64,): ``a`` zero-padded to whole 16 x 16
+    tiles, its contraction K to a multiple of 64 (the kernel's groups of
+    four k-steps), tiles row-major, each tile as the bf16 kernel's A
+    fragments (csrc/mma.cuh ``frag_a_packed``): lane g * 4 + t holds rows g
+    and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9, ordered (column half,
+    row half, pair)."""
+    mm, kk = a.shape
+    mt, kt = -(-mm // 16), -(-kk // 64) * 4
+    p = torch.zeros((mt * 16, kt * 16), dtype=torch.bfloat16, device=a.device)
+    p[:mm, :kk] = a
+    # (mt, row half, g, kt, column half, t, pair) -> (mt, kt, g, t, column
+    # half, row half, pair)
+    return p.view(mt, 2, 8, kt, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_factors(n: int, m: int, norm: str, device: torch.device,
+                   adjoint: bool = False):
+    """The bf16 kernel's DFT factors for a pass, or with ``adjoint`` for
+    its adjoint: f2^T (2m, n) and i2^T (n, 2m) of ``packed_factors`` (of
+    ``adjoint_factors``) in bf16, each in ``_fragment_order``. Shared
+    between callers, so read-only."""
+    f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
+                                                              device)
+    return _fragment_order(f2.t()), _fragment_order(i2.t())
+
+
+@functools.lru_cache(maxsize=16)
+def _stage_columns(c8: int, o8: int, device: torch.device) -> torch.Tensor:
+    """(c8, o8) int64: for each column of a weight row as the kernel's
+    stage holds it, the column it comes from: 16-byte chunk q of row r
+    lies at q ^ (r mod 8)."""
+    chunk = (torch.arange(o8 // 8)[None, :] ^ (torch.arange(c8)[:, None] % 8))
+    return (chunk[:, :, None] * 8 + torch.arange(8)).reshape(c8, o8).to(device)
+
+
+def kernel_weight(wab: torch.Tensor) -> torch.Tensor:
+    """(m, 2, C, O) blocks a | b -> the bf16 kernel's (m, 2, C8, O8): C and
+    O rounded up to 8 with zeros in the padding, and where O8 is a multiple
+    of 64 each row's 16-byte chunks in the order of the kernel's stage
+    (``_stage_columns``), so that a mode is one contiguous copy. The kernel
+    makes the packed form's -b itself."""
+    m, _, c, o = wab.shape
+    c8, o8 = -(-c // 8) * 8, -(-o // 8) * 8
+    shape = (m, 2, c8, o8)
+    out = (torch.empty(shape, dtype=torch.bfloat16, device=wab.device)
+           if (c, o) == (c8, o8) else
+           torch.zeros(shape, dtype=torch.bfloat16, device=wab.device))
+    out[:, :, :c, :o].copy_(wab)
+    if o8 % 64:
+        return out
+    cols = _stage_columns(c8, o8, wab.device)
+    return out.gather(3, cols.expand(m, 2, c8, o8))
 
 
 def spectral_pass_reference(x, f2, i2, wpk, compute_dtype):
@@ -111,42 +206,54 @@ def _plain_axis_pass(x, f2, i2, wpk, axis, cd, acc):
     return acc.add_(y) if acc is not None else y.contiguous()
 
 
-def spectral_axis_pass(x, f2, i2, wpk, axis: int, compute_dtype, acc=None):
-    """One axis pass over a channels-last (B, H, W, C) tensor along ``axis``
-    (1 = H, 2 = W). Returns (B, H, W, O) in x's dtype; with ``acc`` given,
-    adds the pass (rounded to x's dtype) into ``acc`` in place and returns
-    it, as the two passes of a factorized conv are summed."""
-    global launches
+def _check_entry(x, wab, axis, name, adjoint=False):
+    """The checks of both entry points: x's channels are the blocks' C,
+    or with ``adjoint`` their O."""
     if axis not in (1, 2):
         raise ValueError(f"axis must be 1 (H) or 2 (W), got {axis}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if (wab.dim() != 4 or wab.shape[1] != 2
+            or wab.shape[3 if adjoint else 2] != x.shape[3]):
+        raise ValueError(f"{name} takes the weight's blocks (m, 2, C, O), "
+                         f"got {tuple(wab.shape)} for {x.shape[3]} channels")
+
+
+def spectral_axis_pass(x, wab, axis: int, norm: str, compute_dtype,
+                       acc=None):
+    """One axis pass over a channels-last (B, H, W, C) tensor along ``axis``
+    (1 = H, 2 = W), with the mix weight's blocks ``wab`` (m, 2, C, O)
+    (``mix_blocks``) and the DFT factors of ``packed_factors(n, m, norm)``,
+    n = x.shape[axis]. Returns (B, H, W, O) in x's dtype; with ``acc``
+    given, adds the pass (rounded to x's dtype) into ``acc`` in place and
+    returns it, as the two passes of a factorized conv are summed."""
+    global launches
+    _check_entry(x, wab, axis, "spectral_axis_pass")
     if x.device.type == "cpu":
-        return _plain_axis_pass(x, f2, i2, wpk, axis, compute_dtype, acc)
-    if x.device.type != "cuda":
-        raise ValueError(f"spectral_axis_pass runs on cpu or cuda, not "
-                         f"{x.device}")
-    out = _launch(x, f2, i2, wpk, axis, compute_dtype, acc)
+        f2, i2 = packed_factors(x.shape[axis], wab.shape[0], norm, x.device)
+        return _plain_axis_pass(x, f2, i2, pack_blocks(wab), axis,
+                                compute_dtype, acc)
+    out = _launch(x, wab, axis, norm, False, compute_dtype, acc)
     launches += 1
     return out
 
 
-def spectral_axis_adjoint(g, f2t, i2t, wpk, axis: int, compute_dtype,
+def spectral_axis_adjoint(g, wab, axis: int, norm: str, compute_dtype,
                           acc=None):
-    """Adjoint of ``spectral_axis_pass`` along ``axis``: g (B, H, W, O) ->
-    (B, H, W, C) in g's dtype, added into ``acc`` when it is given.
-    (f2t, i2t) are the pass's factors swapped and transposed, i2^T (n, 2m)
-    and f2^T (2m, n), as ``adjoint_factors`` caches them; wpk is the pass's
-    own packed weight, transposed per mode here. On a CUDA tensor it
-    launches the pass kernel with those factors."""
+    """Adjoint of ``spectral_axis_pass`` along ``axis`` with the pass's own
+    blocks ``wab`` (m, 2, C, O): g (B, H, W, O) -> (B, H, W, C) in g's
+    dtype, added into ``acc`` when it is given. It is the pass with the
+    factors of ``adjoint_factors`` and the blocks of ``adjoint_blocks``; on
+    a CUDA tensor it launches the pass kernel with them."""
     global adjoint_launches
-    if axis not in (1, 2):
-        raise ValueError(f"axis must be 1 (H) or 2 (W), got {axis}")
-    wpk_t = wpk.transpose(1, 2)
+    _check_entry(g, wab, axis, "spectral_axis_adjoint", adjoint=True)
+    wab_t = adjoint_blocks(wab)
     if g.device.type == "cpu":
-        return _plain_axis_pass(g, f2t, i2t, wpk_t, axis, compute_dtype, acc)
-    if g.device.type != "cuda":
-        raise ValueError(f"spectral_axis_adjoint runs on cpu or cuda, not "
-                         f"{g.device}")
-    out = _launch(g, f2t, i2t, wpk_t, axis, compute_dtype, acc)
+        f2t, i2t = adjoint_factors(g.shape[axis], wab.shape[0], norm,
+                                   g.device)
+        return _plain_axis_pass(g, f2t, i2t, pack_blocks(wab_t), axis,
+                                compute_dtype, acc)
+    out = _launch(g, wab_t, axis, norm, True, compute_dtype, acc)
     adjoint_launches += 1
     return out
 
@@ -190,7 +297,9 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
                          gs.to(cd).float())                # (m, 2C, 2O)
 
 
-def _launch(x, f2, i2, wpk, axis, cd, acc):
+def _launch(x, wab, axis, norm, adjoint, cd, acc):
+    """The kernel on x along ``axis`` with blocks ``wab`` (m, 2, C, O) and
+    the factors of the pass (``adjoint``: of its adjoint) for ``norm``."""
     if x.dim() != 4 or x.stride(3) != 1:
         raise ValueError("spectral_axis_pass kernel needs a (B, H, W, C) "
                          "tensor with unit channel stride")
@@ -199,16 +308,10 @@ def _launch(x, f2, i2, wpk, axis, cd, acc):
                          f"got x {x.dtype}, compute_dtype {cd}")
     b, h, w, c = x.shape
     n = x.shape[axis]
-    m = wpk.shape[0]
-    o = wpk.shape[2] // 2
-    if (f2.shape != (n, 2 * m) or i2.shape != (2 * m, n)
-            or wpk.shape != (m, 2 * c, 2 * o)):
-        raise ValueError(f"factor/weight shapes {tuple(f2.shape)}, "
-                         f"{tuple(i2.shape)}, {tuple(wpk.shape)} do not fit "
-                         f"n={n}, C={c}")
-    if any(t.device != x.device for t in (f2, i2, wpk)):
+    if wab.device != x.device:
         raise ValueError(f"spectral_axis_pass: all tensors must be on "
                          f"{x.device}")
+    m, o = wab.shape[0], wab.shape[3]
     out_shape = (b, h, w, o)
     if acc is None:
         out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -220,9 +323,15 @@ def _launch(x, f2, i2, wpk, axis, cd, acc):
         out = acc
     if out.numel() == 0:
         return out
-    f2c = f2.to(cd).contiguous()
-    i2c = i2.to(cd).contiguous()
-    wpkc = wpk.to(cd).contiguous()
+    if cd == torch.bfloat16:
+        f2c, i2c = kernel_factors(n, m, norm, x.device, adjoint)
+        wk = kernel_weight(wab)
+    else:
+        # packed_factors' i2 is column-major; the f32 kernel reads rows
+        f2c, i2c = (t.contiguous() for t in (
+            adjoint_factors if adjoint else packed_factors)(n, m, norm,
+                                                            x.device))
+        wk = pack_blocks(wab).float()
     so = out.stride()
     sx = x.stride()
     if axis == 2:   # rows (b, h), points along w
@@ -232,7 +341,7 @@ def _launch(x, f2, i2, wpk, axis, cd, acc):
     with torch.cuda.device(x.device):
         err = _build.library().rpde_spectral_pass(
             int(cd == torch.bfloat16), int(x.dtype == torch.bfloat16),
-            x.data_ptr(), f2c.data_ptr(), i2c.data_ptr(), wpkc.data_ptr(),
+            x.data_ptr(), f2c.data_ptr(), i2c.data_ptr(), wk.data_ptr(),
             out.data_ptr(), n, m, c, o, b * (h * w // n), rows_lo, *xs, *ys,
             int(acc is not None),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -244,41 +353,37 @@ class SpectralConv2d(torch.autograd.Function):
     """Both axis passes of a factorized spectral conv and their backward:
     the W pass, the H pass added into its output in place, and in the
     backward the W pass's adjoint, the H pass's adjoint added into it (g
-    read in place along H), and both packed weights' gradients. ``opts``
-    is (fft_norm, compute_dtype)."""
+    read in place along H), and both weights' gradients. ``opts``
+    is (fft_norm, compute_dtype); each weight comes as its blocks
+    (``mix_blocks``) and its gradient goes back as theirs."""
 
     @staticmethod
-    def forward(ctx, opts, x, wpk_y, wpk_x):
+    def forward(ctx, opts, x, wab_y, wab_x):
         norm, cd = opts
-        _, h, w, _ = x.shape
-        f2y, i2y = packed_factors(w, wpk_y.shape[0], norm, x.device)
-        f2x, i2x = packed_factors(h, wpk_x.shape[0], norm, x.device)
-        out = spectral_axis_pass(x, f2y, i2y, wpk_y, 2, cd)
-        spectral_axis_pass(x, f2x, i2x, wpk_x, 1, cd, acc=out)
+        out = spectral_axis_pass(x, wab_y, 2, norm, cd)
+        spectral_axis_pass(x, wab_x, 1, norm, cd, acc=out)
         ctx.opts = opts
-        ctx.save_for_backward(x, wpk_y, wpk_x)
+        ctx.save_for_backward(x, wab_y, wab_x)
         return out
 
     @staticmethod
     def backward(ctx, g):
         norm, cd = ctx.opts
-        x, wpk_y, wpk_x = ctx.saved_tensors
+        x, wab_y, wab_x = ctx.saved_tensors
         _, h, w, _ = x.shape
         g = g.contiguous()
-        my, mx = wpk_y.shape[0], wpk_x.shape[0]
-        f2y, i2y = packed_factors(w, my, norm, x.device)
-        f2x, i2x = packed_factors(h, mx, norm, x.device)
         dx = dwy = dwx = None
         if ctx.needs_input_grad[1]:
-            dx = spectral_axis_adjoint(
-                g, *adjoint_factors(w, my, norm, x.device), wpk_y, 2, cd)
-            spectral_axis_adjoint(
-                g, *adjoint_factors(h, mx, norm, x.device), wpk_x, 1, cd,
-                acc=dx)
+            dx = spectral_axis_adjoint(g, wab_y, 2, norm, cd)
+            spectral_axis_adjoint(g, wab_x, 1, norm, cd, acc=dx)
         if ctx.needs_input_grad[2]:
-            dwy = spectral_weight_grad(x, g, f2y, i2y, 2, cd).to(wpk_y.dtype)
+            f2, i2 = packed_factors(w, wab_y.shape[0], norm, x.device)
+            dwy = _blocks_grad(spectral_weight_grad(x, g, f2, i2, 2, cd))
+            dwy = dwy.to(wab_y.dtype)
         if ctx.needs_input_grad[3]:
-            dwx = spectral_weight_grad(x, g, f2x, i2x, 1, cd).to(wpk_x.dtype)
+            f2, i2 = packed_factors(h, wab_x.shape[0], norm, x.device)
+            dwx = _blocks_grad(spectral_weight_grad(x, g, f2, i2, 1, cd))
+            dwx = dwx.to(wab_x.dtype)
         return None, dx, dwy, dwx
 
 
@@ -289,13 +394,13 @@ def factorized_spectral_conv_2d_pallas2(x, weight_y, weight_x, n_modes: int,
     (the last spatial axis) and ``weight_x`` along H, summed in x's dtype.
     x: (B, H, W, C) channels-last -> (B, H, W, C). ``compute_dtype`` None
     computes in x's dtype. Differentiable through ``SpectralConv2d``; the
-    gradient of each packed weight reaches its (C, O, n_modes, 2) weight
-    through ``pack_mix_weight``."""
+    gradient of each weight's blocks reaches its (C, O, n_modes, 2) weight
+    through ``mix_blocks``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"factorized_spectral_conv_2d_pallas2 runs on cpu "
                          f"or cuda, not {x.device}")
     _, h, w, _ = x.shape
     cd = compute_dtype if compute_dtype is not None else x.dtype
-    wpk_y = pack_mix_weight(weight_y, min(n_modes, w // 2 + 1)).float()
-    wpk_x = pack_mix_weight(weight_x, min(n_modes, h // 2 + 1)).float()
-    return SpectralConv2d.apply((fft_norm, cd), x, wpk_y, wpk_x)
+    wab_y = mix_blocks(weight_y, min(n_modes, w // 2 + 1)).float()
+    wab_x = mix_blocks(weight_x, min(n_modes, h // 2 + 1)).float()
+    return SpectralConv2d.apply((fft_norm, cd), x, wab_y, wab_x)

@@ -13,8 +13,9 @@ shares, and device ms per step by kernel family:
   K1f      fused_ff_fwd_mma_kernel and fused_ff_fwd_kernel (the fused
            FeedForward forward, bf16 and f32)
   K1b      fused_ff_bwd_kernel + reduce_slabs_kernel (its backward)
-  K2       spectral_pass_kernel launched in the forward pass
-  K2adj    spectral_pass_kernel launched in the backward pass (the adjoint):
+  K2       spectral_pass_mma_kernel (bf16) and spectral_pass_kernel (f32),
+           one launch a pass, launched in the forward pass
+  K2adj    the same kernels launched in the backward pass (the adjoint):
            of a step's 4 x n_layers spectral launches, in order, the first
            half are the forward's and the second half the adjoint's
   other    every other kernel (projections, weight gradients of the
@@ -43,7 +44,7 @@ def _family(name: str) -> str:
         return "K1f"
     if "fused_ff_bwd_kernel" in name or "reduce_slabs_kernel" in name:
         return "K1b"
-    if "spectral_pass_kernel" in name:
+    if "spectral_pass" in name:
         return "K2"
     return "other"
 

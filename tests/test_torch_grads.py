@@ -202,13 +202,22 @@ def _weight(rng, c, o, modes):
     return (rng.standard_normal((c, o, modes, 2)) * 0.3).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,n_modes", [(16, 5), (16, 12), (15, 10)])
-def test_axis_adjoint_and_weight_grad_match_jax_vjp(n, n_modes):
+# (n, n_modes, C, O); the last is a ragged shape of the bf16 kernel: n = 40,
+# m = 17, 24 -> 40 channels
+ADJOINT_CASES = [(16, 5, 4, 3), (16, 12, 4, 3), (15, 10, 4, 3),
+                 (40, 17, 24, 40)]
+
+
+@pytest.mark.parametrize(
+    "n,n_modes,c,o", ADJOINT_CASES,
+    ids=[f"{n}-{k}" if (c, o) == (4, 3) else f"{n}-{k}-{c}-{o}"
+         for n, k, c, o in ADJOINT_CASES])
+def test_axis_adjoint_and_weight_grad_match_jax_vjp(n, n_modes, c, o):
     """One axis pass: the plain adjoint and the packed weight's gradient
     (carried to the (C, O, modes, 2) weight by pack_mix_weight's autograd)
     against jax.vjp of both JAX kernels (packed K2 in f32, unpacked K3)."""
     rng = np.random.default_rng(n * 7 + n_modes)
-    c, o, rows = 4, 3, 5
+    rows = 5
     x = rng.standard_normal((rows, n, c)).astype(np.float32)
     w = _weight(rng, c, o, n_modes)
     g = rng.standard_normal((rows, n, o)).astype(np.float32)
@@ -242,14 +251,10 @@ def test_axis_adjoint_is_the_adjoint():
     b, h, w, c, o = 2, 12, 16, 4, 3
     x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((b, h, w, o)).astype(np.float32))
-    cpu = torch.device("cpu")
-    for axis, n, m in ((2, w, 6), (1, h, 7)):
-        wpk = tmix.pack_mix_weight(torch.from_numpy(_weight(rng, c, o, m)), m)
-        y = tmix.spectral_axis_pass(x, *tmix.packed_factors(n, m, "ortho", cpu),
-                                    wpk, axis, torch.float32)
-        dx = tmix.spectral_axis_adjoint(
-            g, *tmix.adjoint_factors(n, m, "ortho", cpu), wpk, axis,
-            torch.float32)
+    for axis, m in ((2, 6), (1, 7)):
+        wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
+        y = tmix.spectral_axis_pass(x, wab, axis, "ortho", torch.float32)
+        dx = tmix.spectral_axis_adjoint(g, wab, axis, "ortho", torch.float32)
         lhs = float((y.double() * g.double()).sum())
         rhs = float((x.double() * dx.double()).sum())
         assert abs(lhs - rhs) <= 1e-5 * abs(lhs)

@@ -141,8 +141,7 @@ def test_wrappers_refuse_other_devices():
         fused_ff.fused_feedforward(x, [k], [torch.zeros(4, device="meta")])
     x4 = torch.zeros(1, 4, 4, 2, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
-        spectral_mix.spectral_axis_pass(x4, None, None, None, 2,
-                                        torch.float32)
+        spectral_mix.spectral_axis_pass(x4, None, 2, "ortho", torch.float32)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -56,10 +56,23 @@ def test_pack_mix_weight_bit_exact(m):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n,n_modes", MODE_CASES)
-def test_spectral_pass_reference_matches_jax_kernels(n, n_modes):
+# ragged shapes of the bf16 kernel: n not a multiple of 16, m = 17 (2m = 34
+# packed modes), C = 24 -> O = 40 channels
+RAGGED_CASES = [(40, 17, 24, 40), (32, 17, 24, 40)]
+
+
+def _ids(cases):
+    return [f"{n}-{k}" if (c, o) == (4, 3) else f"{n}-{k}-{c}-{o}"
+            for n, k, c, o in cases]
+
+
+PASS_CASES = [(n, k, 4, 3) for n, k in MODE_CASES] + RAGGED_CASES
+
+
+@pytest.mark.parametrize("n,n_modes,c,o", PASS_CASES, ids=_ids(PASS_CASES))
+def test_spectral_pass_reference_matches_jax_kernels(n, n_modes, c, o):
     rng = np.random.default_rng(n * 100 + n_modes)
-    c, o, rows = 4, 3, 5
+    rows = 5
     x = rng.standard_normal((rows, n, c)).astype(np.float32)
     w = _weight(rng, c, o, n_modes)
     m = min(n_modes, n // 2 + 1)
@@ -127,12 +140,146 @@ def test_axis_pass_accumulates_in_place():
     x, wy, _, modes = _conv_inputs(3)
     tx = torch.from_numpy(x)
     m = min(modes, x.shape[2] // 2 + 1)
-    f2, i2 = tmix.packed_factors(x.shape[2], m, "ortho", tx.device)
-    wpk = tmix.pack_mix_weight(torch.from_numpy(wy), m)
-    once = tmix.spectral_axis_pass(tx, f2, i2, wpk, 2, torch.float32)
+    wab = tmix.mix_blocks(torch.from_numpy(wy), m)
+    once = tmix.spectral_axis_pass(tx, wab, 2, "ortho", torch.float32)
     acc = torch.ones_like(once)
-    out = tmix.spectral_axis_pass(tx, f2, i2, wpk, 2, torch.float32, acc=acc)
+    out = tmix.spectral_axis_pass(tx, wab, 2, "ortho", torch.float32,
+                                  acc=acc)
     assert out is acc
     np.testing.assert_array_equal(out.numpy(), (once + 1).numpy())
     with pytest.raises(ValueError):
-        tmix.spectral_axis_pass(tx, f2, i2, wpk, 3, torch.float32)
+        tmix.spectral_axis_pass(tx, wab, 3, "ortho", torch.float32)
+
+
+@pytest.mark.parametrize("m", [3, 5, 8])
+def test_mix_blocks_pack_and_adjoint(m):
+    """The blocks a | b of the entry points: packed, they are
+    ``pack_mix_weight`` (so the JAX package's), bit for bit; the adjoint's
+    blocks pack to the packed matrix transposed per mode; and
+    ``_blocks_grad`` is the gradient of the packing."""
+    w = torch.from_numpy(_weight(np.random.default_rng(m), 4, 3, 8))
+    wab = tmix.mix_blocks(w, m)
+    assert wab.shape == (m, 2, 4, 3)
+    wpk = tmix.pack_mix_weight(w, m)
+    assert torch.equal(tmix.pack_blocks(wab), wpk)
+    assert torch.equal(tmix.pack_blocks(tmix.adjoint_blocks(wab)),
+                       wpk.transpose(1, 2))
+    leaf = wab.clone().requires_grad_()
+    d = torch.from_numpy(
+        np.random.default_rng(m + 1).standard_normal((m, 8, 6))
+        .astype(np.float32))
+    tmix.pack_blocks(leaf).backward(d)
+    assert torch.equal(tmix._blocks_grad(d), leaf.grad)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_axis_pass_refuses_a_packed_matrix(adjoint):
+    """The entry points take the weight's blocks (m, 2, C, O), never a
+    packed (m, 2C, 2O) matrix, on the CPU as on the card: the bf16 kernel
+    makes each mode's -b itself, so a packed matrix of another form than
+    [[a, b], [-b, a]] would give it other results than the plain version."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 8, 4)).astype(np.float32))
+    wpk = tmix.pack_mix_weight(torch.from_numpy(_weight(rng, 4, 4, 3)), 3)
+    run = tmix.spectral_axis_adjoint if adjoint else tmix.spectral_axis_pass
+    with pytest.raises(ValueError, match="blocks"):
+        run(x, wpk, 2, "ortho", torch.float32)
+
+
+# -- the bf16 kernel's operands -----------------------------------------
+
+
+def _unfragment(v, rows, cols):
+    """Inverse of the launcher's fragment order: (M16 * K64,) -> (M16, K64)."""
+    mt, kt = -(-rows // 16), -(-cols // 64) * 4
+    return (v.view(mt, kt, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
+            .reshape(mt * 16, kt * 16))
+
+
+def _unpad_weight(wk, c, o):
+    """The kernel's (m, 2, C8, O8) weight -> the packed (m, 2C, 2O)
+    [[a, b], [-b, a]] it stands for, and its padding. Rows of a multiple of
+    64 columns come with their 16-byte chunks swizzled (chunk q of row r at
+    q ^ (r mod 8)), which undoes itself."""
+    m, _, c8, o8 = wk.shape
+    if o8 % 64 == 0:
+        chunk = torch.arange(o8 // 8)[None, :] ^ (torch.arange(c8)[:, None] % 8)
+        cols = (chunk[:, :, None] * 8 + torch.arange(8)).reshape(c8, o8)
+        wk = wk.gather(3, cols.expand(m, 2, c8, o8))
+    a, b = wk[:, 0, :c, :o], wk[:, 1, :c, :o]
+    pad = torch.cat([wk[:, :, c:].reshape(-1), wk[:, :, :, o:].reshape(-1)])
+    return torch.cat([torch.cat([a, b], 2), torch.cat([-b, a], 2)], 1), pad
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("n,n_modes", [(256, 64), (40, 17), (32, 17), (15, 8)])
+def test_kernel_factors_pad_to_whole_fragments(n, n_modes, adjoint):
+    """The bf16 kernel reads f2^T (2m, n) and i2^T (n, 2m) as A fragments,
+    each zero-padded to whole 16 x 16 tiles (the contraction to a multiple
+    of 64) in fragment order: unpacked,
+    they are the factors in bf16, bit for bit, with zeros around them; and
+    they are made once per shape."""
+    m = min(n_modes, n // 2 + 1)
+    cpu = torch.device("cpu")
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    a1, a3 = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
+    assert a1.dtype == a3.dtype == torch.bfloat16
+    for packed, mat in ((a1, f2.t()), (a3, i2.t())):
+        rows, cols = mat.shape
+        full = _unfragment(packed, rows, cols)
+        assert full.shape == (-(-rows // 16) * 16, -(-cols // 64) * 64)
+        assert torch.equal(full[:rows, :cols], mat.to(torch.bfloat16))
+        assert not full[rows:].any() and not full[:, cols:].any()
+    again = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
+    assert again[0] is a1 and again[1] is a3
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("c,o", [(4, 3), (24, 40), (64, 64), (40, 128)])
+def test_kernel_weight_pads_each_mode(c, o, transpose):
+    """The bf16 kernel streams each mode's packed weight [[a, b], [-b, a]]
+    as its first block row, (2, C8, O8): a and b padded to 8 channels with
+    zeros; rebuilt, it is the packed weight in bf16, bit for bit. The
+    adjoint packs the per-mode transpose, (2, O8, C8), from its blocks."""
+    rng = np.random.default_rng(c * o)
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, 7)), 5)
+    w = tmix.adjoint_blocks(wab) if transpose else wab
+    ci, co = (o, c) if transpose else (c, o)
+    wk = tmix.kernel_weight(w)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.shape == (5, 2, -(-ci // 8) * 8, -(-co // 8) * 8)
+    body, pad = _unpad_weight(wk, ci, co)
+    wpk = tmix.pack_blocks(wab)
+    assert torch.equal(body, (wpk.transpose(1, 2) if transpose else wpk)
+                       .to(torch.bfloat16))
+    assert not pad.any()
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_plain_pass_from_kernel_operands(adjoint):
+    """The plain pass computed from the bf16 kernel's operands, unpacked,
+    equals the plain pass on the factors and weight it was given, bit for
+    bit (both round every operand to bf16), at a ragged shape: n = 40,
+    m = 17, 24 -> 40 channels (the adjoint 40 -> 24)."""
+    rng = np.random.default_rng(17)
+    n, m, c, o = 40, 17, 24, 40
+    cpu = torch.device("cpu")
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
+    wpk = tmix.pack_blocks(wab)
+    if adjoint:
+        f2, i2 = tmix.adjoint_factors(n, m, "ortho", cpu)
+        w, cin, cout = tmix.adjoint_blocks(wab), o, c
+        wpk = wpk.transpose(1, 2)
+    else:
+        f2, i2 = tmix.packed_factors(n, m, "ortho", cpu)
+        w, cin, cout = wab, c, o
+    x = torch.from_numpy(rng.standard_normal((3, n, cin)).astype(np.float32))
+    a1, a3 = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
+    f2u = _unfragment(a1, 2 * m, n)[:2 * m, :n].t()
+    i2u = _unfragment(a3, n, 2 * m)[:n, :2 * m].t()
+    wu, _ = _unpad_weight(tmix.kernel_weight(w), cin, cout)
+    got = tmix.spectral_pass_reference(x, f2u, i2u, wu, torch.bfloat16)
+    want = tmix.spectral_pass_reference(x, f2, i2, wpk, torch.bfloat16)
+    assert got.shape == (3, n, cout)
+    assert torch.equal(got, want)
