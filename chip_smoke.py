@@ -21,12 +21,16 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      card: bf16 (its tensor-core products) at the train shape along W and
      along H read in place and added into acc, each timed, and at ragged
      shapes (n = 32 with m = 17; n = 40; C = 24 -> O = 40 along H with acc;
-     f32 x and out; C = 5 -> O = 3); its f32 mode (K3) at the train shape;
-     and both axes at 48 x 64 against the CPU;
+     f32 x and out; C = 5 -> O = 3); its f32 mode (K3, IEEE f32 products
+     on the CUDA cores) at the train shape along W and along H with acc,
+     each timed, at the same ragged shapes and with bf16 x and out, at
+     wider channels (128 -> 128 at n = 256, timed; 96 -> 128 along H with
+     acc; 200 -> 136), and two calls on the same inputs compared bit for
+     bit; and both axes at 48 x 64 against the CPU;
   6. the K2/K3 adjoint (the same kernel, transposed factors and weight)
      against the plain adjoint: bf16 at the train shape along W and along
-     H with acc, each timed, and 40 -> 24 channels; f32 at the train
-     shape; the two-axis conv's input and weight gradients against the
+     H with acc, each timed, and 40 -> 24 channels; f32 (K3's adjoint) the
+     same, and 136 -> 200 channels; the two-axis conv's input and weight gradients against the
      same on the CPU; in f32 the adjoint and the weight gradient against
      autograd of the plain pass;
   7. the serving slice: FFNO2D at the width of bench.py (random weights
@@ -34,13 +38,14 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      predict and forecast requests with the launch counters showing that
      both kernels ran; then one predict in bf16 and one in the f32-exact
      mode, each against the same weights on the CPU through the plain
-     versions;
+     versions; the f32-exact predict's latency at 8 x 256²;
   8. the train slice: the same model trained through the port's Trainer on
      bench.py's synthetic task (8 x 256², y = x rolled by 7 along W): 3
      warm steps and 20 timed ones, each launching every kernel of the step
      the counted number of times; every parameter's gradient finite and
      non-zero; one step's gradients at 128² in bf16 and in the f32-exact
-     mode against the same weights on the CPU in f32; 3 steps of
+     mode against the same weights on the CPU in f32; 5 f32-exact steps
+     at 8 x 256² (the median of the last 3 logged); 3 steps of
      'fused_saved'; and a resume from a checkpoint repeating two steps'
      losses bit for bit;
   9. K4, the S4D Vandermonde reduction, and K5, the four Cauchy sums of
@@ -57,9 +62,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
 The line before the last is the kernels' JSON record (ten kernels; K1f and
 K1b each as a bf16 and an f32 entry), each kernel with its time (the W
 pass's, for K2 and its adjoint), its plain version's, its launches on the
-main paths and its bound (the larger of its bytes over 3.35 TB/s and its
-operations over the peak rate of their type); the bf16 K2 entries also
-give the H pass's (added into acc) as h_acc_*; the last line is
+main paths and its bound (the larger of its bytes over 3.35 TB/s and the
+operations its function needs over the peak rate of their type: for the
+spectral pass, its DFTs counted as real FFTs where that is cheaper than
+the dense products the kernels do); the K2 and K3 entries
+also give the H pass's (added into acc) as h_acc_*; the last line is
 {"ok": true, "device": {...}}. Needs
 CUDA: without it, it exits 1 and prints no result. Plain versions run with
 TF32 off.
@@ -189,13 +196,24 @@ def _ff_cost(n, dims, ln, residual, dtype, passes, saved=0):
     return bound(2.0 * n * macs * passes, nbytes, peak)
 
 
+def _dft_flops(n, m):
+    """The operations one truncated DFT of n points to m modes (or its
+    zero-padded inverse) needs: the cheaper of a real FFT, 2.5 n log2 n
+    (FFTW's count for real data), and the dense product of n points by 2m
+    packed modes, 4 n m."""
+    return min(2.5 * n * math.log2(n), 4.0 * n * m)
+
+
 def _pass_cost(rows, n, c, o, m, io, cd, acc=False):
     """One spectral axis pass (forward or adjoint) of ``rows`` rows of n
-    points, c channels in and o out: the DFT, mix and inverse products in
-    ``cd``; x and out in ``io`` (out read too with ``acc``), the two
-    factors and the weight's blocks a | b in ``cd``."""
+    points, c channels in and o out. Operations: what the function needs,
+    each channel's forward and inverse DFT as ``_dft_flops`` counts it and
+    the mix's complex product, 8 c o real operations a mode, in ``cd``
+    (the kernels compute the DFTs as dense products instead, 4 n m a
+    channel). Bytes: x and out in ``io`` (out read too with ``acc``), the
+    two factors and the weight's blocks a | b in ``cd``."""
     e, ec = (torch.finfo(t).bits // 8 for t in (io, cd))
-    ops = 2.0 * rows * (c * n * 2 * m + m * 2 * c * 2 * o + o * 2 * m * n)
+    ops = rows * ((c + o) * _dft_flops(n, m) + 8.0 * m * c * o)
     nbytes = (rows * n * (c + o * (2 if acc else 1)) * e
               + (2 * n * 2 * m + m * 2 * c * o) * ec)
     return bound(ops, nbytes, PEAK_BF16 if cd == torch.bfloat16 else PEAK_F32)
@@ -444,9 +462,41 @@ def check_spectral(gen) -> tuple:
     # odd channel counts: x staged through registers, out stored a channel
     # at a time
     spectral_case(gen, (2, 8, 20, 5), 3, 2, bf, 1e-2, "c5_o3")
-    # f32 mode (K3): IEEE f32 products in both, only the sum order differs
+    # f32 mode (K3): IEEE f32 products in both, only the sum order differs.
+    # The train shape's two passes, W and H read in place and added into acc
     k3 = spectral_case(gen, train, WIDTH, 2, f32, 1e-4, "train_w_f32",
                        timed=True)
+    k3h = spectral_case(gen, train, WIDTH, 1, f32, 1e-4, "train_h_acc_f32",
+                        acc=True, timed=True)
+    # ragged shapes of the f32 kernel: n = 32 (m = 17), n = 40, C = 24 ->
+    # O = 40 along H with acc, C = 5 -> O = 3 (x staged through registers,
+    # out a channel a store), bf16 x and out with f32 products (a bf16
+    # rounding flip of an output moves it by one bf16 ulp)
+    spectral_case(gen, (4, 16, 32, WIDTH), WIDTH, 2, f32, 1e-4, "n32_m17_f32")
+    spectral_case(gen, (4, 16, 40, WIDTH), WIDTH, 2, f32, 1e-4, "n40_f32")
+    spectral_case(gen, (4, 40, 32, 24), 40, 1, f32, 1e-4, "c24_o40_h_acc_f32",
+                  acc=True)
+    spectral_case(gen, (2, 8, 20, 5), 3, 2, f32, 1e-4, "c5_o3_f32")
+    spectral_case(gen, (4, 16, 64, WIDTH), WIDTH, 2, f32, 1e-4,
+                  "bf16_io_f32_products", io=bf)
+    # wider channels, in tiles of fewer rows: 128 -> 128 at the train
+    # shape's 2048 rows of 256 points (m = 64; the width of
+    # configs/model/ffno_1d.yaml; 2 rows a tile), timed;
+    # 96 -> 128 along H with acc (2 rows); 200 -> 136 (1 row)
+    spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, f32, 1e-4,
+                  "c128_o128_f32", timed=True)
+    spectral_case(gen, (2, 64, 48, 96), 128, 1, f32, 1e-4,
+                  "c96_o128_h_acc_f32", acc=True)
+    spectral_case(gen, (2, 8, 128, 200), 136, 2, f32, 1e-4, "c200_o136_f32")
+    # two calls on the same inputs give the same bits (sums in an order
+    # fixed by the shapes)
+    x = randn(train, gen)
+    wab = sm.mix_blocks(randn((WIDTH, WIDTH, MODES, 2), gen, 0.1), MODES)
+    first = sm.spectral_axis_pass(x, wab, 2, "ortho", f32)
+    again = sm.spectral_axis_pass(x, wab, 2, "ortho", f32)
+    same = bool(torch.equal(first, again))
+    log("K2", case="train_w_f32_repeat", bit_equal=same)
+    require(same, "K3: two calls on the same inputs differ")
 
     # both axes at W = 64 (m = 33) and H = 48 (m = 25): the H pass reads the
     # channels-last tensor in place and adds into the W pass's output
@@ -460,7 +510,7 @@ def check_spectral(gen) -> tuple:
     log("K2", case="both_axes_bf16", shape="8x48x64x64", m="25/33",
         rel_l2=f"{err:.3e}", tol=1e-2)
     require(err <= 1e-2, f"K2 both axes: rel_l2 {err}")
-    return _with_h(w16, h16), k3
+    return _with_h(w16, h16), _with_h(k3, k3h)
 
 
 def check_spectral_adjoint(gen) -> tuple:
@@ -479,6 +529,12 @@ def check_spectral_adjoint(gen) -> tuple:
                   adjoint=True)
     k3 = spectral_case(gen, train, WIDTH, 2, f32, 1e-4, "train_w_f32",
                        adjoint=True, timed=True)
+    k3h = spectral_case(gen, train, WIDTH, 1, f32, 1e-4, "train_h_acc_f32",
+                        acc=True, adjoint=True, timed=True)
+    spectral_case(gen, (4, 16, 48, 40), 24, 2, f32, 1e-4, "o40_to_c24_f32",
+                  adjoint=True)
+    spectral_case(gen, (2, 8, 128, 136), 200, 2, f32, 1e-4,
+                  "o136_to_c200_f32", adjoint=True)
     cuda = torch.device("cuda")
     f2, i2 = sm.packed_factors(RES, MODES, "ortho", cuda)
     x = randn(train, gen, dtype=bf)
@@ -524,7 +580,7 @@ def check_spectral_adjoint(gen) -> tuple:
             m="25/33", dx_rel_l2=f"{errs[0]:.3e}",
             dwy_rel_l2=f"{errs[1]:.3e}", dwx_rel_l2=f"{errs[2]:.3e}", tol=tol)
         require(max(errs) <= tol, f"conv gradients {dtype}: {errs}")
-    return _with_h(w16, h16), k3
+    return _with_h(w16, h16), _with_h(k3, k3h)
 
 
 def build_model(device, compute_dtype, spectral_impl, gen=None,
@@ -558,7 +614,8 @@ def run_slice(gen) -> dict:
     f32_model = build_model("cuda", None, "pallas")
     f32_model.load_state_dict(state)
     eng32 = ServingEngine(f32_model, device="cuda", **norms)
-    eng32.warmup(spatial_shapes=[(128, 128)], batch_sizes=[2])
+    eng32.warmup(spatial_shapes=[(128, 128), (RES, RES)],
+                 batch_sizes=[2, BATCH])
 
     rng = np.random.default_rng(SEED)
     reqs = {res: rng.standard_normal((5 if res == RES else BATCH, 1, res,
@@ -590,6 +647,22 @@ def run_slice(gen) -> dict:
     d = [a - b for a, b in zip(counts(), before)]
     require(d == [LAYERS, 2 * LAYERS], f"f32 predict launched {d}")
     launched["f32"] = d
+    # the f32-exact predict's latency at the full bucket
+    x32 = rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32)
+    times = []
+    for _ in range(10):
+        before = counts()
+        t = time.perf_counter()
+        y32 = eng32.predict(x32)
+        times.append((time.perf_counter() - t) * 1e3)
+        d = [a - b for a, b in zip(counts(), before)]
+        require(d == [LAYERS, 2 * LAYERS], f"f32 predict at {RES}^2 "
+                f"launched {d}")
+        launched["f32"] = [a + b for a, b in zip(launched["f32"], d)]
+    require(y32.shape == x32.shape and np.isfinite(y32).all(),
+            f"f32 predict at {RES}^2: shape {y32.shape} or non-finite")
+    log("latency", bucket=f"{BATCH}x{RES}^2", mode="f32_exact", batch=BATCH,
+        median_ms=f"{statistics.median(times):.3f}")
     log("slice", launches_k1=counts()[0], launches_k2=counts()[1])
 
     for res, x in reqs.items():
@@ -747,6 +820,21 @@ def run_train() -> dict:
     trainer, state = trainer_for(None, "pallas")
     state, _ = step(trainer, state, x128, y128, "f32 gradient step")
     err32 = rel_l2(_flat_grads(state.model), ref)
+    # the f32-exact step at the train shape: 2 warm steps, 3 timed
+    trainer, state = trainer_for(None, "pallas")
+    f32_ms, f32_losses = [], []
+    for i in range(5):
+        t = time.perf_counter()
+        state, loss = step(trainer, state, xd, yd, "f32 step")
+        torch.cuda.synchronize()
+        f32_losses.append(float(loss))
+        if i >= 2:
+            f32_ms.append((time.perf_counter() - t) * 1e3)
+    log("train", cell=f"{BATCH}x{RES}^2 f32_exact",
+        median_step_ms=f"{statistics.median(f32_ms):.3f}",
+        step_ms=[f"{v:.3f}" for v in f32_ms],
+        losses=[f"{v:.6f}" for v in f32_losses])
+    require(all(np.isfinite(f32_losses)), f"f32 step losses {f32_losses}")
     tally("f32", before)
     log("train", grads_bf16_vs_cpu_f32_rel_l2=f"{err16:.3e}", tol=3e-2,
         grads_f32_vs_cpu_f32_rel_l2=f"{err32:.3e}", tol32=1e-4)

@@ -4,7 +4,8 @@
 // the newest groups. The fused FeedForward forward (fused_ff.cu) streams
 // its weights through a ring of shared-memory stages with them, so that
 // the copy of the next slice overlaps the products on the current one; the
-// spectral pass (spectral_mix.cu) streams its x rows so. Both addresses
+// spectral pass (spectral_mix.cu) streams its x rows so, and in f32 its
+// factor slices too. Both addresses
 // must be 16-byte aligned. A wait covers only the calling
 // thread's copies: a __syncthreads after it makes every thread's copies
 // visible to the block.

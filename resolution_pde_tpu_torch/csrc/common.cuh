@@ -1,12 +1,13 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// block_gemm is the CUDA-core matrix-product routine: the f32 products of
-// the spectral pass (spectral_mix.cu) and of the fused FeedForward forward
-// and backward (fused_ff.cu, fused_ff_bwd.cu) use it; their bf16 products
-// run on the tensor cores instead (mma.cuh). load_rows
+// block_gemm is the CUDA-core matrix-product routine of the f32 products
+// of the fused FeedForward forward and backward (fused_ff.cu,
+// fused_ff_bwd.cu); their bf16 products run on the tensor cores instead
+// (mma.cuh). The spectral pass (spectral_mix.cu) has block products of its
+// own in both precisions. load_rows
 // stages rows of a tile into shared memory for both FeedForward kernels.
 // In block_gemm every thread of the block owns RM x RN outputs of a
-// (batched) product and keeps them in registers while it walks the
+// product and keeps them in registers while it walks the
 // contraction axis with IEEE f32 FMAs. Operands are read
 // through functors, so one routine serves every layout the kernels stage in
 // shared memory or read from global memory (L2). The sum over k runs in
@@ -50,19 +51,15 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// For b < batch, i < M, j < N: store(b, i, j, sum_k a(b, i, k) * bm(b, k, j)).
+// For i < M, j < N: store(i, j, sum_k a(i, k) * bm(k, j)).
 template <int RM, int RN, typename AFn, typename BFn, typename StoreFn>
-__device__ void block_gemm(int batch, int M, int N, int K, AFn a, BFn bm,
-                           StoreFn store) {
+__device__ void block_gemm(int M, int N, int K, AFn a, BFn bm, StoreFn store) {
   const int mt = (M + RM - 1) / RM;
   const int nt = (N + RN - 1) / RN;
-  const int per_batch = mt * nt;
-  const int items = batch * per_batch;
+  const int items = mt * nt;
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int bi = it / per_batch;
-    const int rem = it - bi * per_batch;
-    const int i0 = (rem / nt) * RM;
-    const int j0 = (rem % nt) * RN;
+    const int i0 = (it / nt) * RM;
+    const int j0 = (it % nt) * RN;
     float acc[RM][RN];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
@@ -71,9 +68,9 @@ __device__ void block_gemm(int batch, int M, int N, int K, AFn a, BFn bm,
     for (int k = 0; k < K; ++k) {
       float av[RM], bv[RN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = (i0 + i < M) ? a(bi, i0 + i, k) : 0.f;
+      for (int i = 0; i < RM; ++i) av[i] = (i0 + i < M) ? a(i0 + i, k) : 0.f;
 #pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = (j0 + j < N) ? bm(bi, k, j0 + j) : 0.f;
+      for (int j = 0; j < RN; ++j) bv[j] = (j0 + j < N) ? bm(k, j0 + j) : 0.f;
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -83,7 +80,7 @@ __device__ void block_gemm(int batch, int M, int N, int K, AFn a, BFn bm,
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j)
-        if (i0 + i < M && j0 + j < N) store(bi, i0 + i, j0 + j, acc[i][j]);
+        if (i0 + i < M && j0 + j < N) store(i0 + i, j0 + j, acc[i][j]);
   }
 }
 
@@ -91,14 +88,13 @@ __device__ void block_gemm(int batch, int M, int N, int K, AFn a, BFn bm,
 // fewer than four rows, otherwise 8x8 when that still gives every thread of
 // the block work and 4x4 when it would not.
 template <typename AFn, typename BFn, typename StoreFn>
-__device__ void gemm(int batch, int M, int N, int K, AFn a, BFn bm,
-                     StoreFn store) {
+__device__ void gemm(int M, int N, int K, AFn a, BFn bm, StoreFn store) {
   if (M < 4) {
-    block_gemm<1, 8>(batch, M, N, K, a, bm, store);
-  } else if (batch * ((M + 7) / 8) * ((N + 7) / 8) >= static_cast<int>(blockDim.x)) {
-    block_gemm<8, 8>(batch, M, N, K, a, bm, store);
+    block_gemm<1, 8>(M, N, K, a, bm, store);
+  } else if (((M + 7) / 8) * ((N + 7) / 8) >= static_cast<int>(blockDim.x)) {
+    block_gemm<8, 8>(M, N, K, a, bm, store);
   } else {
-    block_gemm<4, 4>(batch, M, N, K, a, bm, store);
+    block_gemm<4, 4>(M, N, K, a, bm, store);
   }
 }
 

@@ -178,14 +178,14 @@ fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
     const float* wl = w + p.w_off[l];
     const float* bl = b + p.b_off[l];
     const float* h = hin;
-    auto a = [h, K](int, int i, int k) { return h[i * K + k]; };
-    auto bm = [wl, N](int, int k, int j) { return wl[k * N + j]; };
+    auto a = [h, K](int i, int k) { return h[i * K + k]; };
+    auto bm = [wl, N](int k, int j) { return wl[k * N + j]; };
     // the saved pre-activation of layer l, for rows of the tile, or null
     float* zl = kSave && l < p.n_save ? zs + row0 * p.zs_ld + p.zs_off[l] : nullptr;
     const int zs_ld = p.zs_ld;
     if (l < n_layers - 1) {
       float* ho = hout;
-      gemm(1, tr, N, K, a, bm, [=](int, int i, int j, float acc) {
+      gemm(tr, N, K, a, bm, [=](int i, int j, float acc) {
         const float z = acc + bl[j];
         if (kSave && zl != nullptr && i < rows) zl[i * zs_ld + j] = z;
         ho[i * N + j] = gelu(z, approx);
@@ -195,7 +195,7 @@ fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
       hin = hout;
       hout = t;
     } else {
-      gemm(1, tr, N, K, a, bm, [=](int, int i, int j, float acc) {
+      gemm(tr, N, K, a, bm, [=](int i, int j, float acc) {
         const float z = acc + bl[j];
         if (kSave && zl != nullptr && i < rows) zl[i * zs_ld + j] = z;
         zf[i * N + j] = z;

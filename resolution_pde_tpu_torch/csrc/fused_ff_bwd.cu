@@ -248,10 +248,8 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
               store);
         } else {
           const CD* wl = w + p.wp_off[l];
-          gemm(1, rows, N, K,
-               [h, h_ld](int, int r, int k) { return to_f(h[r * h_ld + k]); },
-               [wl, N](int, int k, int j) { return to_f(wl[k * N + j]); },
-               [=](int, int r, int j, float acc) { store(r, j, acc); });
+          gemm(rows, N, K, [h, h_ld](int r, int k) { return to_f(h[r * h_ld + k]); },
+               [wl, N](int k, int j) { return to_f(wl[k * N + j]); }, store);
         }
         __syncthreads();
       }
@@ -348,10 +346,9 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
             },
             dwl, !first, p.dw_wide[l] != 0);
       } else {
-        gemm(1, K, N, rows,
-             [h, h_ld](int, int i, int r) { return to_f(h[r * h_ld + i]); },
-             [dz, dz_ld](int, int r, int j) { return to_f(dz[r * dz_ld + j]); },
-             [=](int, int i, int j, float acc) { add(dwl + i * N + j, acc); });
+        gemm(K, N, rows, [h, h_ld](int i, int r) { return to_f(h[r * h_ld + i]); },
+             [dz, dz_ld](int r, int j) { return to_f(dz[r * dz_ld + j]); },
+             [=](int i, int j, float acc) { add(dwl + i * N + j, acc); });
       }
       mark(3 + 3 * l);
       // dh (rows x K) = dz W_l^T, handing each element to store
@@ -368,10 +365,8 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
         } else {
           // W_l^T read from the transposed copy
           const CD* wtl = wt + p.wp_off[l];
-          gemm(1, rows, K, N,
-               [dz, dz_ld](int, int r, int k) { return to_f(dz[r * dz_ld + k]); },
-               [wtl, K](int, int k, int i) { return to_f(wtl[k * K + i]); },
-               [=](int, int r, int i, float acc) { store(r, i, acc); });
+          gemm(rows, K, N, [dz, dz_ld](int r, int k) { return to_f(dz[r * dz_ld + k]); },
+               [wtl, K](int k, int i) { return to_f(wtl[k * K + i]); }, store);
         }
       };
       if (l > 0) {

@@ -21,7 +21,10 @@ the TPU kernel does. In bf16 the kernel runs its products on the tensor
 cores and takes its operands in its own layouts, prepared here: the DFT
 factors transposed and packed in fragment order (``kernel_factors``,
 cached by shape) and each mode's blocks padded (``kernel_weight``, once
-per launch).
+per launch). In f32 (the f32-exact mode) the products are IEEE f32 FMAs
+on the CUDA cores, and the operands are the factors zero-padded to the
+kernel's tiles (``kernel_factors_f32``, cached by shape) and each mode's
+blocks padded to 8 channels (``kernel_weight_f32``, once per launch).
 
 The op is linear in x, so its adjoint is the same pass with transposed
 factors (f2' = i2^T, i2' = f2^T) and each mode's weight conjugated and
@@ -162,6 +165,67 @@ def kernel_weight(wab: torch.Tensor) -> torch.Tensor:
         return out
     cols = _stage_columns(c8, o8, wab.device)
     return out.gather(3, cols.expand(m, 2, c8, o8))
+
+
+# the f32 kernel's tiles (csrc/spectral_mix.cu): a block product's rows
+# (packed modes of the forward, points of the inverse), the forward's
+# contraction slice (points), the most channels a tile's columns hold (a
+# tile of one row) and the most modes its spectra's shared memory holds
+_F32_TILE_M = 128
+_F32_K1 = 32
+_F32_MAX_CHANNELS = 256
+_F32_MAX_MODES = 64
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_factors_f32(n: int, m: int, norm: str, device: torch.device,
+                       adjoint: bool = False):
+    """The f32 kernel's DFT factors for a pass, or with ``adjoint`` for its
+    adjoint: f2 (n, 2m) of ``packed_factors`` (of ``adjoint_factors``)
+    zero-padded to (n rounded up to 32, 2m rounded up to 128) and i2
+    (2m, n) zero-padded to (2m rounded up to 128, n rounded up to 128),
+    both f32, contiguous and row-major, so that every slice the kernel
+    copies is whole and its inner loops need no bounds. Shared between
+    callers, so read-only."""
+    f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
+                                                              device)
+    sr = _round_up(2 * m, _F32_TILE_M)
+    f2p = torch.zeros((_round_up(n, _F32_K1), sr), dtype=torch.float32,
+                      device=device)
+    f2p[:n, :2 * m] = f2
+    i2p = torch.zeros((sr, _round_up(n, _F32_TILE_M)), dtype=torch.float32,
+                      device=device)
+    i2p[:2 * m, :n] = i2
+    return f2p, i2p
+
+
+def kernel_weight_f32(wab: torch.Tensor) -> torch.Tensor:
+    """(m, 2, C, O) blocks a | b -> the f32 kernel's (m, 2, C8, O8): C and
+    O rounded up to 8 with zeros in the padding, in f32. The kernel makes
+    the packed form's -b itself."""
+    m, _, c, o = wab.shape
+    c8, o8 = _round_up(c, 8), _round_up(o, 8)
+    make = torch.empty if (c, o) == (c8, o8) else torch.zeros
+    out = make((m, 2, c8, o8), dtype=torch.float32, device=wab.device)
+    out[:, :, :c, :o] = wab
+    return out
+
+
+def _check_f32_shape(m: int, c: int, o: int) -> None:
+    """The f32 kernel's tile holds at most 256 channels in and out (after
+    padding to 8; a tile of 4 rows up to 64, of 2 up to 128, of 1 up to
+    256) and 64 modes (its spectra, 2m padded to 128 rows, stay in shared
+    memory)."""
+    if (max(_round_up(c, 8), _round_up(o, 8)) > _F32_MAX_CHANNELS
+            or m > _F32_MAX_MODES):
+        raise ValueError(
+            f"spectral_axis_pass f32 kernel takes at most "
+            f"{_F32_MAX_CHANNELS} channels and {_F32_MAX_MODES} modes, got "
+            f"C={c}, O={o}, m={m}")
 
 
 def spectral_pass_reference(x, f2, i2, wpk, compute_dtype):
@@ -312,6 +376,8 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         raise ValueError(f"spectral_axis_pass: all tensors must be on "
                          f"{x.device}")
     m, o = wab.shape[0], wab.shape[3]
+    if cd == torch.float32:
+        _check_f32_shape(m, c, o)
     out_shape = (b, h, w, o)
     if acc is None:
         out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -327,11 +393,8 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         f2c, i2c = kernel_factors(n, m, norm, x.device, adjoint)
         wk = kernel_weight(wab)
     else:
-        # packed_factors' i2 is column-major; the f32 kernel reads rows
-        f2c, i2c = (t.contiguous() for t in (
-            adjoint_factors if adjoint else packed_factors)(n, m, norm,
-                                                            x.device))
-        wk = pack_blocks(wab).float()
+        f2c, i2c = kernel_factors_f32(n, m, norm, x.device, adjoint)
+        wk = kernel_weight_f32(wab)
     so = out.stride()
     sx = x.stride()
     if axis == 2:   # rows (b, h), points along w

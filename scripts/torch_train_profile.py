@@ -2,9 +2,11 @@
 """Device-time breakdown of the port's FFNO2D train step on one GPU.
 
     python3 scripts/torch_train_profile.py [--steps 5] [--out build/profile]
+                                           [--f32]
 
 Trains FFNO2D at the width of bench.py:73-110 (bf16, spectral_impl
-'pallas2', ff_impl 'fused', random weights from seed 0) on bench.py's
+'pallas2', ff_impl 'fused', random weights from seed 0; with ``--f32`` the
+f32-exact mode, compute_dtype None and spectral_impl 'pallas') on bench.py's
 synthetic task (8 x 256², y = x rolled by 7 along W) through the port's
 Trainer, warms 3 steps, then records ``--steps`` steps with torch.profiler
 (CPU + CUDA activities, no host sync inside the window). Prints the card's
@@ -21,7 +23,8 @@ shares, and device ms per step by kernel family:
   other    every other kernel (projections, weight gradients of the
            spectral passes, casts, AdamW, ...) and copies
 The chrome trace goes to ``--out``/train_step_trace.json and the summary,
-as JSON, to ``--out``/train_step_profile.json. Needs CUDA.
+as JSON, to ``--out``/train_step_profile.json (``_f32`` before ``.json``
+with ``--f32``). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--f32", action="store_true",
+                    help="profile the f32-exact step instead of the bf16 one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: CUDA is not available", file=sys.stderr)
@@ -71,7 +76,8 @@ def main() -> int:
     model = FFNO2D(in_channels=1, out_channels=1, width=64, n_layers=4,
                    n_modes=64, factor=4, ff_weight_norm=True, n_ff_layers=3,
                    layer_norm=True, dropout=0.0,
-                   compute_dtype=torch.bfloat16, spectral_impl="pallas2",
+                   compute_dtype=None if args.f32 else torch.bfloat16,
+                   spectral_impl="pallas" if args.f32 else "pallas2",
                    approx_gelu=True, ff_impl="fused", device="cuda",
                    generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, learning_rate=1e-3, device="cuda")
@@ -90,8 +96,9 @@ def main() -> int:
             state, loss = trainer.train_step(state, xd, yd)
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
+    tag = "_f32" if args.f32 else ""
     prof.export_chrome_trace(os.path.join(args.out,
-                                          "train_step_trace.json"))
+                                          f"train_step_trace{tag}.json"))
 
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -128,6 +135,7 @@ def main() -> int:
     span_ms = (end - start) / 1e3 / n
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "mode": "f32" if args.f32 else "bf16",
         "steps": n, "span_ms_per_step": span_ms,
         "busy_ms_per_step": busy / 1e3 / n,
         "idle_share": 1.0 - busy / (end - start),
@@ -136,7 +144,8 @@ def main() -> int:
         "launches_per_step": {k: v / n for k, v in launches.items()},
         "loss": float(loss),
     }
-    with open(os.path.join(args.out, "train_step_profile.json"), "w") as f:
+    with open(os.path.join(args.out, f"train_step_profile{tag}.json"),
+              "w") as f:
         json.dump(summary, f, indent=1)
     top = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
     print(top)

@@ -29,6 +29,7 @@ from resolution_pde_tpu_torch.ops.kernels import fused_ff  # noqa: E402
 from resolution_pde_tpu_torch.ops.kernels import spectral_mix as tmix  # noqa: E402
 from resolution_pde_tpu_torch.ops.losses import relative_l2  # noqa: E402
 from resolution_pde_tpu_torch.utils.jax_bridge import ffno2d_state_dict  # noqa: E402
+from test_torch_spectral_mix import _plain_pass_f32_operands  # noqa: E402
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 DIM, FACTOR = 8, 2
@@ -241,6 +242,37 @@ def test_axis_adjoint_and_weight_grad_match_jax_vjp(n, n_modes, c, o):
         jdx, jdw = vjp(jnp.asarray(g))
         np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **F32)
         np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), **F32)
+
+
+# (n, n_modes, C, O): ragged shapes of the f32 kernel's tiles, and wider
+# channels than a tile of 4 rows holds
+F32_ADJOINT_CASES = [(40, 17, 24, 40), (15, 10, 4, 3), (32, 17, 5, 3),
+                     (16, 8, 136, 96)]
+
+
+@pytest.mark.parametrize(
+    "n,n_modes,c,o", F32_ADJOINT_CASES,
+    ids=[f"{n}-{k}-{c}-{o}" for n, k, c, o in F32_ADJOINT_CASES])
+def test_f32_kernel_adjoint_operands_match_jax_vjp(n, n_modes, c, o):
+    """The adjoint computed plainly from the f32 kernel's own operands (the
+    adjoint's padded factors and the padded blocks a^T | -b^T) against
+    jax.vjp of the JAX package's f32-exact kernel in interpret mode."""
+    rng = np.random.default_rng(n * 13 + o)
+    x = rng.standard_normal((5, n, c)).astype(np.float32)
+    w = _weight(rng, c, o, n_modes)
+    g = rng.standard_normal((5, n, o)).astype(np.float32)
+    m = min(n_modes, n // 2 + 1)
+    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", torch.device("cpu"),
+                                       adjoint=True)
+    wk = tmix.kernel_weight_f32(
+        tmix.adjoint_blocks(tmix.mix_blocks(torch.from_numpy(w), m)))
+    dx = _plain_pass_f32_operands(torch.from_numpy(g), f2p, i2p, wk, n, m,
+                                  o, c)
+    _, vjp = jax.vjp(lambda a, b: jmix.truncated_spectral_mix_1d(
+        a, b, n_modes, interpret=True), jnp.asarray(x), jnp.asarray(w))
+    jdx, _ = vjp(jnp.asarray(g))
+    assert dx.shape == (5, n, c)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **F32)
 
 
 def test_axis_adjoint_is_the_adjoint():

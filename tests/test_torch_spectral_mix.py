@@ -283,3 +283,108 @@ def test_plain_pass_from_kernel_operands(adjoint):
     want = tmix.spectral_pass_reference(x, f2, i2, wpk, torch.bfloat16)
     assert got.shape == (3, n, cout)
     assert torch.equal(got, want)
+
+
+# -- the f32 kernel's operands ------------------------------------------
+
+
+def _plain_pass_f32_operands(x, f2p, i2p, wk, n, m, c, o):
+    """The f32 kernel's pass, written plainly on its own padded operands:
+    x (R, n, C) zero-padded to f2p's points and C8 channels, the forward
+    product over every padded mode row, the mix of each mode's padded
+    blocks a | b as the complex product (re = zr a - zi b, im = zr b + zi a)
+    over z_k, the inverse over every padded mode row and point, cropped to
+    (R, n, O)."""
+    n1, sr = f2p.shape
+    c8, o8 = wk.shape[2], wk.shape[3]
+    xp = torch.zeros((x.shape[0], n1, c8))
+    xp[:, :n, :c] = x
+    z = torch.einsum("rwc,wj->rjc", xp, f2p)
+    mk = torch.zeros((x.shape[0], sr, o8))
+    for k in range(m):
+        zr, zi, a, b = z[:, k], z[:, m + k], wk[k, 0], wk[k, 1]
+        mk[:, k] = zr @ a - zi @ b
+        mk[:, m + k] = zr @ b + zi @ a
+    return torch.einsum("rjo,jw->rwo", mk, i2p)[:, :n, :o]
+
+
+# (n, n_modes, C, O): ragged shapes of the f32 kernel's tiles, and wider
+# channels (tiles of 2 rows, and of 1)
+F32_CASES = [(40, 17, 24, 40), (32, 17, 24, 40), (15, 8, 5, 3), (16, 12, 4, 3),
+             (16, 8, 96, 128), (12, 5, 200, 136)]
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("n,n_modes", [(256, 64), (64, 64), (40, 17), (15, 8)])
+def test_kernel_factors_f32_pad_to_whole_tiles(n, n_modes, adjoint):
+    """The f32 kernel reads f2 (n, 2m) padded to (n rounded up to 32, 2m
+    rounded up to 128) and i2 (2m, n) padded to (2m rounded up to 128, n
+    rounded up to 128): the factors bit for bit, zeros around them,
+    contiguous f32, made once per shape and direction."""
+    m = min(n_modes, n // 2 + 1)
+    cpu = torch.device("cpu")
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", cpu, adjoint)
+    sr = -(-2 * m // 128) * 128
+    assert f2p.shape == (-(-n // 32) * 32, sr)
+    assert i2p.shape == (sr, -(-n // 128) * 128)
+    for padded, mat in ((f2p, f2), (i2p, i2)):
+        rows, cols = mat.shape
+        assert padded.dtype == torch.float32 and padded.is_contiguous()
+        assert torch.equal(padded[:rows, :cols], mat)
+        assert not padded[rows:].any() and not padded[:, cols:].any()
+    again = tmix.kernel_factors_f32(n, m, "ortho", cpu, adjoint)
+    assert again[0] is f2p and again[1] is i2p
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("c,o", [(4, 3), (24, 40), (64, 64), (5, 64),
+                                 (96, 128), (200, 136)])
+def test_kernel_weight_f32_pads_each_mode(c, o, transpose):
+    """The f32 kernel reads each mode's blocks a | b as (2, C8, O8) f32,
+    zeros in the padding; for the adjoint the blocks a^T | -b^T."""
+    rng = np.random.default_rng(c * o + 1)
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, 7)), 5)
+    w = tmix.adjoint_blocks(wab) if transpose else wab
+    ci, co = (o, c) if transpose else (c, o)
+    wk = tmix.kernel_weight_f32(w)
+    assert wk.dtype == torch.float32 and wk.is_contiguous()
+    assert wk.shape == (5, 2, -(-ci // 8) * 8, -(-co // 8) * 8)
+    assert torch.equal(wk[:, :, :ci, :co], w)
+    assert not wk[:, :, ci:].any() and not wk[:, :, :, co:].any()
+
+
+@pytest.mark.parametrize("n,n_modes,c,o", F32_CASES, ids=_ids(F32_CASES))
+def test_plain_pass_from_f32_kernel_operands_matches_jax(n, n_modes, c, o):
+    """The pass computed plainly from the f32 kernel's own padded operands
+    against the JAX package's f32-exact kernel (``truncated_spectral_mix_1d``
+    in interpret mode), at ragged shapes: the padding adds nothing."""
+    rng = np.random.default_rng(n * 31 + c)
+    x = rng.standard_normal((5, n, c)).astype(np.float32)
+    w = _weight(rng, c, o, n_modes)
+    m = min(n_modes, n // 2 + 1)
+    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", torch.device("cpu"))
+    wk = tmix.kernel_weight_f32(tmix.mix_blocks(torch.from_numpy(w), m))
+    got = _plain_pass_f32_operands(torch.from_numpy(x), f2p, i2p, wk, n, m,
+                                   c, o)
+    want = np.asarray(jmix.truncated_spectral_mix_1d(
+        jnp.asarray(x), jnp.asarray(w), n_modes, interpret=True))
+    assert got.shape == (5, n, o)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("m,c,o,fits", [
+    (65, 64, 64, False), (64, 264, 64, False), (64, 64, 257, False),
+    (8, 4, 3, True), (64, 64, 64, True), (64, 72, 64, True),
+    (64, 128, 121, True), (64, 256, 249, True)])
+def test_f32_kernel_shape_limits(m, c, o, fits):
+    """The f32 kernel's tile holds up to 256 channels in and out (after
+    padding to 8; 4 rows a tile up to 64, 2 up to 128, 1 up to 256) and 64
+    modes; the launcher refuses more before any launch, and lets the rest
+    through."""
+    if fits:
+        tmix._check_f32_shape(m, c, o)
+    else:
+        with pytest.raises(ValueError, match="at most"):
+            tmix._check_f32_shape(m, c, o)
