@@ -15,8 +15,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   4. K1b, its backward kernel, against the plain backward: bf16 (its
      tensor-core products) at the train shape with LayerNorm, at a ragged
      shape without and at a ragged one-layer shape with; f32 (its CUDA-core
-     products) at the ragged shape and at the train shape; and the
-     saved-pre-activation variant in bf16 (ff_impl 'fused_saved');
+     products on weights streamed through shared memory) at the ragged
+     shape, at 30->50->50->30 with LayerNorm, at a one-layer shape with
+     LayerNorm, with bf16 x, g and dx, and at the train shape, two calls
+     there compared bit for bit; and the saved-pre-activation variant in
+     bf16 (ff_impl 'fused_saved');
   5. K2, the fused spectral axis pass, against its plain version on the
      card: bf16 (its tensor-core products) at the train shape along W and
      along H read in place and added into acc, each timed, and at ragged
@@ -307,14 +310,18 @@ def check_fused_ff_bwd(gen) -> tuple:
     saved-pre-activation variant's time, plain time and bound beside it."""
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
-    def case(n, dims, *, ln, approx, dtype, tol, label, save=False):
+    def case(n, dims, *, ln, approx, dtype, tol, label, save=False,
+             io=None, repeat=False):
+        # io: the type of x, g and dx (dtype if None); repeat: a second
+        # call on the same inputs must give the same bits
+        io = io or dtype
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
               for i in range(len(dims) - 1)]
         bs = [randn((d,), gen, 0.1) for d in dims[1:]]
         lnp = (1.0 + randn((dims[-1],), gen, 0.1),
                randn((dims[-1],), gen, 0.1)) if ln else None
-        x = randn((n, dims[0]), gen, dtype=dtype)
-        g = randn((n, dims[-1]), gen, dtype=dtype)
+        x = randn((n, dims[0]), gen, dtype=io)
+        g = randn((n, dims[-1]), gen, dtype=io)
         kw = dict(approx_gelu=approx, compute_dtype=dtype)
         zs, zs_ref = None, None
         if save:
@@ -348,6 +355,13 @@ def check_fused_ff_bwd(gen) -> tuple:
                 f"K1b {label}: non-finite gradient")
         bad = {k: v for k, v in errs.items() if not v <= tol}
         require(not bad, f"K1b {label}: rel_l2 above {tol}: {bad}")
+        if repeat:
+            again = fused_ff.fused_feedforward_bwd(x, g, ks, bs, lnp,
+                                                   zs_saved=zs, **kw)
+            same = all(bool(torch.equal(a, b))
+                       for a, b in zip(flat(got), flat(again)))
+            log("K1b", case=f"{label}_repeat", bit_equal=same)
+            require(same, f"K1b {label}: two calls on the same inputs differ")
         saved = zs.shape[1] if save else 0
         return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
                     **_ff_cost(n, dims, ln, False, dtype, 2 if save else 3,
@@ -372,8 +386,16 @@ def check_fused_ff_bwd(gen) -> tuple:
     # 524,288 rows of the train shape the sums are long, hence 1e-4 there
     case(1000, ragged, ln=False, approx=False, dtype=torch.float32, tol=1e-5,
          label="ragged_f32")
+    # widths no multiple of 4 (the weights' zero padding, the masked
+    # columns), one layer with LayerNorm, and bf16 x, g and dx
+    case(1000, [30, 50, 50, 30], ln=True, approx=True, dtype=torch.float32,
+         tol=1e-5, label="ragged30_f32_ln")
+    case(1000, ragged[:2], ln=True, approx=True, dtype=torch.float32,
+         tol=1e-5, label="ragged_f32_ln_1layer")
+    case(1000, ragged, ln=False, approx=False, dtype=torch.float32,
+         tol=1e-2, label="ragged_f32_bf16_io", io=torch.bfloat16)
     f32 = case(BATCH * RES * RES, dims, ln=True, approx=True,
-               dtype=torch.float32, tol=1e-4, label="train_f32")
+               dtype=torch.float32, tol=1e-4, label="train_f32", repeat=True)
     saved = case(BATCH * RES * RES, dims, ln=True, approx=True,
                  dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
     bench.update(saved_ms=saved["ms"], saved_plain_ms=saved["plain_ms"],

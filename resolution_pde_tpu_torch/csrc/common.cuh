@@ -1,11 +1,12 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
 // block_gemm is the CUDA-core matrix-product routine of the f32 products
-// of the fused FeedForward forward and backward (fused_ff.cu,
-// fused_ff_bwd.cu); their bf16 products run on the tensor cores instead
-// (mma.cuh). The spectral pass (spectral_mix.cu) has block products of its
-// own in both precisions. load_rows
-// stages rows of a tile into shared memory for both FeedForward kernels.
+// of the fused FeedForward forward (fused_ff.cu); its bf16 products run on
+// the tensor cores instead (mma.cuh), and the backward's f32 products on
+// weights streamed through shared memory (f32_tile_gemm, fused_ff.cuh). The
+// spectral pass (spectral_mix.cu) has block products of its own in both
+// precisions. load_rows stages rows of a tile into shared memory for both
+// FeedForward kernels.
 // In block_gemm every thread of the block owns RM x RN outputs of a
 // product and keeps them in registers while it walks the
 // contraction axis with IEEE f32 FMAs. Operands are read

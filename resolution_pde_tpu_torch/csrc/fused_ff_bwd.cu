@@ -54,10 +54,33 @@
 // bf16 rows padded to whole fragments plus 8 columns so that ldmatrix
 // meets no bank conflict). The bf16 buffers are zeroed once and dz is
 // zero on the rows past the end of the last tile, so the products run on
-// whole fragments. In f32 (the f32-exact mode, held to 1e-5) the products
-// stay on the CUDA cores in IEEE f32 FMAs (block_gemm) and the slabs
-// row-major.
+// whole fragments.
+//
+// In f32 (the f32-exact mode, held to 1e-5: fused_ff_bwd_f32_kernel) the
+// products stay IEEE f32 FMAs on the CUDA cores, no TF32: the same 309
+// GFLOP at the bench shape are 4.6 ms at the card's 67 TFLOP/s, which
+// bounds the kernel; the slabs (row-major here) add 12.9 GB, some 3.9 ms
+// of device memory traffic. To run near the FMA rate the operands must
+// come from shared memory in wide loads, with each loaded value used many
+// times from registers. So:
+//   - the recompute and dh (f32_tile_gemm, fused_ff.cuh) stream the
+//     layer's weight (zero-padded to multiples of 4 by the caller) through
+//     a ring of two shared-memory stages of 32 contraction rows by 16-byte
+//     cp.async copies (dh's first slice while dW runs); a thread keeps 8 x
+//     4 sums whose operands are 16-byte shared loads, a warp's lanes 4 row
+//     groups x 8 column groups, so that a load reads 64 or 128 bytes; the
+//     threads the outputs leave idle take part of the contraction, and the
+//     groups' sums are reduce-scattered in a fixed order, so that every
+//     group shares the epilogue;
+//   - dW (f32_dw_add) runs in the same register tiles and reads and
+//     rewrites the slab 16 bytes a lane, the earlier tiles' sums loaded
+//     before its products so that their latency is hidden;
+//   - 32-row tiles (all that fits beside the ring at bench dims), the rows
+//     padded to whole float4s plus 4 floats so that the rows a warp's A
+//     loads read fall in other banks.
+// On an H100 its products run at 28-30 % of the FMA rate (PERF.md).
 
+#include <algorithm>
 #include <type_traits>
 
 #include "fused_ff.cuh"
@@ -145,15 +168,15 @@ __device__ void column_sums(int n, int rows, float* scratch, RowFn row, OutFn ou
   }
 }
 
-template <typename CD, typename IO>
+// bf16 compute type: the products on the tensor cores (mma.cuh)
+template <typename IO>
 __global__ void __launch_bounds__(kBwdThreads)
 fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
-                    const CD* __restrict__ zs, IO* __restrict__ dx,
-                    const CD* __restrict__ w, const CD* __restrict__ wt,
+                    const __nv_bfloat16* __restrict__ zs, IO* __restrict__ dx,
+                    const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ wt,
                     const float* __restrict__ b, const float* __restrict__ ln_s,
                     float* __restrict__ partials, long long n_rows, BwdParams p) {
-  // bf16 products on the tensor cores (mma.cuh), f32 ones on the CUDA cores
-  constexpr bool kTensorCores = std::is_same<CD, __nv_bfloat16>::value;
+  using CD = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tr = p.tile_rows;
   const int L = p.n_layers;
@@ -197,7 +220,7 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
     const long long row0 = tile * tr;
     const int rows = static_cast<int>(min(static_cast<long long>(tr), n_rows - row0));
     // the dW products contract over whole fragments of 16 rows
-    const int rows_pad = kTensorCores ? (rows + 15) / 16 * 16 : rows;
+    const int rows_pad = (rows + 15) / 16 * 16;
     auto add = [first](float* dst, float v) { *dst = first ? v : *dst + v; };
     // h_l = GELU(z_{l-1}) in CD, rebuilt into dst (row stride dz_ld)
     auto rebuild_h = [&](int l, CD* dst) {
@@ -237,20 +260,14 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
           zl[r * z_ld + j] = z;
           if (hn != nullptr) hn[r * dz_ld + j] = from_f<CD>(gelu_call(z, approx));
         };
-        if constexpr (kTensorCores) {
-          // W_l[k][j] read from the transposed copy, k contiguous
-          const CD* wtl = wt + p.wp_off[l];
-          const int kp = (K + 15) / 16 * 16;
-          mma_gemm(
-              rows, N, K,
-              [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, h, h_ld, m0, k0); },
-              [wtl, kp](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wtl, kp, k0, n0); },
-              store);
-        } else {
-          const CD* wl = w + p.wp_off[l];
-          gemm(rows, N, K, [h, h_ld](int r, int k) { return to_f(h[r * h_ld + k]); },
-               [wl, N](int k, int j) { return to_f(wl[k * N + j]); }, store);
-        }
+        // W_l[k][j] read from the transposed copy, k contiguous
+        const CD* wtl = wt + p.wp_off[l];
+        const int kp = (K + 15) / 16 * 16;
+        mma_gemm(
+            rows, N, K,
+            [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, h, h_ld, m0, k0); },
+            [wtl, kp](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wtl, kp, k0, n0); },
+            store);
         __syncthreads();
       }
     }
@@ -337,37 +354,22 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       const CD* dz = dzc;
       // dW_l (K x N) += h_l^T dz over the tile's rows
       float* dwl = slab + p.sw_off[l];
-      if constexpr (kTensorCores) {
-        mma_gemm_add(
-            K, N, rows_pad,
-            [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a_trans(a, h, h_ld, m0, k0); },
-            [dz, dz_ld](uint32_t (&bf)[2], int k0, int n0) {
-              frag_b_trans(bf, dz, dz_ld, k0, n0);
-            },
-            dwl, !first, p.dw_wide[l] != 0);
-      } else {
-        gemm(K, N, rows, [h, h_ld](int i, int r) { return to_f(h[r * h_ld + i]); },
-             [dz, dz_ld](int r, int j) { return to_f(dz[r * dz_ld + j]); },
-             [=](int i, int j, float acc) { add(dwl + i * N + j, acc); });
-      }
+      mma_gemm_add(
+          K, N, rows_pad,
+          [h, h_ld](uint32_t (&a)[4], int m0, int k0) { frag_a_trans(a, h, h_ld, m0, k0); },
+          [dz, dz_ld](uint32_t (&bf)[2], int k0, int n0) { frag_b_trans(bf, dz, dz_ld, k0, n0); },
+          dwl, !first, p.dw_wide[l] != 0);
       mark(3 + 3 * l);
       // dh (rows x K) = dz W_l^T, handing each element to store
       auto dh_product = [&](auto store) {
-        if constexpr (kTensorCores) {
-          // W_l^T[j][i] = W_l[i][j] read from the packed copy, j contiguous
-          const CD* wl = w + p.wp_off[l];
-          const int np = (N + 15) / 16 * 16;
-          mma_gemm(
-              rows, K, N,
-              [dz, dz_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, dz, dz_ld, m0, k0); },
-              [wl, np](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wl, np, k0, n0); },
-              store);
-        } else {
-          // W_l^T read from the transposed copy
-          const CD* wtl = wt + p.wp_off[l];
-          gemm(rows, K, N, [dz, dz_ld](int r, int k) { return to_f(dz[r * dz_ld + k]); },
-               [wtl, K](int k, int i) { return to_f(wtl[k * K + i]); }, store);
-        }
+        // W_l^T[j][i] = W_l[i][j] read from the packed copy, j contiguous
+        const CD* wl = w + p.wp_off[l];
+        const int np = (N + 15) / 16 * 16;
+        mma_gemm(
+            rows, K, N,
+            [dz, dz_ld](uint32_t (&a)[4], int m0, int k0) { frag_a(a, dz, dz_ld, m0, k0); },
+            [wl, np](uint32_t (&bf)[2], int k0, int n0) { frag_b_global(bf, wl, np, k0, n0); },
+            store);
       };
       if (l > 0) {
         float* zp = zbuf + p.z_off[l - 1];
@@ -393,6 +395,343 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       } else {
         IO* dxt = dx + row0 * c_in;
         dh_product([=](int r, int i, float acc) { dxt[r * c_in + i] = from_f<IO>(acc); });
+        mark(4);
+      }
+    }
+    __syncthreads();
+#ifdef RPDE_K1B_PHASES
+    mark(kPhaseTail);
+#endif
+    first = false;
+  }
+}
+
+__host__ __device__ inline int pad4(int d) { return (d + 3) / 4 * 4; }
+
+// dst (f32 slab) = v on a block's first tile, dst + v on later ones
+__device__ __forceinline__ void slab_add(float* dst, float v, bool first) {
+  *dst = first ? v : *dst + v;
+}
+
+// The f32 kernel's LayerNorm, db and h steps, below, are the bf16
+// kernel's code, which keeps its own copy: compiled through these
+// functions it took an 8-byte stack frame and 2 % more time on an H100
+// (PERF.md).
+
+// h_l = GELU(z_{l-1}), rebuilt into dst (row stride dz_ld): a thread
+// walks one column (or a few) down rows spaced by the block's threads per
+// column, so there is no division per element
+__device__ __forceinline__ void f32_rebuild_h(const BwdParams& p, int l, const float* zbuf,
+                                              float* dst, int rows, bool approx) {
+  const int N = p.dims[l];
+  const float* z = zbuf + p.z_off[l - 1];
+  const int per_row = min(N, static_cast<int>(blockDim.x));
+  const int r_step = static_cast<int>(blockDim.x) / per_row;
+  const int r_first = threadIdx.x / per_row;
+  if (r_first >= r_step) return;
+  for (int j = threadIdx.x - r_first * per_row; j < N; j += per_row)
+    for (int r = r_first; r < rows; r += r_step)
+      dst[r * p.dz_ld + j] = gelu(z[r * p.z_ld + j], approx);
+}
+
+// Step 2 of a tile: dz of the last layer into dzc, from the LayerNorm
+// backward on the tile's z (zbuf) and the cotangent rows gt, or gt itself
+// without LayerNorm; the last layer's bias gradient and the LayerNorm
+// gradients added into the slab. Ends with column_sums (no barrier after
+// it).
+template <typename IO>
+__device__ __forceinline__ void f32_last_layer_dz(const BwdParams& p, const IO* __restrict__ gt,
+                                                  const float* __restrict__ ln_s,
+                                                  const float* zbuf, float* stats, float* dzc,
+                                                  float* scratch, float* slab, int rows,
+                                                  bool first) {
+  const int L = p.n_layers;
+  const int c_out = p.dims[L];
+  const int z_ld = p.z_ld, dz_ld = p.dz_ld;
+  float* db_last = slab + p.db_base + p.b_off[L - 1];
+  if (p.has_ln) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int n_warps = blockDim.x / 32;
+    const float* zl = zbuf + p.z_off[L - 1];
+#pragma unroll 4
+    for (int r = warp; r < rows; r += n_warps) {  // one warp a row
+      const float* z = zl + r * z_ld;
+      float s = 0.f;
+      for (int c = lane; c < c_out; c += 32) s += z[c];
+      const float mu = warp_sum(s) / c_out;
+      float v = 0.f;
+      for (int c = lane; c < c_out; c += 32) {
+        const float d = z[c] - mu;
+        v += d * d;
+      }
+      const float rstd = rsqrtf(warp_sum(v) / c_out + kLnEps);
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < c_out; c += 32) {
+        const float dxhat = to_f(gt[r * c_out + c]) * ln_s[c];
+        s1 += dxhat;
+        s2 += dxhat * ((z[c] - mu) * rstd);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        stats[r * 4 + 0] = mu;
+        stats[r * 4 + 1] = rstd;
+        stats[r * 4 + 2] = s1 / c_out;
+        stats[r * 4 + 3] = s2 / c_out;
+      }
+    }
+    __syncthreads();
+    column_sums<3>(
+        c_out, rows, scratch,
+        [&](int r, int j, float (&s)[3]) {
+          const float* st = stats + r * 4;
+          const float gv = to_f(gt[r * c_out + j]);
+          const float xhat = (zl[r * z_ld + j] - st[0]) * st[1];
+          const float dxhat = gv * __ldg(ln_s + j);
+          const float dz = st[1] * (dxhat - st[2] - xhat * st[3]);
+          dzc[r * dz_ld + j] = dz;
+          s[0] += dz;
+          s[1] += gv * xhat;
+          s[2] += gv;
+        },
+        [&](int j, const float (&s)[3]) {
+          slab_add(db_last + j, s[0], first);
+          slab_add(slab + p.ln_base + j, s[1], first);
+          slab_add(slab + p.ln_base + c_out + j, s[2], first);
+        });
+  } else {
+    column_sums<1>(
+        c_out, rows, scratch,
+        [&](int r, int j, float (&s)[1]) {
+          const float gv = to_f(gt[r * c_out + j]);
+          dzc[r * dz_ld + j] = gv;
+          s[0] += gv;
+        },
+        [&](int j, const float (&s)[1]) { slab_add(db_last + j, s[0], first); });
+  }
+}
+
+// Step 3's hand-over from layer l to l - 1: dz_{l-1}, which the dh
+// product left over z_{l-1} in zbuf, copied into dzc, and db_{l-1} (its
+// sum over rows) added into the slab.
+__device__ __forceinline__ void f32_hidden_dz(const BwdParams& p, int l, const float* zbuf,
+                                              float* dzc, float* scratch, float* slab, int rows,
+                                              bool first) {
+  const float* zp = zbuf + p.z_off[l - 1];
+  const int z_ld = p.z_ld, dz_ld = p.dz_ld;
+  column_sums<1>(
+      p.dims[l], rows, scratch,
+      [&](int r, int j, float (&s)[1]) {
+        const float v = zp[r * z_ld + j];
+        dzc[r * dz_ld + j] = v;
+        s[0] += v;
+      },
+      [&](int j, const float (&s)[1]) {
+        slab_add(slab + p.db_base + p.b_off[l - 1] + j, s[0], first);
+      });
+}
+
+// dst (k x n, row-major: a slab's dW_l) = sum over r < rows of
+// h[r * h_ld + i] dz[r * dz_ld + j], plus dst's value unless first; the sum
+// over the rows runs in order before it is added. A thread owns 8 x 4 sums
+// (i x j): h and dz are read as float4s (rows 16-byte aligned, h finite up
+// to the next multiple of 8 columns, dz up to the next multiple of 4), a
+// warp's lanes holding 4 groups of i x 8 groups of j, so that each of its
+// shared loads reads 4 or 8 distinct 16-byte pieces; dst is read and
+// written as float4s where n % 4 == 0 and dst is 16-byte aligned, so that
+// a warp moves four runs of 128 contiguous bytes, and one float at a time
+// otherwise.
+__device__ __forceinline__ void f32_dw_add(int k, int n, int rows, const float* h, int h_ld,
+                                           const float* dz, int dz_ld, float* dst, bool first) {
+  const int n4 = (n + 3) / 4;
+  const int m8 = (k + 7) / 8;
+  // in blocks of 8 groups of j, each block's groups of i in turn
+  const int items = (n4 + 7) / 8 * m8 * 8;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int cg = (it >> 3) / m8 * 8 + (it & 7);
+    if (cg >= n4) continue;
+    const int i0 = (it >> 3) % m8 * 8;
+    const int j0 = cg * 4;
+    // the slab's sums of the earlier tiles, loaded before the products so
+    // that their latency (device memory: the slabs outgrow L2) is hidden
+    float4 old[8];
+    if (vec && !first)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i0 + i < k)
+          old[i] = *reinterpret_cast<const float4*>(dst + static_cast<long long>(i0 + i) * n + j0);
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(h + r * h_ld + i0);
+      const float4 a1 = *reinterpret_cast<const float4*>(h + r * h_ld + i0 + 4);
+      const float4 bv = *reinterpret_cast<const float4*>(dz + r * dz_ld + j0);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
+        acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
+        acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
+        acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i0 + i >= k) break;
+      float* d = dst + static_cast<long long>(i0 + i) * n + j0;
+      if (vec) {
+        float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        if (!first) {
+          const float4 o = old[i];
+          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+        }
+        *reinterpret_cast<float4*>(d) = v;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + q < n) slab_add(d + q, acc[i][q], first);
+      }
+    }
+  }
+}
+
+// f32 compute type (the f32-exact mode): IEEE f32 products on the CUDA
+// cores, the weights streamed through shared memory (f32_tile_gemm), dW
+// in float4 register tiles (f32_dw_add); the phases, the slabs and the
+// column sums are the bf16 kernel's
+template <typename IO>
+__global__ void __launch_bounds__(kBwdThreads)
+fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
+                        const float* __restrict__ zs, IO* __restrict__ dx,
+                        const float* __restrict__ w, const float* __restrict__ wt,
+                        const float* __restrict__ b, const float* __restrict__ ln_s,
+                        float* __restrict__ partials, long long n_rows, BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tr = p.tile_rows;  // a multiple of 8, so every buffer is 16-byte aligned
+  const int L = p.n_layers;
+  const int c_in = p.dims[0];
+  const int c_out = p.dims[L];
+  const int z_ld = p.z_ld, dz_ld = p.dz_ld, h0_ld = p.h0_ld;
+  float* zbuf = reinterpret_cast<float*>(smem);  // (tr, z_ld): z_l, then dz_l
+  float* stats = zbuf + tr * z_ld;               // (tr, 4): LayerNorm row statistics
+  float* h0 = stats + tr * 4;                    // (tr, h0_ld): h_0 = x
+  float* hbuf = h0 + tr * h0_ld;                 // (tr, dz_ld): some h_l, l >= 1
+  float* dzc = hbuf + tr * dz_ld;                // (tr, dz_ld): dz, the products' A
+  float* scratch = dzc + tr * dz_ld;             // column sums
+  float* ring = scratch + kColumnSums * kBwdThreads;  // f32_tile_gemm's weight ring
+  float* slab = partials + blockIdx.x * p.slab;
+  const bool approx = p.approx_gelu != 0;
+
+  // the columns the products read past the chain's widths, and the rows
+  // past the last tile's end: finite from here on
+  for (int i = threadIdx.x; i < p.smem_bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+#ifdef RPDE_K1B_PHASES
+  long long t_mark = clock64();
+  auto mark = [&](int phase) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
+      atomicAdd(&k1b_phase_cycles[phase], static_cast<unsigned long long>(t - t_mark));
+      t_mark = t;
+    }
+  };
+#else
+  auto mark = [](int) {};
+#endif
+
+  bool first = true;  // a block's first tile stores its sums, later tiles add
+  for (long long tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * tr;
+    const int rows = static_cast<int>(min(static_cast<long long>(tr), n_rows - row0));
+
+    // 1. h_0 = x; z from zs or recomputed
+    load_rows(h0, h0_ld, x + row0 * c_in, rows, c_in);
+    mark(0);
+    if (p.zs_ld > 0) {
+      load_rows(zbuf, z_ld, zs + row0 * p.zs_ld, rows, p.zs_ld);
+    } else {
+      __syncthreads();
+      // the chain's inputs ping-pong between hbuf and dzc (free until step
+      // 2); without LayerNorm the last layer's z is never read: skip it
+      const int n_fwd = p.has_ln ? L : L - 1;
+      for (int l = 0; l < n_fwd; ++l) {
+        const int N = p.dims[l + 1];
+        const float* bl = b + p.b_off[l];
+        const float* h = l == 0 ? h0 : (l % 2 == 1 ? hbuf : dzc);
+        float* zl = zbuf + p.z_off[l];
+        float* hn = l < L - 1 ? (l % 2 == 0 ? hbuf : dzc) : nullptr;
+        f32_tile_gemm(rows, pad4(p.dims[l]), pad4(N), h, l == 0 ? h0_ld : dz_ld,
+                      w + p.wp_off[l], ring, false, [=](int r, int j0, const float (&v)[4]) {
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) {
+                          const int j = j0 + q;
+                          if (j >= N) break;
+                          const float z = v[q] + __ldg(bl + j);
+                          zl[r * z_ld + j] = z;
+                          if (hn != nullptr) hn[r * dz_ld + j] = gelu_call(z, approx);
+                        }
+                      });
+        __syncthreads();
+      }
+    }
+    __syncthreads();
+
+    mark(1);
+
+    // 2. dz of the last layer, its bias gradient and the LayerNorm gradients
+    f32_last_layer_dz(p, g + row0 * c_out, ln_s, zbuf, stats, dzc, scratch, slab, rows, first);
+    if (L > 1) f32_rebuild_h(p, L - 1, zbuf, hbuf, rows, approx);
+    __syncthreads();
+
+    mark(2);
+
+    // 3. the chain backwards; on entry dzc holds dz_l and, for l >= 1, hbuf
+    // h_l. dW reads neither the ring nor zbuf: dh's first weight slice is
+    // copied while dW runs, and dh needs no barrier after dW (the
+    // product's own first barrier waits for every thread's dW)
+    for (int l = L - 1; l >= 0; --l) {
+      const int K = p.dims[l];
+      const int N = p.dims[l + 1];
+      // dh (rows x K) = dz W_l^T, W_l^T from the transposed copy
+      const float* wtl = wt + p.wp_off[l];
+      f32_start_slice(ring, wtl, pad4(N), pad4(K), 0);
+      f32_dw_add(K, N, rows, l == 0 ? h0 : hbuf, l == 0 ? h0_ld : dz_ld, dzc, dz_ld,
+                 slab + p.sw_off[l], first);
+      mark(3 + 3 * l);
+      if (l > 0) {
+        float* zp = zbuf + p.z_off[l - 1];
+        f32_tile_gemm(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
+                      [=](int r, int i0, const float (&v)[4]) {
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) {
+                          if (i0 + q >= K) break;
+                          float* z = zp + r * z_ld + i0 + q;
+                          *z = v[q] * gelu_grad_call(*z, approx);  // dz_{l-1}, over z_{l-1}
+                        }
+                      });
+        mark(4 + 3 * l);
+        __syncthreads();
+        f32_hidden_dz(p, l, zbuf, dzc, scratch, slab, rows, first);
+        if (l > 1) f32_rebuild_h(p, l - 1, zbuf, hbuf, rows, approx);
+        __syncthreads();
+        mark(5 + 3 * l);
+      } else {
+        IO* dxt = dx + row0 * c_in;
+        f32_tile_gemm(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
+                      [=](int r, int i0, const float (&v)[4]) {
+#pragma unroll
+                        for (int q = 0; q < 4; ++q)
+                          if (i0 + q < c_in) dxt[r * c_in + i0 + q] = from_f<IO>(v[q]);
+                      });
         mark(4);
       }
     }
@@ -444,7 +783,9 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
     if (dims[l] < 1) return false;
     p.dims[l] = dims[l];
   }
-  auto pad16 = [bf16](long long d) { return bf16 ? (d + 15) / 16 * 16 : d; };
+  // the packed weights: in bf16 each kernel zero-padded to whole 16 x 16
+  // fragments, in f32 to multiples of 4 (f32_tile_gemm's float4s)
+  auto pad_w = [bf16](long long d) { return bf16 ? (d + 15) / 16 * 16 : (d + 3) / 4 * 4; };
   long long wp = 0;
   int b_off = 0;
   for (int l = 0; l < n_layers; ++l) {
@@ -459,7 +800,7 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
         p.sw_off[l] + (bf16 ? tile_order_size(k, n, wide ? kWideMT : kNarrowMT,
                                               wide ? kWideNT : kNarrowNT)
                             : static_cast<long long>(k) * n);
-    wp += pad16(k) * pad16(n);
+    wp += pad_w(k) * pad_w(n);
     b_off += n;
     p.z_ld += n;
     if (n > p.dz_ld) p.dz_ld = n;
@@ -469,26 +810,36 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
   p.ln_base = p.db_base + b_off;
   p.slab = (p.ln_base + (has_ln ? 2 * dims[n_layers] : 0) + 3) / 4 * 4;
   p.n_grads = p.w_off[n_layers] + b_off + (has_ln ? 2 * dims[n_layers] : 0);
-  p.h0_ld = dims[0];
+  size_t fixed = static_cast<size_t>(kColumnSums) * kBwdThreads * sizeof(float);
+  int widest = 0;  // f32: the widest layer, padded to a multiple of 4
   if (bf16) {
     // tensor-core fragments: the bf16 rows padded to whole fragments of 16
     // columns plus 8, so that the 8 rows an ldmatrix reads fall in 8
     // different 16-byte bank groups; the f32 rows by 4 against conflicts
     // in the epilogues' stores
-    p.h0_ld = static_cast<int>(pad16(dims[0])) + 8;
-    p.dz_ld = static_cast<int>(pad16(p.dz_ld)) + 8;
+    p.h0_ld = static_cast<int>(pad_w(dims[0])) + 8;
+    p.dz_ld = static_cast<int>(pad_w(p.dz_ld)) + 8;
     p.z_ld += 4;
+  } else {
+    // the products' and dW's rows: whole float4s (dW reads h up to the
+    // next multiple of 8 columns) plus 4 floats, so that rows one apart
+    // fall in other banks; the weight ring, as wide as the widest layer
+    for (int l = 0; l <= n_layers; ++l) widest = std::max(widest, pad4(dims[l]));
+    p.h0_ld = pad4(dims[0]) + 4;
+    p.dz_ld = pad4(p.dz_ld) + 4;
+    fixed += static_cast<size_t>(f32_ring_floats(widest, kBwdThreads)) * sizeof(float);
   }
   const size_t cd_size = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   // largest tile of rows whose buffers fit the shared-memory budget
   const size_t per_row = (static_cast<size_t>(p.z_ld) + 4) * sizeof(float) +
                          (static_cast<size_t>(p.h0_ld) + 2 * p.dz_ld) * cd_size;
-  const size_t fixed = static_cast<size_t>(kColumnSums) * kBwdThreads * sizeof(float);
   int tr = kBwdMaxTileRows;
   while (tr > 1 && tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) tr /= 2;
   if (tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) return false;
-  // the tensor-core products read whole fragments of 16 rows
-  if (bf16 && tr < 16) return false;
+  // the tensor-core products read whole fragments of 16 rows; the f32
+  // products' register tiles 8 rows, a thread each
+  if (tr < (bf16 ? 16 : 8)) return false;
+  if (!bf16 && f32_tile_gemm_threads(tr, widest) > kBwdThreads) return false;
   p.tile_rows = tr;
   smem = (tr * per_row + fixed + 15) / 16 * 16;
   p.smem_bytes = static_cast<int>(smem);
@@ -500,7 +851,12 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
                    const void* wt, const float* b, const float* ln_s, float* partials,
                    float* grads, long long n_rows, BwdParams& p, size_t smem,
                    int max_blocks, cudaStream_t stream) {
-  auto kernel = fused_ff_bwd_kernel<CD, IO>;
+  void (*kernel)(const IO*, const IO*, const CD*, IO*, const CD*, const CD*, const float*,
+                 const float*, float*, long long, BwdParams);
+  if constexpr (std::is_same<CD, float>::value)
+    kernel = fused_ff_bwd_f32_kernel<IO>;
+  else
+    kernel = fused_ff_bwd_kernel<IO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -550,8 +906,8 @@ extern "C" int rpde_fused_ff_backward_slab(int cd_bf16, const int* dims, int n_l
 // compute type, n_save = n_layers with LayerNorm and n_layers - 1 without.
 // w: every layer's (dims[l], dims[l+1]) kernel packed row-major, and wt the
 // same kernels transposed, (dims[l+1], dims[l]) each, both in the compute
-// type; in bf16 each kernel is zero-padded to multiples of 16 in both of its
-// dimensions before it is packed. b: the biases packed in f32; ln_s: the
+// type; each kernel is zero-padded to multiples of 16 (bf16) or 4 (f32) in
+// both of its dimensions before it is packed. b: the biases packed in f32; ln_s: the
 // LayerNorm scale (f32), null for no LayerNorm. partials: max_blocks slabs
 // of f32 scratch, each of rpde_fused_ff_backward_slab floats. grads (f32)
 // receives dW_0 .. dW_{L-1} packed row-major, then db_0 .. db_{L-1} packed

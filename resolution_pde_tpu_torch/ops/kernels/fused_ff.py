@@ -10,7 +10,9 @@ weights streamed through shared memory; f32 products in IEEE f32 on the
 CUDA cores); the backward kernel, which recomputes the
 hidden activations per tile (or reads the pre-activations the forward
 saved) and reduces the weight gradients over the rows in a fixed order, is
-``csrc/fused_ff_bwd.cu``.
+``csrc/fused_ff_bwd.cu`` (bf16 products on the tensor cores; f32 products
+in IEEE f32 on the CUDA cores, the weights streamed through shared
+memory).
 
 ``fused_feedforward`` is a ``torch.autograd.Function``: for a tensor on the
 CPU it runs the plain forward and the plain backward below, and for a CUDA
@@ -221,6 +223,16 @@ def _forward_weights(kernels, cd) -> torch.Tensor:
     return _packed_weights(kernels, cd, pad=16 if cd == torch.bfloat16 else 1)
 
 
+def _backward_weights(kernels, cd) -> tuple:
+    """The packings the backward kernel reads, ``(w, wt)``: the (in, out)
+    kernels and their transposes, each zero-padded to multiples of 16 in
+    bf16 (whole tensor-core fragments) and of 4 in f32 (the f32 products
+    stream 16-byte pieces of each layer's weight into shared memory)."""
+    pad = 16 if cd == torch.bfloat16 else 4
+    return (_packed_weights(kernels, cd, pad=pad),
+            _packed_weights(kernels, cd, transpose=True, pad=pad))
+
+
 def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
                           approx_gelu: bool = True,
                           compute_dtype=torch.bfloat16,
@@ -303,10 +315,7 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
             x.device).multi_processor_count
         partials = torch.empty(max_blocks * slab, dtype=torch.float32,
                                device=x.device)
-        # the tensor-core products read the weights in whole fragments
-        pad = 16 if bf16 else 1
-        w = _packed_weights(kernels, cd, pad=pad)
-        wt = _packed_weights(kernels, cd, transpose=True, pad=pad)
+        w, wt = _backward_weights(kernels, cd)
         b = torch.cat([t.float().reshape(-1) for t in biases])
         ln_s = ln[0].float().contiguous() if ln is not None else None
         with torch.cuda.device(x.device):

@@ -1,18 +1,29 @@
 #!/usr/bin/env python3
 """Device time of the fused FeedForward backward (K1b) by phase, on one GPU.
 
-    python3 scripts/torch_k1b_phases.py [--out build/k1b_phases]
+    python3 scripts/torch_k1b_phases.py [--f32] [--csrc DIR ...]
+                                        [--out build/k1b_phases]
 
-Builds csrc/fused_ff_bwd.cu alone with RPDE_K1B_PHASES, which makes thread
-0 of every block add the clock cycles from one barrier to the next into a
-counter per phase (the phase marks add barriers of their own), and runs it
-at the train shape of chip_smoke.py (8 x 256² = 524,288 rows, 64 -> 256
--> 256 -> 64, LayerNorm, tanh GELU, bf16; random inputs from seed 0), with
-the pre-activations recomputed and saved. For each it prints the
-instrumented kernel's median time (CUDA events) split over the phases in
-proportion to their cycles, and the time of the library's own build
-beside it. Prints the card's name and power limit first. Needs CUDA and
-nvcc.
+Builds csrc/fused_ff_bwd.cu alone, in parallel: as the library builds it,
+and with RPDE_K1B_PHASES, which makes thread 0 of every block add the
+clock cycles from one barrier to the next into a counter per phase (the
+phase marks add barriers of their own). Prints each K1b kernel's
+registers, stack and spills from ``-Xptxas -v``. Runs it at the train
+shape of chip_smoke.py (8 x 256² = 524,288 rows, 64 -> 256 -> 256 -> 64,
+LayerNorm, tanh GELU, bf16; random inputs from seed 0), with the
+pre-activations recomputed and saved; with --f32 the same in the
+f32-exact mode (f32 x, g and products). For each it checks the library
+build against the plain backward (relative L2 of every gradient within
+1e-4 in f32, 1e-2 in bf16) and prints its median time (CUDA events)
+beside the instrumented build's, split over the phases in proportion to
+their cycles.
+
+``--csrc DIR`` (repeatable) builds DIR/fused_ff_bwd.cu instead of the
+package's, DIR holding the headers it includes (a copy of csrc/ with a
+design's lines rewritten); the directories are measured in the order
+given, so ``--csrc A --csrc B --csrc B --csrc A`` compares two designs in
+turns within one process. Prints the card's name and power limit first.
+Needs CUDA and nvcc.
 """
 
 from __future__ import annotations
@@ -59,9 +70,75 @@ def _time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _build_all(srcs: list, out: Path, build) -> dict:
+    """{(dir, phases): library namespace} for every source directory, the
+    builds all started together with the flags of ``build`` (the package's
+    _build module); prints each kernel's registers."""
+    nvcc, flags = build._nvcc(), build.NVCC_FLAGS
+    procs = {}
+    for i, src in enumerate(srcs):
+        for phases in (False, True):
+            so = out / f"libk1b_{i}_{'phases' if phases else 'plain'}.so"
+            cmd = [nvcc, *flags, *(["-DRPDE_K1B_PHASES"] if phases else []),
+                   "-Xptxas", "-v", "-shared", "-o", str(so),
+                   str(Path(src) / "fused_ff_bwd.cu")]
+            procs[(src, phases)] = (so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    for (src, phases), (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        if not phases:
+            # ptxas names each kernel on one line and gives its stack,
+            # spills and registers on the next lines
+            lines = log.splitlines()
+            for i, line in enumerate(lines):
+                if "Compiling entry" not in line:
+                    continue
+                name = next((k for k in ("fused_ff_bwd_f32_kernel",
+                                         "fused_ff_bwd_kernel",
+                                         "reduce_slabs_kernel")
+                             if k in line), None)
+                if name is None:
+                    continue
+                io = "bf16 io" if "I13__nv_bfloat16E" in line else "f32 io"
+                info = " | ".join(t.split("ptxas info    :")[-1].strip()
+                                  for t in lines[i + 1:i + 4]
+                                  if "ptxas info" in t)
+                print(f"{src}: {name} ({io}): {info}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for fn_name in ("rpde_fused_ff_backward",
+                        "rpde_fused_ff_backward_slab"):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = build._SIGNATURES[fn_name]
+            fn.restype = ctypes.c_int
+            fns[fn_name] = fn
+        if phases:
+            counters = lib.rpde_k1b_phase_cycles
+            counters.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            counters.restype = ctypes.c_int
+            fns["counters"] = counters
+        libs[(src, phases)] = types.SimpleNamespace(**fns)
+    return libs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k1b_phases")
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32-exact mode instead of bf16")
+    ap.add_argument("--csrc", action="append", default=None,
+                    help="a directory holding fused_ff_bwd.cu and its "
+                         "headers (default: the package's csrc); "
+                         "repeatable, measured in the order given")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1b_phases: CUDA is not available", file=sys.stderr)
@@ -74,23 +151,12 @@ def main() -> int:
 
     from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
 
-    lib = _build.library()
+    order = args.csrc or [str(_build.CSRC)]
+    srcs = list(dict.fromkeys(order))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    so = out / "libk1b_phases.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DRPDE_K1B_PHASES",
-                    "-shared", "-o", str(so),
-                    str(_build.CSRC / "fused_ff_bwd.cu")], check=True)
-    phased = ctypes.CDLL(str(so))
-    bwd = phased.rpde_fused_ff_backward
-    bwd.argtypes = _build._SIGNATURES["rpde_fused_ff_backward"]
-    bwd.restype = ctypes.c_int
-    counters = phased.rpde_k1b_phase_cycles
-    counters.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    counters.restype = ctypes.c_int
-    phased_lib = types.SimpleNamespace(
-        rpde_fused_ff_backward=bwd,
-        rpde_fused_ff_backward_slab=lib.rpde_fused_ff_backward_slab)
+    libs = _build_all(srcs, out, _build)
+    library = _build.library
 
     gen = torch.Generator().manual_seed(0)
 
@@ -101,31 +167,49 @@ def main() -> int:
     ks = [randn((a, b), a ** -0.5) for a, b in zip(dims, dims[1:])]
     bs = [randn((d,), 0.1) for d in dims[1:]]
     ln = (1.0 + randn((dims[-1],), 0.1), randn((dims[-1],), 0.1))
-    x = randn((n, dims[0]), dtype=torch.bfloat16)
-    g = randn((n, dims[-1]), dtype=torch.bfloat16)
-    kw = dict(approx_gelu=True, compute_dtype=torch.bfloat16)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    tol = 1e-4 if args.f32 else 1e-2
+    x = randn((n, dims[0]), dtype=dtype)
+    g = randn((n, dims[-1]), dtype=dtype)
+    kw = dict(approx_gelu=True, compute_dtype=dtype)
     _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, ln, save_acts=True, **kw)
+    _, zs_ref = fused_ff.fused_feedforward_reference(x, ks, bs, ln,
+                                                     save_acts=True, **kw)
+    flat = lambda r: [r[0], *r[1], *r[2], *r[3]]  # noqa: E731
+    refs = {label: flat(fused_ff.fused_feedforward_bwd_reference(
+        x, g, ks, bs, ln, zs_saved=z, **kw))
+        for label, z in (("recompute", None), ("saved", zs_ref))}
     names = _phase_names(len(ks))
-    for label, z in (("recompute", None), ("saved", zs)):
-        def run():
-            return fused_ff.fused_feedforward_bwd(x, g, ks, bs, ln, zs_saved=z,
-                                                  **kw)
-        plain_ms = _time_ms(run)
-        _build.library = lambda: phased_lib
-        try:
-            run()
-            torch.cuda.synchronize()
-            _build.check(counters(None, 1), "rpde_k1b_phase_cycles")
-            ms = _time_ms(run)
-            cycles = (ctypes.c_ulonglong * N_PHASES)()
-            _build.check(counters(cycles, 0), "rpde_k1b_phase_cycles")
-        finally:
-            _build.library = lambda: lib
-        total = sum(cycles)
-        split = {names.get(i, str(i)): round(c / total * ms, 4)
-                 for i, c in enumerate(cycles) if c}
-        print(f"K1b {label}: kernel {plain_ms:.4f} ms, with phase marks "
-              f"{ms:.4f} ms; by phase (ms): {split}", flush=True)
+    try:
+        for src in order:
+            for label, z in (("recompute", None), ("saved", zs)):
+                def run():
+                    return fused_ff.fused_feedforward_bwd(
+                        x, g, ks, bs, ln, zs_saved=z, **kw)
+                _build.library = lambda: libs[(src, False)]
+                err = max(_rel_l2(a, b) for a, b in zip(flat(run()),
+                                                         refs[label]))
+                if not err <= tol:
+                    raise RuntimeError(f"{src} {label}: rel_l2 {err} > {tol}")
+                plain_ms = _time_ms(run)
+                phased = libs[(src, True)]
+                _build.library = lambda: phased
+                run()
+                torch.cuda.synchronize()
+                _build.check(phased.counters(None, 1), "rpde_k1b_phase_cycles")
+                ms = _time_ms(run)
+                cycles = (ctypes.c_ulonglong * N_PHASES)()
+                _build.check(phased.counters(cycles, 0),
+                             "rpde_k1b_phase_cycles")
+                total = sum(cycles)
+                split = {names.get(i, str(i)): round(c / total * ms, 4)
+                         for i, c in enumerate(cycles) if c}
+                print(f"{src}: K1b {label} {str(dtype)[6:]}: rel_l2 "
+                      f"{err:.3e}, kernel {plain_ms:.4f} ms, with phase "
+                      f"marks {ms:.4f} ms; by phase (ms): {split}",
+                      flush=True)
+    finally:
+        _build.library = library
     return 0
 
 

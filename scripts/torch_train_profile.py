@@ -45,7 +45,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def _family(name: str) -> str:
     if "fused_ff_fwd_mma_kernel" in name or "fused_ff_fwd_kernel" in name:
         return "K1f"
-    if "fused_ff_bwd_kernel" in name or "reduce_slabs_kernel" in name:
+    if ("fused_ff_bwd_kernel" in name or "fused_ff_bwd_f32_kernel" in name
+            or "reduce_slabs_kernel" in name):
         return "K1b"
     if "spectral_pass" in name:
         return "K2"

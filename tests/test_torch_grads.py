@@ -111,7 +111,7 @@ def _flat(grads):
     return dict(zip(names, arrays))
 
 
-@pytest.mark.parametrize("n_layers,has_ln,approx,has_res,save", [
+_VJP_CASES = [  # (n_layers, has_ln, approx, has_res, save)
     (3, True, True, True, False),    # the bench chain, recompute
     (3, True, True, True, True),     # the bench chain, fused_saved
     (3, False, False, False, False),
@@ -120,10 +120,20 @@ def _flat(grads):
     (1, False, True, False, True),   # one layer, no LN: nothing saved
     (2, True, False, False, True),
     (2, False, False, True, False),
+]
+
+
+@pytest.mark.parametrize("n_layers,has_ln,approx,has_res,save,dims", [
+    *(pytest.param(*c, None, id="-".join(map(str, c))) for c in _VJP_CASES),
+    # widths no multiple of 4: those of the f32 kernel's padded case in
+    # chip_smoke.py, which holds the kernel to this plain backward
+    pytest.param(3, True, True, False, False, [30, 50, 50, 30],
+                 id="3-True-True-False-False-30x50x50x30"),
 ])
 def test_fused_ff_backward_matches_jax_vjp(n_layers, has_ln, approx, has_res,
-                                           save):
-    inputs = _ff_inputs(n_layers, has_ln, has_res, seed=n_layers * 10 + save)
+                                           save, dims):
+    inputs = _ff_inputs(n_layers, has_ln, has_res, seed=n_layers * 10 + save,
+                        dims=dims)
     want = _flat(_ff_grads_jax(*inputs, approx, save, jnp.float32))
     got = _flat(_ff_grads_torch(*inputs, approx, save, torch.float32))
     assert got.keys() == want.keys()
@@ -448,8 +458,7 @@ def test_packed_weights_pad_to_whole_fragments(transpose):
     """The bf16 backward kernel reads its weights in whole 16 x 16
     fragments: each layer's kernel, packed as (in, out) or transposed, is
     zero-padded to multiples of 16 in both dimensions; unpadded (pad 1) the
-    packing is the plain row-major one that the f32 forward and backward
-    read."""
+    packing is the plain row-major one that the f32 forward reads."""
     rng = np.random.default_rng(4)
     ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
           for s in ((24, 40), (40, 24))]
@@ -466,6 +475,31 @@ def test_packed_weights_pad_to_whole_fragments(transpose):
     plain = fused_ff._packed_weights(ks, torch.float32, transpose)
     assert torch.equal(plain, torch.cat([(k.t() if transpose else k)
                                          .reshape(-1) for k in ks]))
+
+
+@pytest.mark.parametrize("cd,pad", [(torch.bfloat16, 16), (torch.float32, 4)])
+def test_backward_kernel_packing(cd, pad):
+    """The backward kernel reads each layer's kernel row-major (``w``) and
+    transposed (``wt``), zero-padded to multiples of 16 in bf16 (whole
+    tensor-core fragments) and of 4 in f32 (the 16-byte pieces its f32
+    products stream into shared memory), at widths no multiple of 4."""
+    rng = np.random.default_rng(6)
+    ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((30, 50), (50, 50), (50, 30))]
+    w, wt = fused_ff._backward_weights(ks, cd)
+    for packed, transpose in ((w, False), (wt, True)):
+        assert packed.dtype == cd
+        off = 0
+        for k in ks:
+            k = k.t() if transpose else k
+            rows, cols = (-(-d // pad) * pad for d in k.shape)
+            block = packed[off:off + rows * cols].view(rows, cols)
+            assert torch.equal(block[:k.shape[0], :k.shape[1]], k.to(cd))
+            assert not block[k.shape[0]:].any()
+            assert not block[:, k.shape[1]:].any()
+            off += rows * cols
+        assert off == packed.numel()
+    assert torch.equal(w, fused_ff._packed_weights(ks, cd, pad=pad))
 
 
 @pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
