@@ -10,16 +10,31 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      version: bf16 (its tensor-core products) at the train shape (LayerNorm
      and residual) and at ragged shapes (24->40->40->24 without either and
      with the exact GELU; 24->40 with both; the saved pre-activations,
-     checked too; f32 x, residual and output); f32 (its CUDA-core products) at the ragged shape and at
-     the train shape;
+     checked too; f32 x, residual and output); f32 (its CUDA-core products
+     on f32_tile_gemm) at ragged shapes (24->40->40->24, 30->50->50->30,
+     saved pre-activations, one layer, bf16 x, residual and output), at
+     factor-4 widths 160, 192 and 256 with and without the saved
+     pre-activations, at 64->3072->64 (fused_ff_fwd_kernel, the route of chains
+     too wide for f32_tile_gemm's buffers) and at the train shape, two
+     calls there compared bit for bit; bf16 at width 128's chain
+     (128->512->512->128, LayerNorm and residual) at the train shape's
+     rows, as the width-128 model of phase 8 runs it; each case with the
+     planner's route and tile rows;
   4. K1b, its backward kernel, against the plain backward: bf16 (its
      tensor-core products) at the train shape with LayerNorm, at a ragged
      shape without and at a ragged one-layer shape with; f32 (its CUDA-core
      products on weights streamed through shared memory) at the ragged
      shape, at 30->50->50->30 with LayerNorm, at a one-layer shape with
      LayerNorm, with bf16 x, g and dx, and at the train shape, two calls
-     there compared bit for bit; and the saved-pre-activation variant in
-     bf16 (ff_impl 'fused_saved');
+     there compared bit for bit, and at factor-4 widths 160, 192 and 256
+     (column chunks, shorter tiles) recomputed and with saved
+     pre-activations; the saved-pre-activation variant in bf16
+     (ff_impl 'fused_saved'); bf16 at width 128's chain at the train
+     shape's rows, recomputed and saved; each case with its tile rows.
+     Then the launchers' Python mirrors of the planners against the
+     planners: K2's tensor-core fit
+     (rpde_spectral_mma_fits) over 3,240 shapes, K1b's tile rows over
+     432 chains;
   5. K2, the fused spectral axis pass, against its plain version on the
      card: bf16 (its tensor-core products) at the train shape along W and
      along H read in place and added into acc, each timed, and at ragged
@@ -29,13 +44,19 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      each timed, at the same ragged shapes and with bf16 x and out, at
      wider channels (128 -> 128 at n = 256, timed; 96 -> 128 along H with
      acc; 200 -> 136), and two calls on the same inputs compared bit for
-     bit; and both axes at 48 x 64 against the CPU;
+     bit; the bf16 passes too wide for the tensor-core kernel, on the
+     CUDA-core kernel with the bf16 rounding points (128 -> 128 along W and
+     along H with acc, 256 -> 256, each timed; f32 x and out at 112; two
+     calls bit for bit), and the tensor-core kernel at its edge, 104
+     channels at n = 256; each case with its route; and both axes at
+     48 x 64 against the CPU;
   6. the K2/K3 adjoint (the same kernel, transposed factors and weight)
      against the plain adjoint: bf16 at the train shape along W and along
      H with acc, each timed, and 40 -> 24 channels; f32 (K3's adjoint) the
-     same, and 136 -> 200 channels; the two-axis conv's input and weight gradients against the
-     same on the CPU; in f32 the adjoint and the weight gradient against
-     autograd of the plain pass;
+     same, and 136 -> 200 channels; bf16 on the wide route at 128 -> 128
+     (W, and H with acc) and 256 -> 256, timed; the two-axis conv's input
+     and weight gradients against the same on the CPU; in f32 the adjoint
+     and the weight gradient against autograd of the plain pass;
   7. the serving slice: FFNO2D at the width of bench.py (random weights
      from a seed) behind ServingEngine on the GPU, warmed, then serving
      predict and forecast requests with the launch counters showing that
@@ -50,7 +71,13 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      mode against the same weights on the CPU in f32; 5 f32-exact steps
      at 8 x 256² (the median of the last 3 logged); 3 steps of
      'fused_saved'; and a resume from a checkpoint repeating two steps'
-     losses bit for bit;
+     losses bit for bit; then FFNO2D at width 128 on 'pallas2' in bf16,
+     every spectral pass and adjoint on the wide route (counted): a
+     predict of 5 and 3 Trainer steps at 8 x 256² (finite losses, every
+     gradient finite and non-zero; their launches of the wide route, K1f
+     and K1b counted and read just after them), the predict and one
+     step's gradients
+     at 2 x 128² against the same weights in f32 on the CPU;
   9. K4, the S4D Vandermonde reduction, and K5, the four Cauchy sums of
      the S4 DPLR kernel, against their plain versions at the S4 serving
      shapes and at a small ragged shape, timed in CUDA graphs;
@@ -62,11 +89,13 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      against the same weights on the CPU through the plain versions and
      against the jnp route on the GPU; backward() through the kernels'
      route must raise.
-The line before the last is the kernels' JSON record (ten kernels; K1f and
-K1b each as a bf16 and an f32 entry), each kernel with its time (the W
-pass's, for K2 and its adjoint), its plain version's, its launches on the
-main paths and its bound (the larger of its bytes over 3.35 TB/s and the
-operations its function needs over the peak rate of their type: for the
+The line before the last is the kernels' JSON record (eleven kernels; K1f
+and K1b each as a bf16 and an f32 entry; the bf16 pass's wide route as
+spectral_pass_bf16_wide, with its adjoint's time beside it), each kernel
+with its time (the W pass's, for K2 and its adjoint), its plain version's,
+its launches on the main paths and its bound (the larger of its bytes
+over 3.35 TB/s and the operations its function needs over the peak rate
+of their type: for the
 spectral pass, its DFTs counted as real FFTs where that is cheaper than
 the dense products the kernels do); the K2 and K3 entries
 also give the H pass's (added into acc) as h_acc_*; the last line is
@@ -90,6 +119,9 @@ import torch
 
 # bench.py:73-110: the flagship FFNO2D serving width
 WIDTH, LAYERS, MODES, FACTOR, FF_LAYERS, BATCH, RES = 64, 4, 64, 4, 3, 8, 256
+# the width of resolution_pde_tpu/configs/model/ffno_1d.yaml, run in FFNO2D:
+# its spectral passes are too wide for the bf16 tensor-core kernel
+WIDE = 128
 SEED = 0
 # resolution_pde_tpu/configs/model/s4_1d.yaml and s4d_1d.yaml (d_input 15
 # = the KS window, d_model 64, 4 layers, dropout 0.2, prenorm false; the
@@ -227,15 +259,38 @@ def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
                                                           dtype=dtype)
 
 
+def _forward_route(dims, cd, io, residual) -> tuple:
+    """The forward's route for a chain as its planner picks it: (name, tile
+    rows); "mma" (bf16 tensor cores), "f32_tiles" (f32 on f32_tile_gemm)
+    or "f32_wide" (fused_ff_fwd_kernel on block_gemm, chains too wide for
+    f32_tiles)."""
+    import ctypes
+
+    from resolution_pde_tpu_torch.ops.kernels import _build
+
+    rows = (ctypes.c_int * 1)()
+    route = _build.library().rpde_fused_ff_forward_route(
+        int(cd == torch.bfloat16), int(io == torch.bfloat16), int(residual),
+        (ctypes.c_int * len(dims))(*dims), len(dims) - 1, rows)
+    names = {1: "mma", 2: "f32_tiles", 3: "f32_wide"}
+    require(route in names, f"K1f: no route for {dims}")
+    return names[route], rows[0]
+
+
 def check_fused_ff(gen) -> tuple:
     """K1f against its plain forward. Returns the bf16 (tensor cores) and
     f32 (CUDA cores) records at the train shape."""
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
     def case(n, dims, *, ln, residual, approx, dtype, tol, label, save=False,
-             io=None):
-        # io: the type of x, the residual and the output (dtype if None)
+             io=None, route=None, repeat=False):
+        # io: the type of x, the residual and the output (dtype if None);
+        # route: the planner's route the chain must take; repeat: a second
+        # call on the same inputs must give the same bits
         io = io or dtype
+        took, tile_rows = _forward_route(dims, dtype, io, residual)
+        require(route is None or took == route,
+                f"K1f {label}: route {took}, expected {route}")
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
               for i in range(len(dims) - 1)]
         bs = [randn((d,), gen, 0.1) for d in dims[1:]]
@@ -265,10 +320,16 @@ def check_fused_ff(gen) -> tuple:
         plain = time_ms(lambda: fused_ff.fused_feedforward_reference(
             x, ks, bs, lnp, res, **kw))
         log("K1", case=label, rows=n, dims="->".join(map(str, dims)),
-            rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", **extra)
+            route=took, tile_rows=tile_rows, rel_l2=f"{err:.3e}",
+            max_abs=f"{mx:.3e}", tol=tol, ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", **extra)
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K1 {label}: rel_l2 {err} > {tol}")
+        if repeat:
+            again = fused_ff.fused_feedforward(x, ks, bs, lnp, res, **kw)
+            same = bool(torch.equal(got, again))
+            log("K1", case=f"{label}_repeat", bit_equal=same)
+            require(same, f"K1 {label}: two calls on the same inputs differ")
         return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
                     **_ff_cost(n, dims, ln, residual, dtype, 1))
 
@@ -295,13 +356,99 @@ def check_fused_ff(gen) -> tuple:
     case(1000, ragged, ln=True, residual=True, approx=True,
          dtype=torch.bfloat16, tol=1e-2, label="ragged_bf16_f32_io",
          io=torch.float32)
-    # f32 (CUDA cores): IEEE f32 products in both, only the order of the
-    # sums differs; over the train shape's 256-term sums hence 1e-4 there
+    # f32 (CUDA cores, f32_tile_gemm): IEEE f32 products in both, only the
+    # order of the sums differs; over the train shape's 256-term sums hence
+    # 1e-4 there. Ragged: rows and widths no tile divides, widths no
+    # multiple of 4 (the weights' zero padding), the saved pre-activations,
+    # bf16 x, residual and output (a rounding flip of an output moves it by
+    # one bf16 ulp)
+    f32t = "f32_tiles"
     case(1000, ragged, ln=False, residual=False, approx=False,
-         dtype=torch.float32, tol=1e-5, label="ragged_f32")
+         dtype=torch.float32, tol=1e-5, label="ragged_f32", route=f32t)
+    case(1003, [30, 50, 50, 30], ln=True, residual=True, approx=True,
+         dtype=torch.float32, tol=1e-5, label="ragged30_f32_ln_res",
+         route=f32t)
+    case(1000, ragged, ln=True, residual=True, approx=True,
+         dtype=torch.float32, tol=1e-5, label="ragged_f32_saved", save=True,
+         route=f32t)
+    case(1000, ragged[:2], ln=True, residual=True, approx=False,
+         dtype=torch.float32, tol=1e-5, label="ragged_f32_ln_res_1layer",
+         route=f32t)
+    case(1000, ragged, ln=True, residual=True, approx=True,
+         dtype=torch.float32, tol=1e-2, label="ragged_f32_bf16_io",
+         io=torch.bfloat16, route=f32t)
+    # factor-4 chains wider than the train shape's (hidden layers in column
+    # chunks of 256, shorter tiles), with the saved pre-activations too;
+    # and a chain too wide for 8 rows of both buffers, on fused_ff_fwd_kernel
+    for w in (160, 192, 256):
+        for save in (False, True):
+            case(2003, [w, 4 * w, 4 * w, w], ln=True, residual=True,
+                 approx=True, dtype=torch.float32, tol=1e-5,
+                 label=f"width{w}_f32" + ("_saved" if save else ""),
+                 save=save, route=f32t)
+    case(301, [64, 3072, 64], ln=True, residual=True, approx=True,
+         dtype=torch.float32, tol=1e-5, label="hidden3072_f32",
+         route="f32_wide")
     f32 = case(BATCH * RES * RES, dims, ln=True, residual=True, approx=True,
-               dtype=torch.float32, tol=1e-4, label="train_f32")
+               dtype=torch.float32, tol=1e-4, label="train_f32", route=f32t,
+               repeat=True)
+    # bf16 at the chain run_wide's model runs (width WIDE), at its rows
+    case(BATCH * RES * RES, [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1)
+         + [WIDE], ln=True, residual=True, approx=True, dtype=torch.bfloat16,
+         tol=1e-2, label=f"width{WIDE}_bf16", route="mma")
     return bf16, f32
+
+
+def _backward_tile_rows(dims, cd, has_ln=True) -> int:
+    """K1b's tile rows for a chain from the kernel's planner, which its
+    launcher's Python mirror must give too (-1: refused, a ValueError
+    there)."""
+    import ctypes
+
+    from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
+
+    got = _build.library().rpde_fused_ff_backward_tile_rows(
+        int(cd == torch.bfloat16), (ctypes.c_int * len(dims))(*dims),
+        len(dims) - 1, int(has_ln))
+    try:
+        want = fused_ff.backward_tile_rows(dims, has_ln, cd)
+    except ValueError:
+        want = -1
+    require(got == want, f"K1b planner for {dims} {cd}: {got} rows, its "
+            f"mirror {want}")
+    return got
+
+
+def check_planner_mirrors() -> None:
+    """The launchers' Python mirrors of the kernels' planners, which pick
+    routes and refuse shapes before any launch, against the planners
+    themselves: K2's tensor-core fit (plan_mma) over a grid of shapes, and
+    K1b's tile rows over chains in both precisions."""
+    from resolution_pde_tpu_torch.ops.kernels import _build
+    from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
+
+    lib = _build.library()
+    shapes = [(n, m, c, o)
+              for n in (16, 40, 64, 128, 256, 512, 832, 840)
+              for m in (8, 17, 33, 64, 80)
+              for c in (8, 24, 64, 96, 104, 112, 128, 136, 256)
+              for o in (8, 24, 64, 96, 104, 112, 128, 136, 256)]
+    bad = [s for s in shapes
+           if bool(lib.rpde_spectral_mma_fits(*s)) != sm.mma_fits(*s)]
+    fits = sum(sm.mma_fits(*s) for s in shapes)
+    log("mirrors", case="plan_mma", shapes=len(shapes), fit=fits,
+        disagree=len(bad))
+    require(not bad, f"mma_fits disagrees with plan_mma at {bad[:5]}")
+    chains = 0
+    for w in (8, 24, 30, 64, 96, 128, 160, 192, 224, 256, 288, 320):
+        for factor in (1, 2, 4):
+            for layers in (1, 2, 3):
+                dims = [w] + [factor * w] * (layers - 1) + [w]
+                for cd in (torch.float32, torch.bfloat16):
+                    for has_ln in (True, False):
+                        _backward_tile_rows(dims, cd, has_ln)
+                        chains += 1
+    log("mirrors", case="k1b_plan", chains=chains, disagree=0)
 
 
 def check_fused_ff_bwd(gen) -> tuple:
@@ -315,6 +462,7 @@ def check_fused_ff_bwd(gen) -> tuple:
         # io: the type of x, g and dx (dtype if None); repeat: a second
         # call on the same inputs must give the same bits
         io = io or dtype
+        tile_rows = _backward_tile_rows(dims, dtype, ln)
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
               for i in range(len(dims) - 1)]
         bs = [randn((d,), gen, 0.1) for d in dims[1:]]
@@ -348,7 +496,8 @@ def check_fused_ff_bwd(gen) -> tuple:
         plain = time_ms(lambda: fused_ff.fused_feedforward_bwd_reference(
             x, g, ks, bs, lnp, zs_saved=zs_ref, **kw), reps=10)
         log("K1b", case=label, rows=n, dims="->".join(map(str, dims)),
-            rel_l2=",".join(f"{k}:{v:.3e}" for k, v in errs.items()),
+            route="mma" if dtype == torch.bfloat16 else "f32_tiles",
+            tile_rows=tile_rows, rel_l2=",".join(f"{k}:{v:.3e}" for k, v in errs.items()),
             max_abs=f"{mx:.3e}", tol=tol, ms=f"{ms:.4f}",
             plain_ms=f"{plain:.4f}")
         require(all(bool(torch.isfinite(a.float()).all()) for a in flat(got)),
@@ -396,8 +545,26 @@ def check_fused_ff_bwd(gen) -> tuple:
          tol=1e-2, label="ragged_f32_bf16_io", io=torch.bfloat16)
     f32 = case(BATCH * RES * RES, dims, ln=True, approx=True,
                dtype=torch.float32, tol=1e-4, label="train_f32", repeat=True)
+    # factor-4 chains wider than the train shape's: their middle layers run
+    # in column chunks of 256, shorter tiles (each case logs the planner's
+    # tile rows, checked against its Python mirror), recomputed and with
+    # saved pre-activations
+    for w in (160, 192, 256):
+        for save in (False, True):
+            case(2003, [w, 4 * w, 4 * w, w], ln=True, approx=True,
+                 dtype=torch.float32, tol=1e-5,
+                 label=f"width{w}_f32" + ("_saved" if save else ""),
+                 save=save)
     saved = case(BATCH * RES * RES, dims, ln=True, approx=True,
                  dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
+    # bf16 at the chain run_wide's model runs (width WIDE), at its rows,
+    # recomputed and with saved pre-activations
+    wide = [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1) + [WIDE]
+    for save in (False, True):
+        case(BATCH * RES * RES, wide, ln=True, approx=True,
+             dtype=torch.bfloat16, tol=1e-2,
+             label=f"width{WIDE}_bf16" + ("_saved" if save else ""),
+             save=save)
     bench.update(saved_ms=saved["ms"], saved_plain_ms=saved["plain_ms"],
                  saved_bound_ms=saved["bound_ms"],
                  saved_bound_by=saved["bound_by"])
@@ -405,16 +572,22 @@ def check_fused_ff_bwd(gen) -> tuple:
 
 
 def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
-                  acc=False, adjoint=False, timed=False) -> dict:
+                  acc=False, adjoint=False, timed=False, route=None) -> dict:
     """One axis pass (``adjoint``: its adjoint) of a channels-last (B, H, W,
     C) tensor along ``axis`` to ``c_out`` channels, added into a random
     ``acc`` when asked, against the plain version on the same inputs on
-    the card; timed beside it when ``timed``."""
+    the card; timed beside it when ``timed``. ``route``: the kernel the
+    shape must take ("mma" or "cuda_cores", spectral_route), which a
+    bf16 launch on the CUDA-core kernel shows in the wide count."""
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
     cuda = torch.device("cuda")
     c, n = shape[3], shape[axis]
     m = min(MODES, n // 2 + 1)
+    took = sm.spectral_route(cd, n, m, c, c_out)
+    require(route is None or took == route,
+            f"K2 {label}: route {took}, expected {route}")
+    wide0 = sm.wide_launches
     x = randn(shape, gen, dtype=io or cd)
     if adjoint:  # the pass maps c_out channels to c; its adjoint c to c_out
         wab = sm.mix_blocks(randn((c_out, c, MODES, 2), gen, 0.1), m)
@@ -432,10 +605,13 @@ def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
     ref = sm._plain_axis_pass(x, f2, i2, plain_w, axis, cd,
                               acc0.clone() if acc else None)
     torch.cuda.synchronize()
+    wide = sm.wide_launches - wide0
+    require(wide == int(cd == torch.bfloat16 and took == "cuda_cores"),
+            f"K2 {label}: {wide} launches on the wide route, route {took}")
     err, mx = rel_l2(got, ref), max_abs(got, ref)
     fields = dict(case=label, shape="x".join(map(str, shape)), axis=axis,
-                  C=c, O=c_out, m=m, acc=int(acc), rel_l2=f"{err:.3e}",
-                  max_abs=f"{mx:.3e}", tol=tol)
+                  C=c, O=c_out, m=m, acc=int(acc), route=took,
+                  rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol)
     res = dict(max_abs_err=mx)
     if timed:
         buf = acc0.clone() if acc else None
@@ -510,6 +686,28 @@ def check_spectral(gen) -> tuple:
     spectral_case(gen, (2, 64, 48, 96), 128, 1, f32, 1e-4,
                   "c96_o128_h_acc_f32", acc=True)
     spectral_case(gen, (2, 8, 128, 200), 136, 2, f32, 1e-4, "c200_o136_f32")
+    # bf16 passes too wide for the tensor-core kernel, on the CUDA-core
+    # kernel with the bf16 rounding points: 128 -> 128 at the train
+    # shape's 2048 rows of 256 points (FFNO2D at width 128), W and H with
+    # acc, 256 -> 256, and f32 x and out; bf16 tolerance
+    wide = spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, bf, 1e-2,
+                         "c128_o128_bf16_wide", timed=True, route="cuda_cores")
+    wide_h = spectral_case(gen, (BATCH, RES, RES, 128), 128, 1, bf, 1e-2,
+                           "c128_o128_h_acc_bf16_wide", acc=True, timed=True,
+                           route="cuda_cores")
+    spectral_case(gen, (2, 32, RES, 256), 256, 2, bf, 1e-2,
+                  "c256_o256_bf16_wide", timed=True, route="cuda_cores")
+    spectral_case(gen, (2, 8, RES, 112), 112, 2, bf, 1e-2,
+                  "c112_o112_f32_io_bf16_wide", io=f32, route="cuda_cores")
+    spectral_case(gen, (2, 8, RES, 104), 104, 2, bf, 1e-2, "c104_o104_bf16",
+                  route="mma")
+    x = randn((BATCH, RES, RES, 128), gen, dtype=bf)
+    wab = sm.mix_blocks(randn((128, 128, MODES, 2), gen, 0.1), MODES)
+    first = sm.spectral_axis_pass(x, wab, 2, "ortho", bf)
+    again = sm.spectral_axis_pass(x, wab, 2, "ortho", bf)
+    same = bool(torch.equal(first, again))
+    log("K2", case="c128_o128_bf16_wide_repeat", bit_equal=same)
+    require(same, "K2 wide: two calls on the same inputs differ")
     # two calls on the same inputs give the same bits (sums in an order
     # fixed by the shapes)
     x = randn(train, gen)
@@ -532,7 +730,7 @@ def check_spectral(gen) -> tuple:
     log("K2", case="both_axes_bf16", shape="8x48x64x64", m="25/33",
         rel_l2=f"{err:.3e}", tol=1e-2)
     require(err <= 1e-2, f"K2 both axes: rel_l2 {err}")
-    return _with_h(w16, h16), _with_h(k3, k3h)
+    return _with_h(w16, h16), _with_h(k3, k3h), _with_h(wide, wide_h)
 
 
 def check_spectral_adjoint(gen) -> tuple:
@@ -557,6 +755,17 @@ def check_spectral_adjoint(gen) -> tuple:
                   adjoint=True)
     spectral_case(gen, (2, 8, 128, 136), 200, 2, f32, 1e-4,
                   "o136_to_c200_f32", adjoint=True)
+    # the bf16 adjoint on the wide route: 128 -> 128 at the train shape's
+    # rows (W, and H with acc) and 256 -> 256
+    wide = spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, bf, 1e-2,
+                         "c128_o128_bf16_wide", adjoint=True, timed=True,
+                         route="cuda_cores")
+    wide_h = spectral_case(gen, (BATCH, RES, RES, 128), 128, 1, bf, 1e-2,
+                           "c128_o128_h_acc_bf16_wide", acc=True,
+                           adjoint=True, timed=True, route="cuda_cores")
+    spectral_case(gen, (2, 32, RES, 256), 256, 2, bf, 1e-2,
+                  "c256_o256_bf16_wide", adjoint=True, timed=True,
+                  route="cuda_cores")
     cuda = torch.device("cuda")
     f2, i2 = sm.packed_factors(RES, MODES, "ortho", cuda)
     x = randn(train, gen, dtype=bf)
@@ -602,14 +811,14 @@ def check_spectral_adjoint(gen) -> tuple:
             m="25/33", dx_rel_l2=f"{errs[0]:.3e}",
             dwy_rel_l2=f"{errs[1]:.3e}", dwx_rel_l2=f"{errs[2]:.3e}", tol=tol)
         require(max(errs) <= tol, f"conv gradients {dtype}: {errs}")
-    return _with_h(w16, h16), _with_h(k3, k3h)
+    return _with_h(w16, h16), _with_h(k3, k3h), _with_h(wide, wide_h)
 
 
 def build_model(device, compute_dtype, spectral_impl, gen=None,
-                ff_impl="fused"):
+                ff_impl="fused", width=WIDTH):
     from resolution_pde_tpu_torch.models import FFNO2D
 
-    return FFNO2D(in_channels=1, out_channels=1, width=WIDTH,
+    return FFNO2D(in_channels=1, out_channels=1, width=width,
                   n_layers=LAYERS, n_modes=MODES, factor=FACTOR,
                   ff_weight_norm=True, n_ff_layers=FF_LAYERS,
                   layer_norm=True, dropout=0.0, compute_dtype=compute_dtype,
@@ -867,6 +1076,107 @@ def run_train() -> dict:
     return dict(launched=launched, step_ms=step_ms)
 
 
+def run_wide() -> dict:
+    """FFNO2D at width WIDE on spectral_impl 'pallas2' in bf16, whose
+    spectral passes and adjoints the tensor-core kernel does not fit (the
+    wide route, spectral_mix.spectral_route): a predict of 5 through
+    ServingEngine at 8 x 256² and 3 Trainer steps at 8 x 256² from the
+    same random weights (finite losses, every gradient finite and
+    non-zero), each launching the wide route twice a layer (and twice for
+    the adjoints); then the predict and one step's gradients at 2 x 128²
+    against the same weights in f32 on the CPU (relative L2 3e-2, as the
+    width-64 slice). Returns the launches of the predict and the 3 steps,
+    read just after them: the wide route's ("wide") and K1f's and K1b's
+    in bf16 ("fwd", "bwd")."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+    from resolution_pde_tpu_torch.ops.losses import relative_l2
+    from resolution_pde_tpu_torch.train import Trainer
+
+    init = build_model("cpu", torch.bfloat16, "pallas2",
+                       torch.Generator().manual_seed(SEED + 2),
+                       width=WIDE).state_dict()
+
+    def model(device="cuda", compute_dtype=torch.bfloat16):
+        m = build_model(device, compute_dtype, "pallas2", width=WIDE)
+        m.load_state_dict(init)
+        return m
+
+    eng = ServingEngine(model(), device="cuda")
+    eng.warmup(spatial_shapes=[(128, 128), (RES, RES)],
+               batch_sizes=[2, BATCH])
+    rng = np.random.default_rng(SEED + 2)
+    x = rng.standard_normal((5, 1, RES, RES)).astype(np.float32)
+    xt = rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32)
+    xd = torch.from_numpy(xt).cuda()
+    yd = torch.roll(xd, 7, dims=-1)
+    x128 = rng.standard_normal((2, 1, 128, 128)).astype(np.float32)
+    y128 = np.roll(x128, 7, axis=-1)
+
+    # the main path of the wide route: every launch counted from here
+    # comes from the predicts and steps below
+    fused_ff.launches = fused_ff.bwd_launches = 0
+    spectral_mix.launches = spectral_mix.adjoint_launches = 0
+    spectral_mix.wide_launches = 0
+
+    def wide_since(before, what, want):
+        d = spectral_mix.wide_launches - before
+        require(d == want, f"width {WIDE} {what}: {d} launches on the wide "
+                f"route, expected {want}")
+
+    before = spectral_mix.wide_launches
+    t = time.perf_counter()
+    y = eng.predict(x)
+    predict_ms = (time.perf_counter() - t) * 1e3
+    wide_since(before, "predict", 2 * LAYERS)
+    require(y.shape == x.shape and np.isfinite(y).all(),
+            f"width {WIDE} predict: shape {y.shape} or non-finite")
+    trainer = Trainer(model(), learning_rate=1e-3, device="cuda")
+    state = trainer.init()
+    losses, step_ms = [], []
+    for _ in range(3):
+        before = spectral_mix.wide_launches
+        t = time.perf_counter()
+        state, loss = trainer.train_step(state, xd, yd)
+        losses.append(float(loss))  # syncs
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        wide_since(before, "train step", 4 * LAYERS)
+    launched = dict(wide=spectral_mix.wide_launches, fwd=fused_ff.launches,
+                    bwd=fused_ff.bwd_launches)
+    require(launched["fwd"] == 4 * LAYERS and launched["bwd"] == 3 * LAYERS,
+            f"width {WIDE}: FeedForward launches {launched}, expected "
+            f"{4 * LAYERS} forward and {3 * LAYERS} backward")
+    require(all(np.isfinite(losses)), f"width {WIDE} losses {losses}")
+    for name, prm in state.model.named_parameters():
+        gr = prm.grad
+        require(gr is not None and bool(torch.isfinite(gr).all())
+                and float(gr.abs().sum()) > 0,
+                f"width {WIDE} parameter {name}: gradient missing, "
+                "non-finite or zero")
+    log("wide", model=f"FFNO2D width {WIDE} pallas2 bf16",
+        predict_ms=f"{predict_ms:.3f}", losses=[f"{v:.6f}" for v in losses],
+        step_ms=[f"{v:.3f}" for v in step_ms], launches=launched)
+
+    # against the same weights in f32 on the CPU through the plain versions
+    cpu = model("cpu", None)
+    cpu_eng = ServingEngine(cpu, device="cpu")
+    cpu_eng.warmup(spatial_shapes=[(128, 128)], batch_sizes=[2])
+    before = spectral_mix.wide_launches
+    err = rel_l2(torch.from_numpy(eng.predict(x128)),
+                 torch.from_numpy(cpu_eng.predict(x128)))
+    relative_l2(cpu(torch.from_numpy(x128)),
+                torch.from_numpy(y128)).backward()
+    trainer = Trainer(model(), learning_rate=1e-3, device="cuda")
+    state, _ = trainer.train_step(trainer.init(), x128, y128)
+    gerr = rel_l2(_flat_grads(state.model), _flat_grads(cpu))
+    wide_since(before, "predict and step at 128^2", 6 * LAYERS)
+    log("wide", predict_vs_cpu_f32_rel_l2=f"{err:.3e}",
+        grads_vs_cpu_f32_rel_l2=f"{gerr:.3e}", tol=3e-2)
+    require(err <= 3e-2, f"width {WIDE} predict vs CPU f32: {err}")
+    require(gerr <= 3e-2, f"width {WIDE} gradients vs CPU f32: {gerr}")
+    return launched
+
+
 def _log_uniform_dt(h, gen):
     """log-uniform timesteps in [1e-3, 1e-1], as the S4 layers draw them."""
     u = torch.rand(h, generator=gen)
@@ -1088,10 +1398,12 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     k1, k1f32 = check_fused_ff(gen)
     k1b, k1b32 = check_fused_ff_bwd(gen)
-    k2, k3 = check_spectral(gen)
-    adj16, adj32 = check_spectral_adjoint(gen)
+    check_planner_mirrors()
+    k2, k3, k2wide = check_spectral(gen)
+    adj16, adj32, adjwide = check_spectral_adjoint(gen)
     served = run_slice(gen)
     trained = run_train()["launched"]
+    wide = run_wide()
     k4, k5 = check_s4_kernels(gen)
     s4_served = run_s4_slice()
 
@@ -1101,13 +1413,14 @@ def main() -> int:
     kernels = [
         dict(name="fused_ff_fwd_bf16", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
-             launches=served["bf16"][0] + trained["bf16"][0], **k1),
+             launches=served["bf16"][0] + trained["bf16"][0] + wide["fwd"],
+             **k1),
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["f32"][0] + trained["f32"][0], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["bf16"][1], **k1b),
+             launches=trained["bf16"][1] + wide["bwd"], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["f32"][1], **k1b32),
@@ -1117,6 +1430,10 @@ def main() -> int:
         dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
              launches=served["f32"][1] + trained["f32"][2], **k3),
+        dict(name="spectral_pass_bf16_wide", route="cuda", source=sm_src,
+             replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
+             launches=wide["wide"], adjoint_ms=adjwide["ms"],
+             adjoint_plain_ms=adjwide["plain_ms"], **k2wide),
         dict(name="spectral_adjoint_bf16", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
              launches=trained["bf16"][3], **adj16),

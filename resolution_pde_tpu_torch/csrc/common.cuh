@@ -1,9 +1,10 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// block_gemm is the CUDA-core matrix-product routine of the f32 products
-// of the fused FeedForward forward (fused_ff.cu); its bf16 products run on
-// the tensor cores instead (mma.cuh), and the backward's f32 products on
-// weights streamed through shared memory (f32_tile_gemm, fused_ff.cuh). The
+// block_gemm is the CUDA-core matrix-product routine of the fused
+// FeedForward forward's f32 products for chains too wide for
+// f32_tile_gemm's buffers (fused_ff.cu); its bf16 products run on the
+// tensor cores instead (mma.cuh), and both directions' other f32 products
+// on weights streamed through shared memory (f32_tile_gemm, fused_ff.cuh). The
 // spectral pass (spectral_mix.cu) has block products of its own in both
 // precisions. load_rows stages rows of a tile into shared memory for both
 // FeedForward kernels.

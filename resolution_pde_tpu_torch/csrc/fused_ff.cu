@@ -51,8 +51,30 @@
 // spills).
 //
 // f32 (the f32-exact mode, held to 1e-5 of the plain version): the
-// products stay IEEE f32 FMAs on the CUDA cores (block_gemm), the weights
-// read row-major from L2.
+// products stay IEEE f32 FMAs on the CUDA cores, no TF32: the train
+// shape's 103 GFLOP are 1.54 ms at the card's 67 TFLOP/s, which bounds
+// the kernel. To run near that rate the operands must come from shared
+// memory in wide loads, each loaded value used many times from registers,
+// so fused_ff_fwd_f32_kernel runs every layer on f32_tile_gemm
+// (fused_ff.cuh), the backward's f32 products: each layer's weight (zero-
+// padded to multiples of 4) streams through a ring of two shared-memory
+// stages of 32 contraction rows by 16-byte cp.async copies, the next
+// layer's first slice copied while this layer's epilogue runs; a thread
+// keeps 8 x 4 sums whose operands are 16-byte shared loads, a warp's lanes
+// 4 row groups x 8 column groups. A block takes a tile of 64 rows with 512
+// threads (one register tile each of a 64 x 256 output; the threads a
+// narrower layer leaves idle take part of its contraction), one block an
+// SM: two f32 activation buffers of 64 rows padded to 4 mod 32 floats (so
+// that the rows a warp's A loads read fall in other banks), 2 x 66.5 KB,
+// and the ring, 64 KB at bench dims. The epilogue adds the bias and
+// applies GELU (the JAX kernel's f32 form, gelu in fused_ff.cuh) into the
+// other buffer; the last layer's sums go there in f32, the residual tile
+// comes by cp.async into the freed input buffer, and one warp a row does
+// the LayerNorm (two-pass) and adds it. Layers wider than 256 run in
+// column chunks, which the ring is sized to, so chains up to 64 rows of
+// both buffers take this kernel down to 8-row tiles; a chain too wide for
+// that (widths above about 2,600) runs fused_ff_fwd_kernel instead
+// (block_gemm, weights read from L2). The planner picks from the shapes.
 
 #include <algorithm>
 #include <type_traits>
@@ -96,8 +118,8 @@ struct FFParams {
   int n_save;                   // pre-activations stored to zs (0 without zs)
   int zs_ld;                    // per-row elements of zs
   int zs_off[kMaxLayers];       // per-row offset of layer l's pre-activation in zs
+  int h_ld;                     // row stride of the activation buffers (bf16, f32 tiles)
   // bf16 (tensor cores) only
-  int h_ld;                     // row stride of the activation buffers
   int z_ld;                     // row stride of the last layer's f32 sums
   int buf_bytes;                // bytes of one activation buffer, a multiple of 16
   int w_ld;                     // row stride of a ring stage
@@ -109,6 +131,9 @@ struct FFParams {
 };
 
 __host__ __device__ inline int pad16(int d) { return (d + 15) / 16 * 16; }
+
+// The kernel a chain runs on, as plan picks it from the shapes.
+enum FwdRoute { kNoRoute = 0, kRouteMma = 1, kRouteF32Tiles = 2, kRouteF32Wide = 3 };
 
 #ifdef RPDE_K1F_PHASES
 // Clock cycles of thread 0 of every block in each phase of the bf16 kernel,
@@ -140,7 +165,37 @@ struct Phases {
 };
 #endif
 
-// f32 (CUDA cores)
+#ifdef RPDE_K1F_PHASES
+// The same for the f32 kernel (fused_ff_fwd_f32_kernel): 0 the x tile and
+// the first slice's copies started, 1 the first layer (its products and
+// epilogue, and the waits in it), 2 the layers between, 3 the last layer,
+// 4 the LayerNorm and the stores.
+constexpr int kF32Phases = 5;
+__device__ unsigned long long k1f_f32_phase_cycles[kF32Phases];
+struct F32Phases {
+  unsigned long long cycles[kF32Phases] = {};
+  long long t;
+  __device__ F32Phases() { t = clock64(); }
+  __device__ void mark(int phase) {
+    const long long now = clock64();
+    cycles[phase] += static_cast<unsigned long long>(now - t);
+    t = now;
+  }
+  __device__ void flush() {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kF32Phases; ++i) atomicAdd(&k1f_f32_phase_cycles[i], cycles[i]);
+  }
+};
+#else
+struct F32Phases {
+  __device__ void mark(int) {}
+  __device__ void flush() {}
+};
+#endif
+
+// f32 (CUDA cores), chains too wide for fused_ff_fwd_f32_kernel:
+// block_gemm on the weights (row-major, padded to multiples of 4) read
+// from L2
 //
 // kSave: also store the first n_save pre-activations to zs (a separate
 // instantiation, so the forward without it compiles as if zs did not exist)
@@ -178,8 +233,9 @@ fused_ff_fwd_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
     const float* wl = w + p.w_off[l];
     const float* bl = b + p.b_off[l];
     const float* h = hin;
+    const int ldw = pad4(N);
     auto a = [h, K](int i, int k) { return h[i * K + k]; };
-    auto bm = [wl, N](int k, int j) { return wl[k * N + j]; };
+    auto bm = [wl, ldw](int k, int j) { return wl[k * ldw + j]; };
     // the saved pre-activation of layer l, for rows of the tile, or null
     float* zl = kSave && l < p.n_save ? zs + row0 * p.zs_ld + p.zs_off[l] : nullptr;
     const int zs_ld = p.zs_ld;
@@ -638,14 +694,169 @@ fused_ff_fwd_mma_kernel(const IO* __restrict__ x, const IO* __restrict__ residua
   ph.flush();
 }
 
+// f32 (CUDA cores): every layer on f32_tile_gemm (fused_ff.cuh)
+
+constexpr int kF32FwdThreads = 512;  // f32_tile_gemm_threads(64, 256)
+constexpr int kF32MinTileRows = 8;   // f32_tile_gemm's register tiles read 8 rows
+
+// kSave as for fused_ff_fwd_kernel; kChunks: f32_tile_gemm's column
+// chunks, compiled in only for chains wider than kF32ChunkCols. The dynamic
+// shared memory: activation buffers 0 and 1, (tile_rows, h_ld) f32 each,
+// then f32_tile_gemm's ring. Layer l reads buffer l % 2 and writes the
+// other: GELU(z) of the hidden layers, z of the last one.
+template <typename IO, bool kSave, bool kChunks>
+__global__ void __launch_bounds__(kF32FwdThreads, 1)
+fused_ff_fwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
+                        IO* __restrict__ out, float* __restrict__ zs, const float* __restrict__ w,
+                        const float* __restrict__ b, const float* __restrict__ ln_s,
+                        const float* __restrict__ ln_b, long long n_rows, FFParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  F32Phases ph;
+  const int tr = p.tile_rows;  // a multiple of 8, so every buffer is 16-byte aligned
+  const int ld = p.h_ld;
+  float* buf0 = reinterpret_cast<float*>(smem);
+  float* buf1 = buf0 + tr * ld;
+  float* ring = buf1 + tr * ld;
+  const long long row0 = static_cast<long long>(blockIdx.x) * tr;
+  const int rows = static_cast<int>(min(static_cast<long long>(tr), n_rows - row0));
+  const int L = p.n_layers;
+  const int c_in = p.dims[0];
+  const int c_out = p.dims[L];
+  const bool approx = p.approx_gelu != 0;
+
+  // the rows past the end of the last tile, which the products read up to
+  // the next multiple of 8 and never store, and x's columns up to the next
+  // multiple of 4: zero
+  if (rows < tr)
+    for (int i = threadIdx.x; i < (tr - rows) * ld; i += blockDim.x)
+      buf0[rows * ld + i] = buf1[rows * ld + i] = 0.f;
+  const int kp0 = pad4(c_in);
+  if (kp0 > c_in)
+    for (int i = threadIdx.x; i < rows * (kp0 - c_in); i += blockDim.x) {
+      const int r = i / (kp0 - c_in);
+      buf0[r * ld + c_in + i - r * (kp0 - c_in)] = 0.f;
+    }
+  // the x tile (by 16-byte copies where f32 and aligned, else converted
+  // through registers) and layer 0's first weight slice, one group
+  const IO* xg = x + row0 * c_in;
+  bool x_async = false;
+  if constexpr (std::is_same<IO, float>::value) {
+    x_async = c_in % 4 == 0 && (reinterpret_cast<uintptr_t>(xg) & 15u) == 0;
+    if (x_async) {
+      const int per_row = c_in / 4;
+      for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+        const int r = i / per_row, q = i - r * per_row;
+        cp_async_16(buf0 + r * ld + 4 * q, xg + r * c_in + 4 * q);
+      }
+    }
+  }
+  if (!x_async) load_rows(buf0, ld, xg, rows, c_in);
+  f32_start_first_slice<kChunks>(ring, w, kp0, pad4(p.dims[1]));
+  ph.mark(0);
+
+  const IO* res_g = residual != nullptr ? residual + row0 * c_out : nullptr;
+  const bool res_async = residual_async(res_g, rows * c_out);
+  for (int l = 0; l < L; ++l) {
+    const int N = p.dims[l + 1];
+    const int np = pad4(N);
+    const bool last = l == L - 1;
+    float* hin = l % 2 ? buf1 : buf0;
+    float* hout = l % 2 ? buf0 : buf1;
+    const float* bl = b + p.b_off[l];
+    float* zl = kSave && l < p.n_save ? zs + row0 * p.zs_ld + p.zs_off[l] : nullptr;
+    const int zs_ld = p.zs_ld;
+    // once every thread is done with the ring and this layer's input: the
+    // next layer's first slice, or after the last layer the residual tile
+    // into the input buffer, copied while the epilogue runs
+    const float* w_next = last ? nullptr : w + p.w_off[l + 1];
+    const int np_next = last ? 0 : pad4(p.dims[l + 2]);
+    auto then = [=]() {
+      if (!last) {
+        f32_start_first_slice<kChunks>(ring, w_next, np, np_next);
+      } else if (res_async) {
+        const int pieces = rows * c_out * static_cast<int>(sizeof(IO)) / 16;
+        for (int i = threadIdx.x; i < pieces; i += blockDim.x)
+          cp_async_16(reinterpret_cast<char*>(hin) + 16 * i,
+                      reinterpret_cast<const char*>(res_g) + 16 * i);
+        cp_async_commit();
+      }
+    };
+    // z = the sum plus the bias (to zs where saved); GELU(z), or the last
+    // layer's z, into the other buffer, 16 bytes a store, zeros in the
+    // columns from N to the next multiple of 4 (the next layer's padded
+    // contraction reads them)
+    f32_tile_gemm<kChunks>(rows, pad4(p.dims[l]), np, hin, ld, w + p.w_off[l], ring, true,
+                  [=](int r, int j0, const float (&v)[4]) {
+                    float h[4];
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                      const int j = j0 + q;
+                      h[q] = 0.f;
+                      if (j < N) {
+                        const float z = v[q] + __ldg(bl + j);
+                        if (kSave && zl != nullptr) zl[r * zs_ld + j] = z;
+                        h[q] = last ? z : gelu_call(z, approx);
+                      }
+                    }
+                    *reinterpret_cast<float4*>(hout + r * ld + j0) =
+                        make_float4(h[0], h[1], h[2], h[3]);
+                  },
+                  then);
+    ph.mark(l == 0 ? 1 : last ? 3 : 2);
+  }
+  // the residual's copies (every other group is done), and the last
+  // layer's sums
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // LayerNorm (two-pass mean and variance in f32) and the residual, one
+  // warp a row
+  const float* zf = L % 2 ? buf1 : buf0;
+  const IO* res_s = reinterpret_cast<const IO*>((L - 1) % 2 ? buf1 : buf0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  for (int r = warp; r < rows; r += n_warps) {
+    const float* z = zf + r * ld;
+    float mu = 0.f, rstd = 1.f;
+    if (ln_s != nullptr) {
+      float s = 0.f;
+      for (int c = lane; c < c_out; c += 32) s += z[c];
+      mu = warp_sum(s) / c_out;
+      float v = 0.f;
+      for (int c = lane; c < c_out; c += 32) {
+        const float d = z[c] - mu;
+        v += d * d;
+      }
+      rstd = rsqrtf(warp_sum(v) / c_out + kLnEps);
+    }
+    const long long base = (row0 + r) * c_out;
+    for (int c = lane; c < c_out; c += 32) {
+      float y = z[c];
+      if (ln_s != nullptr) y = (y - mu) * rstd * __ldg(ln_s + c) + __ldg(ln_b + c);
+      if (residual != nullptr) y += to_f(res_async ? res_s[r * c_out + c] : residual[base + c]);
+      out[base + c] = from_f<IO>(y);
+    }
+  }
+  ph.mark(4);
+  ph.flush();
+}
+
 template <typename CD, typename IO>
 cudaError_t launch(const void* x, const void* residual, void* out, void* zs, const void* w,
                    const float* b, const float* ln_s, const float* ln_b, long long n_rows,
-                   const FFParams& p, size_t smem, cudaStream_t stream) {
+                   const FFParams& p, size_t smem, int route, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<CD, bf16>::value;
+  const bool chunks = pad4(p.max_dim) > kF32ChunkCols;
   auto kernel = [&]() {
     if constexpr (kBf16)
       return zs != nullptr ? fused_ff_fwd_mma_kernel<IO, true> : fused_ff_fwd_mma_kernel<IO, false>;
+    else if (route == kRouteF32Tiles && chunks)
+      return zs != nullptr ? fused_ff_fwd_f32_kernel<IO, true, true>
+                           : fused_ff_fwd_f32_kernel<IO, false, true>;
+    else if (route == kRouteF32Tiles)
+      return zs != nullptr ? fused_ff_fwd_f32_kernel<IO, true, false>
+                           : fused_ff_fwd_f32_kernel<IO, false, false>;
     else
       return zs != nullptr ? fused_ff_fwd_kernel<IO, true> : fused_ff_fwd_kernel<IO, false>;
   }();
@@ -653,7 +864,8 @@ cudaError_t launch(const void* x, const void* residual, void* out, void* zs, con
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long blocks = (n_rows + p.tile_rows - 1) / p.tile_rows;
-  kernel<<<static_cast<unsigned>(blocks), kBf16 ? kFwdThreads : kThreads, smem, stream>>>(
+  const int threads = kBf16 ? kFwdThreads : route == kRouteF32Tiles ? kF32FwdThreads : kThreads;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const IO*>(x), static_cast<const IO*>(residual), static_cast<IO*>(out),
       static_cast<CD*>(zs), static_cast<const CD*>(w), b, ln_s, ln_b, n_rows, p);
   return cudaGetLastError();
@@ -662,8 +874,10 @@ cudaError_t launch(const void* x, const void* residual, void* out, void* zs, con
 // Fills the layout of p from its widths: offsets, the tile of rows and, in
 // bf16, the buffers, the ring, the residual tile (io_size bytes an
 // element) and each layer's warp tiles; the dynamic shared memory in smem.
-// False if no tile fits.
-bool plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& smem) {
+// Returns the route (FwdRoute): in f32 the f32_tile_gemm kernel wherever
+// 8 rows of both its buffers fit beside the ring, else fused_ff_fwd_kernel;
+// kNoRoute if no tile fits.
+int plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& smem) {
   const int L = p.n_layers;
   long long w_off = 0;
   int b_off = 0;
@@ -673,22 +887,38 @@ bool plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& 
       p.w_off[l] = w_off;
       p.b_off[l] = b_off;
       w_off += bf16_cd ? static_cast<long long>(pad16(p.dims[l])) * pad16(p.dims[l + 1])
-                       : static_cast<long long>(p.dims[l]) * p.dims[l + 1];
+                       : static_cast<long long>(pad4(p.dims[l])) * pad4(p.dims[l + 1]);
       b_off += p.dims[l + 1];
     }
   }
   const int c_out = p.dims[L];
   if (!bf16_cd) {
-    // largest tile of rows whose buffers fit the shared-memory budget
+    // f32_tile_gemm: rows of 4 mod 32 floats, so that the rows a warp's A
+    // loads read (one apart) fall in other banks; the ring as wide as the
+    // widest layer's first column chunk; the tallest tile that fits
+    const int widest = pad4(p.max_dim);
+    p.h_ld = (widest + 27) / 32 * 32 + 4;
+    const size_t ring =
+        static_cast<size_t>(f32_ring_floats(widest, kF32FwdThreads)) * sizeof(float);
+    for (int tr = kMaxTileRows; tr >= kF32MinTileRows; tr /= 2) {
+      smem = 2 * static_cast<size_t>(tr) * p.h_ld * sizeof(float) + ring;
+      if (smem <= static_cast<size_t>(kMaxSmem) &&
+          f32_tile_gemm_threads(tr, f32_chunk_cols(widest)) <= kF32FwdThreads) {
+        p.tile_rows = tr;
+        return kRouteF32Tiles;
+      }
+    }
+    // too wide for that: fused_ff_fwd_kernel, the largest tile of rows whose
+    // buffers fit its shared-memory budget
     for (int tr = kMaxTileRows; tr >= 1; tr /= 2) {
       smem = (2 * static_cast<size_t>(tr) * p.max_dim + static_cast<size_t>(tr) * c_out) *
              sizeof(float);
       if (smem <= static_cast<size_t>(kSmemBudget)) {
         p.tile_rows = tr;
-        return true;
+        return kRouteF32Wide;
       }
     }
-    return false;
+    return kNoRoute;
   }
   // bf16 rows padded to whole fragments plus 8 columns, so that the 8 rows
   // an ldmatrix reads fall in 8 different 16-byte bank groups; the f32
@@ -723,10 +953,10 @@ bool plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& 
     if (smem <= static_cast<size_t>(kMaxSmem)) {
       p.tile_rows = tr;
       p.buf_bytes = static_cast<int>(buf);
-      return true;
+      return kRouteMma;
     }
   }
-  return false;
+  return kNoRoute;
 }
 
 }  // namespace
@@ -735,8 +965,8 @@ bool plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& 
 // x, residual, out: (n_rows, dims[0]) and (n_rows, dims[n_layers]) row-major
 // in the io type; b: the biases packed in f32; ln_s, ln_b: (dims[n_layers],)
 // f32, both null for no LayerNorm; residual may be null. w: every layer's
-// (dims[l], dims[l+1]) kernel row-major, packed one after another; in
-// bf16 each kernel zero-padded to multiples of 16 in both dimensions, and
+// (dims[l], dims[l+1]) kernel row-major, packed one after another, each
+// zero-padded to multiples of 16 (bf16) or 4 (f32) in both dimensions, and
 // w 16-byte aligned. zs, if not null: (n_rows, dims[1] + ... + dims[n_save])
 // in the compute type, receiving the pre-activations of the first n_save layers
 // (n_save = n_layers with LayerNorm, n_layers - 1 without). Returns a
@@ -750,7 +980,7 @@ extern "C" int rpde_fused_ff_forward(int cd_bf16, int io_bf16, const void* x,
   using namespace rpde;
   if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 1 || (ln_s == nullptr) != (ln_b == nullptr))
     return cudaErrorInvalidValue;
-  if (cd_bf16 && (reinterpret_cast<uintptr_t>(w) & 15u) != 0) return cudaErrorMisalignedAddress;
+  if ((reinterpret_cast<uintptr_t>(w) & 15u) != 0) return cudaErrorMisalignedAddress;
   FFParams p{};
   p.n_layers = n_layers;
   p.approx_gelu = approx_gelu;
@@ -759,8 +989,9 @@ extern "C" int rpde_fused_ff_forward(int cd_bf16, int io_bf16, const void* x,
     p.dims[l] = dims[l];
   }
   size_t smem = 0;
-  if (!plan(p, cd_bf16 != 0, io_bf16 ? sizeof(bf16) : sizeof(float), residual != nullptr, smem))
-    return cudaErrorInvalidValue;
+  const int route =
+      plan(p, cd_bf16 != 0, io_bf16 ? sizeof(bf16) : sizeof(float), residual != nullptr, smem);
+  if (route == kNoRoute) return cudaErrorInvalidValue;
   if (zs != nullptr) {
     p.n_save = ln_s != nullptr ? n_layers : n_layers - 1;
     for (int l = 0; l < p.n_save; ++l) {
@@ -770,12 +1001,34 @@ extern "C" int rpde_fused_ff_forward(int cd_bf16, int io_bf16, const void* x,
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (cd_bf16 && io_bf16)
-    return launch<bf16, bf16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<bf16, bf16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, route, s);
   if (cd_bf16)
-    return launch<bf16, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<bf16, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, route, s);
   if (io_bf16)
-    return launch<float, bf16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
-  return launch<float, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, s);
+    return launch<float, bf16>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, route, s);
+  return launch<float, float>(x, residual, out, zs, w, b, ln_s, ln_b, n_rows, p, smem, route, s);
+}
+
+// The kernel the forward runs a chain on (its arguments as
+// rpde_fused_ff_forward's): 1 the tensor-core kernel (bf16), 2 the f32
+// kernel on f32_tile_gemm, 3 fused_ff_fwd_kernel (chains too wide for 2), 0
+// none; its tile of rows in tile_rows.
+extern "C" int rpde_fused_ff_forward_route(int cd_bf16, int io_bf16, int has_residual,
+                                           const int* dims, int n_layers, int* tile_rows) {
+  using namespace rpde;
+  *tile_rows = 0;
+  if (n_layers < 1 || n_layers > kMaxLayers) return kNoRoute;
+  FFParams p{};
+  p.n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return kNoRoute;
+    p.dims[l] = dims[l];
+  }
+  size_t smem = 0;
+  const int route = plan(p, cd_bf16 != 0, io_bf16 ? sizeof(bf16) : sizeof(float),
+                         has_residual != 0, smem);
+  *tile_rows = route == kNoRoute ? 0 : p.tile_rows;
+  return route;
 }
 
 #ifdef RPDE_K1F_PHASES
@@ -785,5 +1038,12 @@ extern "C" int rpde_k1f_phase_cycles(unsigned long long* out, int reset) {
   unsigned long long zero[rpde::kPhases] = {};
   if (reset) return cudaMemcpyToSymbol(rpde::k1f_phase_cycles, zero, sizeof(zero));
   return cudaMemcpyFromSymbol(out, rpde::k1f_phase_cycles, sizeof(zero));
+}
+
+// The same for the f32 kernel (kF32Phases counters).
+extern "C" int rpde_k1f_f32_phase_cycles(unsigned long long* out, int reset) {
+  unsigned long long zero[rpde::kF32Phases] = {};
+  if (reset) return cudaMemcpyToSymbol(rpde::k1f_f32_phase_cycles, zero, sizeof(zero));
+  return cudaMemcpyFromSymbol(out, rpde::k1f_f32_phase_cycles, sizeof(zero));
 }
 #endif

@@ -77,7 +77,10 @@
 //     before its products so that their latency is hidden;
 //   - 32-row tiles (all that fits beside the ring at bench dims), the rows
 //     padded to whole float4s plus 4 floats so that the rows a warp's A
-//     loads read fall in other banks.
+//     loads read fall in other banks;
+//   - layers wider than 256 run their products in column chunks of 256
+//     (f32_tile_gemm), so the ring is never wider than a chunk and chains
+//     up to 256 -> 1024 -> 1024 -> 256 keep a tile of 8 rows.
 // On an H100 its products run at 28-30 % of the FMA rate (PERF.md).
 
 #include <algorithm>
@@ -406,8 +409,6 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   }
 }
 
-__host__ __device__ inline int pad4(int d) { return (d + 3) / 4 * 4; }
-
 // dst (f32 slab) = v on a block's first tile, dst + v on later ones
 __device__ __forceinline__ void slab_add(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
@@ -604,8 +605,9 @@ __device__ __forceinline__ void f32_dw_add(int k, int n, int rows, const float* 
 // f32 compute type (the f32-exact mode): IEEE f32 products on the CUDA
 // cores, the weights streamed through shared memory (f32_tile_gemm), dW
 // in float4 register tiles (f32_dw_add); the phases, the slabs and the
-// column sums are the bf16 kernel's
-template <typename IO>
+// column sums are the bf16 kernel's. kChunks: f32_tile_gemm's column
+// chunks, compiled in only for chains wider than kF32ChunkCols.
+template <typename IO, bool kChunks>
 __global__ void __launch_bounds__(kBwdThreads)
 fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
                         const float* __restrict__ zs, IO* __restrict__ dx,
@@ -669,7 +671,7 @@ fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
         const float* h = l == 0 ? h0 : (l % 2 == 1 ? hbuf : dzc);
         float* zl = zbuf + p.z_off[l];
         float* hn = l < L - 1 ? (l % 2 == 0 ? hbuf : dzc) : nullptr;
-        f32_tile_gemm(rows, pad4(p.dims[l]), pad4(N), h, l == 0 ? h0_ld : dz_ld,
+        f32_tile_gemm<kChunks>(rows, pad4(p.dims[l]), pad4(N), h, l == 0 ? h0_ld : dz_ld,
                       w + p.wp_off[l], ring, false, [=](int r, int j0, const float (&v)[4]) {
 #pragma unroll
                         for (int q = 0; q < 4; ++q) {
@@ -703,13 +705,13 @@ fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       const int N = p.dims[l + 1];
       // dh (rows x K) = dz W_l^T, W_l^T from the transposed copy
       const float* wtl = wt + p.wp_off[l];
-      f32_start_slice(ring, wtl, pad4(N), pad4(K), 0);
+      f32_start_first_slice<kChunks>(ring, wtl, pad4(N), pad4(K));
       f32_dw_add(K, N, rows, l == 0 ? h0 : hbuf, l == 0 ? h0_ld : dz_ld, dzc, dz_ld,
                  slab + p.sw_off[l], first);
       mark(3 + 3 * l);
       if (l > 0) {
         float* zp = zbuf + p.z_off[l - 1];
-        f32_tile_gemm(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
+        f32_tile_gemm<kChunks>(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
                       [=](int r, int i0, const float (&v)[4]) {
 #pragma unroll
                         for (int q = 0; q < 4; ++q) {
@@ -726,7 +728,7 @@ fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
         mark(5 + 3 * l);
       } else {
         IO* dxt = dx + row0 * c_in;
-        f32_tile_gemm(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
+        f32_tile_gemm<kChunks>(rows, pad4(N), pad4(K), dzc, dz_ld, wtl, ring, true,
                       [=](int r, int i0, const float (&v)[4]) {
 #pragma unroll
                         for (int q = 0; q < 4; ++q)
@@ -823,7 +825,8 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
   } else {
     // the products' and dW's rows: whole float4s (dW reads h up to the
     // next multiple of 8 columns) plus 4 floats, so that rows one apart
-    // fall in other banks; the weight ring, as wide as the widest layer
+    // fall in other banks; the weight ring, as wide as the widest layer's
+    // first column chunk (f32_chunk_cols: wider layers run in chunks)
     for (int l = 0; l <= n_layers; ++l) widest = std::max(widest, pad4(dims[l]));
     p.h0_ld = pad4(dims[0]) + 4;
     p.dz_ld = pad4(p.dz_ld) + 4;
@@ -839,7 +842,7 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
   // the tensor-core products read whole fragments of 16 rows; the f32
   // products' register tiles 8 rows, a thread each
   if (tr < (bf16 ? 16 : 8)) return false;
-  if (!bf16 && f32_tile_gemm_threads(tr, widest) > kBwdThreads) return false;
+  if (!bf16 && f32_tile_gemm_threads(tr, f32_chunk_cols(widest)) > kBwdThreads) return false;
   p.tile_rows = tr;
   smem = (tr * per_row + fixed + 15) / 16 * 16;
   p.smem_bytes = static_cast<int>(smem);
@@ -853,10 +856,14 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
                    int max_blocks, cudaStream_t stream) {
   void (*kernel)(const IO*, const IO*, const CD*, IO*, const CD*, const CD*, const float*,
                  const float*, float*, long long, BwdParams);
-  if constexpr (std::is_same<CD, float>::value)
-    kernel = fused_ff_bwd_f32_kernel<IO>;
-  else
+  if constexpr (std::is_same<CD, float>::value) {
+    int widest = 0;
+    for (int l = 0; l <= p.n_layers; ++l) widest = std::max(widest, pad4(p.dims[l]));
+    kernel = widest > kF32ChunkCols ? fused_ff_bwd_f32_kernel<IO, true>
+                                    : fused_ff_bwd_f32_kernel<IO, false>;
+  } else {
     kernel = fused_ff_bwd_kernel<IO>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -898,6 +905,17 @@ extern "C" int rpde_fused_ff_backward_slab(int cd_bf16, const int* dims, int n_l
   size_t smem = 0;
   if (!rpde::plan(p, cd_bf16 != 0, dims, n_layers, has_ln != 0, smem)) return -1;
   return static_cast<int>(p.slab);
+}
+
+// Rows of the backward's tile of rows for the same chain, or -1 where
+// rpde_fused_ff_backward_slab gives -1 (the launcher's Python mirror of
+// plan is checked against it).
+extern "C" int rpde_fused_ff_backward_tile_rows(int cd_bf16, const int* dims, int n_layers,
+                                                int has_ln) {
+  rpde::BwdParams p;
+  size_t smem = 0;
+  if (!rpde::plan(p, cd_bf16 != 0, dims, n_layers, has_ln != 0, smem)) return -1;
+  return p.tile_rows;
 }
 
 // x (n_rows, dims[0]), g (n_rows, dims[n_layers]) and dx (n_rows, dims[0]),

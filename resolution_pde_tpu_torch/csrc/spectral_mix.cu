@@ -102,6 +102,15 @@
 // whole tiles, so the inner loops carry no bounds checks. Every sum runs in
 // an order fixed by the shapes, so two calls give the same bits. Channels
 // up to 256 and m up to 64 fit; a shape that does not fit is refused.
+//
+// The wide shapes of the bf16 pass: the tensor-core kernel needs two ring
+// stages of two weight modes each beside the tile's spectra, and at most
+// 128 output channels, which at n = 256 and m = 64 stops at C = O = 104
+// (rpde_spectral_mma_fits; FFNO2D at width 128 needs more). Where it does
+// not fit, the bf16 pass runs on the f32 kernel above with the bf16 mode's
+// rounding points (kBf16: x, the spectra and the mixed spectra rounded to
+// bf16; the factors and the weight rounded by the launcher), whose limits
+// it then has. The route is picked from the shape alone.
 
 #include <algorithm>
 #include <type_traits>
@@ -1076,8 +1085,9 @@ __device__ __forceinline__ void zero_f32(F32Acc& acc) {
 // Starts the copy of forward slice (mt, w0) into stage st: f2's rows w0..
 // w0 + kF32K1 - 1, columns mt * kF32TileM.. (kF32K1 x kF32TileM), then the
 // tile's x at those points, (kF32K1, kF32Cols) with column t * C8 + c; zeros
-// past the tile's rows, past n and in the channels from C.
-template <int TR, typename IO>
+// past the tile's rows, past n and in the channels from C. With kBf16 each
+// x value is rounded to bf16 (x_async is then off for f32 x).
+template <int TR, bool kBf16, typename IO>
 __device__ __forceinline__ void stage_forward(const F32Params& p, const IO* __restrict__ x,
                                               const float* __restrict__ f2p, float* st, int mt,
                                               int w0, int rows, const long long* xrow) {
@@ -1108,7 +1118,7 @@ __device__ __forceinline__ void stage_forward(const F32Params& p, const IO* __re
       const IO* src = x + xrow[t] + w * p.x_ax + c0;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (c0 + e < p.c) v[e] = to_f(src[e]);
+        if (c0 + e < p.c) v[e] = kBf16 ? round_to<bf16>(to_f(src[e])) : to_f(src[e]);
     }
     *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -1127,8 +1137,9 @@ __device__ __forceinline__ void stage_inverse(const F32Params& p, const float* _
 }
 
 // The forward DFT's sums of block tile mt into the spectra: packed mode j
-// (row), column t * C8 + c -> chunk spec_chunk(j, c) of row j, element t.
-template <int TR>
+// (row), column t * C8 + c -> chunk spec_chunk(j, c) of row j, element t;
+// with kBf16 each rounded to bf16.
+template <int TR, bool kBf16>
 __device__ __forceinline__ void store_spectra(const F32Params& p, float* spec, const F32Acc& acc,
                                               int mt) {
   const int tx = threadIdx.x % kF32Tx, ty = threadIdx.x / kF32Tx;
@@ -1141,7 +1152,9 @@ __device__ __forceinline__ void store_spectra(const F32Params& p, float* spec, c
       const int j = mt * kF32TileM + f32_row(ty, i);
       float* row = spec + j * kF32Cols + t;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) row[spec_chunk(j, c0 + q) * TR] = acc[i][4 * h + q];
+      for (int q = 0; q < 4; ++q)
+        row[spec_chunk(j, c0 + q) * TR] =
+            kBf16 ? round_to<bf16>(acc[i][4 * h + q]) : acc[i][4 * h + q];
     }
   }
 }
@@ -1156,8 +1169,9 @@ __device__ __forceinline__ void store_spectra(const F32Params& p, float* spec, c
 // a row at TR = 4), kMixC channels a slice, the next slice's loads issued
 // before this slice's products into the other of two register buffers. A
 // mode's sums overwrite its own z_k (only this warp reads it): part s of
-// row t, channel o at row s * m + k, column t * O8 + o.
-template <int TR>
+// row t, channel o at row s * m + k, column t * O8 + o; with kBf16 each
+// rounded to bf16.
+template <int TR, bool kBf16>
 __device__ __forceinline__ void mix_warp(const F32Params& p, float* spec,
                                          const float* __restrict__ wk) {
   constexpr int kE = F32Tile<TR>::kLaneOut, kC = F32Tile<TR>::kMixC;
@@ -1203,6 +1217,12 @@ __device__ __forceinline__ void mix_warp(const F32Params& p, float* spec,
     __syncwarp();  // every lane has read z_k before any overwrites it
 #pragma unroll
     for (int t = 0; t < TR; ++t) {
+      if (kBf16)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          re[t][e] = round_to<bf16>(re[t][e]);
+          im[t][e] = round_to<bf16>(im[t][e]);
+        }
       if (on) {
         store_vec(spec + k * kF32Cols + t * p.o8 + o, re[t]);
         store_vec(spec + (p.m + k) * kF32Cols + t * p.o8 + o, im[t]);
@@ -1298,8 +1318,13 @@ __device__ __forceinline__ void store_out(const F32Params& p, IO* __restrict__ o
 // memory. The DFTs' slices (f2 and the tile's x at kF32K1 points, then i2
 // at kF32K3 packed modes) come by cp.async through a ring of kF32Stages
 // stages, the next kF32Stages - 1 slices' copies in flight while the
-// threads work on one; between the DFTs, the mix (mix_warp).
-template <typename IO, int TR>
+// threads work on one; between the DFTs, the mix (mix_warp). kBf16: the
+// bf16 mode's rounding points (the wide shapes of the bf16 pass, which the
+// tensor-core kernel does not fit): x, the spectra and the mixed spectra
+// rounded to bf16, the factors and the weight given already rounded;
+// products of bf16 values are exact in f32, so only the order of the f32
+// sums differs from the tensor-core kernel.
+template <typename IO, int TR, bool kBf16>
 __global__ void __launch_bounds__(kF32Threads, 1)
 spectral_pass_kernel(const IO* __restrict__ x, const float* __restrict__ f2p,
                      const float* __restrict__ i2p, const float* __restrict__ wk,
@@ -1332,7 +1357,8 @@ spectral_pass_kernel(const IO* __restrict__ x, const float* __restrict__ f2p,
   // land(i - kF32Stages + 1): every thread is done with the slice that was
   // there; one group of cp.async copies, empty past the last slice
   auto start_forward = [&](int i) {
-    if (i < s1) stage_forward<TR>(p, x, f2p, stage(i), i / k1, (i % k1) * kF32K1, rows, xrow);
+    if (i < s1)
+      stage_forward<TR, kBf16>(p, x, f2p, stage(i), i / k1, (i % k1) * kF32K1, rows, xrow);
     cp_async_commit();
   };
   auto start_inverse = [&](int i) {
@@ -1356,14 +1382,14 @@ spectral_pass_kernel(const IO* __restrict__ x, const float* __restrict__ f2p,
       tile_fma<kF32K1>(acc, stage(i), stage(i) + kF32K1 * kF32TileM);
       ph.mark(1);
     }
-    store_spectra<TR>(p, spec, acc, mt);
+    store_spectra<TR, kBf16>(p, spec, acc, mt);
     ph.mark(2);
   }
   // every spectrum is in place, and the stages are free: the inverse's
   // first slices are copied during the mix
   __syncthreads();
   for (int i = 0; i < kF32Stages - 1; ++i) start_inverse(i);
-  mix_warp<TR>(p, spec, wk);
+  mix_warp<TR, kBf16>(p, spec, wk);
   ph.mark(3);
   for (int mt = 0, i = 0; mt < m3; ++mt) {
     zero_f32(acc);
@@ -1402,8 +1428,10 @@ int plan_f32(F32Params& p, size_t& smem) {
 
 template <typename IO, int TR>
 cudaError_t launch_f32_tile(const void* x, const void* f2p, const void* i2p, const void* wk,
-                            void* out, const F32Params& p, size_t smem, cudaStream_t stream) {
-  auto kernel = spectral_pass_kernel<IO, TR>;
+                            void* out, const F32Params& p, size_t smem, bool round_bf16,
+                            cudaStream_t stream) {
+  auto kernel =
+      round_bf16 ? spectral_pass_kernel<IO, TR, true> : spectral_pass_kernel<IO, TR, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1416,7 +1444,7 @@ cudaError_t launch_f32_tile(const void* x, const void* f2p, const void* i2p, con
 
 template <typename IO>
 cudaError_t launch_f32(const void* x, const void* f2p, const void* i2p, const void* wk, void* out,
-                       F32Params& p, cudaStream_t stream) {
+                       F32Params& p, bool round_bf16, cudaStream_t stream) {
   size_t smem = 0;
   const int tr = plan_f32(p, smem);
   if (tr == 0) return cudaErrorInvalidValue;
@@ -1424,13 +1452,13 @@ cudaError_t launch_f32(const void* x, const void* f2p, const void* i2p, const vo
     return (reinterpret_cast<uintptr_t>(q) & (to - 1)) == 0;
   };
   if (!aligned(f2p, 16) || !aligned(i2p, 16) || !aligned(wk, 16)) return cudaErrorMisalignedAddress;
-  p.x_async = std::is_same<IO, float>::value && p.c % 4 == 0 && p.x_ax % 4 == 0 &&
-              p.x_hi % 4 == 0 && p.x_lo % 4 == 0 && aligned(x, 16);
+  p.x_async = std::is_same<IO, float>::value && !round_bf16 && p.c % 4 == 0 &&
+              p.x_ax % 4 == 0 && p.x_hi % 4 == 0 && p.x_lo % 4 == 0 && aligned(x, 16);
   p.vec_out = p.o % 4 == 0 && p.y_ax % 4 == 0 && p.y_hi % 4 == 0 && p.y_lo % 4 == 0 &&
               aligned(out, 4 * sizeof(IO));
-  if (tr == 4) return launch_f32_tile<IO, 4>(x, f2p, i2p, wk, out, p, smem, stream);
-  if (tr == 2) return launch_f32_tile<IO, 2>(x, f2p, i2p, wk, out, p, smem, stream);
-  return launch_f32_tile<IO, 1>(x, f2p, i2p, wk, out, p, smem, stream);
+  if (tr == 4) return launch_f32_tile<IO, 4>(x, f2p, i2p, wk, out, p, smem, round_bf16, stream);
+  if (tr == 2) return launch_f32_tile<IO, 2>(x, f2p, i2p, wk, out, p, smem, round_bf16, stream);
+  return launch_f32_tile<IO, 1>(x, f2p, i2p, wk, out, p, smem, round_bf16, stream);
 }
 
 }  // namespace
@@ -1438,12 +1466,17 @@ cudaError_t launch_f32(const void* x, const void* f2p, const void* i2p, const vo
 
 // x: rows of an axis of length n with c channels (strides above), io type;
 // out: rows of o channels (strides above), io type. Returns a cudaError_t.
-// f32 compute: f2 (n, 2m) zero-padded to (n rounded up to 32, 2m rounded
+// mode 0: f32 compute (the CUDA-core kernel); 1: bf16 compute on the
+// tensor cores; 2: bf16 compute on the CUDA-core kernel, with the bf16
+// mode's rounding points (shapes the tensor-core kernel does not fit:
+// rpde_spectral_mma_fits), its operands those of mode 0 with the factors
+// and the weight rounded to bf16.
+// Modes 0 and 2: f2 (n, 2m) zero-padded to (n rounded up to 32, 2m rounded
 // up to 128), i2 (2m, n) zero-padded to (2m rounded up to 128, n rounded up
 // to 128), both f32 row-major; wpk is, per mode, the blocks a | b of the
 // packed weight [[a, b], [-b, a]] as (2, c8, o8) f32, zeros in the padding
 // (the kernel makes -b); all three 16-byte aligned.
-// bf16 compute: f2 is f2^T (2m, n) and i2 is i2^T (n, 2m), each zero-padded
+// Mode 1: f2 is f2^T (2m, n) and i2 is i2^T (n, 2m), each zero-padded
 // to whole 16 x 16 tiles, its columns (the contraction) to a multiple of
 // 64, and packed in fragment order (mma.cuh frag_a_packed; tile (i, j) at
 // (i * tiles_per_row + j) * 256 elements);
@@ -1453,7 +1486,7 @@ cudaError_t launch_f32(const void* x, const void* f2p, const void* i2p, const vo
 // padding, and where o8 is a multiple of 64 each row's 16-byte chunks
 // swizzled (chunk q of row r at q ^ (r mod 8)); all three bf16 and 16-byte
 // aligned.
-extern "C" int rpde_spectral_pass(int cd_bf16, int io_bf16, const void* x,
+extern "C" int rpde_spectral_pass(int mode, int io_bf16, const void* x,
                                   const void* f2, const void* i2, const void* wpk,
                                   void* out, int n, int m, int c, int o,
                                   long long rows, long long rows_lo, long long x_hi,
@@ -1461,10 +1494,10 @@ extern "C" int rpde_spectral_pass(int cd_bf16, int io_bf16, const void* x,
                                   long long y_lo, long long y_ax, int accumulate,
                                   void* stream) {
   using namespace rpde;
-  if (n < 1 || m < 1 || c < 1 || o < 1 || rows < 1 || rows_lo < 1)
+  if (n < 1 || m < 1 || c < 1 || o < 1 || rows < 1 || rows_lo < 1 || mode < 0 || mode > 2)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (cd_bf16) {
+  if (mode == 1) {
     MmaParams p{};
     p.n = n;
     p.m = m;
@@ -1496,8 +1529,22 @@ extern "C" int rpde_spectral_pass(int cd_bf16, int io_bf16, const void* x,
   p.y_lo = y_lo;
   p.y_ax = y_ax;
   p.accumulate = accumulate;
-  if (io_bf16) return launch_f32<__nv_bfloat16>(x, f2, i2, wpk, out, p, s);
-  return launch_f32<float>(x, f2, i2, wpk, out, p, s);
+  if (io_bf16) return launch_f32<__nv_bfloat16>(x, f2, i2, wpk, out, p, mode == 2, s);
+  return launch_f32<float>(x, f2, i2, wpk, out, p, mode == 2, s);
+}
+
+// 1 if the tensor-core kernel (mode 1) fits a pass of n points, m modes, c
+// channels in and o out, else 0: the launcher's Python mirror of plan_mma
+// picks the bf16 route from the shape and is checked against it.
+extern "C" int rpde_spectral_mma_fits(int n, int m, int c, int o) {
+  if (n < 1 || m < 1 || c < 1 || o < 1) return 0;
+  rpde::MmaParams p{};
+  p.n = n;
+  p.m = m;
+  p.c = c;
+  p.o = o;
+  size_t smem = 0;
+  return rpde::plan_mma(p, smem) ? 1 : 0;
 }
 
 #ifdef RPDE_K2_PHASES

@@ -7,7 +7,8 @@ GELU, LayerNorm (eps 1e-5) and residual in f32, each hidden activation
 rounded to ``compute_dtype`` and the output in x's dtype. The forward
 kernel is ``csrc/fused_ff.cu`` (bf16 products on the tensor cores, the
 weights streamed through shared memory; f32 products in IEEE f32 on the
-CUDA cores); the backward kernel, which recomputes the
+CUDA cores, the weights streamed through shared memory too); the backward
+kernel, which recomputes the
 hidden activations per tile (or reads the pre-activations the forward
 saved) and reduces the weight gradients over the rows in a fixed order, is
 ``csrc/fused_ff_bwd.cu`` (bf16 products on the tensor cores; f32 products
@@ -217,10 +218,68 @@ def _packed_weights(kernels, cd, transpose: bool = False,
 
 def _forward_weights(kernels, cd) -> torch.Tensor:
     """The packing the forward kernel reads: row-major (in, out) kernels,
-    in bf16 (its tensor-core products, which stream each layer's weight in
-    slices of the contraction) each zero-padded to whole 16 x 16
-    fragments, as the backward's ``w``."""
-    return _packed_weights(kernels, cd, pad=16 if cd == torch.bfloat16 else 1)
+    each zero-padded to whole 16 x 16 fragments in bf16 (its tensor-core
+    products) and to multiples of 4 in f32 (its f32 products stream
+    16-byte pieces of each layer's weight into shared memory), as the
+    backward's ``w``."""
+    return _packed_weights(kernels, cd, pad=16 if cd == torch.bfloat16 else 4)
+
+
+# The arithmetic of the backward kernel's planner (``plan``,
+# csrc/fused_ff_bwd.cu), mirrored so that a chain it cannot take is refused
+# before any launch: the shared memory a block may take, its threads, the
+# tallest tile, the column sums' scratch (floats a thread), and the f32
+# products' weight ring (``f32_ring_floats``, csrc/fused_ff.cuh).
+_SMEM_BYTES = 232448
+_BWD_THREADS = 512
+_BWD_MAX_TILE_ROWS = 64
+_BWD_COLUMN_SUMS = 3
+_F32_SLICE_ROWS, _F32_CHUNK_COLS = 32, 256
+
+
+def _pad(d: int, to: int) -> int:
+    return -(-d // to) * to
+
+
+def _f32_ring_floats(width: int, threads: int) -> int:
+    """Floats of f32_tile_gemm's ring for outputs up to ``width`` (padded
+    to 4) wide: two stages of 32 rows of its first column chunk (at most
+    256 columns), and at least 16 floats a thread."""
+    return max(2 * _F32_SLICE_ROWS * min(width, _F32_CHUNK_COLS),
+               16 * threads)
+
+
+def backward_tile_rows(dims, has_ln: bool, compute_dtype) -> int:
+    """Rows of the backward kernel's tile for the chain ``dims`` (widths
+    dims[0] -> ... -> dims[-1]), as its planner picks them: the tallest of
+    64, 32, .. rows whose buffers (the pre-activations and their
+    LayerNorm statistics in f32, h_0 and two rows as wide as the widest
+    layer in the compute type), beside the column sums' scratch and, in
+    f32, the weight ring, fit a block's shared memory. Raises ValueError
+    when not even the least tile fits: 16 rows in bf16 (whole tensor-core
+    fragments), 8 in f32 (the products' register tiles)."""
+    bf16 = compute_dtype == torch.bfloat16
+    z_ld, dz = sum(dims[1:]), max(dims[1:])
+    fixed = _BWD_COLUMN_SUMS * _BWD_THREADS * 4
+    if bf16:
+        h0_ld, dz_ld, size = _pad(dims[0], 16) + 8, _pad(dz, 16) + 8, 2
+        z_ld += 4
+    else:
+        widest = max(_pad(d, 4) for d in dims)
+        h0_ld, dz_ld, size = _pad(dims[0], 4) + 4, _pad(dz, 4) + 4, 4
+        fixed += _f32_ring_floats(widest, _BWD_THREADS) * 4
+    per_row = (z_ld + 4) * 4 + (h0_ld + 2 * dz_ld) * size
+    least = 16 if bf16 else 8
+    tr = _BWD_MAX_TILE_ROWS
+    while tr > 1 and tr * per_row + fixed > _SMEM_BYTES:
+        tr //= 2
+    if tr * per_row + fixed > _SMEM_BYTES or tr < least:
+        raise ValueError(
+            f"fused_feedforward backward ({'bf16' if bf16 else 'f32'}): "
+            f"widths {list(dims)} need {least} rows of {per_row} bytes "
+            f"beside {fixed} bytes, {least * per_row + fixed} bytes of "
+            f"shared memory; a block has {_SMEM_BYTES}")
+    return tr
 
 
 def _backward_weights(kernels, cd) -> tuple:
@@ -303,14 +362,16 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
     dx = torch.empty_like(x)
     grads = torch.zeros(size, dtype=torch.float32, device=x.device)
     if n > 0:
+        backward_tile_rows(dims, ln is not None, cd)
         lib = _build.library()
         bf16 = int(cd == torch.bfloat16)
         c_dims = (ctypes.c_int * len(dims))(*dims)
         slab = lib.rpde_fused_ff_backward_slab(bf16, c_dims, n_layers,
                                                int(ln is not None))
         if slab < 0:
-            raise ValueError(f"fused_feedforward backward: widths {dims} "
-                             "leave no tile of rows in shared memory")
+            raise RuntimeError(f"fused_feedforward backward: the kernel's "
+                               f"planner refused widths {dims}, which "
+                               "backward_tile_rows takes")
         max_blocks = 2 * torch.cuda.get_device_properties(
             x.device).multi_processor_count
         partials = torch.empty(max_blocks * slab, dtype=torch.float32,

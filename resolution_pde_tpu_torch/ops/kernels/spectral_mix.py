@@ -25,6 +25,11 @@ per launch). In f32 (the f32-exact mode) the products are IEEE f32 FMAs
 on the CUDA cores, and the operands are the factors zero-padded to the
 kernel's tiles (``kernel_factors_f32``, cached by shape) and each mode's
 blocks padded to 8 channels (``kernel_weight_f32``, once per launch).
+A bf16 pass that the tensor-core kernel does not fit (``mma_fits``: at
+n = 256 and m = 64, more than 104 channels) runs on the CUDA-core kernel
+with the bf16 mode's rounding points, on the f32 operands rounded to bf16
+(``spectral_route`` picks the route from the shape alone); what neither
+kernel takes raises a ValueError before any launch.
 
 The op is linear in x, so its adjoint is the same pass with transposed
 factors (f2' = i2^T, i2' = f2^T) and each mode's weight conjugated and
@@ -53,6 +58,8 @@ from resolution_pde_tpu_torch.ops.spectral import _dft_matrices
 # kernel launches in this process (the plain versions never count)
 launches = 0          # forward passes
 adjoint_launches = 0  # adjoint passes (the same kernel, transposed factors)
+wide_launches = 0     # of those, bf16 passes and adjoints on the CUDA-core
+#                       kernel (the shapes the tensor-core kernel does not fit)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -183,16 +190,19 @@ def _round_up(v: int, to: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def kernel_factors_f32(n: int, m: int, norm: str, device: torch.device,
-                       adjoint: bool = False):
+                       adjoint: bool = False, bf16: bool = False):
     """The f32 kernel's DFT factors for a pass, or with ``adjoint`` for its
     adjoint: f2 (n, 2m) of ``packed_factors`` (of ``adjoint_factors``)
     zero-padded to (n rounded up to 32, 2m rounded up to 128) and i2
     (2m, n) zero-padded to (2m rounded up to 128, n rounded up to 128),
     both f32, contiguous and row-major, so that every slice the kernel
-    copies is whole and its inner loops need no bounds. Shared between
-    callers, so read-only."""
+    copies is whole and its inner loops need no bounds; with ``bf16`` (the
+    bf16 pass on this kernel) each factor's values rounded to bf16. Shared
+    between callers, so read-only."""
     f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
                                                               device)
+    if bf16:
+        f2, i2 = (t.to(torch.bfloat16).float() for t in (f2, i2))
     sr = _round_up(2 * m, _F32_TILE_M)
     f2p = torch.zeros((_round_up(n, _F32_K1), sr), dtype=torch.float32,
                       device=device)
@@ -203,29 +213,74 @@ def kernel_factors_f32(n: int, m: int, norm: str, device: torch.device,
     return f2p, i2p
 
 
-def kernel_weight_f32(wab: torch.Tensor) -> torch.Tensor:
+def kernel_weight_f32(wab: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """(m, 2, C, O) blocks a | b -> the f32 kernel's (m, 2, C8, O8): C and
-    O rounded up to 8 with zeros in the padding, in f32. The kernel makes
+    O rounded up to 8 with zeros in the padding, in f32; with ``bf16`` (the
+    bf16 pass on this kernel) the values rounded to bf16. The kernel makes
     the packed form's -b itself."""
     m, _, c, o = wab.shape
     c8, o8 = _round_up(c, 8), _round_up(o, 8)
     make = torch.empty if (c, o) == (c8, o8) else torch.zeros
     out = make((m, 2, c8, o8), dtype=torch.float32, device=wab.device)
-    out[:, :, :c, :o] = wab
+    out[:, :, :c, :o] = wab.to(torch.bfloat16) if bf16 else wab
     return out
 
 
-def _check_f32_shape(m: int, c: int, o: int) -> None:
-    """The f32 kernel's tile holds at most 256 channels in and out (after
-    padding to 8; a tile of 4 rows up to 64, of 2 up to 128, of 1 up to
-    256) and 64 modes (its spectra, 2m padded to 128 rows, stay in shared
-    memory)."""
+def _check_f32_shape(m: int, c: int, o: int, what: str = "f32") -> None:
+    """The CUDA-core kernel's tile holds at most 256 channels in and out
+    (after padding to 8; a tile of 4 rows up to 64, of 2 up to 128, of 1
+    up to 256) and 64 modes (its spectra, 2m padded to 128 rows, stay in
+    shared memory). ``what`` names the pass in the error: the f32 one, or
+    a bf16 one that the tensor-core kernel does not fit."""
     if (max(_round_up(c, 8), _round_up(o, 8)) > _F32_MAX_CHANNELS
             or m > _F32_MAX_MODES):
         raise ValueError(
-            f"spectral_axis_pass f32 kernel takes at most "
+            f"spectral_axis_pass {what}: the CUDA-core kernel takes at most "
             f"{_F32_MAX_CHANNELS} channels and {_F32_MAX_MODES} modes, got "
             f"C={c}, O={o}, m={m}")
+
+
+# The arithmetic of the tensor-core kernel's planner (``plan_mma``,
+# csrc/spectral_mix.cu): its warps and the m-tiles of output channels a
+# warp keeps in the mix, the DFTs' k-step groups, the weight modes of a
+# ring stage, the stages, and the shared memory a block may take.
+_MMA_WARPS, _MMA_MIX_TILES, _MMA_GROUP = 8, 2, 4
+_MMA_SLICE_MODES, _MMA_STAGES = 2, 2
+_MMA_MAX_SMEM = 232448
+
+
+def mma_fits(n: int, m: int, c: int, o: int) -> bool:
+    """Whether the bf16 tensor-core kernel takes a pass of n points, m
+    modes, c channels in and o out: at most 128 output channels (after
+    padding to 8), and a tile of one row whose spectra (m x 2 max(C8, O8)
+    padded to 64, bf16) fit beside the ring's two stages, each as large as
+    the larger of an x row (n padded to a group of k-steps, x C8 padded
+    against bank conflicts) and a slice of two weight modes (2 x 2 C8 x
+    O8), and their barriers."""
+    c8, o8 = _round_up(c, 8), _round_up(o, 8)
+    if 2 * o8 > 16 * _MMA_WARPS * _MMA_MIX_TILES:
+        return False
+    kt1 = _round_up(-(-n // 16), _MMA_GROUP)
+    x_ld = c8 if c8 % 64 == 0 or (c8 // 8) % 2 else c8 + 8
+    stage = _round_up(max(kt1 * 16 * x_ld, _MMA_SLICE_MODES * 2 * c8 * o8), 8)
+    spec = m * _round_up(max(2 * c8, 2 * o8), 64)
+    return (spec + _MMA_STAGES * stage) * 2 + _MMA_STAGES * 8 <= _MMA_MAX_SMEM
+
+
+def spectral_route(compute_dtype, n: int, m: int, c: int, o: int) -> str:
+    """The kernel a pass (or an adjoint, with its own c and o) of this
+    shape runs on, from the shape alone: "mma" (bf16 on the tensor cores)
+    where ``mma_fits``, else "cuda_cores" (f32, or bf16 with its rounding
+    points), which raises ValueError for more than 256 channels or 64
+    modes."""
+    if compute_dtype == torch.bfloat16:
+        if mma_fits(n, m, c, o):
+            return "mma"
+        _check_f32_shape(m, c, o, "bf16 (too wide for the tensor-core "
+                                  "kernel)")
+    else:
+        _check_f32_shape(m, c, o)
+    return "cuda_cores"
 
 
 def spectral_pass_reference(x, f2, i2, wpk, compute_dtype):
@@ -364,6 +419,7 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
 def _launch(x, wab, axis, norm, adjoint, cd, acc):
     """The kernel on x along ``axis`` with blocks ``wab`` (m, 2, C, O) and
     the factors of the pass (``adjoint``: of its adjoint) for ``norm``."""
+    global wide_launches
     if x.dim() != 4 or x.stride(3) != 1:
         raise ValueError("spectral_axis_pass kernel needs a (B, H, W, C) "
                          "tensor with unit channel stride")
@@ -376,8 +432,7 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         raise ValueError(f"spectral_axis_pass: all tensors must be on "
                          f"{x.device}")
     m, o = wab.shape[0], wab.shape[3]
-    if cd == torch.float32:
-        _check_f32_shape(m, c, o)
+    route = spectral_route(cd, n, m, c, o)
     out_shape = (b, h, w, o)
     if acc is None:
         out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -389,12 +444,13 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         out = acc
     if out.numel() == 0:
         return out
-    if cd == torch.bfloat16:
+    bf16 = cd == torch.bfloat16
+    if route == "mma":
         f2c, i2c = kernel_factors(n, m, norm, x.device, adjoint)
         wk = kernel_weight(wab)
     else:
-        f2c, i2c = kernel_factors_f32(n, m, norm, x.device, adjoint)
-        wk = kernel_weight_f32(wab)
+        f2c, i2c = kernel_factors_f32(n, m, norm, x.device, adjoint, bf16)
+        wk = kernel_weight_f32(wab, bf16)
     so = out.stride()
     sx = x.stride()
     if axis == 2:   # rows (b, h), points along w
@@ -403,12 +459,15 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         rows_lo, xs, ys = w, (sx[0], sx[2], sx[1]), (so[0], so[2], so[1])
     with torch.cuda.device(x.device):
         err = _build.library().rpde_spectral_pass(
-            int(cd == torch.bfloat16), int(x.dtype == torch.bfloat16),
+            (1 if route == "mma" else 2) if bf16 else 0,
+            int(x.dtype == torch.bfloat16),
             x.data_ptr(), f2c.data_ptr(), i2c.data_ptr(), wk.data_ptr(),
             out.data_ptr(), n, m, c, o, b * (h * w // n), rows_lo, *xs, *ys,
             int(acc is not None),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rpde_spectral_pass")
+    if bf16 and route != "mma":
+        wide_launches += 1
     return out
 
 

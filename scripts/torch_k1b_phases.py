@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the fused FeedForward backward (K1b) by phase, on one GPU.
 
-    python3 scripts/torch_k1b_phases.py [--f32] [--csrc DIR ...]
+    python3 scripts/torch_k1b_phases.py [--f32] [--sass] [--csrc DIR ...]
                                         [--out build/k1b_phases]
 
 Builds csrc/fused_ff_bwd.cu alone, in parallel: as the library builds it,
@@ -22,14 +22,20 @@ their cycles.
 package's, DIR holding the headers it includes (a copy of csrc/ with a
 design's lines rewritten); the directories are measured in the order
 given, so ``--csrc A --csrc B --csrc B --csrc A`` compares two designs in
-turns within one process. Prints the card's name and power limit first.
-Needs CUDA and nvcc.
+turns within one process. ``--sass`` also prints, for each K1b kernel
+of each directory's library build, the count of its SASS instructions
+(``cuobjdump -sass``) and a hash of their text without addresses, so that
+two directories' builds of a kernel can be seen to be the same machine
+code or not. Prints the card's name and power limit first. Needs CUDA and
+nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import re
 import statistics
 import subprocess
 import sys
@@ -75,10 +81,28 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def _build_all(srcs: list, out: Path, build) -> dict:
+def _print_sass(src: str, so: Path, nvcc: str) -> None:
+    """Each K1b kernel of the library ``so``: its mangled name, its SASS
+    instructions' count and the first 16 hex digits of the SHA-1 of their
+    text (addresses and encodings left out)."""
+    dump = subprocess.run(
+        [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(so)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    for part in dump.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "fused_ff_bwd" not in name:
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+        digest = hashlib.sha1("\n".join(i.strip() for i in ins).encode())
+        print(f"{src}: sass {name}: {len(ins)} instructions, "
+              f"sha1 {digest.hexdigest()[:16]}", flush=True)
+
+
+def _build_all(srcs: list, out: Path, build, sass: bool = False) -> dict:
     """{(dir, phases): library namespace} for every source directory, the
     builds all started together with the flags of ``build`` (the package's
-    _build module); prints each kernel's registers."""
+    _build module); prints each kernel's registers, and with ``sass``
+    its SASS (``_print_sass``)."""
     nvcc, flags = build._nvcc(), build.NVCC_FLAGS
     procs = {}
     for i, src in enumerate(srcs):
@@ -113,6 +137,8 @@ def _build_all(srcs: list, out: Path, build) -> dict:
                                   for t in lines[i + 1:i + 4]
                                   if "ptxas info" in t)
                 print(f"{src}: {name} ({io}): {info}", flush=True)
+            if sass:
+                _print_sass(src, so, nvcc)
         lib = ctypes.CDLL(str(so))
         fns = {}
         for fn_name in ("rpde_fused_ff_backward",
@@ -139,6 +165,8 @@ def main() -> int:
                     help="a directory holding fused_ff_bwd.cu and its "
                          "headers (default: the package's csrc); "
                          "repeatable, measured in the order given")
+    ap.add_argument("--sass", action="store_true",
+                    help="print each K1b kernel's SASS count and hash")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1b_phases: CUDA is not available", file=sys.stderr)
@@ -155,7 +183,7 @@ def main() -> int:
     srcs = list(dict.fromkeys(order))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    libs = _build_all(srcs, out, _build)
+    libs = _build_all(srcs, out, _build, args.sass)
     library = _build.library
 
     gen = torch.Generator().manual_seed(0)

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Device time of the fused FeedForward forward (K1f, bf16) by phase, on one GPU.
+"""Device time of the fused FeedForward forward (K1f) by phase, on one GPU.
 
-    python3 scripts/torch_k1f_phases.py [--out build/k1f_phases]
+    python3 scripts/torch_k1f_phases.py [--f32] [--out build/k1f_phases]
 
 Builds csrc/fused_ff.cu alone twice, both nvcc runs started together, with
-``-Xptxas -v``: as the library builds it (its tensor-core kernel's
-registers, stack and spills are printed, for bf16 in and out without the
-saved pre-activations) and with RPDE_K1F_PHASES, which makes thread 0 of
-every block add the clock cycles of each phase into a counter (the first
+``-Xptxas -v``: as the library builds it (the kernel's registers, stack
+and spills are printed, without the saved pre-activations) and with
+RPDE_K1F_PHASES, which makes thread 0 of every block add the clock cycles
+of each phase into a counter. bf16 (the tensor-core kernel): the first
 slices' copies and the x tile; waiting for a slice; starting a slice's
-copies; the products; the epilogues; the LayerNorm and the stores). Runs
-both at the train shape of chip_smoke.py (8 x 256² = 524,288 rows, 64 ->
-256 -> 256 -> 64, LayerNorm, residual, tanh GELU, bf16 in and out; random
-inputs from seed 0), each checked against the plain forward (relative L2,
-tolerance 1e-2: bf16 rounding flips), and prints the library build's
-median time (CUDA events), the instrumented kernel's split over the phases
-in proportion to their cycles, and the plain forward's. Prints the card's
+copies; the products; the epilogues; the LayerNorm and the stores. With
+``--f32`` the f32-exact mode (its kernel on f32_tile_gemm): the x tile and
+the first copies; the first layer; the layers between; the last layer;
+the LayerNorm and the stores (each layer its products, epilogue and the
+waits in them). Runs both at the train shape of chip_smoke.py (8 x 256² =
+524,288 rows, 64 -> 256 -> 256 -> 64, LayerNorm, residual, tanh GELU, x
+and out in the compute type; random inputs from seed 0), each checked
+against the plain forward (relative L2, tolerance 1e-2 in bf16, where
+rounding flips move an element by one bf16 ulp; 1e-4 in f32, where only
+the order of the sums differs), and prints the planner's route and tile
+rows, the library build's median time (CUDA events) and its rate on the
+products (103 GFLOP), the instrumented kernel's split over the phases in
+proportion to their cycles, and the plain forward's. Prints the card's
 name and power limit first. Needs CUDA and nvcc.
 """
 
@@ -33,8 +39,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-PHASES = ["first_copies_and_x", "wait_for_slice", "start_copies", "products",
-          "epilogues", "layernorm_and_stores"]
+# per mode: compute dtype, tolerance, the phase counters and their names,
+# and the ptxas entry of the kernel (io in the compute type, no zs)
+MODES = {
+    "bf16": dict(
+        dtype=torch.bfloat16, tol=1e-2, counters="rpde_k1f_phase_cycles",
+        phases=["first_copies_and_x", "wait_for_slice", "start_copies",
+                "products", "epilogues", "layernorm_and_stores"],
+        ptxas=lambda line: ("fused_ff_fwd_mma_kernel" in line
+                            and "I13__nv_bfloat16Lb0E" in line)),
+    "f32": dict(
+        dtype=torch.float32, tol=1e-4, counters="rpde_k1f_f32_phase_cycles",
+        phases=["x_and_first_copies", "first_layer", "middle_layers",
+                "last_layer", "layernorm_and_stores"],
+        ptxas=lambda line: ("fused_ff_fwd_f32_kernel" in line
+                            and "IfLb0ELb0E" in line)),
+}
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -60,7 +80,11 @@ def _rel_l2(a, b) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k1f_phases")
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32-exact mode instead of bf16")
     args = ap.parse_args()
+    mode = "f32" if args.f32 else "bf16"
+    spec = MODES[mode]
     if not torch.cuda.is_available():
         print("torch_k1f_phases: CUDA is not available", file=sys.stderr)
         return 1
@@ -74,7 +98,7 @@ def main() -> int:
     from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
 
     lib = _build.library()
-    out = Path(args.out)
+    out = Path(args.out) / mode
     out.mkdir(parents=True, exist_ok=True)
     src = str(_build.CSRC / "fused_ff.cu")
     builds = {"library": [], "phases": ["-DRPDE_K1F_PHASES"]}
@@ -92,8 +116,7 @@ def main() -> int:
         # and registers on the next two
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if ("Compiling entry" in line and "fused_ff_fwd_mma_kernel" in line
-                    and "I13__nv_bfloat16Lb0E" in line):
+            if "Compiling entry" in line and spec["ptxas"](line):
                 info = " | ".join(t.split("ptxas info    :")[-1].strip()
                                   for t in lines[i + 2:i + 4])
                 print(f"{name}: {info}", flush=True)
@@ -103,7 +126,7 @@ def main() -> int:
         fn.restype = ctypes.c_int
         libs[name] = types.SimpleNamespace(rpde_fused_ff_forward=fn)
         if name == "phases":
-            counters = so.rpde_k1f_phase_cycles
+            counters = getattr(so, spec["counters"])
             counters.argtypes = [ctypes.c_void_p, ctypes.c_int]
             counters.restype = ctypes.c_int
 
@@ -116,9 +139,16 @@ def main() -> int:
     ks = [randn((a, b), a ** -0.5) for a, b in zip(dims, dims[1:])]
     bs = [randn((d,), 0.1) for d in dims[1:]]
     ln = (1.0 + randn((dims[-1],), 0.1), randn((dims[-1],), 0.1))
-    x = randn((n, dims[0]), dtype=torch.bfloat16)
-    res = randn((n, dims[-1]), dtype=torch.bfloat16)
-    kw = dict(approx_gelu=True, compute_dtype=torch.bfloat16)
+    cd, tol = spec["dtype"], spec["tol"]
+    x = randn((n, dims[0]), dtype=cd)
+    res = randn((n, dims[-1]), dtype=cd)
+    kw = dict(approx_gelu=True, compute_dtype=cd)
+    rows = (ctypes.c_int * 1)()
+    route = lib.rpde_fused_ff_forward_route(
+        int(cd == torch.bfloat16), int(cd == torch.bfloat16), 1,
+        (ctypes.c_int * len(dims))(*dims), len(dims) - 1, rows)
+    print(f"route {route} (1 tensor cores, 2 f32 tiles, 3 f32 wide), "
+          f"tile rows {rows[0]}", flush=True)
     want = fused_ff.fused_feedforward_reference(x, ks, bs, ln, res, **kw)
     plain = _time_ms(lambda: fused_ff.fused_feedforward_reference(
         x, ks, bs, ln, res, **kw), reps=5)
@@ -132,22 +162,24 @@ def main() -> int:
             _build.library = lambda name=name: libs[name]
             err = _rel_l2(run(), want)
             torch.cuda.synchronize()
-            print(f"{name}: rel_l2 {err:.3e} (tol 1e-2)", flush=True)
-            if not err <= 1e-2:
+            print(f"{name}: rel_l2 {err:.3e} (tol {tol})", flush=True)
+            if not err <= tol:
                 raise AssertionError(f"{name} disagrees with the plain forward")
             if name == "phases":
-                _build.check(counters(None, 1), "rpde_k1f_phase_cycles")
+                _build.check(counters(None, 1), spec["counters"])
             ms[name] = _time_ms(run)
-        cycles = (ctypes.c_ulonglong * len(PHASES))()
-        _build.check(counters(cycles, 0), "rpde_k1f_phase_cycles")
+        cycles = (ctypes.c_ulonglong * len(spec["phases"]))()
+        _build.check(counters(cycles, 0), spec["counters"])
     finally:
         _build.library = lambda: lib
     total = sum(cycles)
     split = {p: round(c / total * ms["phases"], 4)
-             for p, c in zip(PHASES, cycles)}
-    print(f"K1f bf16: kernel {ms['library']:.4f} ms (plain {plain:.4f} ms), "
-          f"with phase marks {ms['phases']:.4f} ms; by phase (ms): {split}",
-          flush=True)
+             for p, c in zip(spec["phases"], cycles)}
+    gflop = 2.0 * n * sum(a * b for a, b in zip(dims, dims[1:])) / 1e9
+    print(f"K1f {mode}: kernel {ms['library']:.4f} ms "
+          f"({gflop / ms['library']:.1f} TFLOP/s of its products; plain "
+          f"{plain:.4f} ms), with phase marks {ms['phases']:.4f} ms; by "
+          f"phase (ms): {split}", flush=True)
     return 0
 
 

@@ -37,10 +37,10 @@ the spectral passes take in one predict.
 
 With ``--e2e-root``, instead, for the package in each DIR in the order
 given (a checkout of this repository; its kernels build into DIR/build):
-the f32-exact FFNO2D predict at 8 x 256² (median of 10) and the median of
-5 f32-exact train steps at 8 x 256² (after 2), bench.py's width, random
-weights from seed 0; one JSON line each, so that two trees are compared in
-one call. Prints the card's name and power limit first. Needs CUDA and
+the f32-exact FFNO2D predict at 8 x 256² (median of 10), the median of 5
+f32-exact train steps at 8 x 256² (after 2) and the median of 10 bf16
+train steps there (after 3), bench.py's width, random weights from seed
+0; one JSON line each, so that two trees are compared in one call. Prints the card's name and power limit first. Needs CUDA and
 nvcc.
 """
 
@@ -106,15 +106,16 @@ KERNELS = {
                 "inverse_dft", "stores"],
         ablations={
             # no mix at all; the mix with its weights made in registers
-            "no_mix": [("  mix_warp<TR>(p, spec, wk);\n", "  ;\n")],
+            "no_mix": [("  mix_warp<TR, kBf16>(p, spec, wk);\n", "  ;\n")],
             "no_weight_loads": [(
                 _K3_LOADS,
                 "      for (int u = 0; u < kC; ++u)\n"
                 "        for (int e = 0; e < kE; ++e) w[s][u][e] = "
                 "0.5f * u + 0.25f * (s + k + q + e);")],
         },
+        # the f32 instantiations (kBf16 false)
         ptxas=lambda line: ("spectral_pass_kernel" in line
-                            and "mma" not in line)),
+                            and "mma" not in line and "Lb0E" in line)),
 }
 
 
@@ -351,12 +352,14 @@ from resolution_pde_tpu_torch.deploy import ServingEngine
 from resolution_pde_tpu_torch.models import FFNO2D
 from resolution_pde_tpu_torch.train import Trainer
 import resolution_pde_tpu_torch
-def model():
+def model(bf16=False):
     return FFNO2D(in_channels=1, out_channels=1, width=64, n_layers=4,
                   n_modes=64, factor=4, ff_weight_norm=True, n_ff_layers=3,
-                  layer_norm=True, dropout=0.0, compute_dtype=None,
-                  spectral_impl="pallas", approx_gelu=True, ff_impl="fused",
-                  device="cuda", generator=torch.Generator().manual_seed(0))
+                  layer_norm=True, dropout=0.0,
+                  compute_dtype=torch.bfloat16 if bf16 else None,
+                  spectral_impl="pallas2" if bf16 else "pallas",
+                  approx_gelu=True, ff_impl="fused", device="cuda",
+                  generator=torch.Generator().manual_seed(0))
 rng = np.random.default_rng(0)
 x = rng.standard_normal((8, 1, 256, 256)).astype(np.float32)
 eng = ServingEngine(model(), device="cuda")
@@ -377,10 +380,21 @@ for i in range(7):
     torch.cuda.synchronize()
     if i >= 2:
         steps.append((time.perf_counter() - t) * 1e3)
+trainer = Trainer(model(bf16=True), learning_rate=1e-3, device="cuda")
+state16 = trainer.init()
+steps16 = []
+for i in range(13):
+    t = time.perf_counter()
+    state16, loss16 = trainer.train_step(state16, xd, yd)
+    torch.cuda.synchronize()
+    if i >= 3:
+        steps16.append((time.perf_counter() - t) * 1e3)
 print(json.dumps(dict(root={str(root)!r},
                       package=resolution_pde_tpu_torch.__file__,
                       predict_ms=statistics.median(times),
-                      step_ms=statistics.median(steps), loss=float(loss))))
+                      step_ms=statistics.median(steps), loss=float(loss),
+                      bf16_step_ms=statistics.median(steps16),
+                      bf16_loss=float(loss16))))
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=1200, cwd=str(root))

@@ -2,7 +2,7 @@
 """Device-time breakdown of the port's FFNO2D train step on one GPU.
 
     python3 scripts/torch_train_profile.py [--steps 5] [--out build/profile]
-                                           [--f32]
+                                           [--f32] [--predict]
 
 Trains FFNO2D at the width of bench.py:73-110 (bf16, spectral_impl
 'pallas2', ff_impl 'fused', random weights from seed 0; with ``--f32`` the
@@ -12,8 +12,9 @@ Trainer, warms 3 steps, then records ``--steps`` steps with torch.profiler
 (CPU + CUDA activities, no host sync inside the window). Prints the card's
 name and power limit, the window's device span per step, the busy and idle
 shares, and device ms per step by kernel family:
-  K1f      fused_ff_fwd_mma_kernel and fused_ff_fwd_kernel (the fused
-           FeedForward forward, bf16 and f32)
+  K1f      fused_ff_fwd_mma_kernel, fused_ff_fwd_f32_kernel and
+           fused_ff_fwd_kernel (the fused FeedForward forward: bf16, f32,
+           and f32 chains too wide for fused_ff_fwd_f32_kernel)
   K1b      fused_ff_bwd_kernel + reduce_slabs_kernel (its backward)
   K2       spectral_pass_mma_kernel (bf16) and spectral_pass_kernel (f32),
            one launch a pass, launched in the forward pass
@@ -24,7 +25,10 @@ shares, and device ms per step by kernel family:
            spectral passes, casts, AdamW, ...) and copies
 The chrome trace goes to ``--out``/train_step_trace.json and the summary,
 as JSON, to ``--out``/train_step_profile.json (``_f32`` before ``.json``
-with ``--f32``). Needs CUDA.
+with ``--f32``). With ``--predict`` it profiles ``--steps`` serving
+requests instead, ``ServingEngine.predict`` of a batch of 8 at 256² after
+3 warm ones (each ends in its device-to-host copy; every spectral launch
+is a K2), into predict_trace.json and predict_profile.json. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def _family(name: str) -> str:
-    if "fused_ff_fwd_mma_kernel" in name or "fused_ff_fwd_kernel" in name:
+    if ("fused_ff_fwd_mma_kernel" in name or "fused_ff_fwd_f32_kernel" in name
+            or "fused_ff_fwd_kernel" in name):
         return "K1f"
     if ("fused_ff_bwd_kernel" in name or "fused_ff_bwd_f32_kernel" in name
             or "reduce_slabs_kernel" in name):
@@ -59,6 +64,8 @@ def main() -> int:
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--f32", action="store_true",
                     help="profile the f32-exact step instead of the bf16 one")
+    ap.add_argument("--predict", action="store_true",
+                    help="profile serving predicts instead of train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: CUDA is not available", file=sys.stderr)
@@ -71,6 +78,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
+    from resolution_pde_tpu_torch.deploy import ServingEngine
     from resolution_pde_tpu_torch.models import FFNO2D
     from resolution_pde_tpu_torch.train import Trainer
 
@@ -81,25 +89,38 @@ def main() -> int:
                    spectral_impl="pallas" if args.f32 else "pallas2",
                    approx_gelu=True, ff_impl="fused", device="cuda",
                    generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(model, learning_rate=1e-3, device="cuda")
-    state = trainer.init()
     x = np.random.default_rng(0).standard_normal((8, 1, 256, 256))
-    xd = torch.from_numpy(x.astype(np.float32)).cuda()
-    yd = torch.roll(xd, 7, dims=-1)
+    x = x.astype(np.float32)
+    if args.predict:
+        eng = ServingEngine(model, device="cuda")
+        eng.warmup(spatial_shapes=[(256, 256)], batch_sizes=[8])
+
+        def call():
+            return float(np.abs(eng.predict(x)).mean())
+    else:
+        trainer = Trainer(model, learning_rate=1e-3, device="cuda")
+        state = trainer.init()
+        xd = torch.from_numpy(x).cuda()
+        yd = torch.roll(xd, 7, dims=-1)
+
+        def call():
+            nonlocal state
+            state, loss = trainer.train_step(state, xd, yd)
+            return loss
     for _ in range(3):
-        state, loss = trainer.train_step(state, xd, yd)
+        loss = call()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.steps):
-            state, loss = trainer.train_step(state, xd, yd)
+            loss = call()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
     tag = "_f32" if args.f32 else ""
-    prof.export_chrome_trace(os.path.join(args.out,
-                                          f"train_step_trace{tag}.json"))
+    what = "predict" if args.predict else "train_step"
+    prof.export_chrome_trace(os.path.join(args.out, f"{what}_trace{tag}.json"))
 
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -126,7 +147,7 @@ def main() -> int:
     n_spectral = 0
     for e in dev:
         f = _family(e.name)
-        if f == "K2":
+        if f == "K2" and not args.predict:
             if (n_spectral % per_step) >= per_step // 2:
                 f = "K2adj"
             n_spectral += 1
@@ -136,7 +157,7 @@ def main() -> int:
     span_ms = (end - start) / 1e3 / n
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "mode": "f32" if args.f32 else "bf16",
+        "mode": "f32" if args.f32 else "bf16", "what": what,
         "steps": n, "span_ms_per_step": span_ms,
         "busy_ms_per_step": busy / 1e3 / n,
         "idle_share": 1.0 - busy / (end - start),
@@ -145,8 +166,7 @@ def main() -> int:
         "launches_per_step": {k: v / n for k, v in launches.items()},
         "loss": float(loss),
     }
-    with open(os.path.join(args.out, f"train_step_profile{tag}.json"),
-              "w") as f:
+    with open(os.path.join(args.out, f"{what}_profile{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     top = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
     print(top)

@@ -141,3 +141,80 @@ def test_fused_ff_bf16_reference_matches_pallas_ragged(has_ln, has_res, save):
     for g, w in zip(got_zs, want_zs):
         assert g.dtype == torch.bfloat16
         assert rel(g.float().numpy(), f32(w)) <= 1e-2
+
+
+# -- chains wider than the train shape's ---------------------------------
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_wide_chain_f32_matches_jax():
+    """A factor-4 chain at width 160 (160 -> 640 -> 640 -> 160, LayerNorm,
+    residual), whose hidden layers the f32 kernels run in column chunks of
+    256: the plain f32 forward and backward, which the kernels are held to
+    on the card, against the JAX kernel (interpret mode) and its custom
+    VJP at 12 rows. Only the order of f32 sums differs (bound: relative L2
+    1e-5 for the output and every gradient)."""
+    rng = np.random.default_rng(160)
+    dims = [160, 640, 640, 160]
+    ks = [(rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    bs = [(0.1 * rng.standard_normal(d)).astype(np.float32) for d in dims[1:]]
+    ln = ((1.0 + 0.1 * rng.standard_normal(160)).astype(np.float32),
+          (0.1 * rng.standard_normal(160)).astype(np.float32))
+    x = rng.standard_normal((12, 160)).astype(np.float32)
+    res = rng.standard_normal((12, 160)).astype(np.float32)
+    g = rng.standard_normal((12, 160)).astype(np.float32)
+    j = jnp.asarray
+
+    def f(x_, ks_, bs_, ln_, res_):
+        return fused_feedforward(x_, ks_, bs_, ln_, res_, approx_gelu=True,
+                                 compute_dtype=jnp.float32, interpret=True)
+
+    want, vjp = jax.vjp(f, j(x), [j(k) for k in ks], [j(b) for b in bs],
+                        tuple(j(a) for a in ln), j(res))
+    wdx, wdks, wdbs, wdln, _ = vjp(j(g))
+    t = torch.from_numpy
+    tks, tbs, tln = [t(k) for k in ks], [t(b) for b in bs], tuple(
+        t(a) for a in ln)
+    kw = dict(approx_gelu=True, compute_dtype=torch.float32)
+    got = fused_ff.fused_feedforward_reference(t(x), tks, tbs, tln, t(res),
+                                               **kw)
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-5
+    dx, dks, dbs, dln = fused_ff.fused_feedforward_bwd_reference(
+        t(x), t(g), tks, tbs, tln, **kw)
+    pairs = [(dx, wdx), *zip(dks, wdks), *zip(dbs, wdbs), *zip(dln, wdln)]
+    for a, b in pairs:
+        assert a.shape == b.shape
+        assert _rel(a.numpy(), np.asarray(b)) <= 1e-5
+
+
+@pytest.mark.parametrize("width,cd,rows", [
+    (64, torch.float32, 32), (64, torch.bfloat16, 64),   # the train shape
+    (160, torch.float32, 8), (192, torch.float32, 8), (256, torch.float32, 8),
+    (160, torch.bfloat16, 16), (256, torch.bfloat16, 16),
+    (320, torch.float32, None), (320, torch.bfloat16, None)])
+def test_backward_tile_rows_of_factor4_chains(width, cd, rows):
+    """The backward kernel's tile rows for factor-4 chains, from the
+    launcher's mirror of its planner (chip_smoke.py holds the mirror to
+    the planner): the f32 ring sized to a column chunk of 256 leaves 8-row
+    tiles up to width 256; a chain that fits no tile raises a ValueError
+    naming the shared memory it needs, before any launch, also from the
+    launcher on tensors of any device."""
+    dims = [width, 4 * width, 4 * width, width]
+    if rows is not None:
+        assert fused_ff.backward_tile_rows(dims, True, cd) == rows
+        return
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_ff.backward_tile_rows(dims, True, cd)
+    rng = np.random.default_rng(width)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    ks = [t(a, b) for a, b in zip(dims, dims[1:])]
+    bs = [t(d) for d in dims[1:]]
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_ff.fused_feedforward_bwd(t(4, width), t(4, width), ks, bs,
+                                       (t(width), t(width)),
+                                       compute_dtype=cd)

@@ -506,7 +506,9 @@ def test_backward_kernel_packing(cd, pad):
 def test_forward_kernel_packing(cd):
     """The forward kernel streams each layer's (in, out) kernel row-major:
     in bf16 zero-padded to whole 16 x 16 fragments (the backward's ``w``,
-    not its transposed ``wt``), in f32 unpadded."""
+    not its transposed ``wt``), in f32 zero-padded to multiples of 4 (the
+    16-byte pieces its f32 products stream into shared memory; the
+    backward's f32 ``w``), also at widths no multiple of 4."""
     rng = np.random.default_rng(5)
     ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
           for s in ((24, 40), (40, 24))]
@@ -518,3 +520,16 @@ def test_forward_kernel_packing(cd):
         assert not torch.equal(w, fused_ff._packed_weights(ks, cd, True, 16))
     else:
         assert torch.equal(w, torch.cat([k.reshape(-1) for k in ks]))
+        ks = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((30, 50), (50, 30))]
+        w = fused_ff._forward_weights(ks, cd)
+        assert torch.equal(w, fused_ff._backward_weights(ks, cd)[0])
+        assert w.numel() == 32 * 52 + 52 * 32
+        off = 0
+        for k in ks:
+            rows, cols = (-(-d // 4) * 4 for d in k.shape)
+            block = w[off:off + rows * cols].view(rows, cols)
+            assert torch.equal(block[:k.shape[0], :k.shape[1]], k)
+            assert not block[k.shape[0]:].any()
+            assert not block[:, k.shape[1]:].any()
+            off += rows * cols

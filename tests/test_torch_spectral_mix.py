@@ -388,3 +388,104 @@ def test_f32_kernel_shape_limits(m, c, o, fits):
     else:
         with pytest.raises(ValueError, match="at most"):
             tmix._check_f32_shape(m, c, o)
+
+
+# -- the bf16 pass's wide shapes -----------------------------------------
+
+
+@pytest.mark.parametrize("c,route", [(104, "mma"), (112, "cuda_cores"),
+                                     (128, "cuda_cores"), (256, "cuda_cores")])
+def test_bf16_route_from_shape(c, route):
+    """At n = 256, m = 64 the bf16 tensor-core kernel's two ring stages of
+    two weight modes fit beside a one-row tile's spectra up to C = O = 104;
+    wider bf16 passes run on the CUDA-core kernel (the f32 one's, with the
+    bf16 rounding points), as every f32 pass does. The launcher's mirror
+    of the planner decides from the shape alone (chip_smoke.py holds it to
+    the planner)."""
+    assert tmix.mma_fits(256, 64, c, c) == (route == "mma")
+    assert tmix.spectral_route(torch.bfloat16, 256, 64, c, c) == route
+    assert tmix.spectral_route(torch.float32, 256, 64, c, c) == "cuda_cores"
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", [(80, 128), (64, 264)])
+def test_shapes_beyond_both_kernels_raise(cd, m, c):
+    """m = 80 (spectra too large for shared memory) and 264 channels (more
+    than a tile's 256 columns) fit neither kernel: the launcher raises the
+    CUDA-core kernel's ValueError before any launch, in both modes."""
+    assert not tmix.mma_fits(256, m, c, c)
+    with pytest.raises(ValueError, match="at most 256 channels and 64 modes"):
+        tmix.spectral_route(cd, 256, m, c, c)
+    x = torch.zeros((1, 1, 2 * m, c))
+    wab = torch.zeros((m, 2, c, c))
+    with pytest.raises(ValueError, match="at most 256 channels and 64 modes"):
+        tmix._launch(x, wab, 2, "ortho", False, cd, None)
+
+
+def test_spectral_pass_bf16_reference_wide_matches_jax():
+    """The plain bf16 pass at C = O = 128, which the wide route is held to
+    on the card, against the JAX package's pallas2 kernel in bf16
+    (interpret mode) at n = 16, m = 6, 3 rows: both round x, the factors,
+    the weight, the spectra and the mixed spectra to bf16 at the same
+    points, so they differ by rounding flips only (bound: relative L2
+    2e-2, as the other bf16 cases)."""
+    rng = np.random.default_rng(128)
+    n, n_modes, c = 16, 6, 128
+    x = rng.standard_normal((3, n, c)).astype(np.float32)
+    w = _weight(rng, c, c, n_modes) * c ** -0.5
+    want = np.asarray(jmix2.packed_spectral_mix_1d(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w), n_modes,
+        interpret=True, compute_dtype=jnp.bfloat16).astype(jnp.float32))
+    m = min(n_modes, n // 2 + 1)
+    f2, i2 = tmix.packed_factors(n, m, "ortho", torch.device("cpu"))
+    got = tmix.spectral_pass_reference(
+        torch.from_numpy(x).bfloat16(), f2, i2,
+        tmix.pack_mix_weight(torch.from_numpy(w), m), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, n, c)
+    rel = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
+    assert rel <= 2e-2
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_wide_route_operands_are_the_bf16_values(adjoint):
+    """The wide route's operands are the f32 kernel's packings of the bf16
+    values: its factors (``kernel_factors_f32`` with ``bf16``) and each
+    mode's blocks (``kernel_weight_f32`` with ``bf16``) equal the factors
+    and the blocks rounded to bf16, bit for bit, zeros around them; and the
+    pass computed plainly from them with the bf16 rounding points (x, the
+    spectra and the mixed spectra rounded) is the plain bf16 pass up to
+    the order of its f32 sums."""
+    rng = np.random.default_rng(7)
+    n, m, c, o = 40, 17, 128, 120
+    cpu = torch.device("cpu")
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    w = tmix.adjoint_blocks(wab) if adjoint else wab
+    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", cpu, adjoint, True)
+    wk = tmix.kernel_weight_f32(w, True)
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    for padded, mat in ((f2p, f2), (i2p, i2)):
+        rows, cols = mat.shape
+        assert torch.equal(padded[:rows, :cols], bf(mat))
+        assert not padded[rows:].any() and not padded[:, cols:].any()
+    ci, co = w.shape[2], w.shape[3]
+    assert torch.equal(wk[:, :, :ci, :co], bf(w))
+    assert not wk[:, :, ci:].any() and not wk[:, :, :, co:].any()
+    x = torch.from_numpy(rng.standard_normal((3, n, ci)).astype(np.float32))
+    n1, sr = f2p.shape
+    xp = torch.zeros((3, n1, wk.shape[2]))
+    xp[:, :n, :ci] = bf(x)
+    z = bf(torch.einsum("rwc,wj->rjc", xp, f2p))
+    mk = torch.zeros((3, sr, wk.shape[3]))
+    for k in range(m):
+        zr, zi, a, b = z[:, k], z[:, m + k], wk[k, 0], wk[k, 1]
+        mk[:, k] = zr @ a - zi @ b
+        mk[:, m + k] = zr @ b + zi @ a
+    got = torch.einsum("rjo,jw->rwo", bf(mk), i2p)[:, :n, :co]
+    want = tmix.spectral_pass_reference(x, f2, i2, tmix.pack_blocks(w),
+                                        torch.bfloat16).float()
+    assert got.shape == want.shape
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    assert rel <= 1e-2
