@@ -30,31 +30,36 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      (column chunks, shorter tiles) recomputed and with saved
      pre-activations; the saved-pre-activation variant in bf16
      (ff_impl 'fused_saved'); bf16 at width 128's chain at the train
-     shape's rows, recomputed and saved; each case with its tile rows.
+     shape's rows, recomputed and saved; factor-4 chains at widths 320
+     and 512 in f32 and bf16, recomputed and saved (their
+     pre-activations in device memory); each case with its tile rows.
      Then the launchers' Python mirrors of the planners against the
-     planners: K2's tensor-core fit
-     (rpde_spectral_mma_fits) over 3,240 shapes, K1b's tile rows over
-     432 chains;
-  5. K2, the fused spectral axis pass, against its plain version on the
-     card: bf16 (its tensor-core products) at the train shape along W and
-     along H read in place and added into acc, each timed, and at ragged
-     shapes (n = 32 with m = 17; n = 40; C = 24 -> O = 40 along H with acc;
-     f32 x and out; C = 5 -> O = 3); its f32 mode (K3, IEEE f32 products
+     planners: the staged route's fit (rpde_spectral_staged_fits) over
+     3,242 shapes, K1b's tile rows over 540 chains;
+  5. K2, the spectral axis pass, against its plain version on the card:
+     bf16 (the staged route: three tensor-core products through device
+     memory) at the train shape along W and along H read in place and
+     added into acc, each timed, and at ragged shapes (n = 32 with m = 17;
+     n = 40; C = 24 -> O = 40 along H with acc; f32 x and out; C = 5 ->
+     O = 3); its f32 mode (K3, IEEE f32 products
      on the CUDA cores) at the train shape along W and along H with acc,
      each timed, at the same ragged shapes and with bf16 x and out, at
      wider channels (128 -> 128 at n = 256, timed; 96 -> 128 along H with
      acc; 200 -> 136), and two calls on the same inputs compared bit for
-     bit; the bf16 passes too wide for the tensor-core kernel, on the
-     CUDA-core kernel with the bf16 rounding points (128 -> 128 along W and
-     along H with acc, 256 -> 256, each timed; f32 x and out at 112; two
-     calls bit for bit), and the tensor-core kernel at its edge, 104
-     channels at n = 256; each case with its route; and both axes at
-     48 x 64 against the CPU;
-  6. the K2/K3 adjoint (the same kernel, transposed factors and weight)
+     bit; the f32 passes beyond one launch of K3, in chunks of modes and
+     channels (m = 80 at n = 160, and 264 -> 72 with f32 and with bf16 x
+     and out), each with its count of launches; the bf16 passes at wider
+     shapes (128 -> 128 along W and along H with acc, 256 -> 256, each
+     timed; m = 72 at n = 160; 264 -> 200; f32 x and out at 112; 117 ->
+     131 with f32 and bf16 x and out; 104 channels; two calls bit for
+     bit); each case with its route; and both axes at 48 x 64 against the
+     CPU;
+  6. the K2/K3 adjoint (the same kernels, transposed factors and weight)
      against the plain adjoint: bf16 at the train shape along W and along
      H with acc, each timed, and 40 -> 24 channels; f32 (K3's adjoint) the
-     same, and 136 -> 200 channels; bf16 on the wide route at 128 -> 128
-     (W, and H with acc) and 256 -> 256, timed; the two-axis conv's input
+     same, and 136 -> 200 channels, and in chunks at m = 80 and 72 ->
+     264; bf16 on the staged route at 128 -> 128 (W, and H with acc) and
+     256 -> 256, timed, and at m = 72; the two-axis conv's input
      and weight gradients against the same on the CPU; in f32 the adjoint
      and the weight gradient against autograd of the plain pass;
   7. the serving slice: FFNO2D at the width of bench.py (random weights
@@ -72,9 +77,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      at 8 x 256² (the median of the last 3 logged); 3 steps of
      'fused_saved'; and a resume from a checkpoint repeating two steps'
      losses bit for bit; then FFNO2D at width 128 on 'pallas2' in bf16,
-     every spectral pass and adjoint on the wide route (counted): a
+     every spectral pass and adjoint on the staged route (counted): a
      predict of 5 and 3 Trainer steps at 8 x 256² (finite losses, every
-     gradient finite and non-zero; their launches of the wide route, K1f
+     gradient finite and non-zero; their launches of the staged route, K1f
      and K1b counted and read just after them), the predict and one
      step's gradients
      at 2 x 128² against the same weights in f32 on the CPU;
@@ -89,16 +94,17 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      against the same weights on the CPU through the plain versions and
      against the jnp route on the GPU; backward() through the kernels'
      route must raise.
-The line before the last is the kernels' JSON record (eleven kernels; K1f
-and K1b each as a bf16 and an f32 entry; the bf16 pass's wide route as
-spectral_pass_bf16_wide, with its adjoint's time beside it), each kernel
-with its time (the W pass's, for K2 and its adjoint), its plain version's,
-its launches on the main paths and its bound (the larger of its bytes
-over 3.35 TB/s and the operations its function needs over the peak rate
-of their type: for the
-spectral pass, its DFTs counted as real FFTs where that is cheaper than
-the dense products the kernels do); the K2 and K3 entries
-also give the H pass's (added into acc) as h_acc_*; the last line is
+The line before the last is the kernels' JSON record (ten entries: K1f,
+K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
+the bf16 ones on the staged route with its own byte floor beside the
+bound), each kernel with its time (the W pass's at the train shape, for
+K2 and its adjoint), its plain version's, its launches on the main paths
+and its bound (the larger of its bytes over 3.35 TB/s and the operations
+its function needs over the peak rate of their type: for the spectral
+pass, its DFTs counted as real FFTs where that is cheaper than the dense
+products the kernels do); the K2 and K3 entries also give the H pass's
+(added into acc) as h_acc_*, and the bf16 ones the same at width 128 as
+w128_*; the last line is
 {"ok": true, "device": {...}}. Needs
 CUDA: without it, it exits 1 and prints no result. Plain versions run with
 TF32 off.
@@ -119,8 +125,7 @@ import torch
 
 # bench.py:73-110: the flagship FFNO2D serving width
 WIDTH, LAYERS, MODES, FACTOR, FF_LAYERS, BATCH, RES = 64, 4, 64, 4, 3, 8, 256
-# the width of resolution_pde_tpu/configs/model/ffno_1d.yaml, run in FFNO2D:
-# its spectral passes are too wide for the bf16 tensor-core kernel
+# the width of resolution_pde_tpu/configs/model/ffno_1d.yaml, run in FFNO2D
 WIDE = 128
 SEED = 0
 # resolution_pde_tpu/configs/model/s4_1d.yaml and s4d_1d.yaml (d_input 15
@@ -422,8 +427,8 @@ def _backward_tile_rows(dims, cd, has_ln=True) -> int:
 def check_planner_mirrors() -> None:
     """The launchers' Python mirrors of the kernels' planners, which pick
     routes and refuse shapes before any launch, against the planners
-    themselves: K2's tensor-core fit (plan_mma) over a grid of shapes, and
-    K1b's tile rows over chains in both precisions."""
+    themselves: the staged route's fit over a grid of shapes, and K1b's
+    tile rows over chains in both precisions."""
     from resolution_pde_tpu_torch.ops.kernels import _build
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
@@ -433,14 +438,16 @@ def check_planner_mirrors() -> None:
               for m in (8, 17, 33, 64, 80)
               for c in (8, 24, 64, 96, 104, 112, 128, 136, 256)
               for o in (8, 24, 64, 96, 104, 112, 128, 136, 256)]
-    bad = [s for s in shapes
-           if bool(lib.rpde_spectral_mma_fits(*s)) != sm.mma_fits(*s)]
-    fits = sum(sm.mma_fits(*s) for s in shapes)
-    log("mirrors", case="plan_mma", shapes=len(shapes), fit=fits,
-        disagree=len(bad))
-    require(not bad, f"mma_fits disagrees with plan_mma at {bad[:5]}")
+    # the staged route's limit, its grid's modes, at its edge too
+    staged = shapes + [(256, 65535, 8, 8), (256, 65536, 8, 8)]
+    bad = [s for s in staged
+           if bool(lib.rpde_spectral_staged_fits(*s)) != sm.staged_fits(*s)]
+    log("mirrors", case="staged_fits", shapes=len(staged),
+        fit=sum(sm.staged_fits(*s) for s in staged), disagree=len(bad))
+    require(not bad, f"staged_fits disagrees with the library at {bad[:5]}")
     chains = 0
-    for w in (8, 24, 30, 64, 96, 128, 160, 192, 224, 256, 288, 320):
+    for w in (8, 24, 30, 64, 96, 128, 160, 192, 224, 256, 288, 320, 384, 512,
+              640):
         for factor in (1, 2, 4):
             for layers in (1, 2, 3):
                 dims = [w] + [factor * w] * (layers - 1) + [w]
@@ -458,9 +465,11 @@ def check_fused_ff_bwd(gen) -> tuple:
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
     def case(n, dims, *, ln, approx, dtype, tol, label, save=False,
-             io=None, repeat=False):
+             io=None, repeat=False, plain_zs=False):
         # io: the type of x, g and dx (dtype if None); repeat: a second
-        # call on the same inputs must give the same bits
+        # call on the same inputs must give the same bits; plain_zs: the
+        # saved pre-activations from the plain forward (chains the forward
+        # kernel has no route for, ROADMAP.md section 3)
         io = io or dtype
         tile_rows = _backward_tile_rows(dims, dtype, ln)
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
@@ -473,12 +482,16 @@ def check_fused_ff_bwd(gen) -> tuple:
         kw = dict(approx_gelu=approx, compute_dtype=dtype)
         zs, zs_ref = None, None
         if save:
-            _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp,
-                                                   save_acts=True, **kw)
             _, zs_ref = fused_ff.fused_feedforward_reference(
                 x, ks, bs, lnp, save_acts=True, **kw)
-            err = rel_l2(zs, torch.cat(zs_ref, dim=1))
-            require(err <= tol, f"K1 saved pre-activations {label}: {err}")
+            if plain_zs:
+                zs = torch.cat(zs_ref, dim=1).to(dtype)
+            else:
+                _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp,
+                                                       save_acts=True, **kw)
+                err = rel_l2(zs, torch.cat(zs_ref, dim=1))
+                require(err <= tol,
+                        f"K1 saved pre-activations {label}: {err}")
         got = fused_ff.fused_feedforward_bwd(x, g, ks, bs, lnp, zs_saved=zs,
                                              **kw)
         ref = fused_ff.fused_feedforward_bwd_reference(x, g, ks, bs, lnp,
@@ -557,6 +570,17 @@ def check_fused_ff_bwd(gen) -> tuple:
                  save=save)
     saved = case(BATCH * RES * RES, dims, ln=True, approx=True,
                  dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
+    # factor-4 chains past width 256, whose pre-activations the kernel
+    # keeps in device memory (the least tile does not fit beside them);
+    # the bf16 forward kernel has no route at width 512
+    for w in (320, 512):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            for save in (False, True):
+                case(2003, [w, 4 * w, 4 * w, w], ln=True, approx=True,
+                     dtype=dtype, tol=tol,
+                     label=f"width{w}_{str(dtype)[6:]}"
+                     + ("_saved" if save else ""), save=save,
+                     plain_zs=w == 512 and dtype == torch.bfloat16)
     # bf16 at the chain run_wide's model runs (width WIDE), at its rows,
     # recomputed and with saved pre-activations
     wide = [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1) + [WIDE]
@@ -571,31 +595,46 @@ def check_fused_ff_bwd(gen) -> tuple:
     return bench, f32
 
 
+def _staged_floor(rows, n, c, o, m, io, acc=False) -> float:
+    """The staged route's own byte floor (ms): the function's bytes
+    (``_pass_cost``) and its spectra and mixed spectra, (m, rows, 2 C8)
+    and (m, rows, 2 O8) in bf16, each written once and read once."""
+    e = torch.finfo(io).bits // 8
+    c8, o8 = -(-c // 8) * 8, -(-o // 8) * 8
+    nbytes = (rows * n * (c + o * (2 if acc else 1)) * e
+              + (2 * n * 2 * m + m * 2 * c * o) * 2
+              + 2 * m * rows * 2 * (c8 + o8) * 2)
+    return nbytes / HBM_BYTES_S * 1e3
+
+
 def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
-                  acc=False, adjoint=False, timed=False, route=None) -> dict:
+                  acc=False, adjoint=False, timed=False, route=None,
+                  modes=MODES) -> dict:
     """One axis pass (``adjoint``: its adjoint) of a channels-last (B, H, W,
-    C) tensor along ``axis`` to ``c_out`` channels, added into a random
-    ``acc`` when asked, against the plain version on the same inputs on
-    the card; timed beside it when ``timed``. ``route``: the kernel the
-    shape must take ("mma" or "cuda_cores", spectral_route), which a
-    bf16 launch on the CUDA-core kernel shows in the wide count."""
+    C) tensor along ``axis`` to ``c_out`` channels with m = min(modes,
+    n // 2 + 1), added into a random ``acc`` when asked, against the plain
+    version on the same inputs on the card; timed beside it when
+    ``timed``. ``route``: the kernel the shape must take ("staged" or
+    "cuda_cores", spectral_route): a launch on the staged route shows
+    in the wide count, and an f32 pass makes one K3 launch a chunk of
+    ``f32_chunk_plan``."""
     from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
 
     cuda = torch.device("cuda")
     c, n = shape[3], shape[axis]
-    m = min(MODES, n // 2 + 1)
+    m = min(modes, n // 2 + 1)
     took = sm.spectral_route(cd, n, m, c, c_out)
     require(route is None or took == route,
             f"K2 {label}: route {took}, expected {route}")
-    wide0 = sm.wide_launches
+    wide0, k30 = sm.wide_launches, sm.k3_launches
     x = randn(shape, gen, dtype=io or cd)
     if adjoint:  # the pass maps c_out channels to c; its adjoint c to c_out
-        wab = sm.mix_blocks(randn((c_out, c, MODES, 2), gen, 0.1), m)
+        wab = sm.mix_blocks(randn((c_out, c, modes, 2), gen, 0.1), m)
         f2, i2 = sm.adjoint_factors(n, m, "ortho", cuda)
         plain_w = sm.pack_blocks(wab).transpose(1, 2)
         run = sm.spectral_axis_adjoint
     else:
-        wab = sm.mix_blocks(randn((c, c_out, MODES, 2), gen, 0.1), m)
+        wab = sm.mix_blocks(randn((c, c_out, modes, 2), gen, 0.1), m)
         f2, i2 = sm.packed_factors(n, m, "ortho", cuda)
         plain_w = sm.pack_blocks(wab)
         run = sm.spectral_axis_pass
@@ -605,13 +644,19 @@ def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
     ref = sm._plain_axis_pass(x, f2, i2, plain_w, axis, cd,
                               acc0.clone() if acc else None)
     torch.cuda.synchronize()
-    wide = sm.wide_launches - wide0
-    require(wide == int(cd == torch.bfloat16 and took == "cuda_cores"),
-            f"K2 {label}: {wide} launches on the wide route, route {took}")
+    wide, k3 = sm.wide_launches - wide0, sm.k3_launches - k30
+    require(wide == int(took == "staged"),
+            f"K2 {label}: {wide} launches on the staged route, route {took}")
+    chunks = (len(sm.f32_chunk_plan(m, c, c_out)) if took == "cuda_cores"
+              else 0)
+    require(k3 == chunks, f"K3 {label}: {k3} launches, its chunk plan "
+            f"{chunks}")
     err, mx = rel_l2(got, ref), max_abs(got, ref)
     fields = dict(case=label, shape="x".join(map(str, shape)), axis=axis,
                   C=c, O=c_out, m=m, acc=int(acc), route=took,
                   rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}", tol=tol)
+    if chunks:
+        fields.update(k3_launches=k3)
     res = dict(max_abs_err=mx)
     if timed:
         buf = acc0.clone() if acc else None
@@ -623,6 +668,10 @@ def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
                                 x.dtype, cd, acc))
         fields.update(ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                       bound_ms=f"{res['bound_ms']:.4f}")
+        if took == "staged":
+            res["staged_floor_ms"] = _staged_floor(
+                x.numel() // (n * c), n, c, c_out, m, x.dtype, acc)
+            fields.update(staged_floor_ms=f"{res['staged_floor_ms']:.4f}")
     log("K2adj" if adjoint else "K2", **fields)
     require(got.shape == out_shape and bool(torch.isfinite(got.float()).all())
             and err <= tol, f"K2 {label}: rel_l2 {err} > {tol}")
@@ -631,9 +680,12 @@ def spectral_case(gen, shape, c_out, axis, cd, tol, label, *, io=None,
 
 def _with_h(w_pass: dict, h_pass: dict) -> dict:
     """The W pass's entry with the H pass's (acc) time, plain time and
-    bound beside it."""
-    return dict(w_pass, h_acc_ms=h_pass["ms"], h_acc_plain_ms=h_pass["plain_ms"],
-                h_acc_bound_ms=h_pass["bound_ms"])
+    bound (and the staged route's floor) beside it."""
+    rec = dict(w_pass, h_acc_ms=h_pass["ms"], h_acc_plain_ms=h_pass["plain_ms"],
+               h_acc_bound_ms=h_pass["bound_ms"])
+    if "staged_floor_ms" in h_pass:
+        rec["h_acc_staged_floor_ms"] = h_pass["staged_floor_ms"]
+    return rec
 
 
 def check_spectral(gen) -> tuple:
@@ -641,16 +693,15 @@ def check_spectral(gen) -> tuple:
 
     train = (BATCH, RES, RES, WIDTH)
     bf, f32 = torch.bfloat16, torch.float32
-    # bf16: intermediates are rounded to bf16 in both; a rounding flip moves
-    # an element by up to one bf16 ulp. The train shape's two passes: W,
-    # and H read in place and added into acc
+    # bf16 (the staged route): intermediates are rounded to bf16 in both; a
+    # rounding flip moves an element by up to one bf16 ulp. The train
+    # shape's two passes: W, and H read in place and added into acc
     w16 = spectral_case(gen, train, WIDTH, 2, bf, 1e-2, "train_w_bf16",
-                        timed=True)
+                        timed=True, route="staged")
     h16 = spectral_case(gen, train, WIDTH, 1, bf, 1e-2, "train_h_acc_bf16",
-                        acc=True, timed=True)
-    # ragged shapes of the tensor-core kernel: n = 32 (m = 17), n = 40 (not
-    # a multiple of 16), C = 24 -> O = 40 (the H pass, acc), bf16 products
-    # with f32 x and out
+                        acc=True, timed=True, route="staged")
+    # ragged shapes: n = 32 (m = 17), n = 40 (not a multiple of 16), C = 24
+    # -> O = 40 (the H pass, acc), bf16 products with f32 x and out
     spectral_case(gen, (4, 16, 32, WIDTH), WIDTH, 2, bf, 1e-2, "n32_m17")
     spectral_case(gen, (4, 16, 40, WIDTH), WIDTH, 2, bf, 1e-2, "n40")
     spectral_case(gen, (4, 40, 32, 24), 40, 1, bf, 1e-2, "c24_o40_h_acc",
@@ -686,28 +737,54 @@ def check_spectral(gen) -> tuple:
     spectral_case(gen, (2, 64, 48, 96), 128, 1, f32, 1e-4,
                   "c96_o128_h_acc_f32", acc=True)
     spectral_case(gen, (2, 8, 128, 200), 136, 2, f32, 1e-4, "c200_o136_f32")
-    # bf16 passes too wide for the tensor-core kernel, on the CUDA-core
-    # kernel with the bf16 rounding points: 128 -> 128 at the train
-    # shape's 2048 rows of 256 points (FFNO2D at width 128), W and H with
-    # acc, 256 -> 256, and f32 x and out; bf16 tolerance
+    # f32 passes beyond one launch of K3, in chunks of at most 64 modes and
+    # 256 channels (two of modes at m = 80; two of input channels at 264),
+    # the later chunks added through accumulate: only the order of the f32
+    # sums differs
+    spectral_case(gen, (2, 8, 160, 16), 24, 2, f32, 1e-4, "m80_f32_chunks",
+                  modes=80, route="cuda_cores")
+    spectral_case(gen, (2, 8, 24, 264), 72, 1, f32, 1e-4,
+                  "c264_o72_h_acc_f32_chunks", acc=True, route="cuda_cores")
+    # the same with bf16 x and out: each added chunk rounds the output
+    # slice to bf16 once more, so the bf16 tolerance
+    spectral_case(gen, (2, 8, 24, 264), 72, 1, f32, 1e-2,
+                  "c264_o72_h_acc_bf16_io_f32_chunks", io=bf, acc=True,
+                  route="cuda_cores")
+    # bf16 passes at wider shapes, which no fused kernel's tile holds: 128
+    # -> 128 at the train shape's 2048 rows of 256 points (FFNO2D at width
+    # 128), W and H with acc, 256 -> 256, m = 72 at n = 160, 264 -> 200
+    # along H with acc, and f32 x and out; bf16 tolerance
     wide = spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, bf, 1e-2,
-                         "c128_o128_bf16_wide", timed=True, route="cuda_cores")
+                         "c128_o128_bf16_staged", timed=True, route="staged")
     wide_h = spectral_case(gen, (BATCH, RES, RES, 128), 128, 1, bf, 1e-2,
-                           "c128_o128_h_acc_bf16_wide", acc=True, timed=True,
-                           route="cuda_cores")
+                           "c128_o128_h_acc_bf16_staged", acc=True,
+                           timed=True, route="staged")
     spectral_case(gen, (2, 32, RES, 256), 256, 2, bf, 1e-2,
-                  "c256_o256_bf16_wide", timed=True, route="cuda_cores")
+                  "c256_o256_bf16_staged", timed=True, route="staged")
+    spectral_case(gen, (2, 8, 160, 136), 136, 2, bf, 1e-2,
+                  "m72_n160_bf16_staged", modes=72, route="staged")
+    spectral_case(gen, (2, 8, 24, 264), 200, 1, bf, 1e-2,
+                  "c264_o200_h_acc_bf16_staged", acc=True, route="staged")
     spectral_case(gen, (2, 8, RES, 112), 112, 2, bf, 1e-2,
-                  "c112_o112_f32_io_bf16_wide", io=f32, route="cuda_cores")
+                  "c112_o112_f32_io_bf16_staged", io=f32, route="staged")
+    # channel counts no multiple of 8: x read through registers, the
+    # inverse's stores from its fragments (f32 out two channels a store,
+    # bf16 out with an odd O one at a time), the mix's -b fragments past
+    # a boundary at 120 rows
+    spectral_case(gen, (2, 8, 40, 117), 131, 1, bf, 1e-2,
+                  "c117_o131_h_acc_f32_io_bf16_staged", io=f32, acc=True,
+                  route="staged")
+    spectral_case(gen, (2, 8, 40, 117), 131, 2, bf, 1e-2,
+                  "c117_o131_bf16_staged", route="staged")
     spectral_case(gen, (2, 8, RES, 104), 104, 2, bf, 1e-2, "c104_o104_bf16",
-                  route="mma")
+                  route="staged")
     x = randn((BATCH, RES, RES, 128), gen, dtype=bf)
     wab = sm.mix_blocks(randn((128, 128, MODES, 2), gen, 0.1), MODES)
     first = sm.spectral_axis_pass(x, wab, 2, "ortho", bf)
     again = sm.spectral_axis_pass(x, wab, 2, "ortho", bf)
     same = bool(torch.equal(first, again))
-    log("K2", case="c128_o128_bf16_wide_repeat", bit_equal=same)
-    require(same, "K2 wide: two calls on the same inputs differ")
+    log("K2", case="c128_o128_bf16_staged_repeat", bit_equal=same)
+    require(same, "K2 staged: two calls on the same inputs differ")
     # two calls on the same inputs give the same bits (sums in an order
     # fixed by the shapes)
     x = randn(train, gen)
@@ -742,9 +819,9 @@ def check_spectral_adjoint(gen) -> tuple:
     # an element by one bf16 ulp; f32 differs only in the order of sums.
     # The backward's two adjoints: W, and H added into it
     w16 = spectral_case(gen, train, WIDTH, 2, bf, 1e-2, "train_w_bf16",
-                        adjoint=True, timed=True)
+                        adjoint=True, timed=True, route="staged")
     h16 = spectral_case(gen, train, WIDTH, 1, bf, 1e-2, "train_h_acc_bf16",
-                        acc=True, adjoint=True, timed=True)
+                        acc=True, adjoint=True, timed=True, route="staged")
     spectral_case(gen, (4, 16, 48, 40), 24, 2, bf, 1e-2, "o40_to_c24",
                   adjoint=True)
     k3 = spectral_case(gen, train, WIDTH, 2, f32, 1e-4, "train_w_f32",
@@ -755,17 +832,26 @@ def check_spectral_adjoint(gen) -> tuple:
                   adjoint=True)
     spectral_case(gen, (2, 8, 128, 136), 200, 2, f32, 1e-4,
                   "o136_to_c200_f32", adjoint=True)
-    # the bf16 adjoint on the wide route: 128 -> 128 at the train shape's
-    # rows (W, and H with acc) and 256 -> 256
-    wide = spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, bf, 1e-2,
-                         "c128_o128_bf16_wide", adjoint=True, timed=True,
-                         route="cuda_cores")
-    wide_h = spectral_case(gen, (BATCH, RES, RES, 128), 128, 1, bf, 1e-2,
-                           "c128_o128_h_acc_bf16_wide", acc=True,
-                           adjoint=True, timed=True, route="cuda_cores")
-    spectral_case(gen, (2, 32, RES, 256), 256, 2, bf, 1e-2,
-                  "c256_o256_bf16_wide", adjoint=True, timed=True,
+    # the f32 adjoint in chunks: m = 80, and 72 -> 264 (two output slices)
+    spectral_case(gen, (2, 8, 160, 24), 16, 2, f32, 1e-4,
+                  "m80_f32_chunks", adjoint=True, modes=80,
                   route="cuda_cores")
+    spectral_case(gen, (2, 8, 24, 72), 264, 2, f32, 1e-4,
+                  "o72_to_c264_f32_chunks", adjoint=True, route="cuda_cores")
+    # the bf16 adjoint at wider shapes: 128 -> 128 at the train shape's
+    # rows (W, and H with acc), 256 -> 256 and m = 72
+    wide = spectral_case(gen, (BATCH, RES, RES, 128), 128, 2, bf, 1e-2,
+                         "c128_o128_bf16_staged", adjoint=True, timed=True,
+                         route="staged")
+    wide_h = spectral_case(gen, (BATCH, RES, RES, 128), 128, 1, bf, 1e-2,
+                           "c128_o128_h_acc_bf16_staged", acc=True,
+                           adjoint=True, timed=True, route="staged")
+    spectral_case(gen, (2, 32, RES, 256), 256, 2, bf, 1e-2,
+                  "c256_o256_bf16_staged", adjoint=True, timed=True,
+                  route="staged")
+    spectral_case(gen, (2, 8, 160, 136), 136, 2, bf, 1e-2,
+                  "m72_n160_bf16_staged", adjoint=True, modes=72,
+                  route="staged")
     cuda = torch.device("cuda")
     f2, i2 = sm.packed_factors(RES, MODES, "ortho", cuda)
     x = randn(train, gen, dtype=bf)
@@ -859,6 +945,7 @@ def run_slice(gen) -> dict:
 
     # the main path: every launch counted here comes from serving requests
     fused_ff.launches = spectral_mix.launches = 0
+    spectral_mix.wide_launches = 0
     launched = {"bf16": [0, 0], "f32": [0, 0]}
     outs = {}
     for res, x in reqs.items():
@@ -873,6 +960,9 @@ def run_slice(gen) -> dict:
     d = [a - b for a, b in zip(counts(), before)]
     require(d == [4 * LAYERS, 8 * LAYERS], f"forecast launched {d}")
     launched["bf16"] = [a + b for a, b in zip(launched["bf16"], d)]
+    require(spectral_mix.wide_launches == launched["bf16"][1],
+            f"bf16 serving: {spectral_mix.wide_launches} of "
+            f"{launched['bf16'][1]} spectral launches on the staged route")
     before = counts()
     out32 = eng32.predict(x128)
     d = [a - b for a, b in zip(counts(), before)]
@@ -894,7 +984,10 @@ def run_slice(gen) -> dict:
             f"f32 predict at {RES}^2: shape {y32.shape} or non-finite")
     log("latency", bucket=f"{BATCH}x{RES}^2", mode="f32_exact", batch=BATCH,
         median_ms=f"{statistics.median(times):.3f}")
-    log("slice", launches_k1=counts()[0], launches_k2=counts()[1])
+    require(spectral_mix.wide_launches == launched["bf16"][1],
+            "f32 predicts launched the staged route")
+    log("slice", launches_k1=counts()[0], launches_k2=counts()[1],
+        launches_staged=spectral_mix.wide_launches)
 
     for res, x in reqs.items():
         require(outs[res].shape == x.shape and np.isfinite(outs[res]).all(),
@@ -972,6 +1065,7 @@ def run_train() -> dict:
     # the main path: every launch counted from here comes from train steps
     fused_ff.launches = fused_ff.bwd_launches = 0
     spectral_mix.launches = spectral_mix.adjoint_launches = 0
+    spectral_mix.wide_launches = 0
     launched = {"bf16": [0, 0, 0, 0], "f32": [0, 0, 0, 0]}
 
     def tally(key, before):
@@ -1047,6 +1141,10 @@ def run_train() -> dict:
     state, _ = step(trainer, state, x128, y128, "bf16 gradient step")
     err16 = rel_l2(_flat_grads(state.model), ref)
     tally("bf16", before)
+    staged = launched["bf16"][2] + launched["bf16"][3]
+    require(spectral_mix.wide_launches == staged,
+            f"bf16 steps: {spectral_mix.wide_launches} of {staged} spectral "
+            "launches on the staged route")
     before = _counts()
     trainer, state = trainer_for(None, "pallas")
     state, _ = step(trainer, state, x128, y128, "f32 gradient step")
@@ -1067,6 +1165,8 @@ def run_train() -> dict:
         losses=[f"{v:.6f}" for v in f32_losses])
     require(all(np.isfinite(f32_losses)), f"f32 step losses {f32_losses}")
     tally("f32", before)
+    require(spectral_mix.wide_launches == staged,
+            "f32 steps launched the staged route")
     log("train", grads_bf16_vs_cpu_f32_rel_l2=f"{err16:.3e}", tol=3e-2,
         grads_f32_vs_cpu_f32_rel_l2=f"{err32:.3e}", tol32=1e-4)
     require(err16 <= 3e-2, f"bf16 gradients vs CPU f32: {err16}")
@@ -1078,16 +1178,16 @@ def run_train() -> dict:
 
 def run_wide() -> dict:
     """FFNO2D at width WIDE on spectral_impl 'pallas2' in bf16, whose
-    spectral passes and adjoints the tensor-core kernel does not fit (the
-    wide route, spectral_mix.spectral_route): a predict of 5 through
+    spectral passes and adjoints run on the staged route (as every bf16
+    pass does, spectral_mix.spectral_route): a predict of 5 through
     ServingEngine at 8 x 256² and 3 Trainer steps at 8 x 256² from the
     same random weights (finite losses, every gradient finite and
-    non-zero), each launching the wide route twice a layer (and twice for
+    non-zero), each launching the staged route twice a layer (and twice for
     the adjoints); then the predict and one step's gradients at 2 x 128²
     against the same weights in f32 on the CPU (relative L2 3e-2, as the
     width-64 slice). Returns the launches of the predict and the 3 steps,
-    read just after them: the wide route's ("wide") and K1f's and K1b's
-    in bf16 ("fwd", "bwd")."""
+    read just after them: the staged route's ("wide"; of them passes "k2"
+    and adjoints "adj") and K1f's and K1b's in bf16 ("fwd", "bwd")."""
     from resolution_pde_tpu_torch.deploy import ServingEngine
     from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
     from resolution_pde_tpu_torch.ops.losses import relative_l2
@@ -1113,7 +1213,7 @@ def run_wide() -> dict:
     x128 = rng.standard_normal((2, 1, 128, 128)).astype(np.float32)
     y128 = np.roll(x128, 7, axis=-1)
 
-    # the main path of the wide route: every launch counted from here
+    # the main path of the staged route: every launch counted from here
     # comes from the predicts and steps below
     fused_ff.launches = fused_ff.bwd_launches = 0
     spectral_mix.launches = spectral_mix.adjoint_launches = 0
@@ -1141,8 +1241,13 @@ def run_wide() -> dict:
         losses.append(float(loss))  # syncs
         step_ms.append((time.perf_counter() - t) * 1e3)
         wide_since(before, "train step", 4 * LAYERS)
-    launched = dict(wide=spectral_mix.wide_launches, fwd=fused_ff.launches,
-                    bwd=fused_ff.bwd_launches)
+    launched = dict(wide=spectral_mix.wide_launches,
+                    k2=spectral_mix.launches,
+                    adj=spectral_mix.adjoint_launches,
+                    fwd=fused_ff.launches, bwd=fused_ff.bwd_launches)
+    require(launched["k2"] + launched["adj"] == launched["wide"],
+            f"width {WIDE}: spectral launches {launched} off the staged "
+            "route")
     require(launched["fwd"] == 4 * LAYERS and launched["bwd"] == 3 * LAYERS,
             f"width {WIDE}: FeedForward launches {launched}, expected "
             f"{4 * LAYERS} forward and {3 * LAYERS} backward")
@@ -1408,6 +1513,10 @@ def main() -> int:
     s4_served = run_s4_slice()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
+    staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
+
+    def w128(rec):
+        return {f"w128_{k}": v for k, v in rec.items()}
     bwd_src = "resolution_pde_tpu_torch/csrc/fused_ff_bwd.cu"
     fwd_src = "resolution_pde_tpu_torch/csrc/fused_ff.cu"
     kernels = [
@@ -1424,19 +1533,17 @@ def main() -> int:
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["f32"][1], **k1b32),
-        dict(name="spectral_pass_bf16", route="cuda", source=sm_src,
+        dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
-             launches=served["bf16"][1] + trained["bf16"][2], **k2),
+             launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"],
+             **k2, **w128(k2wide)),
         dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
              launches=served["f32"][1] + trained["f32"][2], **k3),
-        dict(name="spectral_pass_bf16_wide", route="cuda", source=sm_src,
-             replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
-             launches=wide["wide"], adjoint_ms=adjwide["ms"],
-             adjoint_plain_ms=adjwide["plain_ms"], **k2wide),
-        dict(name="spectral_adjoint_bf16", route="cuda", source=sm_src,
+        dict(name="spectral_adjoint_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
-             launches=trained["bf16"][3], **adj16),
+             launches=trained["bf16"][3] + wide["adj"], **adj16,
+             **w128(adjwide)),
         dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
              launches=trained["f32"][3], **adj32),

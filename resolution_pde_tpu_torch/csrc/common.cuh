@@ -5,8 +5,8 @@
 // f32_tile_gemm's buffers (fused_ff.cu); its bf16 products run on the
 // tensor cores instead (mma.cuh), and both directions' other f32 products
 // on weights streamed through shared memory (f32_tile_gemm, fused_ff.cuh). The
-// spectral pass (spectral_mix.cu) has block products of its own in both
-// precisions. load_rows stages rows of a tile into shared memory for both
+// spectral passes (spectral_mix.cu in f32, spectral_staged.cu in bf16)
+// have block products of their own. load_rows stages rows of a tile into shared memory for both
 // FeedForward kernels.
 // In block_gemm every thread of the block owns RM x RN outputs of a
 // product and keeps them in registers while it walks the

@@ -54,7 +54,15 @@
 // bf16 rows padded to whole fragments plus 8 columns so that ldmatrix
 // meets no bank conflict). The bf16 buffers are zeroed once and dz is
 // zero on the rows past the end of the last tile, so the products run on
-// whole fragments.
+// whole fragments. The z buffer takes two thirds of a row's bytes in bf16
+// and half in f32 (about 36 w of 54 w and of 72 w at width w, factor 4),
+// so past width 256 not even the least tile (16 rows in bf16, 8 in f32
+// beside the weight ring) fits with it: for such chains z lives in device
+// memory instead, a (tile rows, z row) f32 buffer a block after the slabs
+// in partials, which stays in L2 (a block rewrites its own buffer every
+// tile), and h_0, h, dz, the statistics and the ring stay in shared
+// memory. The planner picks that from the shape, and it is a compile-time
+// flag (kZGlobal), so the kernels of the chains that fit are unchanged.
 //
 // In f32 (the f32-exact mode, held to 1e-5: fused_ff_bwd_f32_kernel) the
 // products stay IEEE f32 FMAs on the CUDA cores, no TF32: the same 309
@@ -121,6 +129,7 @@ struct BwdParams {
   long long n_grads;                 // floats of grads
   long long n_tiles;
   int smem_bytes;                    // dynamic shared memory, a multiple of 16
+  int z_global;                      // the z buffer in device memory (partials), not shared
 };
 
 #ifdef RPDE_K1B_PHASES
@@ -171,8 +180,17 @@ __device__ void column_sums(int n, int rows, float* scratch, RowFn row, OutFn ou
   }
 }
 
-// bf16 compute type: the products on the tensor cores (mma.cuh)
-template <typename IO>
+// The z buffer of block b, (tr, z_ld) f32, where it lives in device memory
+// (kZGlobal): after the gridDim.x slabs of partials, one buffer a block.
+__device__ __forceinline__ float* global_zbuf(float* partials, const BwdParams& p) {
+  return partials + static_cast<long long>(gridDim.x) * p.slab +
+         static_cast<long long>(blockIdx.x) * p.tile_rows * p.z_ld;
+}
+
+// bf16 compute type: the products on the tensor cores (mma.cuh). kZGlobal:
+// the z buffer in device memory (chains whose least tile does not fit
+// beside it in shared memory), compiled in only for them.
+template <typename IO, bool kZGlobal>
 __global__ void __launch_bounds__(kBwdThreads)
 fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
                     const __nv_bfloat16* __restrict__ zs, IO* __restrict__ dx,
@@ -186,8 +204,10 @@ fused_ff_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   const int c_in = p.dims[0];
   const int c_out = p.dims[L];
   const int z_ld = p.z_ld, dz_ld = p.dz_ld, h0_ld = p.h0_ld;
-  float* zbuf = reinterpret_cast<float*>(smem);    // (tr, z_ld): z_l, then dz_l
-  float* stats = zbuf + tr * z_ld;                 // (tr, 4): LayerNorm row statistics
+  // (tr, z_ld): z_l, then dz_l
+  float* zbuf = kZGlobal ? global_zbuf(partials, p) : reinterpret_cast<float*>(smem);
+  // (tr, 4): LayerNorm row statistics
+  float* stats = kZGlobal ? reinterpret_cast<float*>(smem) : zbuf + tr * z_ld;
   CD* h0 = reinterpret_cast<CD*>(stats + tr * 4);  // (tr, h0_ld): h_0 = x
   CD* hbuf = h0 + tr * h0_ld;                      // (tr, dz_ld): some h_l, l >= 1
   CD* dzc = hbuf + tr * dz_ld;                     // (tr, dz_ld): dz rounded to CD
@@ -606,8 +626,9 @@ __device__ __forceinline__ void f32_dw_add(int k, int n, int rows, const float* 
 // cores, the weights streamed through shared memory (f32_tile_gemm), dW
 // in float4 register tiles (f32_dw_add); the phases, the slabs and the
 // column sums are the bf16 kernel's. kChunks: f32_tile_gemm's column
-// chunks, compiled in only for chains wider than kF32ChunkCols.
-template <typename IO, bool kChunks>
+// chunks, compiled in only for chains wider than kF32ChunkCols; kZGlobal
+// (with kChunks): the z buffer in device memory, as in the bf16 kernel.
+template <typename IO, bool kChunks, bool kZGlobal>
 __global__ void __launch_bounds__(kBwdThreads)
 fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
                         const float* __restrict__ zs, IO* __restrict__ dx,
@@ -620,8 +641,10 @@ fused_ff_bwd_f32_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   const int c_in = p.dims[0];
   const int c_out = p.dims[L];
   const int z_ld = p.z_ld, dz_ld = p.dz_ld, h0_ld = p.h0_ld;
-  float* zbuf = reinterpret_cast<float*>(smem);  // (tr, z_ld): z_l, then dz_l
-  float* stats = zbuf + tr * z_ld;               // (tr, 4): LayerNorm row statistics
+  // (tr, z_ld): z_l, then dz_l
+  float* zbuf = kZGlobal ? global_zbuf(partials, p) : reinterpret_cast<float*>(smem);
+  // (tr, 4): LayerNorm row statistics
+  float* stats = kZGlobal ? reinterpret_cast<float*>(smem) : zbuf + tr * z_ld;
   float* h0 = stats + tr * 4;                    // (tr, h0_ld): h_0 = x
   float* hbuf = h0 + tr * h0_ld;                 // (tr, dz_ld): some h_l, l >= 1
   float* dzc = hbuf + tr * dz_ld;                // (tr, dz_ld): dz, the products' A
@@ -833,15 +856,26 @@ bool plan(BwdParams& p, bool bf16, const int* dims, int n_layers, bool has_ln,
     fixed += static_cast<size_t>(f32_ring_floats(widest, kBwdThreads)) * sizeof(float);
   }
   const size_t cd_size = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  // largest tile of rows whose buffers fit the shared-memory budget
-  const size_t per_row = (static_cast<size_t>(p.z_ld) + 4) * sizeof(float) +
-                         (static_cast<size_t>(p.h0_ld) + 2 * p.dz_ld) * cd_size;
-  int tr = kBwdMaxTileRows;
-  while (tr > 1 && tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) tr /= 2;
-  if (tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) return false;
+  // a row's buffers: z (f32), its LayerNorm statistics, h_0 and two rows
+  // as wide as the widest layer in the compute type
+  const size_t z_row = static_cast<size_t>(p.z_ld) * sizeof(float);
+  const size_t rest_row = 4 * sizeof(float) +
+                          (static_cast<size_t>(p.h0_ld) + 2 * p.dz_ld) * cd_size;
+  // the tallest tile of rows of per_row bytes that fits the budget, or 0
+  const auto tallest = [fixed](size_t per_row) {
+    int tr = kBwdMaxTileRows;
+    while (tr > 1 && tr * per_row + fixed > static_cast<size_t>(kBwdSmemBudget)) tr /= 2;
+    return tr * per_row + fixed <= static_cast<size_t>(kBwdSmemBudget) ? tr : 0;
+  };
   // the tensor-core products read whole fragments of 16 rows; the f32
-  // products' register tiles 8 rows, a thread each
-  if (tr < (bf16 ? 16 : 8)) return false;
+  // products' register tiles 8 rows, a thread each. Where the least tile
+  // does not fit with its z, z goes to device memory (partials)
+  const int least = bf16 ? 16 : 8;
+  int tr = tallest(z_row + rest_row);
+  p.z_global = tr < least;
+  if (p.z_global) tr = tallest(rest_row);
+  if (tr < least) return false;
+  const size_t per_row = p.z_global ? rest_row : z_row + rest_row;
   if (!bf16 && f32_tile_gemm_threads(tr, f32_chunk_cols(widest)) > kBwdThreads) return false;
   p.tile_rows = tr;
   smem = (tr * per_row + fixed + 15) / 16 * 16;
@@ -859,10 +893,11 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
   if constexpr (std::is_same<CD, float>::value) {
     int widest = 0;
     for (int l = 0; l <= p.n_layers; ++l) widest = std::max(widest, pad4(p.dims[l]));
-    kernel = widest > kF32ChunkCols ? fused_ff_bwd_f32_kernel<IO, true>
-                                    : fused_ff_bwd_f32_kernel<IO, false>;
+    kernel = p.z_global               ? fused_ff_bwd_f32_kernel<IO, true, true>
+             : widest > kF32ChunkCols ? fused_ff_bwd_f32_kernel<IO, true, false>
+                                      : fused_ff_bwd_f32_kernel<IO, false, false>;
   } else {
-    kernel = fused_ff_bwd_kernel<IO>;
+    kernel = p.z_global ? fused_ff_bwd_kernel<IO, true> : fused_ff_bwd_kernel<IO, false>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -895,16 +930,17 @@ cudaError_t launch(const void* x, const void* g, const void* zs, void* dx, const
 }  // namespace
 }  // namespace rpde
 
-// Floats of one slab of the backward's scratch (partials) for the chain
+// Floats of the backward's scratch (partials) a block takes for the chain
 // dims[0] -> ... -> dims[n_layers] in the compute type (bf16 or f32), with
-// or without LayerNorm; -1 if the widths are invalid or no tile of rows
-// fits the shared memory.
+// or without LayerNorm: its slab, and where the tile's z does not fit the
+// shared memory, its z buffer (tile rows x the z row); -1 if the widths are
+// invalid or no tile of rows fits the shared memory.
 extern "C" int rpde_fused_ff_backward_slab(int cd_bf16, const int* dims, int n_layers,
                                            int has_ln) {
   rpde::BwdParams p;
   size_t smem = 0;
   if (!rpde::plan(p, cd_bf16 != 0, dims, n_layers, has_ln != 0, smem)) return -1;
-  return static_cast<int>(p.slab);
+  return static_cast<int>(p.slab + (p.z_global ? static_cast<long long>(p.tile_rows) * p.z_ld : 0));
 }
 
 // Rows of the backward's tile of rows for the same chain, or -1 where
@@ -926,8 +962,8 @@ extern "C" int rpde_fused_ff_backward_tile_rows(int cd_bf16, const int* dims, in
 // same kernels transposed, (dims[l+1], dims[l]) each, both in the compute
 // type; each kernel is zero-padded to multiples of 16 (bf16) or 4 (f32) in
 // both of its dimensions before it is packed. b: the biases packed in f32; ln_s: the
-// LayerNorm scale (f32), null for no LayerNorm. partials: max_blocks slabs
-// of f32 scratch, each of rpde_fused_ff_backward_slab floats. grads (f32)
+// LayerNorm scale (f32), null for no LayerNorm. partials: f32 scratch,
+// max_blocks x rpde_fused_ff_backward_slab floats. grads (f32)
 // receives dW_0 .. dW_{L-1} packed row-major, then db_0 .. db_{L-1} packed
 // as b, then with LayerNorm dLN_scale and dLN_bias. Returns a cudaError_t.
 extern "C" int rpde_fused_ff_backward(int cd_bf16, int io_bf16, const void* x,

@@ -3,8 +3,8 @@
 // Serves the bf16 products of the fused FeedForward backward (fused_ff_bwd.cu,
 // which replaces resolution_pde_tpu/ops/pallas/fused_ff.py `_bwd_pallas`,
 // whose three products a layer run on the TPU's MXU in bf16 with f32
-// accumulation) and forward (fused_ff.cu, `_fwd_pallas`), and of the fused
-// spectral axis pass (spectral_mix.cu, ops/pallas/spectral_mix2.py
+// accumulation) and forward (fused_ff.cu, `_fwd_pallas`), and of the bf16
+// spectral axis pass (spectral_staged.cu, ops/pallas/spectral_mix2.py
 // `_pass_pallas`). block_gemm (common.cuh) does the same sums in scalar f32
 // FMAs on the CUDA cores, at 67 TFLOP/s at most on an H100; the tensor
 // cores offer 989 TFLOP/s in bf16.
@@ -119,20 +119,6 @@ __device__ __forceinline__ void frag_b_global(uint32_t (&b)[2], const __nv_bfloa
   const uint32_t* p = reinterpret_cast<const uint32_t*>(m + (n0 + l / 4) * ld + k0 + (l % 4) * 2);
   b[0] = __ldg(p);
   b[1] = __ldg(p + 4);
-}
-
-// The A fragment of tile `tile` of a matrix the caller packed in fragment
-// order: each 16 x 16 tile as 32 lanes x 8 elements, lane g * 4 + t
-// holding its a0..a3 (a_r = rows g + 8 (r % 2), columns 2t + 8 (r / 2) and
-// the next) contiguously. One 16-byte load a lane through the read-only
-// cache; a warp reads 512 contiguous bytes.
-__device__ __forceinline__ void frag_a_packed(uint32_t (&a)[4], const uint4* __restrict__ tiles,
-                                              long long tile) {
-  const uint4 v = __ldg(tiles + tile * 32 + threadIdx.x % 32);
-  a[0] = v.x;
-  a[1] = v.y;
-  a[2] = v.z;
-  a[3] = v.w;
 }
 
 // Adds into acc, the sums of the warp tile of rows m0.. and columns n0.. of

@@ -5,8 +5,9 @@ Counterpart of resolution_pde_tpu/models/ffno.py (``FSpectralConv2d``,
 ``FFNO2D``). Layout: (B, C, H, W) at the model boundary, channels-last
 (B, H, W, C) inside. ``spectral_impl`` selects the spectral pass:
   - 'fft':     torch.fft, f32 (the plain reference);
-  - 'pallas':  the fused spectral kernel in f32 (the f32-exact mode);
-  - 'pallas2': the fused spectral kernel in ``compute_dtype``.
+  - 'pallas':  the spectral kernel in f32 (the f32-exact mode);
+  - 'pallas2': the spectral kernels in ``compute_dtype`` (bf16: the staged
+    route).
 The names are the JAX package's, so one config selects the counterpart.
 """
 

@@ -35,9 +35,10 @@ _SIGNATURES = {
     "rpde_fused_ff_backward": [_I, _I, *[_P] * 11, _I, _L, _I, _I, _P],
     "rpde_fused_ff_backward_slab": [_I, _P, _I, _I],
     "rpde_fused_ff_backward_tile_rows": [_I, _P, _I, _I],
-    "rpde_spectral_pass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                           _L, _L, _L, _L, _L, _L, _I, _P],
-    "rpde_spectral_mma_fits": [_I, _I, _I, _I],
+    "rpde_spectral_pass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                           _L, _L, _L, _L, _L, _I, _P],
+    "rpde_spectral_staged": [_I, *[_P] * 7, _I, _I, _I, _I, *[_L] * 8, _I, _P],
+    "rpde_spectral_staged_fits": [_I, _I, _I, _I],
     "rpde_vandermonde": [*[_P] * 5, _I, _I, _I, _P],
     "rpde_cauchy": [*[_P] * 8, _I, _I, _I, _P],
 }

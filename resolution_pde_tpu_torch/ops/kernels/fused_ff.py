@@ -252,12 +252,16 @@ def _f32_ring_floats(width: int, threads: int) -> int:
 def backward_tile_rows(dims, has_ln: bool, compute_dtype) -> int:
     """Rows of the backward kernel's tile for the chain ``dims`` (widths
     dims[0] -> ... -> dims[-1]), as its planner picks them: the tallest of
-    64, 32, .. rows whose buffers (the pre-activations and their
-    LayerNorm statistics in f32, h_0 and two rows as wide as the widest
-    layer in the compute type), beside the column sums' scratch and, in
-    f32, the weight ring, fit a block's shared memory. Raises ValueError
-    when not even the least tile fits: 16 rows in bf16 (whole tensor-core
-    fragments), 8 in f32 (the products' register tiles)."""
+    64, 32, .. rows whose buffers (the pre-activations in f32, their
+    LayerNorm statistics, h_0 and two rows as wide as the widest layer in
+    the compute type), beside the column sums' scratch and, in f32, the
+    weight ring, fit a block's shared memory, with at least the least tile:
+    16 rows in bf16 (whole tensor-core fragments), 8 in f32 (the products'
+    register tiles). Where the least tile does not fit with its
+    pre-activations (factor-4 chains wider than 256), they go to device
+    memory and the tile is the tallest that fits without them. Raises
+    ValueError when not even that fits: factor-4 chains wider than about
+    780 in bf16 and 555 in f32."""
     bf16 = compute_dtype == torch.bfloat16
     z_ld, dz = sum(dims[1:]), max(dims[1:])
     fixed = _BWD_COLUMN_SUMS * _BWD_THREADS * 4
@@ -268,17 +272,25 @@ def backward_tile_rows(dims, has_ln: bool, compute_dtype) -> int:
         widest = max(_pad(d, 4) for d in dims)
         h0_ld, dz_ld, size = _pad(dims[0], 4) + 4, _pad(dz, 4) + 4, 4
         fixed += _f32_ring_floats(widest, _BWD_THREADS) * 4
-    per_row = (z_ld + 4) * 4 + (h0_ld + 2 * dz_ld) * size
+    z_row, rest_row = z_ld * 4, 16 + (h0_ld + 2 * dz_ld) * size
+
+    def tallest(per_row):
+        tr = _BWD_MAX_TILE_ROWS
+        while tr > 1 and tr * per_row + fixed > _SMEM_BYTES:
+            tr //= 2
+        return tr if tr * per_row + fixed <= _SMEM_BYTES else 0
+
     least = 16 if bf16 else 8
-    tr = _BWD_MAX_TILE_ROWS
-    while tr > 1 and tr * per_row + fixed > _SMEM_BYTES:
-        tr //= 2
-    if tr * per_row + fixed > _SMEM_BYTES or tr < least:
+    tr = tallest(z_row + rest_row)
+    if tr < least:
+        tr = tallest(rest_row)
+    if tr < least:
         raise ValueError(
             f"fused_feedforward backward ({'bf16' if bf16 else 'f32'}): "
-            f"widths {list(dims)} need {least} rows of {per_row} bytes "
-            f"beside {fixed} bytes, {least * per_row + fixed} bytes of "
-            f"shared memory; a block has {_SMEM_BYTES}")
+            f"widths {list(dims)} need {least} rows of {rest_row} bytes "
+            f"(their pre-activations in device memory) beside {fixed} "
+            f"bytes, {least * rest_row + fixed} bytes of shared memory; a "
+            f"block has {_SMEM_BYTES}")
     return tr
 
 
@@ -362,7 +374,7 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
     dx = torch.empty_like(x)
     grads = torch.zeros(size, dtype=torch.float32, device=x.device)
     if n > 0:
-        backward_tile_rows(dims, ln is not None, cd)
+        tile_rows = backward_tile_rows(dims, ln is not None, cd)
         lib = _build.library()
         bf16 = int(cd == torch.bfloat16)
         c_dims = (ctypes.c_int * len(dims))(*dims)
@@ -372,8 +384,11 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
             raise RuntimeError(f"fused_feedforward backward: the kernel's "
                                f"planner refused widths {dims}, which "
                                "backward_tile_rows takes")
-        max_blocks = 2 * torch.cuda.get_device_properties(
-            x.device).multi_processor_count
+        # the kernel's grid is at most one block a slot of the card and
+        # one a tile, so no more scratch than that is allocated
+        max_blocks = min(2 * torch.cuda.get_device_properties(
+            x.device).multi_processor_count,
+            -(-n // tile_rows))
         partials = torch.empty(max_blocks * slab, dtype=torch.float32,
                                device=x.device)
         w, wt = _backward_weights(kernels, cd)

@@ -1,4 +1,4 @@
-"""Fused FFNO axis pass: the hand-written CUDA kernel and its plain version.
+"""FFNO axis pass: the hand-written CUDA kernels and their plain version.
 
 Counterpart of resolution_pde_tpu/ops/pallas/spectral_mix2.py (packed
 re/im, bf16 or f32) and, as its f32 mode, of ops/pallas/spectral_mix.py
@@ -7,40 +7,40 @@ DFT ``(C, n) @ (n, 2m)``, the per-mode complex channel mix
 ``(2C) @ (2C, 2O)`` with the packed weight [[a, b], [-b, a]], and the
 zero-padded inverse DFT ``(O, 2m) @ (2m, n)``; products in
 ``compute_dtype`` accumulated in f32, each intermediate rounded to
-``compute_dtype``, the output in x's dtype. The kernel is
-``csrc/spectral_mix.cu``; it reads both axes of a channels-last
-(B, H, W, C) tensor in place.
+``compute_dtype``, the output in x's dtype. Both kernels read both axes of
+a channels-last (B, H, W, C) tensor in place.
 
 The entry points take the mix weight as its blocks, (m, 2, C, O) = a | b
 per mode, the real and imaginary parts of a complex weight
 (``mix_blocks``), and not as a packed (m, 2C, 2O) matrix: the mix is a
-complex product, and the bf16 kernel streams only a and b and makes -b
-itself, so a packed matrix of any other form could not be told to it.
-The plain version multiplies by the packed form (``pack_blocks``), as
-the TPU kernel does. In bf16 the kernel runs its products on the tensor
-cores and takes its operands in its own layouts, prepared here: the DFT
-factors transposed and packed in fragment order (``kernel_factors``,
-cached by shape) and each mode's blocks padded (``kernel_weight``, once
-per launch). In f32 (the f32-exact mode) the products are IEEE f32 FMAs
-on the CUDA cores, and the operands are the factors zero-padded to the
-kernel's tiles (``kernel_factors_f32``, cached by shape) and each mode's
-blocks padded to 8 channels (``kernel_weight_f32``, once per launch).
-A bf16 pass that the tensor-core kernel does not fit (``mma_fits``: at
-n = 256 and m = 64, more than 104 channels) runs on the CUDA-core kernel
-with the bf16 mode's rounding points, on the f32 operands rounded to bf16
-(``spectral_route`` picks the route from the shape alone); what neither
-kernel takes raises a ValueError before any launch.
+complex product, and the kernels read only a and b and make -b
+themselves, so a packed matrix of any other form could not be told to
+them. The plain version multiplies by the packed form (``pack_blocks``),
+as the TPU kernel does. In bf16 every pass runs on the staged route,
+``csrc/spectral_staged.cu``: three tensor-core products with the spectra
+and the mixed spectra in device memory in bf16, on the factors transposed
+and padded to whole tiles (``staged_factors``, cached by shape) and each
+mode's blocks padded to 8 channels (``staged_weight``, once per launch);
+``staged_pass_plain`` is the same three stages written plainly on those
+operands. In f32 (the f32-exact mode) the kernel is
+``csrc/spectral_mix.cu``: IEEE f32 FMAs on the CUDA cores, on the factors
+zero-padded to its tiles (``kernel_factors_f32``, cached by shape) and
+each mode's blocks padded to 8 channels (``kernel_weight_f32``, once per
+launch); an f32 pass beyond its tile (more than 64 modes, or more than 256
+channels in or out) runs as its launches over chunks of modes and channels
+(``f32_chunk_plan``). ``spectral_route`` picks the route from the shape
+alone; what no route takes raises a ValueError before any launch.
 
 The op is linear in x, so its adjoint is the same pass with transposed
 factors (f2' = i2^T, i2' = f2^T) and each mode's weight conjugated and
-transposed (``adjoint_blocks``), launched through the same kernel
+transposed (``adjoint_blocks``), launched through the same kernels
 (``spectral_axis_adjoint``); the packed weight's gradient is two DFT
 products and a batched contraction, left to torch matmuls as the JAX
 package leaves it to XLA. ``SpectralConv2d`` wires both into one
 ``torch.autograd.Function`` around the two-axis conv.
 
 ``spectral_axis_pass`` and ``spectral_axis_adjoint`` run the plain version
-for a tensor on the CPU and launch the kernel for a CUDA tensor; they never
+for a tensor on the CPU and launch a kernel for a CUDA tensor; they never
 fall back from one to the other.
 """
 
@@ -58,8 +58,8 @@ from resolution_pde_tpu_torch.ops.spectral import _dft_matrices
 # kernel launches in this process (the plain versions never count)
 launches = 0          # forward passes
 adjoint_launches = 0  # adjoint passes (the same kernel, transposed factors)
-wide_launches = 0     # of those, bf16 passes and adjoints on the CUDA-core
-#                       kernel (the shapes the tensor-core kernel does not fit)
+wide_launches = 0     # of those, bf16 passes and adjoints (the staged route)
+k3_launches = 0       # launches of the f32 kernel, one a chunk of a pass
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -118,62 +118,6 @@ def adjoint_factors(n: int, m: int, norm: str, device: torch.device):
     return i2.t().contiguous(), f2.t().contiguous()
 
 
-def _fragment_order(a: torch.Tensor) -> torch.Tensor:
-    """(M, K) -> bf16 (M16 * K64,): ``a`` zero-padded to whole 16 x 16
-    tiles, its contraction K to a multiple of 64 (the kernel's groups of
-    four k-steps), tiles row-major, each tile as the bf16 kernel's A
-    fragments (csrc/mma.cuh ``frag_a_packed``): lane g * 4 + t holds rows g
-    and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9, ordered (column half,
-    row half, pair)."""
-    mm, kk = a.shape
-    mt, kt = -(-mm // 16), -(-kk // 64) * 4
-    p = torch.zeros((mt * 16, kt * 16), dtype=torch.bfloat16, device=a.device)
-    p[:mm, :kk] = a
-    # (mt, row half, g, kt, column half, t, pair) -> (mt, kt, g, t, column
-    # half, row half, pair)
-    return p.view(mt, 2, 8, kt, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
-
-
-@functools.lru_cache(maxsize=64)
-def kernel_factors(n: int, m: int, norm: str, device: torch.device,
-                   adjoint: bool = False):
-    """The bf16 kernel's DFT factors for a pass, or with ``adjoint`` for
-    its adjoint: f2^T (2m, n) and i2^T (n, 2m) of ``packed_factors`` (of
-    ``adjoint_factors``) in bf16, each in ``_fragment_order``. Shared
-    between callers, so read-only."""
-    f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
-                                                              device)
-    return _fragment_order(f2.t()), _fragment_order(i2.t())
-
-
-@functools.lru_cache(maxsize=16)
-def _stage_columns(c8: int, o8: int, device: torch.device) -> torch.Tensor:
-    """(c8, o8) int64: for each column of a weight row as the kernel's
-    stage holds it, the column it comes from: 16-byte chunk q of row r
-    lies at q ^ (r mod 8)."""
-    chunk = (torch.arange(o8 // 8)[None, :] ^ (torch.arange(c8)[:, None] % 8))
-    return (chunk[:, :, None] * 8 + torch.arange(8)).reshape(c8, o8).to(device)
-
-
-def kernel_weight(wab: torch.Tensor) -> torch.Tensor:
-    """(m, 2, C, O) blocks a | b -> the bf16 kernel's (m, 2, C8, O8): C and
-    O rounded up to 8 with zeros in the padding, and where O8 is a multiple
-    of 64 each row's 16-byte chunks in the order of the kernel's stage
-    (``_stage_columns``), so that a mode is one contiguous copy. The kernel
-    makes the packed form's -b itself."""
-    m, _, c, o = wab.shape
-    c8, o8 = -(-c // 8) * 8, -(-o // 8) * 8
-    shape = (m, 2, c8, o8)
-    out = (torch.empty(shape, dtype=torch.bfloat16, device=wab.device)
-           if (c, o) == (c8, o8) else
-           torch.zeros(shape, dtype=torch.bfloat16, device=wab.device))
-    out[:, :, :c, :o].copy_(wab)
-    if o8 % 64:
-        return out
-    cols = _stage_columns(c8, o8, wab.device)
-    return out.gather(3, cols.expand(m, 2, c8, o8))
-
-
 # the f32 kernel's tiles (csrc/spectral_mix.cu): a block product's rows
 # (packed modes of the forward, points of the inverse), the forward's
 # contraction slice (points), the most channels a tile's columns hold (a
@@ -188,99 +132,173 @@ def _round_up(v: int, to: int) -> int:
     return -(-v // to) * to
 
 
+def mode_factors(f2, i2, k0: int, k1: int) -> tuple:
+    """The packed factors of modes k0 .. k1 - 1 of an m-mode pass: f2's
+    columns (s, k) and i2's rows (s, k) for those k, both parts; the pass
+    is a sum over its modes, so it is the sum of such passes."""
+    m = f2.shape[1] // 2
+    cols = list(range(k0, k1)) + list(range(m + k0, m + k1))
+    return f2[:, cols], i2[cols]
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_factors_f32(n: int, m: int, norm: str, device: torch.device,
-                       adjoint: bool = False, bf16: bool = False):
+                       adjoint: bool = False, k0: int = 0, k1=None):
     """The f32 kernel's DFT factors for a pass, or with ``adjoint`` for its
-    adjoint: f2 (n, 2m) of ``packed_factors`` (of ``adjoint_factors``)
-    zero-padded to (n rounded up to 32, 2m rounded up to 128) and i2
-    (2m, n) zero-padded to (2m rounded up to 128, n rounded up to 128),
-    both f32, contiguous and row-major, so that every slice the kernel
-    copies is whole and its inner loops need no bounds; with ``bf16`` (the
-    bf16 pass on this kernel) each factor's values rounded to bf16. Shared
-    between callers, so read-only."""
+    adjoint, of modes k0 .. k1 - 1 (all m by default, ``mode_factors``):
+    f2 (n, 2m') of ``packed_factors`` (of ``adjoint_factors``) zero-padded
+    to (n rounded up to 32, 2m' rounded up to 128) and i2 (2m', n)
+    zero-padded to (2m' rounded up to 128, n rounded up to 128), both f32,
+    contiguous and row-major, so that every slice the kernel copies is
+    whole and its inner loops need no bounds. Shared between callers, so
+    read-only."""
     f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
                                                               device)
-    if bf16:
-        f2, i2 = (t.to(torch.bfloat16).float() for t in (f2, i2))
-    sr = _round_up(2 * m, _F32_TILE_M)
+    k1 = m if k1 is None else k1
+    if (k0, k1) != (0, m):
+        f2, i2 = mode_factors(f2, i2, k0, k1)
+    sr = _round_up(2 * (k1 - k0), _F32_TILE_M)
     f2p = torch.zeros((_round_up(n, _F32_K1), sr), dtype=torch.float32,
                       device=device)
-    f2p[:n, :2 * m] = f2
+    f2p[:n, :f2.shape[1]] = f2
     i2p = torch.zeros((sr, _round_up(n, _F32_TILE_M)), dtype=torch.float32,
                       device=device)
-    i2p[:2 * m, :n] = i2
+    i2p[:i2.shape[0], :n] = i2
     return f2p, i2p
 
 
-def kernel_weight_f32(wab: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def kernel_weight_f32(wab: torch.Tensor) -> torch.Tensor:
     """(m, 2, C, O) blocks a | b -> the f32 kernel's (m, 2, C8, O8): C and
-    O rounded up to 8 with zeros in the padding, in f32; with ``bf16`` (the
-    bf16 pass on this kernel) the values rounded to bf16. The kernel makes
+    O rounded up to 8 with zeros in the padding, in f32. The kernel makes
     the packed form's -b itself."""
     m, _, c, o = wab.shape
     c8, o8 = _round_up(c, 8), _round_up(o, 8)
     make = torch.empty if (c, o) == (c8, o8) else torch.zeros
     out = make((m, 2, c8, o8), dtype=torch.float32, device=wab.device)
-    out[:, :, :c, :o] = wab.to(torch.bfloat16) if bf16 else wab
+    out[:, :, :c, :o] = wab
     return out
 
 
-def _check_f32_shape(m: int, c: int, o: int, what: str = "f32") -> None:
-    """The CUDA-core kernel's tile holds at most 256 channels in and out
+def _check_f32_shape(m: int, c: int, o: int) -> None:
+    """One launch of the f32 kernel takes at most 256 channels in and out
     (after padding to 8; a tile of 4 rows up to 64, of 2 up to 128, of 1
     up to 256) and 64 modes (its spectra, 2m padded to 128 rows, stay in
-    shared memory). ``what`` names the pass in the error: the f32 one, or
-    a bf16 one that the tensor-core kernel does not fit."""
+    shared memory); ``f32_chunk_plan`` keeps every launch within them."""
     if (max(_round_up(c, 8), _round_up(o, 8)) > _F32_MAX_CHANNELS
             or m > _F32_MAX_MODES):
         raise ValueError(
-            f"spectral_axis_pass {what}: the CUDA-core kernel takes at most "
-            f"{_F32_MAX_CHANNELS} channels and {_F32_MAX_MODES} modes, got "
-            f"C={c}, O={o}, m={m}")
+            f"spectral_axis_pass f32: one launch of the CUDA-core kernel "
+            f"takes at most {_F32_MAX_CHANNELS} channels and "
+            f"{_F32_MAX_MODES} modes, got C={c}, O={o}, m={m}")
 
 
-# The arithmetic of the tensor-core kernel's planner (``plan_mma``,
-# csrc/spectral_mix.cu): its warps and the m-tiles of output channels a
-# warp keeps in the mix, the DFTs' k-step groups, the weight modes of a
-# ring stage, the stages, and the shared memory a block may take.
-_MMA_WARPS, _MMA_MIX_TILES, _MMA_GROUP = 8, 2, 4
-_MMA_SLICE_MODES, _MMA_STAGES = 2, 2
-_MMA_MAX_SMEM = 232448
+def f32_chunk_plan(m: int, c: int, o: int) -> list:
+    """The f32 kernel's launches for a pass of m modes, c channels in and o
+    out, in launch order: (k0, k1, c0, c1, o0, o1) for modes k0 .. k1 - 1,
+    input channels c0 .. c1 - 1 and output channels o0 .. o1 - 1, at most
+    64 modes and 256 channels each. The pass is linear in its modes and
+    input channels and its output channels are independent, so each output
+    slice is the sum of its chunks: the first writes it (or adds into the
+    caller's acc), the later ones add. One launch where the shape fits; the
+    order is fixed by the shape, so two calls give the same bits."""
+    return [(k0, min(k0 + _F32_MAX_MODES, m), c0,
+             min(c0 + _F32_MAX_CHANNELS, c), o0,
+             min(o0 + _F32_MAX_CHANNELS, o))
+            for o0 in range(0, o, _F32_MAX_CHANNELS)
+            for k0 in range(0, m, _F32_MAX_MODES)
+            for c0 in range(0, c, _F32_MAX_CHANNELS)]
 
 
-def mma_fits(n: int, m: int, c: int, o: int) -> bool:
-    """Whether the bf16 tensor-core kernel takes a pass of n points, m
-    modes, c channels in and o out: at most 128 output channels (after
-    padding to 8), and a tile of one row whose spectra (m x 2 max(C8, O8)
-    padded to 64, bf16) fit beside the ring's two stages, each as large as
-    the larger of an x row (n padded to a group of k-steps, x C8 padded
-    against bank conflicts) and a slice of two weight modes (2 x 2 C8 x
-    O8), and their barriers."""
-    c8, o8 = _round_up(c, 8), _round_up(o, 8)
-    if 2 * o8 > 16 * _MMA_WARPS * _MMA_MIX_TILES:
+# The staged route (csrc/spectral_staged.cu): its operands are padded for
+# block tiles of up to 128 rows and columns and a contraction slice of up
+# to 64; the most modes it takes.
+_STAGED_TILE, _STAGED_K = 128, 64
+_STAGED_MAX_MODES = 65535
+
+
+def staged_fits(n: int, m: int, c: int, o: int) -> bool:
+    """Whether the staged route takes a pass of n points, m modes, c
+    channels in and o out (a mirror of ``staged_fits``,
+    csrc/spectral_staged.cu): its grids and every offset inside a padded
+    factor or a mode of the weight's blocks fit their types."""
+    if min(n, m, c, o) < 1 or m > _STAGED_MAX_MODES:
         return False
-    kt1 = _round_up(-(-n // 16), _MMA_GROUP)
-    x_ld = c8 if c8 % 64 == 0 or (c8 // 8) % 2 else c8 + 8
-    stage = _round_up(max(kt1 * 16 * x_ld, _MMA_SLICE_MODES * 2 * c8 * o8), 8)
-    spec = m * _round_up(max(2 * c8, 2 * o8), 64)
-    return (spec + _MMA_STAGES * stage) * 2 + _MMA_STAGES * 8 <= _MMA_MAX_SMEM
+    c8, o8 = _round_up(c, 8), _round_up(o, 8)
+    return (_round_up(n, 128) * _round_up(2 * m, 128) < 2 ** 31
+            and 2 * c8 * o8 < 2 ** 31)
+
+
+@functools.lru_cache(maxsize=64)
+def staged_factors(n: int, m: int, norm: str, device: torch.device,
+                   adjoint: bool = False):
+    """The staged route's DFT factors for a pass, or with ``adjoint`` for
+    its adjoint, in bf16: a1 = f2^T (2m, n) zero-padded to (2m rounded up
+    to 128, n rounded up to 64) and a3 = i2^T (n, 2m) zero-padded to (n
+    rounded up to 128, 2m rounded up to 64), of ``packed_factors`` (of
+    ``adjoint_factors``), row-major. Shared between callers, so
+    read-only."""
+    f2, i2 = (adjoint_factors if adjoint else packed_factors)(n, m, norm,
+                                                              device)
+    a1 = torch.zeros((_round_up(2 * m, _STAGED_TILE), _round_up(n, _STAGED_K)),
+                     dtype=torch.bfloat16, device=device)
+    a1[:2 * m, :n] = f2.t()
+    a3 = torch.zeros((_round_up(n, _STAGED_TILE), _round_up(2 * m, _STAGED_K)),
+                     dtype=torch.bfloat16, device=device)
+    a3[:n, :2 * m] = i2.t()
+    return a1, a3
+
+
+def staged_weight(wab: torch.Tensor) -> torch.Tensor:
+    """(m, 2, C, O) blocks a | b -> the staged route's (m, 2, C8, O8) bf16:
+    C and O rounded up to 8 with zeros in the padding. The mix reads the
+    packed form [[a, b], [-b, a]] from them (``pack_blocks`` of them is
+    its packed matrix) and makes -b itself."""
+    m, _, c, o = wab.shape
+    c8, o8 = _round_up(c, 8), _round_up(o, 8)
+    make = torch.empty if (c, o) == (c8, o8) else torch.zeros
+    out = make((m, 2, c8, o8), dtype=torch.bfloat16, device=wab.device)
+    out[:, :, :c, :o] = wab
+    return out
+
+
+def staged_pass_plain(x, a1, a3, wst, m: int, o: int):
+    """The staged route's three stages written plainly on its own operands
+    (``staged_factors``, ``staged_weight``): x (R, n, C) -> (R, n, O) in
+    x's dtype, each stage's products of bf16 values summed in f32 and its
+    result rounded where the kernel rounds it. 1. the forward DFT, Z (m, R,
+    2 C8) = f2^T @ x mode-major, re | im lanes side by side, in bf16;
+    2. the mix, M_k = Z_k @ W_k per mode, (m, R, 2 O8) in bf16; 3. the
+    inverse DFT, i2^T @ M, cropped to O channels, in x's dtype; the mix's
+    matrix is the packed form of the padded blocks."""
+    r, n, c = x.shape
+    c8 = _round_up(c, 8)
+    xp = torch.zeros((r, n, c8), dtype=torch.float32, device=x.device)
+    xp[:, :, :c] = x.to(torch.bfloat16).float()
+    z = torch.einsum("jt,rtc->jrc", a1[:2 * m, :n].float(), xp)
+    z = z.view(2, m, r, c8).permute(1, 2, 0, 3).reshape(m, r, 2 * c8)
+    z = z.to(torch.bfloat16).float()
+    o8 = wst.shape[3]
+    mz = torch.bmm(z, pack_blocks(wst.float()))
+    mz = mz.to(torch.bfloat16).float()
+    mk = mz.view(m, r, 2, o8).permute(2, 0, 1, 3).reshape(2 * m, r, o8)
+    y = torch.einsum("tj,jro->rto", a3[:n, :2 * m].float(), mk)
+    return y[:, :, :o].to(x.dtype)
 
 
 def spectral_route(compute_dtype, n: int, m: int, c: int, o: int) -> str:
     """The kernel a pass (or an adjoint, with its own c and o) of this
-    shape runs on, from the shape alone: "mma" (bf16 on the tensor cores)
-    where ``mma_fits``, else "cuda_cores" (f32, or bf16 with its rounding
-    points), which raises ValueError for more than 256 channels or 64
-    modes."""
-    if compute_dtype == torch.bfloat16:
-        if mma_fits(n, m, c, o):
-            return "mma"
-        _check_f32_shape(m, c, o, "bf16 (too wide for the tensor-core "
-                                  "kernel)")
-    else:
-        _check_f32_shape(m, c, o)
-    return "cuda_cores"
+    shape runs on, from the shape alone: in bf16 "staged" (three
+    tensor-core products through device memory) where ``staged_fits``; in
+    f32 "cuda_cores" (the f32 kernel, in chunks where the shape is beyond
+    one launch: ``f32_chunk_plan``). Raises ValueError for a bf16 shape no
+    route takes."""
+    if compute_dtype != torch.bfloat16:
+        return "cuda_cores"
+    if staged_fits(n, m, c, o):
+        return "staged"
+    raise ValueError(f"spectral_axis_pass bf16: no kernel takes n={n}, "
+                     f"m={m}, C={c}, O={o} (the staged route takes at most "
+                     f"{_STAGED_MAX_MODES} modes)")
 
 
 def spectral_pass_reference(x, f2, i2, wpk, compute_dtype):
@@ -417,8 +435,9 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
 
 
 def _launch(x, wab, axis, norm, adjoint, cd, acc):
-    """The kernel on x along ``axis`` with blocks ``wab`` (m, 2, C, O) and
-    the factors of the pass (``adjoint``: of its adjoint) for ``norm``."""
+    """The route's kernel on x along ``axis`` with blocks ``wab`` (m, 2, C,
+    O) and the factors of the pass (``adjoint``: of its adjoint) for
+    ``norm``."""
     global wide_launches
     if x.dim() != 4 or x.stride(3) != 1:
         raise ValueError("spectral_axis_pass kernel needs a (B, H, W, C) "
@@ -444,31 +463,74 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         out = acc
     if out.numel() == 0:
         return out
-    bf16 = cd == torch.bfloat16
-    if route == "mma":
-        f2c, i2c = kernel_factors(n, m, norm, x.device, adjoint)
-        wk = kernel_weight(wab)
-    else:
-        f2c, i2c = kernel_factors_f32(n, m, norm, x.device, adjoint, bf16)
-        wk = kernel_weight_f32(wab, bf16)
-    so = out.stride()
-    sx = x.stride()
-    if axis == 2:   # rows (b, h), points along w
-        rows_lo, xs, ys = h, (sx[0], sx[1], sx[2]), (so[0], so[1], so[2])
-    else:           # rows (b, w), points along h
-        rows_lo, xs, ys = w, (sx[0], sx[2], sx[1]), (so[0], so[2], so[1])
+    rows, rows_lo = b * (h * w // n), h if axis == 2 else w
     with torch.cuda.device(x.device):
-        err = _build.library().rpde_spectral_pass(
-            (1 if route == "mma" else 2) if bf16 else 0,
-            int(x.dtype == torch.bfloat16),
-            x.data_ptr(), f2c.data_ptr(), i2c.data_ptr(), wk.data_ptr(),
-            out.data_ptr(), n, m, c, o, b * (h * w // n), rows_lo, *xs, *ys,
-            int(acc is not None),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "rpde_spectral_pass")
-    if bf16 and route != "mma":
-        wide_launches += 1
+        if route == "staged":
+            _launch_staged(x, wab, axis, norm, adjoint, out, acc is not None,
+                           rows, rows_lo)
+            wide_launches += 1
+        else:
+            _launch_f32_chunks(x, wab, axis, norm, adjoint, out,
+                               acc is not None, rows, rows_lo)
     return out
+
+
+def _axis_strides(t, axis):
+    """(hi, lo, axis) strides of t's rows (b, h) and points along w for
+    axis 2, rows (b, w) and points along h for axis 1."""
+    st = t.stride()
+    return (st[0], st[1], st[2]) if axis == 2 else (st[0], st[2], st[1])
+
+
+def _launch_k3(x, wk, f2c, i2c, axis, out, accumulate, rows, rows_lo):
+    """One launch of spectral_mix.cu's f32 kernel; x and out may be channel
+    slices (unit channel stride)."""
+    n, c, o = x.shape[axis], x.shape[3], out.shape[3]
+    err = _build.library().rpde_spectral_pass(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), f2c.data_ptr(),
+        i2c.data_ptr(), wk.data_ptr(), out.data_ptr(), n, wk.shape[0], c, o,
+        rows, rows_lo, *_axis_strides(x, axis), *_axis_strides(out, axis),
+        int(accumulate), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rpde_spectral_pass")
+
+
+def _launch_f32_chunks(x, wab, axis, norm, adjoint, out, accumulate, rows,
+                       rows_lo):
+    """The f32 kernel over ``f32_chunk_plan``: each chunk on its slices of
+    x's channels, of the modes (their factors) and of the blocks, written
+    into (the first of an output slice, unless ``accumulate``) or added
+    into its slice of out. With bf16 x and out each added chunk rounds the
+    output slice to bf16 once more."""
+    global k3_launches
+    n, m = x.shape[axis], wab.shape[0]
+    for k0, k1, c0, c1, o0, o1 in f32_chunk_plan(m, x.shape[3], out.shape[3]):
+        _check_f32_shape(k1 - k0, c1 - c0, o1 - o0)
+        f2c, i2c = kernel_factors_f32(n, m, norm, x.device, adjoint, k0, k1)
+        wk = kernel_weight_f32(wab[k0:k1, :, c0:c1, o0:o1])
+        _launch_k3(x[..., c0:c1], wk, f2c, i2c, axis, out[..., o0:o1],
+                   accumulate or k0 > 0 or c0 > 0, rows, rows_lo)
+        k3_launches += 1
+
+
+def _launch_staged(x, wab, axis, norm, adjoint, out, accumulate, rows,
+                   rows_lo):
+    """The staged route (csrc/spectral_staged.cu) on x along ``axis``: its
+    bf16 scratch for the spectra and the mixed spectra of all rows, and
+    its three stages over them."""
+    n, c, o, m = x.shape[axis], x.shape[3], out.shape[3], wab.shape[0]
+    a1, a3 = staged_factors(n, m, norm, x.device, adjoint)
+    wst = staged_weight(wab)
+    z = torch.empty(m * rows * 2 * _round_up(c, 8), dtype=torch.bfloat16,
+                    device=x.device)
+    mz = torch.empty(m * rows * 2 * _round_up(o, 8), dtype=torch.bfloat16,
+                     device=x.device)
+    err = _build.library().rpde_spectral_staged(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), a1.data_ptr(),
+        a3.data_ptr(), wst.data_ptr(), z.data_ptr(), mz.data_ptr(),
+        out.data_ptr(), n, m, c, o, rows, rows_lo, *_axis_strides(x, axis),
+        *_axis_strides(out, axis), int(accumulate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rpde_spectral_staged")
 
 
 class SpectralConv2d(torch.autograd.Function):
@@ -512,7 +574,7 @@ class SpectralConv2d(torch.autograd.Function):
 def factorized_spectral_conv_2d_pallas2(x, weight_y, weight_x, n_modes: int,
                                         fft_norm: str = "ortho",
                                         compute_dtype=torch.bfloat16):
-    """Both FFNO axis passes through the fused kernel: ``weight_y`` along W
+    """Both FFNO axis passes through the kernels: ``weight_y`` along W
     (the last spatial axis) and ``weight_x`` along H, summed in x's dtype.
     x: (B, H, W, C) channels-last -> (B, H, W, C). ``compute_dtype`` None
     computes in x's dtype. Differentiable through ``SpectralConv2d``; the

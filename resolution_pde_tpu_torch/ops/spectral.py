@@ -64,7 +64,7 @@ def _dft_matrices(n: int, m: int, norm: str):
 
 def factorized_spectral_conv_2d_pallas(x, weight_y, weight_x, n_modes: int,
                                        fft_norm: str = "ortho"):
-    """Both axis passes through the fused spectral kernel in f32 (IEEE f32
+    """Both axis passes through the f32 spectral kernel (IEEE f32
     products, no TF32): the f32-exact path. x: (B, H, W, C) -> f32."""
     from resolution_pde_tpu_torch.ops.kernels.spectral_mix import (
         factorized_spectral_conv_2d_pallas2)

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_k1b_phases.py [--f32] [--sass] [--csrc DIR ...]
                                         [--out build/k1b_phases]
+    python3 scripts/torch_k1b_phases.py --wide [--f32]
 
 Builds csrc/fused_ff_bwd.cu alone, in parallel: as the library builds it,
 and with RPDE_K1B_PHASES, which makes thread 0 of every block add the
@@ -28,6 +29,15 @@ of each directory's library build, the count of its SASS instructions
 two directories' builds of a kernel can be seen to be the same machine
 code or not. Prints the card's name and power limit first. Needs CUDA and
 nvcc.
+
+``--wide``, instead, runs the package's library build at the factor-4
+chains beyond width 256 (320 -> 1280 -> 1280 -> 320 and 512 -> 2048 ->
+2048 -> 512, LayerNorm, pre-activations recomputed; their z buffer in
+device memory) at 131,072 and 524,288 rows (the train shape's count):
+checks it against the plain backward at 131,072 rows, and prints its
+median time beside the plain version's there, its tile rows, the scratch
+the launcher allocates (the weight-gradient slabs and z buffers of its
+blocks) and the rise of the card's peak allocation over the call.
 """
 
 from __future__ import annotations
@@ -156,6 +166,61 @@ def _build_all(srcs: list, out: Path, build, sass: bool = False) -> dict:
     return libs
 
 
+def wide_chains(f32: bool) -> int:
+    """K1b at the factor-4 chains of widths 320 and 512 (``--wide``)."""
+    from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
+
+    gen = torch.Generator().manual_seed(0)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tol = 1e-4 if f32 else 1e-2
+    kw = dict(approx_gelu=True, compute_dtype=dtype)
+    flat = lambda r: [r[0], *r[1], *r[2], *r[3]]  # noqa: E731
+    slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
+
+    for width in (320, 512):
+        dims = [width, 4 * width, 4 * width, width]
+        ks = [randn((a, b), a ** -0.5) for a, b in zip(dims, dims[1:])]
+        bs = [randn((d,), 0.1) for d in dims[1:]]
+        ln = (1.0 + randn((width,), 0.1), randn((width,), 0.1))
+        tile = fused_ff.backward_tile_rows(dims, True, dtype)
+        slab = _build.library().rpde_fused_ff_backward_slab(
+            int(not f32), (ctypes.c_int * 4)(*dims), 3, 1)
+        for n in (131072, 524288):
+            x = randn((n, width), dtype=dtype)
+            g = randn((n, width), dtype=dtype)
+
+            def run():
+                return fused_ff.fused_feedforward_bwd(x, g, ks, bs, ln, **kw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = flat(run())
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = _time_ms(run, reps=3)
+            scratch = min(slots, -(-n // tile)) * slab * 4
+            line = (f"K1b {str(dtype)[6:]} {dims} x {n} rows: tile rows "
+                    f"{tile}, kernel {ms:.3f} ms, scratch "
+                    f"{scratch / 2 ** 30:.3f} GiB, peak allocation rise "
+                    f"{peak / 2 ** 30:.3f} GiB")
+            if n == 131072:
+                def plain():
+                    return fused_ff.fused_feedforward_bwd_reference(
+                        x, g, ks, bs, ln, **kw)
+                err = max(_rel_l2(a, b) for a, b in zip(got, flat(plain())))
+                if not err <= tol:
+                    raise RuntimeError(f"{dims} x {n}: rel_l2 {err} > {tol}")
+                line += (f", plain {_time_ms(plain, reps=3):.3f} ms, rel_l2 "
+                         f"{err:.3e} (tol {tol})")
+            print(line, flush=True)
+            del x, g, got
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k1b_phases")
@@ -167,6 +232,9 @@ def main() -> int:
                          "repeatable, measured in the order given")
     ap.add_argument("--sass", action="store_true",
                     help="print each K1b kernel's SASS count and hash")
+    ap.add_argument("--wide", action="store_true",
+                    help="the factor-4 chains at widths 320 and 512 at "
+                         "realistic row counts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1b_phases: CUDA is not available", file=sys.stderr)
@@ -179,6 +247,8 @@ def main() -> int:
 
     from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
 
+    if args.wide:
+        return wide_chains(args.f32)
     order = args.csrc or [str(_build.CSRC)]
     srcs = list(dict.fromkeys(order))
     out = Path(args.out)

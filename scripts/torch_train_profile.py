@@ -16,11 +16,13 @@ shares, and device ms per step by kernel family:
            fused_ff_fwd_kernel (the fused FeedForward forward: bf16, f32,
            and f32 chains too wide for fused_ff_fwd_f32_kernel)
   K1b      fused_ff_bwd_kernel + reduce_slabs_kernel (its backward)
-  K2       spectral_pass_mma_kernel (bf16) and spectral_pass_kernel (f32),
-           one launch a pass, launched in the forward pass
+  K2       the staged route's staged_forward_kernel, staged_mix_kernel
+           and staged_inverse_kernel (bf16, three launches a pass) and
+           spectral_pass_kernel (f32, one launch a pass), launched in the
+           forward pass
   K2adj    the same kernels launched in the backward pass (the adjoint):
-           of a step's 4 x n_layers spectral launches, in order, the first
-           half are the forward's and the second half the adjoint's
+           of a step's spectral launches, in order, the first half are the
+           forward's and the second half the adjoint's
   other    every other kernel (projections, weight gradients of the
            spectral passes, casts, AdamW, ...) and copies
 The chrome trace goes to ``--out``/train_step_trace.json and the summary,
@@ -53,7 +55,7 @@ def _family(name: str) -> str:
     if ("fused_ff_bwd_kernel" in name or "fused_ff_bwd_f32_kernel" in name
             or "reduce_slabs_kernel" in name):
         return "K1b"
-    if "spectral_pass" in name:
+    if "spectral_pass" in name or "staged_" in name:
         return "K2"
     return "other"
 
@@ -143,7 +145,9 @@ def main() -> int:
     busy += cur_e - cur_s
     fam = {"K1f": 0.0, "K1b": 0.0, "K2": 0.0, "K2adj": 0.0, "other": 0.0}
     launches = dict.fromkeys(fam, 0)
-    per_step = 4 * len(model.fourier_layers)  # 2 forward + 2 adjoint a layer
+    # 2 forward + 2 adjoint passes a layer, each 3 launches in bf16 (the
+    # staged route's stages) and 1 in f32
+    per_step = 4 * len(model.fourier_layers) * (1 if args.f32 else 3)
     n_spectral = 0
     for e in dev:
         f = _family(e.name)

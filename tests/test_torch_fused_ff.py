@@ -195,12 +195,17 @@ def test_wide_chain_f32_matches_jax():
     (64, torch.float32, 32), (64, torch.bfloat16, 64),   # the train shape
     (160, torch.float32, 8), (192, torch.float32, 8), (256, torch.float32, 8),
     (160, torch.bfloat16, 16), (256, torch.bfloat16, 16),
-    (320, torch.float32, None), (320, torch.bfloat16, None)])
+    (320, torch.float32, 8), (320, torch.bfloat16, 32),
+    (512, torch.float32, 8), (512, torch.bfloat16, 16),
+    (640, torch.float32, None), (1024, torch.bfloat16, None)])
 def test_backward_tile_rows_of_factor4_chains(width, cd, rows):
     """The backward kernel's tile rows for factor-4 chains, from the
     launcher's mirror of its planner (chip_smoke.py holds the mirror to
     the planner): the f32 ring sized to a column chunk of 256 leaves 8-row
-    tiles up to width 256; a chain that fits no tile raises a ValueError
+    tiles up to width 256; past 256 not even the least tile fits beside
+    its pre-activations, which then go to device memory, so widths 320 and
+    512 take tiles again (8 rows in f32; 32 and 16 in bf16). A chain that
+    fits no tile even so (f32 at 640, bf16 at 1024) raises a ValueError
     naming the shared memory it needs, before any launch, also from the
     launcher on tensors of any device."""
     dims = [width, 4 * width, 4 * width, width]
@@ -218,3 +223,45 @@ def test_backward_tile_rows_of_factor4_chains(width, cd, rows):
         fused_ff.fused_feedforward_bwd(t(4, width), t(4, width), ks, bs,
                                        (t(width), t(width)),
                                        compute_dtype=cd)
+
+
+def test_wide_chain_320_f32_backward_matches_jax():
+    """The plain f32 backward, which the kernel is held to on the card, of
+    a factor-4 chain at width 320 (320 -> 1280 -> 1280 -> 320, LayerNorm:
+    the first width whose pre-activations the kernel keeps in device
+    memory) against jax.vjp of the JAX fused FeedForward (interpret mode)
+    at 4 rows, recomputed and from the saved pre-activations. Only the
+    order of f32 sums differs (bound: relative L2 1e-5 for dx and every
+    gradient)."""
+    rng = np.random.default_rng(320)
+    dims = [320, 1280, 1280, 320]
+    ks = [(rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    bs = [(0.1 * rng.standard_normal(d)).astype(np.float32) for d in dims[1:]]
+    ln = ((1.0 + 0.1 * rng.standard_normal(320)).astype(np.float32),
+          (0.1 * rng.standard_normal(320)).astype(np.float32))
+    x = rng.standard_normal((4, 320)).astype(np.float32)
+    g = rng.standard_normal((4, 320)).astype(np.float32)
+    j = jnp.asarray
+
+    def f(x_, ks_, bs_, ln_):
+        return fused_feedforward(x_, ks_, bs_, ln_, approx_gelu=True,
+                                 compute_dtype=jnp.float32, interpret=True)
+
+    _, vjp = jax.vjp(f, j(x), [j(k) for k in ks], [j(b) for b in bs],
+                     tuple(j(a) for a in ln))
+    wdx, wdks, wdbs, wdln = vjp(j(g))
+    t = torch.from_numpy
+    tks, tbs, tln = [t(k) for k in ks], [t(b) for b in bs], tuple(
+        t(a) for a in ln)
+    kw = dict(approx_gelu=True, compute_dtype=torch.float32)
+    _, zs = fused_ff.fused_feedforward_reference(t(x), tks, tbs, tln,
+                                                 save_acts=True, **kw)
+    for saved in (None, zs):
+        dx, dks, dbs, dln = fused_ff.fused_feedforward_bwd_reference(
+            t(x), t(g), tks, tbs, tln, zs_saved=saved, **kw)
+        pairs = [(dx, wdx), *zip(dks, wdks), *zip(dbs, wdbs),
+                 *zip(dln, wdln)]
+        for a, b in pairs:
+            assert a.shape == b.shape
+            assert _rel(a.numpy(), np.asarray(b)) <= 1e-5

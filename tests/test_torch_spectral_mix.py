@@ -186,105 +186,6 @@ def test_axis_pass_refuses_a_packed_matrix(adjoint):
         run(x, wpk, 2, "ortho", torch.float32)
 
 
-# -- the bf16 kernel's operands -----------------------------------------
-
-
-def _unfragment(v, rows, cols):
-    """Inverse of the launcher's fragment order: (M16 * K64,) -> (M16, K64)."""
-    mt, kt = -(-rows // 16), -(-cols // 64) * 4
-    return (v.view(mt, kt, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
-            .reshape(mt * 16, kt * 16))
-
-
-def _unpad_weight(wk, c, o):
-    """The kernel's (m, 2, C8, O8) weight -> the packed (m, 2C, 2O)
-    [[a, b], [-b, a]] it stands for, and its padding. Rows of a multiple of
-    64 columns come with their 16-byte chunks swizzled (chunk q of row r at
-    q ^ (r mod 8)), which undoes itself."""
-    m, _, c8, o8 = wk.shape
-    if o8 % 64 == 0:
-        chunk = torch.arange(o8 // 8)[None, :] ^ (torch.arange(c8)[:, None] % 8)
-        cols = (chunk[:, :, None] * 8 + torch.arange(8)).reshape(c8, o8)
-        wk = wk.gather(3, cols.expand(m, 2, c8, o8))
-    a, b = wk[:, 0, :c, :o], wk[:, 1, :c, :o]
-    pad = torch.cat([wk[:, :, c:].reshape(-1), wk[:, :, :, o:].reshape(-1)])
-    return torch.cat([torch.cat([a, b], 2), torch.cat([-b, a], 2)], 1), pad
-
-
-@pytest.mark.parametrize("adjoint", [False, True])
-@pytest.mark.parametrize("n,n_modes", [(256, 64), (40, 17), (32, 17), (15, 8)])
-def test_kernel_factors_pad_to_whole_fragments(n, n_modes, adjoint):
-    """The bf16 kernel reads f2^T (2m, n) and i2^T (n, 2m) as A fragments,
-    each zero-padded to whole 16 x 16 tiles (the contraction to a multiple
-    of 64) in fragment order: unpacked,
-    they are the factors in bf16, bit for bit, with zeros around them; and
-    they are made once per shape."""
-    m = min(n_modes, n // 2 + 1)
-    cpu = torch.device("cpu")
-    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
-        n, m, "ortho", cpu)
-    a1, a3 = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
-    assert a1.dtype == a3.dtype == torch.bfloat16
-    for packed, mat in ((a1, f2.t()), (a3, i2.t())):
-        rows, cols = mat.shape
-        full = _unfragment(packed, rows, cols)
-        assert full.shape == (-(-rows // 16) * 16, -(-cols // 64) * 64)
-        assert torch.equal(full[:rows, :cols], mat.to(torch.bfloat16))
-        assert not full[rows:].any() and not full[:, cols:].any()
-    again = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
-    assert again[0] is a1 and again[1] is a3
-
-
-@pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("c,o", [(4, 3), (24, 40), (64, 64), (40, 128)])
-def test_kernel_weight_pads_each_mode(c, o, transpose):
-    """The bf16 kernel streams each mode's packed weight [[a, b], [-b, a]]
-    as its first block row, (2, C8, O8): a and b padded to 8 channels with
-    zeros; rebuilt, it is the packed weight in bf16, bit for bit. The
-    adjoint packs the per-mode transpose, (2, O8, C8), from its blocks."""
-    rng = np.random.default_rng(c * o)
-    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, 7)), 5)
-    w = tmix.adjoint_blocks(wab) if transpose else wab
-    ci, co = (o, c) if transpose else (c, o)
-    wk = tmix.kernel_weight(w)
-    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
-    assert wk.shape == (5, 2, -(-ci // 8) * 8, -(-co // 8) * 8)
-    body, pad = _unpad_weight(wk, ci, co)
-    wpk = tmix.pack_blocks(wab)
-    assert torch.equal(body, (wpk.transpose(1, 2) if transpose else wpk)
-                       .to(torch.bfloat16))
-    assert not pad.any()
-
-
-@pytest.mark.parametrize("adjoint", [False, True])
-def test_plain_pass_from_kernel_operands(adjoint):
-    """The plain pass computed from the bf16 kernel's operands, unpacked,
-    equals the plain pass on the factors and weight it was given, bit for
-    bit (both round every operand to bf16), at a ragged shape: n = 40,
-    m = 17, 24 -> 40 channels (the adjoint 40 -> 24)."""
-    rng = np.random.default_rng(17)
-    n, m, c, o = 40, 17, 24, 40
-    cpu = torch.device("cpu")
-    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
-    wpk = tmix.pack_blocks(wab)
-    if adjoint:
-        f2, i2 = tmix.adjoint_factors(n, m, "ortho", cpu)
-        w, cin, cout = tmix.adjoint_blocks(wab), o, c
-        wpk = wpk.transpose(1, 2)
-    else:
-        f2, i2 = tmix.packed_factors(n, m, "ortho", cpu)
-        w, cin, cout = wab, c, o
-    x = torch.from_numpy(rng.standard_normal((3, n, cin)).astype(np.float32))
-    a1, a3 = tmix.kernel_factors(n, m, "ortho", cpu, adjoint)
-    f2u = _unfragment(a1, 2 * m, n)[:2 * m, :n].t()
-    i2u = _unfragment(a3, n, 2 * m)[:n, :2 * m].t()
-    wu, _ = _unpad_weight(tmix.kernel_weight(w), cin, cout)
-    got = tmix.spectral_pass_reference(x, f2u, i2u, wu, torch.bfloat16)
-    want = tmix.spectral_pass_reference(x, f2, i2, wpk, torch.bfloat16)
-    assert got.shape == (3, n, cout)
-    assert torch.equal(got, want)
-
-
 # -- the f32 kernel's operands ------------------------------------------
 
 
@@ -381,8 +282,8 @@ def test_plain_pass_from_f32_kernel_operands_matches_jax(n, n_modes, c, o):
 def test_f32_kernel_shape_limits(m, c, o, fits):
     """The f32 kernel's tile holds up to 256 channels in and out (after
     padding to 8; 4 rows a tile up to 64, 2 up to 128, 1 up to 256) and 64
-    modes; the launcher refuses more before any launch, and lets the rest
-    through."""
+    modes; a launch of more is refused before it is made (the chunk plan
+    keeps every launch within them), and the rest let through."""
     if fits:
         tmix._check_f32_shape(m, c, o)
     else:
@@ -390,36 +291,71 @@ def test_f32_kernel_shape_limits(m, c, o, fits):
             tmix._check_f32_shape(m, c, o)
 
 
-# -- the bf16 pass's wide shapes -----------------------------------------
+# -- the bf16 pass's wide shapes: the staged route ------------------------
 
 
-@pytest.mark.parametrize("c,route", [(104, "mma"), (112, "cuda_cores"),
-                                     (128, "cuda_cores"), (256, "cuda_cores")])
-def test_bf16_route_from_shape(c, route):
-    """At n = 256, m = 64 the bf16 tensor-core kernel's two ring stages of
-    two weight modes fit beside a one-row tile's spectra up to C = O = 104;
-    wider bf16 passes run on the CUDA-core kernel (the f32 one's, with the
-    bf16 rounding points), as every f32 pass does. The launcher's mirror
-    of the planner decides from the shape alone (chip_smoke.py holds it to
-    the planner)."""
-    assert tmix.mma_fits(256, 64, c, c) == (route == "mma")
-    assert tmix.spectral_route(torch.bfloat16, 256, 64, c, c) == route
+@pytest.mark.parametrize("c", [64, 104, 128, 256])
+def test_bf16_route_from_shape(c):
+    """Every bf16 pass runs on the staged route (three tensor-core products
+    through device memory) at any width, and every f32 pass on the
+    CUDA-core kernel: the launcher decides from the shape alone, and a bf16
+    shape past the staged route's grid (more than 65,535 modes) raises
+    before any launch (chip_smoke.py holds the mirror to the library)."""
+    assert tmix.staged_fits(256, 64, c, c)
+    assert tmix.spectral_route(torch.bfloat16, 256, 64, c, c) == "staged"
     assert tmix.spectral_route(torch.float32, 256, 64, c, c) == "cuda_cores"
+    assert not tmix.staged_fits(2 ** 17, 65536, c, c)
+    with pytest.raises(ValueError, match="65535 modes"):
+        tmix.spectral_route(torch.bfloat16, 2 ** 17, 65536, c, c)
+
+
+def _chunked_f32_pass(x, f2, i2, wab, plan):
+    """The f32 pass evaluated chunk by chunk as the launcher launches the
+    f32 kernel over ``plan``: each chunk the plain f32 pass on its modes'
+    factors, its input channels and its blocks, added into its slice of
+    the output."""
+    out = torch.zeros((*x.shape[:2], wab.shape[3]))
+    for k0, k1, c0, c1, o0, o1 in plan:
+        f2c, i2c = tmix.mode_factors(f2, i2, k0, k1)
+        out[..., o0:o1] += tmix.spectral_pass_reference(
+            x[..., c0:c1], f2c, i2c,
+            tmix.pack_blocks(wab[k0:k1, :, c0:c1, o0:o1]), torch.float32)
+    return out
 
 
 @pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,c", [(80, 128), (64, 264)])
 def test_shapes_beyond_both_kernels_raise(cd, m, c):
-    """m = 80 (spectra too large for shared memory) and 264 channels (more
-    than a tile's 256 columns) fit neither kernel: the launcher raises the
-    CUDA-core kernel's ValueError before any launch, in both modes."""
-    assert not tmix.mma_fits(256, m, c, c)
-    with pytest.raises(ValueError, match="at most 256 channels and 64 modes"):
-        tmix.spectral_route(cd, 256, m, c, c)
-    x = torch.zeros((1, 1, 2 * m, c))
-    wab = torch.zeros((m, 2, c, c))
-    with pytest.raises(ValueError, match="at most 256 channels and 64 modes"):
-        tmix._launch(x, wab, 2, "ortho", False, cd, None)
+    """m = 80 (spectra too large for a block's shared memory) and 264
+    channels (more than a tile's 256 columns) fit no fused kernel, which
+    once made the launcher raise; now bf16 takes the staged route and f32
+    the f32 kernel in chunks (2 of modes at m = 80, 2 x 2 of channels at
+    264), and the route's plain version on its own operands agrees with
+    the plain pass at n = 256: the staged stages within relative L2 1e-2
+    (bf16 rounding flips only), the chunks within 1e-4 (f32 sums in
+    another order)."""
+    n = 256
+    rng = np.random.default_rng(m + c)
+    cpu = torch.device("cpu")
+    x = torch.from_numpy(rng.standard_normal((2, n, c)).astype(np.float32))
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, c, m)), m)
+    f2, i2 = tmix.packed_factors(n, m, "ortho", cpu)
+    want = tmix.spectral_pass_reference(x, f2, i2, tmix.pack_blocks(wab), cd)
+    if cd == torch.bfloat16:
+        assert tmix.spectral_route(cd, n, m, c, c) == "staged"
+        a1, a3 = tmix.staged_factors(n, m, "ortho", cpu)
+        got = tmix.staged_pass_plain(x, a1, a3, tmix.staged_weight(wab), m, c)
+        tol = 1e-2
+    else:
+        assert tmix.spectral_route(cd, n, m, c, c) == "cuda_cores"
+        plan = tmix.f32_chunk_plan(m, c, c)
+        assert len(plan) == (2 if m == 80 else 4)
+        got = _chunked_f32_pass(x, f2, i2, wab, plan)
+        tol = 1e-4
+    assert got.shape == want.shape
+    rel = float(torch.linalg.vector_norm(got.float() - want.float())
+                / torch.linalg.vector_norm(want.float()))
+    assert rel <= tol
 
 
 def test_spectral_pass_bf16_reference_wide_matches_jax():
@@ -446,46 +382,197 @@ def test_spectral_pass_bf16_reference_wide_matches_jax():
     assert rel <= 2e-2
 
 
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# (n, n_modes, C, O) of the staged route: m > 64, C = O = 136, 264 -> 200
+# (past a fused tile's 256 channels), and ragged shapes of the narrow
+# passes (n = 32 with m = 17; n = 40 with 24 -> 40 channels)
+STAGED_CASES = [(160, 72, 16, 24), (16, 6, 136, 136), (12, 5, 264, 200),
+                (32, 17, 64, 64), (40, 17, 24, 40)]
+
+
 @pytest.mark.parametrize("adjoint", [False, True])
-def test_wide_route_operands_are_the_bf16_values(adjoint):
-    """The wide route's operands are the f32 kernel's packings of the bf16
-    values: its factors (``kernel_factors_f32`` with ``bf16``) and each
-    mode's blocks (``kernel_weight_f32`` with ``bf16``) equal the factors
-    and the blocks rounded to bf16, bit for bit, zeros around them; and the
-    pass computed plainly from them with the bf16 rounding points (x, the
-    spectra and the mixed spectra rounded) is the plain bf16 pass up to
-    the order of its f32 sums."""
-    rng = np.random.default_rng(7)
-    n, m, c, o = 40, 17, 128, 120
+@pytest.mark.parametrize("n,n_modes,c,o", STAGED_CASES,
+                         ids=_ids(STAGED_CASES))
+def test_staged_plain_matches_jax(n, n_modes, c, o, adjoint):
+    """The staged route's three plain stages, composed on its own operands
+    (``staged_factors``, ``staged_weight``), against the JAX package's
+    pallas2 kernel in bf16 (interpret mode; the adjoint through its
+    jax.vjp, which runs the kernel on the transposed factors and weight)
+    within relative L2 2e-2, and against the plain bf16 pass within 1e-2:
+    all three round x, the spectra and the mixed spectra to bf16 at the
+    same points, so they differ by rounding flips only."""
+    rng = np.random.default_rng(n * 3 + c)
+    w = _weight(rng, c, o, n_modes) * c ** -0.5
+    cin, cout = (o, c) if adjoint else (c, o)
+    x = rng.standard_normal((3, n, cin)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+
+    def op(a):
+        return jmix2.packed_spectral_mix_1d(a, jnp.asarray(w), n_modes,
+                                            interpret=True,
+                                            compute_dtype=jnp.bfloat16)
+    if adjoint:
+        zeros = jnp.zeros((3, n, c), jnp.bfloat16)
+        want = jax.vjp(op, zeros)[1](xb)[0]
+    else:
+        want = op(xb)
+    want = np.asarray(want.astype(jnp.float32))
+    m = min(n_modes, n // 2 + 1)
     cpu = torch.device("cpu")
-    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
+    wab = tmix.mix_blocks(torch.from_numpy(w), m)
+    blocks = tmix.adjoint_blocks(wab) if adjoint else wab
+    a1, a3 = tmix.staged_factors(n, m, "ortho", cpu, adjoint)
+    xt = torch.from_numpy(x).bfloat16()
+    got = tmix.staged_pass_plain(xt, a1, a3, tmix.staged_weight(blocks), m,
+                                 cout)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, n, cout)
+    assert _rel(got.float().numpy(), want) <= 2e-2
     f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
         n, m, "ortho", cpu)
-    w = tmix.adjoint_blocks(wab) if adjoint else wab
-    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", cpu, adjoint, True)
-    wk = tmix.kernel_weight_f32(w, True)
-    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
-    for padded, mat in ((f2p, f2), (i2p, i2)):
+    plain = tmix.spectral_pass_reference(xt, f2, i2, tmix.pack_blocks(blocks),
+                                         torch.bfloat16)
+    assert _rel(got.float().numpy(), plain.float().numpy()) <= 1e-2
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("n,n_modes", [(256, 64), (160, 72), (64, 64),
+                                       (40, 17), (32, 17), (15, 8)])
+def test_staged_factors_pad_to_whole_tiles(n, n_modes, adjoint):
+    """The staged route reads a1 = f2^T (2m, n) padded to (2m rounded up to
+    128, n rounded up to 64) and a3 = i2^T (n, 2m) padded to (n rounded up
+    to 128, 2m rounded up to 64): the factors in bf16 bit for bit, zeros
+    around them, contiguous, made once per shape and direction."""
+    m = min(n_modes, n // 2 + 1)
+    cpu = torch.device("cpu")
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    a1, a3 = tmix.staged_factors(n, m, "ortho", cpu, adjoint)
+    assert a1.shape == (-(-2 * m // 128) * 128, -(-n // 64) * 64)
+    assert a3.shape == (-(-n // 128) * 128, -(-2 * m // 64) * 64)
+    for padded, mat in ((a1, f2.t()), (a3, i2.t())):
         rows, cols = mat.shape
-        assert torch.equal(padded[:rows, :cols], bf(mat))
+        assert padded.dtype == torch.bfloat16 and padded.is_contiguous()
+        assert torch.equal(padded[:rows, :cols], mat.to(torch.bfloat16))
         assert not padded[rows:].any() and not padded[:, cols:].any()
-    ci, co = w.shape[2], w.shape[3]
-    assert torch.equal(wk[:, :, :ci, :co], bf(w))
-    assert not wk[:, :, ci:].any() and not wk[:, :, :, co:].any()
-    x = torch.from_numpy(rng.standard_normal((3, n, ci)).astype(np.float32))
-    n1, sr = f2p.shape
-    xp = torch.zeros((3, n1, wk.shape[2]))
-    xp[:, :n, :ci] = bf(x)
-    z = bf(torch.einsum("rwc,wj->rjc", xp, f2p))
-    mk = torch.zeros((3, sr, wk.shape[3]))
-    for k in range(m):
-        zr, zi, a, b = z[:, k], z[:, m + k], wk[k, 0], wk[k, 1]
-        mk[:, k] = zr @ a - zi @ b
-        mk[:, m + k] = zr @ b + zi @ a
-    got = torch.einsum("rjo,jw->rwo", bf(mk), i2p)[:, :n, :co]
+    again = tmix.staged_factors(n, m, "ortho", cpu, adjoint)
+    assert again[0] is a1 and again[1] is a3
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("c,o", [(4, 3), (24, 40), (64, 64), (40, 128),
+                                 (136, 136), (264, 200)])
+def test_staged_weight_pads_each_mode(c, o, adjoint):
+    """The staged route reads each mode's blocks a | b as (2, C8, O8) in
+    bf16, zeros in the padding (for the adjoint the blocks a^T | -b^T),
+    and its mix multiplies by their packed form [[a, b], [-b, a]], which
+    is the pass's packed matrix with the padding's zero rows and columns
+    between the halves."""
+    rng = np.random.default_rng(c * o + 3)
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, 7)), 5)
+    w = tmix.adjoint_blocks(wab) if adjoint else wab
+    ci, co = (o, c) if adjoint else (c, o)
+    c8, o8 = -(-ci // 8) * 8, -(-co // 8) * 8
+    wst = tmix.staged_weight(w)
+    assert wst.dtype == torch.bfloat16 and wst.is_contiguous()
+    assert wst.shape == (5, 2, c8, o8)
+    assert torch.equal(wst[:, :, :ci, :co], w.to(torch.bfloat16))
+    assert not wst[:, :, ci:].any() and not wst[:, :, :, co:].any()
+    packed = tmix.pack_blocks(wst.float()).view(5, 2, c8, 2, o8)
+    want = tmix.pack_blocks(w).view(5, 2, ci, 2, co).to(torch.bfloat16)
+    assert torch.equal(packed[:, :, :ci, :, :co], want.float())
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("n,m,c,o", [(40, 17, 24, 40), (32, 17, 64, 64),
+                                     (15, 8, 5, 3), (256, 64, 8, 16)])
+def test_plain_pass_from_staged_operands(n, m, c, o, adjoint):
+    """The plain pass computed from the staged route's operands, unpacked
+    (the factors from a1 and a3, the packed weight from each mode's padded
+    blocks), equals the plain pass on the factors and weight it was
+    given, bit for bit (both round every operand to bf16), at ragged
+    shapes (n = 40, m = 17, 24 -> 40 channels, the adjoint 40 -> 24; n =
+    32; 5 -> 3 channels) and at the train shape's n = 256, m = 64."""
+    rng = np.random.default_rng(19 + n + c)
+    cpu = torch.device("cpu")
+    wab = tmix.mix_blocks(torch.from_numpy(_weight(rng, c, o, m)), m)
+    if adjoint:
+        f2, i2 = tmix.adjoint_factors(n, m, "ortho", cpu)
+        w, cin, cout = tmix.adjoint_blocks(wab), o, c
+    else:
+        f2, i2 = tmix.packed_factors(n, m, "ortho", cpu)
+        w, cin, cout = wab, c, o
+    x = torch.from_numpy(rng.standard_normal((3, n, cin)).astype(np.float32))
+    a1, a3 = tmix.staged_factors(n, m, "ortho", cpu, adjoint)
+    wu = tmix.pack_blocks(tmix.staged_weight(w)[:, :, :cin, :cout].float())
+    got = tmix.spectral_pass_reference(x, a1[:2 * m, :n].t(),
+                                       a3[:n, :2 * m].t(), wu, torch.bfloat16)
     want = tmix.spectral_pass_reference(x, f2, i2, tmix.pack_blocks(w),
-                                        torch.bfloat16).float()
-    assert got.shape == want.shape
-    rel = float(torch.linalg.vector_norm(got - want)
-                / torch.linalg.vector_norm(want))
-    assert rel <= 1e-2
+                                        torch.bfloat16)
+    assert got.shape == (3, n, cout)
+    assert torch.equal(got, want)
+
+
+# -- the f32 pass beyond one launch: the chunk plan -----------------------
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("n,n_modes,c,o,chunks", [
+    (160, 80, 8, 12, [(0, 64, 0, 8, 0, 12), (64, 80, 0, 8, 0, 12)]),
+    (12, 5, 264, 72, [(0, 5, 0, 256, 0, 72), (0, 5, 256, 264, 0, 72)])])
+def test_f32_chunk_plan_matches_jax(n, n_modes, c, o, chunks, adjoint):
+    """An f32 pass beyond one launch of the f32 kernel (m = 80 modes; 264
+    input channels) runs as its launches over chunks of at most 64 modes
+    and 256 channels in a fixed order (asserted, with their count; the
+    adjoint's plan swaps C and O); evaluated chunk by chunk by the plain
+    f32 pass, each chunk on its modes' factors, it matches the JAX
+    package's f32-exact kernel (interpret mode; the adjoint through its
+    jax.vjp) within relative L2 1e-4."""
+    rng = np.random.default_rng(n + c)
+    w = _weight(rng, c, o, n_modes)
+    cin, cout = (o, c) if adjoint else (c, o)
+    x = rng.standard_normal((3, n, cin)).astype(np.float32)
+
+    def op(a):
+        return jmix.truncated_spectral_mix_1d(a, jnp.asarray(w), n_modes,
+                                              interpret=True)
+    if adjoint:
+        want = jax.vjp(op, jnp.zeros((3, n, c)))[1](jnp.asarray(x))[0]
+    else:
+        want = op(jnp.asarray(x))
+    m = min(n_modes, n // 2 + 1)
+    plan = tmix.f32_chunk_plan(m, cin, cout)
+    if adjoint:
+        chunks = [(k0, k1, o0, o1, c0, c1)
+                  for k0, k1, c0, c1, o0, o1 in chunks]
+        chunks.sort(key=lambda t: (t[4], t[0], t[2]))
+    assert plan == chunks
+    cpu = torch.device("cpu")
+    wab = tmix.mix_blocks(torch.from_numpy(w), m)
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    got = _chunked_f32_pass(torch.from_numpy(x), f2, i2,
+                            tmix.adjoint_blocks(wab) if adjoint else wab, plan)
+    assert got.shape == (3, n, cout)
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-4
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_kernel_factors_f32_of_a_mode_range(adjoint):
+    """The f32 kernel's factors for modes 64 .. 79 of an 80-mode pass are
+    those of ``mode_factors`` (f2's columns and i2's rows of those modes,
+    both parts), zero-padded to its tiles: 2 x 16 packed modes padded to
+    128."""
+    n, m = 160, 80
+    cpu = torch.device("cpu")
+    f2, i2 = (tmix.adjoint_factors if adjoint else tmix.packed_factors)(
+        n, m, "ortho", cpu)
+    f2p, i2p = tmix.kernel_factors_f32(n, m, "ortho", cpu, adjoint, 64, 80)
+    cols = list(range(64, 80)) + list(range(144, 160))
+    assert f2p.shape == (160, 128) and i2p.shape == (128, 256)
+    assert torch.equal(f2p[:n, :32], f2[:, cols])
+    assert torch.equal(i2p[:32, :n], i2[cols])
+    assert not f2p[:, 32:].any() and not i2p[32:].any()
