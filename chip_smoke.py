@@ -18,7 +18,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      too wide for f32_tile_gemm's buffers) and at the train shape, two
      calls there compared bit for bit; bf16 at width 128's chain
      (128->512->512->128, LayerNorm and residual) at the train shape's
-     rows, as the width-128 model of phase 8 runs it; each case with the
+     rows, as the width-128 model of phase 8 runs it; the factor-4 chain
+     at width 512 in bf16 (16-row tiles) and f32, with and without the
+     saved pre-activations, on 4,096 rows, timed; each case with the
      planner's route and tile rows;
   4. K1b, its backward kernel, against the plain backward: bf16 (its
      tensor-core products) at the train shape with LayerNorm, at a ragged
@@ -35,7 +37,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      pre-activations in device memory); each case with its tile rows.
      Then the launchers' Python mirrors of the planners against the
      planners: the staged route's fit (rpde_spectral_staged_fits) over
-     3,242 shapes, K1b's tile rows over 540 chains;
+     3,242 shapes, K1b's tile rows over 540 chains, K1f's route and tile
+     rows over 56 chains (the bench chain, width 128's, factor 4 at 320
+     and 512, a ragged chain and the first factor-4 chains no bf16 tile
+     fits), and K1f's launcher refusing such a chain with a ValueError;
   5. K2, the spectral axis pass, against its plain version on the card:
      bf16 (the staged route: three tensor-core products through device
      memory) at the train shape along W and along H read in place and
@@ -84,8 +89,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      step's gradients
      at 2 x 128² against the same weights in f32 on the CPU;
   9. K4, the S4D Vandermonde reduction, and K5, the four Cauchy sums of
-     the S4 DPLR kernel, against their plain versions at the S4 serving
-     shapes and at a small ragged shape, timed in CUDA graphs;
+     the S4 DPLR kernel, against their plain versions through both of
+     each kernel's entries (the fused one the model runs, which forms the
+     operands in the launch, and the plane one) at the S4 serving shapes
+     and at a small ragged shape, timed in CUDA graphs; K4 at a slow
+     decay (Re A = -1e-4, dt = 0.1), no farther from a float64
+     evaluation than its plain version;
  10. the S4 serving slice: S4Model at the width of configs/model/s4_1d.yaml
      (mode dplr, K5) and s4d_1d.yaml (mode diag, K4), random weights from
      a seed, on the kernels' route behind ServingEngine on the GPU, warmed
@@ -266,20 +275,28 @@ def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
 
 def _forward_route(dims, cd, io, residual) -> tuple:
     """The forward's route for a chain as its planner picks it: (name, tile
-    rows); "mma" (bf16 tensor cores), "f32_tiles" (f32 on f32_tile_gemm)
-    or "f32_wide" (fused_ff_fwd_kernel on block_gemm, chains too wide for
-    f32_tiles)."""
+    rows); "mma" (bf16 tensor cores), "f32_tiles" (f32 on f32_tile_gemm),
+    "f32_wide" (fused_ff_fwd_kernel on block_gemm, chains too wide for
+    f32_tiles) or "none" (no tile fits), which its launcher's Python
+    mirror, ``forward_tile_rows``, must give too (a ValueError there for
+    "none")."""
     import ctypes
 
-    from resolution_pde_tpu_torch.ops.kernels import _build
+    from resolution_pde_tpu_torch.ops.kernels import _build, fused_ff
 
     rows = (ctypes.c_int * 1)()
     route = _build.library().rpde_fused_ff_forward_route(
         int(cd == torch.bfloat16), int(io == torch.bfloat16), int(residual),
         (ctypes.c_int * len(dims))(*dims), len(dims) - 1, rows)
-    names = {1: "mma", 2: "f32_tiles", 3: "f32_wide"}
-    require(route in names, f"K1f: no route for {dims}")
-    return names[route], rows[0]
+    names = {0: "none", 1: "mma", 2: "f32_tiles", 3: "f32_wide"}
+    got = names[route], rows[0]
+    try:
+        want = fused_ff.forward_tile_rows(dims, True, residual, cd, io)
+    except ValueError:
+        want = ("none", 0)
+    require(got == want, f"K1f planner for {dims} {cd} io {io} residual "
+            f"{residual}: {got}, its mirror {want}")
+    return got
 
 
 def check_fused_ff(gen) -> tuple:
@@ -294,7 +311,7 @@ def check_fused_ff(gen) -> tuple:
         # call on the same inputs must give the same bits
         io = io or dtype
         took, tile_rows = _forward_route(dims, dtype, io, residual)
-        require(route is None or took == route,
+        require(took != "none" and (route is None or took == route),
                 f"K1f {label}: route {took}, expected {route}")
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
               for i in range(len(dims) - 1)]
@@ -324,10 +341,12 @@ def check_fused_ff(gen) -> tuple:
                                                         **kw))
         plain = time_ms(lambda: fused_ff.fused_feedforward_reference(
             x, ks, bs, lnp, res, **kw))
+        cost = _ff_cost(n, dims, ln, residual, dtype, 1)
         log("K1", case=label, rows=n, dims="->".join(map(str, dims)),
             route=took, tile_rows=tile_rows, rel_l2=f"{err:.3e}",
             max_abs=f"{mx:.3e}", tol=tol, ms=f"{ms:.4f}",
-            plain_ms=f"{plain:.4f}", **extra)
+            plain_ms=f"{plain:.4f}", bound_ms=f"{cost['bound_ms']:.4f}",
+            **extra)
         require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                 f"K1 {label}: rel_l2 {err} > {tol}")
         if repeat:
@@ -335,8 +354,7 @@ def check_fused_ff(gen) -> tuple:
             same = bool(torch.equal(got, again))
             log("K1", case=f"{label}_repeat", bit_equal=same)
             require(same, f"K1 {label}: two calls on the same inputs differ")
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **_ff_cost(n, dims, ln, residual, dtype, 1))
+        return dict(max_abs_err=mx, ms=ms, plain_ms=plain, **cost)
 
     hidden = WIDTH * FACTOR
     dims = [WIDTH] + [hidden] * (FF_LAYERS - 1) + [WIDTH]
@@ -401,6 +419,16 @@ def check_fused_ff(gen) -> tuple:
     case(BATCH * RES * RES, [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1)
          + [WIDE], ln=True, residual=True, approx=True, dtype=torch.bfloat16,
          tol=1e-2, label=f"width{WIDE}_bf16", route="mma")
+    # the factor-4 chain at width 512: bf16 on 16-row tiles (its thin warp
+    # tiles; no 32-row tile's buffers fit beside the ring), f32 on 8-row
+    # tiles, with LayerNorm and residual and the saved pre-activations
+    for dtype, tol, route in ((torch.bfloat16, 1e-2, "mma"),
+                              (torch.float32, 1e-5, f32t)):
+        for save in (False, True):
+            case(4096, [512, 2048, 2048, 512], ln=True, residual=True,
+                 approx=True, dtype=dtype, tol=tol,
+                 label=f"width512_{str(dtype)[6:]}"
+                 + ("_saved" if save else ""), save=save, route=route)
     return bf16, f32
 
 
@@ -456,6 +484,43 @@ def check_planner_mirrors() -> None:
                         _backward_tile_rows(dims, cd, has_ln)
                         chains += 1
     log("mirrors", case="k1b_plan", chains=chains, disagree=0)
+    # K1f: the bench chain, width 128's, the factor-4 chains at 320 and
+    # 512, a ragged chain and the first bf16 factor-4 chains no tile fits
+    # (837 wide with bf16 x, residual and output; 833 with f32 ones), in
+    # both compute types, both io types, with and without the residual
+    fwd = [[WIDTH, 4 * WIDTH, 4 * WIDTH, WIDTH],
+           [WIDE, 4 * WIDE, 4 * WIDE, WIDE], [320, 1280, 1280, 320],
+           [512, 2048, 2048, 512], [30, 50, 50, 30],
+           [833, 3332, 3332, 833], [837, 3348, 3348, 837]]
+    plans = {}
+    for dims in fwd:
+        for cd in (torch.bfloat16, torch.float32):
+            for io in (torch.bfloat16, torch.float32):
+                for residual in (True, False):
+                    plans[(dims[0], str(cd)[6:], str(io)[6:], residual)] = \
+                        _forward_route(dims, cd, io, residual)
+    log("mirrors", case="k1f_plan", chains=len(plans), disagree=0,
+        **{f"w{w}_{cd}_io_{io}" + ("_res" if r else ""): f"{p[0]}:{p[1]}"
+           for (w, cd, io, r), p in plans.items() if r})
+    require(plans[(837, "bfloat16", "bfloat16", True)][0] == "none"
+            and plans[(833, "bfloat16", "float32", True)][0] == "none"
+            and plans[(833, "bfloat16", "bfloat16", True)][0] == "mma",
+            "K1f bf16: the widest factor-4 chains moved")
+    # the launcher refuses such a chain with a ValueError before any launch
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff
+    dims = [837, 3348, 3348, 837]
+    ks = [torch.zeros((a, b), device="cuda") for a, b in zip(dims, dims[1:])]
+    bs = [torch.zeros((b,), device="cuda") for b in dims[1:]]
+    x = torch.zeros((16, dims[0]), device="cuda", dtype=torch.bfloat16)
+    try:
+        fused_ff.fused_feedforward_fwd(x, ks, bs, None, x[:, :dims[-1]])
+        refused = False
+    except ValueError as e:
+        refused = "837" in str(e)
+    log("mirrors", case="k1f_refuses", dims="->".join(map(str, dims)),
+        value_error=refused)
+    require(refused, "K1f bf16: the chain no tile fits was not refused "
+            "with a ValueError")
 
 
 def check_fused_ff_bwd(gen) -> tuple:
@@ -465,11 +530,9 @@ def check_fused_ff_bwd(gen) -> tuple:
     from resolution_pde_tpu_torch.ops.kernels import fused_ff
 
     def case(n, dims, *, ln, approx, dtype, tol, label, save=False,
-             io=None, repeat=False, plain_zs=False):
+             io=None, repeat=False):
         # io: the type of x, g and dx (dtype if None); repeat: a second
-        # call on the same inputs must give the same bits; plain_zs: the
-        # saved pre-activations from the plain forward (chains the forward
-        # kernel has no route for, ROADMAP.md section 3)
+        # call on the same inputs must give the same bits
         io = io or dtype
         tile_rows = _backward_tile_rows(dims, dtype, ln)
         ks = [randn((dims[i], dims[i + 1]), gen, dims[i] ** -0.5)
@@ -484,14 +547,10 @@ def check_fused_ff_bwd(gen) -> tuple:
         if save:
             _, zs_ref = fused_ff.fused_feedforward_reference(
                 x, ks, bs, lnp, save_acts=True, **kw)
-            if plain_zs:
-                zs = torch.cat(zs_ref, dim=1).to(dtype)
-            else:
-                _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp,
-                                                       save_acts=True, **kw)
-                err = rel_l2(zs, torch.cat(zs_ref, dim=1))
-                require(err <= tol,
-                        f"K1 saved pre-activations {label}: {err}")
+            _, zs = fused_ff.fused_feedforward_fwd(x, ks, bs, lnp,
+                                                   save_acts=True, **kw)
+            err = rel_l2(zs, torch.cat(zs_ref, dim=1))
+            require(err <= tol, f"K1 saved pre-activations {label}: {err}")
         got = fused_ff.fused_feedforward_bwd(x, g, ks, bs, lnp, zs_saved=zs,
                                              **kw)
         ref = fused_ff.fused_feedforward_bwd_reference(x, g, ks, bs, lnp,
@@ -571,16 +630,14 @@ def check_fused_ff_bwd(gen) -> tuple:
     saved = case(BATCH * RES * RES, dims, ln=True, approx=True,
                  dtype=torch.bfloat16, tol=1e-2, label="saved_bf16", save=True)
     # factor-4 chains past width 256, whose pre-activations the kernel
-    # keeps in device memory (the least tile does not fit beside them);
-    # the bf16 forward kernel has no route at width 512
+    # keeps in device memory (the least tile does not fit beside them)
     for w in (320, 512):
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             for save in (False, True):
                 case(2003, [w, 4 * w, 4 * w, w], ln=True, approx=True,
                      dtype=dtype, tol=tol,
                      label=f"width{w}_{str(dtype)[6:]}"
-                     + ("_saved" if save else ""), save=save,
-                     plain_zs=w == 512 and dtype == torch.bfloat16)
+                     + ("_saved" if save else ""), save=save)
     # bf16 at the chain run_wide's model runs (width WIDE), at its rows,
     # recomputed and with saved pre-activations
     wide = [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1) + [WIDE]
@@ -1292,83 +1349,210 @@ def _close(got, ref, rtol, atol) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
 
 
+def _k4_ops(rows, h, n, L) -> float:
+    """The operations s4d_kernel_pallas needs (an FMA two, exp, sin and
+    cos one each) when the powers e^{dtA l} are factored as a table and
+    anchors: per (row, state, position) 2 FMAs (the real part of an anchor
+    times a table entry); per (feature, state) the table's 32 powers
+    e^{dtA j} (17 each: the exponent with its FMA remainder, exp, sincos and
+    the first-order correction), and its L / 32 anchors' powers; per (row,
+    state) dtA and C' (27) and C' times each anchor (6); per (row,
+    position) the last 2. dtA is a feature's, C' a row's."""
+    anchors = -(-L // 32)
+    return (4.0 * rows * n * L + 2.0 * rows * L
+            + 17.0 * h * n * (32 + anchors)
+            + rows * n * (27.0 + 6.0 * anchors))
+
+
+def _k5_ops(rows, h, n, L) -> float:
+    """The operations dplr_at_roots needs (an FMA two, a reciprocal, exp
+    and sin or cos one each): per (feature, state, position) d, |d|^2, its
+    reciprocal and d / |d|^2 (8) and the sums k10, k11 (16), which a
+    feature's rows share (v2 = conj(P) B, v3 = conj(P) P); per (row, state,
+    position) the sums k00, k01 (16); per (row, position) the Woodbury
+    combination (31); per (feature, position) g and c (32); per (row,
+    state) v0, v1 (12), per (feature, state) v2, v3 (12)."""
+    return (24.0 * h * n * L + 16.0 * rows * n * L + 31.0 * rows * L
+            + 32.0 * h * L + 12.0 * (rows + h) * n)
+
+
 def check_s4_kernels(gen) -> tuple:
-    """K4 and K5 against their plain versions on the card, on the operands
-    the S4 layers give them: the slice's shapes (2 kernel channels x 64
-    features = 128 rows; K4 N/2 = 32, K5 N = 64; L = 512) and a ragged
-    18 rows x N 8 x L 40. Times are device times in CUDA graphs (eager
-    calls of a few microseconds leave the device idle between them)."""
+    """K4 and K5 against their plain versions on the card, through both of
+    each kernel's entries: the fused one the model runs (the JAX wrapper's
+    inputs, the operands formed in the launch) and the plane one (f32
+    planes in, and for K5 the four sums out), on the operands the S4
+    layers give them: the slice's shapes (2 kernel channels x 64 features
+    = 128 rows; K4 N/2 = 32, K5 N = 64; L = 512) and a ragged 18 rows x N
+    8 x L 40 (and K5 at 3 channels, 27 rows, whose rows no pair of
+    channels shares); and K4 at a slow decay (Re A = -1e-4, dt = 0.1, L = 512),
+    where each entry must be no farther from a float64 evaluation than its
+    plain version. Times are device times in CUDA graphs (eager calls of a
+    few microseconds leave the device idle between them)."""
     from resolution_pde_tpu_torch.ops import ssm
     from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
 
-    def k4(ch, h, n_half, L, label):
+    def k4(ch, h, n_half, L, label, re_a=-0.5, dt=None):
         # S4D-Lin A = -1/2 + i pi n (the s4d_1d layers' init), random C
-        A = torch.complex(torch.full((h, n_half), -0.5),
+        A = torch.complex(torch.full((h, n_half), re_a),
                           np.pi * torch.arange(n_half).float().expand(h, -1))
         C = torch.complex(torch.randn((ch, h, n_half), generator=gen),
                           torch.randn((ch, h, n_half), generator=gen))
-        planes = [t.cuda() for t in vandermonde.s4d_operands(
-            C, A, _log_uniform_dt(h, gen))]
-        got = vandermonde.vandermonde(*planes, L)
-        ref = vandermonde.vandermonde_reference(*planes, L)
+        log_dt = (_log_uniform_dt(h, gen) if dt is None
+                  else torch.full((h,), math.log(dt)))
+        C, A, log_dt = C.cuda(), A.cuda(), log_dt.cuda()
+        planes = [t.contiguous()
+                  for t in vandermonde.s4d_operands(C, A, log_dt)]
+        got = {"plane": vandermonde.vandermonde(*planes, L),
+               "fused": vandermonde.s4d_kernel_pallas(C, A, log_dt, L)}
+        ref = {"plane": vandermonde.vandermonde_reference(*planes, L),
+               "fused": vandermonde.s4d_kernel_reference(C, A, log_dt, L)}
         torch.cuda.synchronize()
-        err, mx = rel_l2(got, ref), max_abs(got, ref)
-        ok = _close(got, ref, 1e-3, 1e-4)
-        ms = graph_ms(lambda: vandermonde.vandermonde(*planes, L))
-        plain = graph_ms(lambda: vandermonde.vandermonde_reference(*planes,
-                                                                   L))
-        eager = time_ms(lambda: vandermonde.vandermonde(*planes, L))
+        rec = {}
+        for e in got:
+            err, mx = rel_l2(got[e], ref[e]), max_abs(got[e], ref[e])
+            ok = _close(got[e], ref[e], 1e-3, 1e-4)
+            rec[e] = dict(max_abs_err=mx, rel_l2=err)
+            log("K4", case=f"{label}_{e}", rows=ch * h, n=n_half, L=L,
+                rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}",
+                tol="1e-5 and rtol 1e-3/atol 1e-4" if dt is None
+                else "no farther from float64 than plain")
+            require(bool(torch.isfinite(got[e]).all()),
+                    f"K4 {label} {e}: non-finite")
+            if dt is None:
+                require(err <= 1e-5 and ok,
+                        f"K4 {label} {e}: rel_l2 {err}, elementwise {ok}")
+        if dt is not None:
+            # float64 evaluations: of the same f32 planes (the plane
+            # entry's function) and of the same C, A, log_dt (the fused
+            # entry's)
+            exact = {"plane": vandermonde.vandermonde_reference(
+                        *(p.double() for p in planes), L),
+                     "fused": vandermonde.s4d_kernel_reference(
+                        C.to(torch.complex128), A.to(torch.complex128),
+                        log_dt.double(), L)}
+            for e in got:
+                kern, plain = (rel_l2(x[e], exact[e]) for x in (got, ref))
+                log("K4", case=f"{label}_{e}_vs_float64",
+                    kernel_rel_l2=f"{kern:.4e}", plain_rel_l2=f"{plain:.4e}")
+                require(kern <= plain, f"K4 {label} {e}: {kern} from float64, "
+                        f"farther than the plain version's {plain}")
+            return None
+        fused_ms = graph_ms(lambda: vandermonde.s4d_kernel_pallas(
+            C, A, log_dt, L))
+        plain = graph_ms(lambda: vandermonde.s4d_kernel_reference(
+            C, A, log_dt, L))
+        plane_ms = graph_ms(lambda: vandermonde.vandermonde(*planes, L))
+        plane_plain = graph_ms(lambda: vandermonde.vandermonde_reference(
+            *planes, L))
+        eager = time_ms(lambda: vandermonde.s4d_kernel_pallas(C, A, log_dt,
+                                                              L))
         rows = ch * h
-        log("K4", case=label, rows=rows, n=n_half, L=L, rel_l2=f"{err:.3e}",
-            max_abs=f"{mx:.3e}", tol="1e-5 and rtol 1e-3/atol 1e-4",
-            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+        log("K4", case=label, ms=f"{fused_ms:.5f}", plain_ms=f"{plain:.5f}",
+            plane_ms=f"{plane_ms:.5f}", plane_plain_ms=f"{plane_plain:.5f}",
             eager_call_ms=f"{eager:.5f}")
-        require(bool(torch.isfinite(got).all()) and err <= 1e-5 and ok,
-                f"K4 {label}: rel_l2 {err}, elementwise {ok}")
-        # per (row, n, l) term: 2 products for the exponents, exp, sin and
-        # cos (one operation each), 2 products and 2 multiply-adds
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **bound(11.0 * rows * n_half * L,
-                            4.0 * (4 * rows * n_half + rows * L), PEAK_F32))
+        # bytes: C, A and log_dt in, K out
+        return dict(max_abs_err=rec["fused"]["max_abs_err"], ms=fused_ms,
+                    plain_ms=plain, plane_ms=plane_ms,
+                    plane_plain_ms=plane_plain,
+                    **bound(_k4_ops(rows, h, n_half, L),
+                            8.0 * (rows + h) * n_half + 4.0 * h
+                            + 4.0 * rows * L, PEAK_F32))
 
     def k5(ch, h, n, L, label):
         # the s4_1d layers' HiPPO-LegS Lambda, P, B and a random C-tilde
         lam, p, b, _ = ssm.make_dplr_hippo(n)
-        lam, p, b = (torch.from_numpy(np.broadcast_to(z, (ch * h, n)).astype(
-            np.complex64)) for z in (lam, p, b))
+        lam, p, b = (torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            z, (h, n)), np.complex64)) for z in (lam, p, b))
         C = torch.complex(torch.randn((ch * h, n), generator=gen),
                           torch.randn((ch * h, n), generator=gen)) * 0.5 ** 0.5
-        log_dt = _log_uniform_dt(h, gen).repeat(ch)
+        log_dt = _log_uniform_dt(h, gen)
         lam, p, b, C, log_dt = (t.cuda() for t in (lam, p, b, C, log_dt))
         v, g, _ = cauchy.dplr_operands(lam, p, b, C, log_dt, L)
-        planes = [t.contiguous() for t in (v.real, v.imag, lam.real,
-                                           lam.imag, g.real, g.imag)]
-        got = torch.stack(cauchy.cauchy_sums(*planes))
-        ref = torch.stack(cauchy.cauchy_reference(*planes))
+        lam_rows = lam.repeat(ch, 1)
+        planes = [t.contiguous() for t in (v.real, v.imag, lam_rows.real,
+                                           lam_rows.imag, g.real, g.imag)]
+        args = (lam, p, b, C, log_dt, L)
+        got = {"sums": torch.stack(cauchy.cauchy_sums(*planes)),
+               "fused": torch.view_as_real(cauchy.dplr_at_roots(*args))}
+        ref = {"sums": torch.stack(cauchy.cauchy_reference(*planes)),
+               "fused": torch.view_as_real(
+                   cauchy.dplr_at_roots_reference(*args))}
+        # the fused entry's elementwise hold: rtol 2e-4 / atol 2e-5 on the
+        # values at the roots, and beyond it at most AT_ROOTS_LIMIT times
+        # 2^-24 the rounding's scale, which near the Woodbury combination's
+        # cancellations is far above |at_roots|; the limit is taken between
+        # two readings made here: the plain version with the states in
+        # reverse order (rounding alone) must lie within it, and with one
+        # state's C~ off by 2^-10 (a fault) beyond it
+        scale = cauchy.dplr_at_roots_scale(*args)
+        at_plain = torch.view_as_complex(ref["fused"])
+        sound = cauchy.at_roots_departure(
+            cauchy.dplr_at_roots_reference(
+                *(t.flip(-1) for t in args[:4]), log_dt, L), at_plain, scale)
+        faulty = C.clone()
+        faulty[:, n // 2] *= 1 + 2.0 ** -10
+        fault = cauchy.at_roots_departure(
+            cauchy.dplr_at_roots_reference(lam, p, b, faulty, log_dt, L),
+            at_plain, scale)
+        limit = cauchy.AT_ROOTS_LIMIT
+        inv_fft = lambda z: torch.fft.ifft(  # noqa: E731
+            torch.view_as_complex(z), n=L, dim=-1).real
         torch.cuda.synchronize()
-        err, mx = rel_l2(got, ref), max_abs(got, ref)
-        ok = _close(got, ref, 2e-4, 2e-5)
-        ms = graph_ms(lambda: cauchy.cauchy_sums(*planes))
-        plain = graph_ms(lambda: cauchy.cauchy_reference(*planes))
-        eager = time_ms(lambda: cauchy.cauchy_sums(*planes))
+        rec = {}
+        for e in got:
+            err, mx = rel_l2(got[e], ref[e]), max_abs(got[e], ref[e])
+            # elementwise, on the real and the imaginary parts
+            ok = _close(got[e], ref[e], 2e-4, 2e-5)
+            extra = {}
+            if e == "fused":
+                outside = int((~((got[e] - ref[e]).abs()
+                                 <= 2e-5 + 2e-4 * ref[e].abs())).sum())
+                kernel = cauchy.at_roots_departure(
+                    torch.view_as_complex(got[e]), at_plain, scale)
+                kg, kr = inv_fft(got[e]), inv_fft(ref[e])
+                ok = kernel <= limit and _close(kg, kr, 2e-4, 2e-5)
+                extra = dict(outside_rtol_atol=outside,
+                             departure=f"{kernel:.4g}",
+                             departure_reversed_states=f"{sound:.4g}",
+                             departure_fault=f"{fault:.4g}", limit=limit,
+                             K_rel_l2=f"{rel_l2(kg, kr):.3e}",
+                             K_max_abs=f"{max_abs(kg, kr):.3e}")
+            rec[e] = mx
+            log("K5", case=f"{label}_{e}", rows=ch * h, n=n, L=L,
+                rel_l2=f"{err:.3e}", max_abs=f"{mx:.3e}",
+                tol="1e-5 and rtol 2e-4/atol 2e-5"
+                + (" (at the roots, beyond it the departure limit; and on K)"
+                   if e == "fused" else ""), **extra)
+            require(bool(torch.isfinite(got[e]).all()) and err <= 1e-5 and ok,
+                    f"K5 {label} {e}: rel_l2 {err}, elementwise {ok}")
+        require(sound <= limit < fault,
+                f"K5 {label}: the departure limit {limit} does not lie "
+                f"between rounding ({sound}) and a fault ({fault})")
+        fused_ms = graph_ms(lambda: cauchy.dplr_at_roots(*args))
+        plain = graph_ms(lambda: cauchy.dplr_at_roots_reference(*args))
+        sums_ms = graph_ms(lambda: cauchy.cauchy_sums(*planes))
+        sums_plain = graph_ms(lambda: cauchy.cauchy_reference(*planes))
+        eager = time_ms(lambda: cauchy.dplr_at_roots(*args))
         rows = ch * h
-        log("K5", case=label, rows=rows, n=n, L=L, rel_l2=f"{err:.3e}",
-            max_abs=f"{mx:.3e}", tol="1e-5 and rtol 2e-4/atol 2e-5",
-            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+        log("K5", case=label, ms=f"{fused_ms:.5f}", plain_ms=f"{plain:.5f}",
+            sums_ms=f"{sums_ms:.5f}", sums_plain_ms=f"{sums_plain:.5f}",
             eager_call_ms=f"{eager:.5f}")
-        require(bool(torch.isfinite(got).all()) and err <= 1e-5 and ok,
-                f"K5 {label}: rel_l2 {err}, elementwise {ok}")
-        # per (row, n, l) term: d (2), |d|^2 (3), the reciprocal (1), d/|d|^2
-        # (2), and per t two 2-term products summed in (8); bytes: v, Lambda
-        # and g planes in, the two (4, rows, L) planes out
-        return dict(max_abs_err=mx, ms=ms, plain_ms=plain,
-                    **bound(40.0 * rows * n * L,
-                            4.0 * (10 * rows * n + 10 * rows * L), PEAK_F32))
+        # bytes: Lambda, P, B, C-tilde and log_dt in, the (rows, L) complex
+        # values at the roots out
+        return dict(max_abs_err=rec["fused"], ms=fused_ms, plain_ms=plain,
+                    sums_ms=sums_ms, sums_plain_ms=sums_plain,
+                    **bound(_k5_ops(rows, h, n, L),
+                            8.0 * (3 * h + rows) * n + 4.0 * h
+                            + 8.0 * rows * L, PEAK_F32))
 
     k4_out = k4(2, S4["d_model"], S4_STATE // 2, 512, "s4d_1d")
     k4(2, 9, 8, 40, "ragged")
+    k4(2, S4["d_model"], S4_STATE // 2, 512, "slow_decay", re_a=-1e-4,
+       dt=0.1)
     k5_out = k5(2, S4["d_model"], S4_STATE, 512, "s4_1d")
     k5(2, 9, 8, 40, "ragged")
+    # an odd number of channels: a block a row, no pair of channels
+    k5(3, 9, 8, 40, "ragged_3ch")
     return k4_out, k5_out
 
 

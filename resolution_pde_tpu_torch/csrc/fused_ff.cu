@@ -35,7 +35,8 @@
 // row-major (the packing K1b's dh products read), so a slice row is
 // contiguous and the copies read whole 128-byte lines; B is read from the
 // stage with ldmatrix.trans. A warp owns one warp tile of a layer's output
-// (64 x 32 for the wide layers, 32 x 16 for narrow ones; a layer wider
+// (64 x 32 for the wide layers, 32 x 16 for narrow ones, 16 x 16 in the
+// 16-row tiles of chains too wide for 32 rows of the buffers; a layer wider
 // than a pass of the block's tiles takes several passes) and keeps its
 // f32 sums in registers across the slices (warp_tile_accumulate). The
 // epilogue adds the bias, applies the tanh GELU inline in its sigmoid form
@@ -102,8 +103,11 @@ constexpr int kFwdWarps = 8;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 // warp tiles of the bf16 products: wide ones (64 x 32) for the wide
 // layers, narrow ones (32 x 16) that give the 8 warps a tile each of a
-// 64 x 64 output
-constexpr int kWideM = 4, kWideN = 4, kNarrowM = 2, kNarrowN = 2;
+// 64 x 64 output, and thin ones (16 x 16) for the least tile, 16 rows:
+// the tile of chains whose two 32-row activation buffers do not fit
+// beside the ring (the factor-4 chain at width 512 needs 16 rows)
+constexpr int kWideM = 4, kWideN = 4, kNarrowM = 2, kNarrowN = 2, kThinM = 1;
+constexpr int kMinTileRows = 16 * kThinM;
 // the most shared memory a block may take
 constexpr int kMaxSmem = 232448;
 
@@ -662,9 +666,11 @@ __device__ __forceinline__ void finish_tile(const FFParams& p, const IO* __restr
   }
 }
 
-// kSave as for the f32 kernel. Two blocks an SM where the shared memory
-// allows (128 registers a thread).
-template <typename IO, bool kSave>
+// kSave as for the f32 kernel; kThin: a 16-row tile, whose narrow layers
+// take the thin warp tiles, compiled in only for the chains that need it,
+// so that every other chain's kernel is the one without it. Two blocks an
+// SM where the shared memory allows (128 registers a thread).
+template <typename IO, bool kSave, bool kThin>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 fused_ff_fwd_mma_kernel(const IO* __restrict__ x, const IO* __restrict__ residual,
                         IO* __restrict__ out, bf16* __restrict__ zs, const bf16* __restrict__ w,
@@ -681,8 +687,8 @@ fused_ff_fwd_mma_kernel(const IO* __restrict__ x, const IO* __restrict__ residua
         layer_pass<kWideM, kWideN, kSave>(p, l, n_base, w, b, zs, residual, n_rows, ws, slice,
                                           ph);
       else
-        layer_pass<kNarrowM, kNarrowN, kSave>(p, l, n_base, w, b, zs, residual, n_rows, ws,
-                                              slice, ph);
+        layer_pass<kThin ? kThinM : kNarrowM, kNarrowN, kSave>(p, l, n_base, w, b, zs, residual,
+                                                               n_rows, ws, slice, ph);
     }
   }
   // the residual's copies too (empty groups are all that may be left)
@@ -849,8 +855,13 @@ cudaError_t launch(const void* x, const void* residual, void* out, void* zs, con
   constexpr bool kBf16 = std::is_same<CD, bf16>::value;
   const bool chunks = pad4(p.max_dim) > kF32ChunkCols;
   auto kernel = [&]() {
-    if constexpr (kBf16)
-      return zs != nullptr ? fused_ff_fwd_mma_kernel<IO, true> : fused_ff_fwd_mma_kernel<IO, false>;
+    if constexpr (kBf16) {
+      if (p.tile_rows < 16 * kNarrowM)
+        return zs != nullptr ? fused_ff_fwd_mma_kernel<IO, true, true>
+                             : fused_ff_fwd_mma_kernel<IO, false, true>;
+      return zs != nullptr ? fused_ff_fwd_mma_kernel<IO, true, false>
+                           : fused_ff_fwd_mma_kernel<IO, false, false>;
+    }
     else if (route == kRouteF32Tiles && chunks)
       return zs != nullptr ? fused_ff_fwd_f32_kernel<IO, true, true>
                            : fused_ff_fwd_f32_kernel<IO, false, true>;
@@ -874,9 +885,12 @@ cudaError_t launch(const void* x, const void* residual, void* out, void* zs, con
 // Fills the layout of p from its widths: offsets, the tile of rows and, in
 // bf16, the buffers, the ring, the residual tile (io_size bytes an
 // element) and each layer's warp tiles; the dynamic shared memory in smem.
-// Returns the route (FwdRoute): in f32 the f32_tile_gemm kernel wherever
-// 8 rows of both its buffers fit beside the ring, else fused_ff_fwd_kernel;
-// kNoRoute if no tile fits.
+// Returns the route (FwdRoute): in bf16 the tensor-core kernel with the
+// tallest tile of 64, 32 or 16 rows that fits; in f32 the f32_tile_gemm
+// kernel wherever 8 rows of both its buffers fit beside the ring, else
+// fused_ff_fwd_kernel; kNoRoute if no tile fits. The launcher's Python
+// mirror (forward_tile_rows, ops/kernels/fused_ff.py) refuses such a chain
+// before any launch.
 int plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& smem) {
   const int L = p.n_layers;
   long long w_off = 0;
@@ -926,15 +940,17 @@ int plan(FFParams& p, bool bf16_cd, size_t io_size, bool has_residual, size_t& s
   // conflicts in the epilogue's stores
   p.h_ld = pad16(p.max_dim) + 8;
   p.z_ld = pad16(c_out) + 8;
-  for (int tr = kMaxTileRows; tr >= 16 * kNarrowM; tr /= 2) {
+  for (int tr = kMaxTileRows; tr >= kMinTileRows; tr /= 2) {
     int stage_rows = 0;  // columns of the widest pass
+    // the narrow tiles' height: 32 rows, or 16 in a 16-row tile
+    const int mt = tr >= 16 * kNarrowM ? kNarrowM : kThinM;
     for (int l = 0; l < L; ++l) {
       const int np = pad16(p.dims[l + 1]);
       // wide tiles for a layer that fills a pass of them (a warp a tile
-      // across the columns), else narrow ones, tr / (16 kNarrowM) down
+      // across the columns), else narrow (or thin) ones, tr / (16 mt) down
       p.wide[l] = tr == 64 && np >= kFwdWarps * 8 * kWideN;
       p.pass_cols[l] = p.wide[l] ? kFwdWarps * 8 * kWideN
-                                 : kFwdWarps / (tr / (16 * kNarrowM)) * 8 * kNarrowN;
+                                 : kFwdWarps / (tr / (16 * mt)) * 8 * kNarrowN;
       stage_rows = std::max(stage_rows, std::min(p.pass_cols[l], np));
     }
     // a buffer holds a tile of bf16 activations, or the last layer's f32

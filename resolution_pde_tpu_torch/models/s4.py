@@ -198,20 +198,24 @@ class S4DKernelLayer(nn.Module):
                   else -ssm_ops.param_transform(self.A_imag,
                                                 self.imag_transform))
             A = torch.complex(a_real, im)                 # (S, N/2)
-            C = torch.complex(self.C[..., 0], self.C[..., 1])
+            C = torch.view_as_complex(self.C)             # no copy
         if A.shape[0] != h:
             # tying tiles the copies: feature h uses copy h mod S
             A = A.tile(h // A.shape[0], 1)
-        inv_dt = torch.sinh(self.log_dt) if self.dt_fast else self.log_dt
-        dt = ssm_ops.param_transform(inv_dt, self.dt_transform)
         if self.bandlimit is not None:
+            dt = self._step()
             dt_b = dt[:, None] if dt.ndim == 1 else dt
             freqs = dt_b * A.imag.abs() / (2.0 * math.pi)
             C = C * (freqs < self.bandlimit * 0.5).to(C.real.dtype)
         if self.kernel_impl == "pallas":
-            # channels fold into the kernel's rows: one launch in all
+            # channels fold into the kernel's rows, which read A and log_dt
+            # at row mod H: one launch in all, dt formed in it
             return s4d_kernel_pallas(C, A, self.log_dt, L)
-        return ssm_ops.S4D_KERNELS[self.disc](C, A, None, L, dt=dt)
+        return ssm_ops.S4D_KERNELS[self.disc](C, A, None, L, dt=self._step())
+
+    def _step(self) -> torch.Tensor:
+        inv_dt = torch.sinh(self.log_dt) if self.dt_fast else self.log_dt
+        return ssm_ops.param_transform(inv_dt, self.dt_transform)
 
 
 class DPLRKernelLayer(nn.Module):
@@ -293,33 +297,36 @@ class DPLRKernelLayer(nn.Module):
         lam_re = ssm_ops.param_transform(self.Lambda_log_neg_re,
                                          self.real_transform)
         Lambda = torch.complex(-lam_re, self.Lambda_im)       # (S, N)
-        P = torch.complex(self.P_vec[..., 0], self.P_vec[..., 1])
-        B = torch.complex(self.B_vec[..., 0], self.B_vec[..., 1])
+        P = torch.view_as_complex(self.P_vec)                 # no copies
+        B = torch.view_as_complex(self.B_vec)
         if Lambda.shape[0] != h:
             # tied copies tile to the features: feature h uses copy h mod S
             rep = h // Lambda.shape[0]
             Lambda = Lambda.tile(rep, 1)
             B = B.tile(rep, 1)
             P = P.tile(rep, 1) if P.ndim == 2 else P.tile(1, rep, 1)
-        C = torch.complex(self.C[..., 0], self.C[..., 1])     # (ch, H, N)
+        C = torch.view_as_complex(self.C)                     # (ch, H, N)
+        if self.bandlimit is not None:
+            freqs = self._step() * Lambda.imag.abs() / (2.0 * math.pi)
+            C = C * (freqs < self.bandlimit * 0.5).to(C.real.dtype)
+        if self.kernel_impl == "pallas":
+            # channels fold into the Cauchy rows, which read Lambda, P, B
+            # and log_dt at row mod H: one launch in all, dt formed in it
+            k = dplr_kernel_pallas(Lambda, P, B, C.reshape(ch * h, n),
+                                   self.log_dt, L)
+            return k.reshape(ch, h, L)
+        if P.ndim == 3:
+            P = P.movedim(0, 1)                                # (H, R, N)
+        return ssm_ops.dplr_kernel(Lambda, P, B, C, None, L, dt=self._step())
+
+    def _step(self) -> torch.Tensor:
+        """dt, (H, 1) or (H, N): one per feature, or per state with the
+        per-pair dt_tie=False halves repeated."""
         inv_dt = torch.sinh(self.log_dt) if self.dt_fast else self.log_dt
         dt = ssm_ops.param_transform(inv_dt, self.dt_transform)
         if not self.dt_tie:
             dt = torch.cat([dt, dt], dim=-1)  # per pair -> both halves
-        dt_b = dt[:, None] if dt.ndim == 1 else dt             # (H, 1|N)
-        if self.bandlimit is not None:
-            freqs = dt_b * Lambda.imag.abs() / (2.0 * math.pi)
-            C = C * (freqs < self.bandlimit * 0.5).to(C.real.dtype)
-        if self.kernel_impl == "pallas":
-            # channels fold into the Cauchy rows: one launch in all
-            tile = lambda z: torch.cat([z] * ch, dim=0)  # noqa: E731
-            k = dplr_kernel_pallas(tile(Lambda), tile(P), tile(B),
-                                   C.reshape(ch * h, n),
-                                   tile(self.log_dt), L)
-            return k.reshape(ch, h, L)
-        if P.ndim == 3:
-            P = P.movedim(0, 1)                                # (H, R, N)
-        return ssm_ops.dplr_kernel(Lambda, P, B, C, None, L, dt=dt_b)
+        return dt[:, None] if dt.ndim == 1 else dt
 
 
 class FFTConvLayer(nn.Module):

@@ -24,6 +24,7 @@ and it never differentiates the plain forward with autograd.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -294,6 +295,80 @@ def backward_tile_rows(dims, has_ln: bool, compute_dtype) -> int:
     return tr
 
 
+# The forward kernel's planner (``plan``, csrc/fused_ff.cu): the bf16
+# kernel's warps, the widths of its wide warp tiles' passes, its weight
+# ring (stages of 32 contraction rows), and the f32 kernels' threads and
+# the older f32 kernel's shared-memory budget (``kSmemBudget``).
+_FWD_WARPS = 8
+_FWD_WIDE_COLS = 256
+_FWD_RING_STAGES, _FWD_SLICE_ROWS = 2, 32
+_F32_FWD_THREADS = 512
+_F32_WIDE_SMEM = 200 * 1024
+
+
+def forward_tile_rows(dims, has_ln: bool, has_residual: bool,
+                      compute_dtype, io_dtype) -> tuple:
+    """The forward kernel's route and tile rows for the chain ``dims``, as
+    its planner picks them: ``("mma", rows)`` for bf16 products (the
+    tallest of 64, 32 and 16 rows whose two activation buffers, each also
+    holding the last layer's f32 sums and the residual tile, fit beside
+    the weight ring), ``("f32_tiles", rows)`` for f32 products on
+    f32_tile_gemm (64 down to 8 rows, its buffers beside its ring) and
+    ``("f32_wide", rows)`` for f32 chains too wide for that. The plan does
+    not depend on ``has_ln``; it is taken for the same signature as
+    ``backward_tile_rows``. Raises ValueError, naming the widths and the
+    bytes, where no tile fits: bf16 factor-4 chains from width 837 (833
+    with f32 x, residual and output)."""
+    del has_ln  # LayerNorm runs on the buffers the plan already holds
+    dims = list(dims)
+    c_out, widest = dims[-1], max(dims)
+    if compute_dtype == torch.bfloat16:
+        io_size = torch.finfo(io_dtype).bits // 8
+        h_ld, z_ld = _pad(widest, 16) + 8, _pad(c_out, 16) + 8
+        for tr in (64, 32, 16):
+            mt = 2 if tr >= 32 else 1   # narrow warp tiles' fragments high
+            stage_rows = 0
+            for np_ in (_pad(d, 16) for d in dims[1:]):
+                wide = tr == 64 and np_ >= _FWD_WIDE_COLS
+                cols = (_FWD_WIDE_COLS if wide
+                        else _FWD_WARPS // (tr // (16 * mt)) * 16)
+                stage_rows = max(stage_rows, min(cols, np_))
+            z_bytes = tr * z_ld * 4
+            res = tr * c_out * io_size if has_residual else 0
+            buf = _pad(max(tr * h_ld * 2, z_bytes + res), 16)
+            ring = (_FWD_RING_STAGES * _FWD_SLICE_ROWS * (stage_rows + 8)
+                    * 2)
+            if 2 * buf + ring <= _SMEM_BYTES:
+                return "mma", tr
+        raise ValueError(
+            f"fused_feedforward forward (bf16): widths {dims} need two "
+            f"16-row activation buffers of {buf} bytes beside a {ring}-byte "
+            f"weight ring, {2 * buf + ring} bytes of shared memory; a block "
+            f"has {_SMEM_BYTES}")
+    wp = _pad(widest, 4)
+    h_ld = (wp + 27) // 32 * 32 + 4
+    ring = _f32_ring_floats(wp, _F32_FWD_THREADS) * 4
+    for tr in (64, 32, 16, 8):
+        threads = (-(-min(wp, _F32_CHUNK_COLS) // 32) * (-(-tr // 8)) * 8)
+        if (2 * tr * h_ld * 4 + ring <= _SMEM_BYTES
+                and threads <= _F32_FWD_THREADS):
+            return "f32_tiles", tr
+    tr = 64
+    while tr >= 1:
+        if (2 * tr * widest + tr * c_out) * 4 <= _F32_WIDE_SMEM:
+            return "f32_wide", tr
+        tr //= 2
+    raise ValueError(
+        f"fused_feedforward forward (f32): widths {dims} need "
+        f"{(2 * widest + c_out) * 4} bytes of shared memory a row; the "
+        f"kernel has {_F32_WIDE_SMEM}")
+
+
+# the launcher's planner, once a chain: dims as a tuple, the rest as
+# forward_tile_rows takes them (a chain it refuses raises every time)
+_forward_plan = functools.lru_cache(maxsize=None)(forward_tile_rows)
+
+
 def _backward_weights(kernels, cd) -> tuple:
     """The packings the backward kernel reads, ``(w, wt)``: the (in, out)
     kernels and their transposes, each zero-padded to multiples of 16 in
@@ -325,6 +400,8 @@ def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
         zs = torch.empty((n, width), dtype=cd, device=x.device)
     if n == 0:
         return out, zs
+    _forward_plan(tuple(dims), ln is not None, residual is not None, cd,
+                  x.dtype)
     w = _forward_weights(kernels, cd)
     b = torch.cat([t.float().reshape(-1) for t in biases])
     ln_s = ln[0].float().contiguous() if ln is not None else None

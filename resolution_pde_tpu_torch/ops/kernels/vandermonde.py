@@ -1,5 +1,5 @@
 """S4D kernel materialization (the log-Vandermonde reduction): the
-hand-written CUDA kernel and its plain version.
+hand-written CUDA kernel and its plain versions.
 
 Counterpart of resolution_pde_tpu/ops/pallas/vandermonde.py
 ``s4d_kernel_pallas``. Per row r (a kernel channel folded with a feature)
@@ -8,16 +8,18 @@ and position l:
     K[r, l] = 2 sum_n (C'r[r, n] Re e^{dtA[r, n] l}
                        - C'i[r, n] Im e^{dtA[r, n] l})
 
-on f32 real and imaginary planes, with C' = C (e^{dtA} - 1)/A computed in
-torch. The kernel is ``csrc/vandermonde.cu``: one thread per (row, l), the
-row's parameters staged in shared memory, ragged edges masked, so the JAX
-wrapper's padding has no counterpart. Channels fold into rows: one launch
-for all channels.
+with dtA = A e^{log_dt} and C' = C (e^{dtA} - 1)/A. The kernel is
+``csrc/vandermonde.cu``, with two entries on one kernel body:
+``s4d_kernel_pallas`` (the model's route) hands it C, A and log_dt as they
+are and the kernel forms dtA and C' itself, row r reading A and log_dt at
+r mod H, so one launch does all of the JAX wrapper's work;
+``vandermonde`` hands it the f32 planes (ar, ai, cr, ci). Channels fold
+into rows: one launch for all channels.
 
 Forward only, as in the JAX package, which has no backward for this
-kernel: ``Vandermonde.backward`` raises, and training takes the layers'
-``kernel_impl='jnp'`` route. ``vandermonde`` runs the plain version for a
-tensor on the CPU and launches the kernel for a CUDA tensor; it never falls
+kernel: both autograd nodes' backward raises, and training takes the
+layers' ``kernel_impl='jnp'`` route. The entries run the plain version for
+tensors on the CPU and launch the kernel for CUDA tensors; they never fall
 back from one to the other.
 """
 
@@ -111,10 +113,68 @@ def s4d_operands(C, A, log_dt):
             c_scaled.real.reshape(rows, n), c_scaled.imag.reshape(rows, n))
 
 
-def s4d_kernel_pallas(C, A, log_dt, L: int) -> torch.Tensor:
-    """The S4D ZOH kernel through the reduction kernel (the JAX wrapper's
-    semantics). C: (H, N) or (CH, H, N) complex; A: (H, N) complex;
-    log_dt: (H,). Returns (H, L) / (CH, H, L) f32; a multi-channel C folds
-    its channels into the rows of one launch."""
-    out = vandermonde(*s4d_operands(C, A, log_dt), L)
+def s4d_kernel_reference(C, A, log_dt, L: int) -> torch.Tensor:
+    """Plain PyTorch version of ``s4d_kernel_pallas``: ``s4d_operands``,
+    then ``vandermonde_reference``. Returns (H, L) / (CH, H, L) f32."""
+    out = vandermonde_reference(*s4d_operands(C, A, log_dt), L)
     return out.reshape(*C.shape[:-1], L)
+
+
+def _launch_fused(C, A, log_dt, L: int) -> torch.Tensor:
+    h, n = A.shape
+    rows = C.numel() // n
+    out = torch.empty((*C.shape[:-1], L), dtype=torch.float32,
+                      device=C.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(C.device):
+        err = _build.library().rpde_s4d_kernel(
+            C.data_ptr(), A.data_ptr(), log_dt.data_ptr(), out.data_ptr(),
+            rows, h, n, L, torch.cuda.current_stream(C.device).cuda_stream)
+    _build.check(err, "rpde_s4d_kernel")
+    return out
+
+
+class S4DKernel(torch.autograd.Function):
+    """``s4d_kernel_pallas`` as an autograd node whose backward raises, as
+    ``Vandermonde``'s does."""
+
+    @staticmethod
+    def forward(ctx, C, A, log_dt, L):
+        global launches
+        if C.device.type == "cpu":
+            return s4d_kernel_reference(C, A, log_dt, L)
+        out = _launch_fused(C, A, log_dt, L)
+        launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the S4D Vandermonde kernel is forward-only: the JAX package "
+            "has no backward for it; train through kernel_impl='jnp'")
+
+
+def s4d_kernel_pallas(C, A, log_dt, L: int) -> torch.Tensor:
+    """The S4D ZOH kernel in one launch of the reduction kernel (the JAX
+    wrapper's semantics). C: (H, N) or (CH, H, N) complex; A: (H, N)
+    complex; log_dt: (H,). Returns (H, L) / (CH, H, L) f32; a
+    multi-channel C folds its channels into the rows, which read A and
+    log_dt at row mod H."""
+    dev = C.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"s4d_kernel_pallas runs on cpu or cuda, not {dev}")
+    C = C.to(torch.complex64).contiguous()
+    A = A.to(torch.complex64).contiguous()
+    log_dt = log_dt.to(torch.float32).contiguous()
+    h, n = A.shape if A.dim() == 2 else (-1, -1)
+    if (C.dim() not in (2, 3) or C.shape[-2:] != (h, n)
+            or log_dt.shape != (h,) or n < 1
+            or A.device != dev or log_dt.device != dev):
+        raise ValueError(
+            "s4d_kernel_pallas: C (H, N) or (CH, H, N), A (H, N) and "
+            "log_dt (H,) on one device, got "
+            f"{[tuple(t.shape) for t in (C, A, log_dt)]}")
+    if L < 1:
+        raise ValueError(f"s4d_kernel_pallas: L must be >= 1, got {L}")
+    return S4DKernel.apply(C, A, log_dt, int(L))

@@ -351,9 +351,11 @@ def roots_of_unity(L: int, device=None) -> torch.Tensor:
     root at l = L/2 keeps 1 + omega = i * 8.7e-8 (sin of the f32 pi), not
     the ~1e-16 that a float64 angle leaves, so the bilinear transform
     2(1 - omega)/(1 + omega) stays within f32 range."""
+    # torch.full, not torch.tensor: no copy from the host, so the plain
+    # versions built on it can be captured in a CUDA graph
     ang = (torch.arange(L, dtype=torch.float32, device=device)
-           * torch.tensor(-2.0 * math.pi, dtype=torch.float32,
-                          device=device)) / L
+           * torch.full((), -2.0 * math.pi, dtype=torch.float32,
+                        device=device)) / L
     return torch.complex(torch.cos(ang), torch.sin(ang))
 
 

@@ -2,6 +2,7 @@
 """Device time of the fused FeedForward forward (K1f) by phase, on one GPU.
 
     python3 scripts/torch_k1f_phases.py [--f32] [--out build/k1f_phases]
+    python3 scripts/torch_k1f_phases.py --sass DIR [--sass DIR ...]
 
 Builds csrc/fused_ff.cu alone twice, both nvcc runs started together, with
 ``-Xptxas -v``: as the library builds it (the kernel's registers, stack
@@ -13,7 +14,14 @@ copies; the products; the epilogues; the LayerNorm and the stores. With
 ``--f32`` the f32-exact mode (its kernel on f32_tile_gemm): the x tile and
 the first copies; the first layer; the layers between; the last layer;
 the LayerNorm and the stores (each layer its products, epilogue and the
-waits in them). Runs both at the train shape of chip_smoke.py (8 x 256² =
+waits in them). With ``--sass DIR`` (repeatable) instead: builds the
+csrc/fused_ff.cu of the checkout in each DIR alone, all at once, and
+prints its planner's route and tile rows (bf16, x and out in bf16, with
+the residual) for the bench chain, width 128's and the factor-4 chains at
+320 and 512, and for each bf16 forward kernel its SASS instructions'
+count and the first 16 hex digits of the SHA-1 of their text (addresses
+and encodings left out), so that two trees' plans and kernels are
+compared. Runs both at the train shape of chip_smoke.py (8 x 256² =
 524,288 rows, 64 -> 256 -> 256 -> 64, LayerNorm, residual, tanh GELU, x
 and out in the compute type; random inputs from seed 0), each checked
 against the plain forward (relative L2, tolerance 1e-2 in bf16, where
@@ -29,6 +37,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import re
 import statistics
 import subprocess
 import sys
@@ -47,7 +57,7 @@ MODES = {
         phases=["first_copies_and_x", "wait_for_slice", "start_copies",
                 "products", "epilogues", "layernorm_and_stores"],
         ptxas=lambda line: ("fused_ff_fwd_mma_kernel" in line
-                            and "I13__nv_bfloat16Lb0E" in line)),
+                            and "I13__nv_bfloat16Lb0ELb0E" in line)),
     "f32": dict(
         dtype=torch.float32, tol=1e-4, counters="rpde_k1f_f32_phase_cycles",
         phases=["x_and_first_copies", "first_layer", "middle_layers",
@@ -77,12 +87,59 @@ def _rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def print_sass(roots: list, out: Path) -> None:
+    """Each checkout's csrc/fused_ff.cu: its planner's plan of a few bf16
+    chains, and its bf16 forward kernels' SASS instructions' count and
+    text hash (``--sass``)."""
+    from resolution_pde_tpu_torch.ops.kernels import _build
+
+    nvcc = _build._nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, root in enumerate(roots):
+        so = out / f"fused_ff_{i}.so"
+        src = Path(root) / "resolution_pde_tpu_torch" / "csrc" / "fused_ff.cu"
+        procs.append((root, so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for root, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {root}:\n{log}")
+        route = ctypes.CDLL(str(so)).rpde_fused_ff_forward_route
+        route.argtypes = _build._SIGNATURES["rpde_fused_ff_forward_route"]
+        for w in (64, 128, 320, 512):
+            dims = [w, 4 * w, 4 * w, w]
+            rows = (ctypes.c_int * 1)()
+            got = route(1, 1, 1, (ctypes.c_int * 4)(*dims), 3, rows)
+            print(f"{root}: plan {'->'.join(map(str, dims))} bf16: route "
+                  f"{got}, tile rows {rows[0]}", flush=True)
+        dump = subprocess.run(
+            [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(so)],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        for part in dump.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if "fused_ff_fwd_mma_kernel" not in name:
+                continue
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+            digest = hashlib.sha1("\n".join(i.strip() for i in ins).encode())
+            args = name.split("fused_ff_fwd_mma_kernel", 1)[1].split("EEv")[0]
+            print(f"{root}: sass fused_ff_fwd_mma_kernel{args}: {len(ins)} "
+                  f"instructions, sha1 {digest.hexdigest()[:16]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k1f_phases")
     ap.add_argument("--f32", action="store_true",
                     help="the f32-exact mode instead of bf16")
+    ap.add_argument("--sass", action="append", default=[],
+                    help="a checkout whose bf16 forward kernels' SASS to "
+                    "print instead (repeatable)")
     args = ap.parse_args()
+    if args.sass:
+        print_sass(args.sass, Path(args.out) / "sass")
+        return 0
     mode = "f32" if args.f32 else "bf16"
     spec = MODES[mode]
     if not torch.cuda.is_available():

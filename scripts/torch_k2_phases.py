@@ -9,6 +9,7 @@ package of another tree.
     python3 scripts/torch_k2_phases.py --wide [--out build/k2_phases]
     python3 scripts/torch_k2_phases.py --wide-root DIR [--wide-root DIR ...]
     python3 scripts/torch_k2_phases.py --e2e-root DIR [--e2e-root DIR ...]
+    python3 scripts/torch_k2_phases.py --predict-root DIR [...]
 
 Builds csrc/spectral_mix.cu alone several times, all nvcc runs started
 together, with ``-Xptxas -v`` (each build's registers, stack and spills
@@ -64,8 +65,10 @@ f32-exact train steps at 8 x 256² (after 2), the median of 10 bf16 train
 steps there (after 3) and of 10 bf16 predicts of 8, bench.py's width,
 and the median of 5 bf16 train steps (after 2) and of 5 predicts of 5 at
 width 128, random weights from seed 0; one JSON line each, so that two
-trees are compared in one call. Prints the card's name and power limit
-first. Needs CUDA and nvcc.
+trees are compared in one call. ``--predict-root DIR`` (repeatable) times
+only the bf16 predict there, the median of 30 in a process each, beside
+the host time a call of the K1f launcher's planner mirror. Prints the
+card's name and power limit first. Needs CUDA and nvcc.
 """
 
 from __future__ import annotations
@@ -719,6 +722,58 @@ print(json.dumps(dict(root={str(root)!r},
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def predict_root(root: Path) -> dict:
+    """The bf16 FFNO2D predict at 8 x 256² (bench.py's width, random
+    weights from seed 0) through the package in ``root``, in a process of
+    its own: the median of 30 predicts after 3, and the host time a call
+    of the K1f launcher's planner mirror on that chain, as the launcher
+    calls it and uncached, where the package has them."""
+    code = f"""
+import json, statistics, sys, time
+import numpy as np, torch
+sys.path.insert(0, {str(root)!r})
+from resolution_pde_tpu_torch.deploy import ServingEngine
+from resolution_pde_tpu_torch.models import FFNO2D
+from resolution_pde_tpu_torch.ops.kernels import fused_ff
+import resolution_pde_tpu_torch
+model = FFNO2D(in_channels=1, out_channels=1, width=64, n_layers=4,
+               n_modes=64, factor=4, ff_weight_norm=True, n_ff_layers=3,
+               layer_norm=True, dropout=0.0, compute_dtype=torch.bfloat16,
+               spectral_impl="pallas2", approx_gelu=True, ff_impl="fused",
+               device="cuda", generator=torch.Generator().manual_seed(0))
+x = np.random.default_rng(0).standard_normal((8, 1, 256, 256)).astype(
+    np.float32)
+eng = ServingEngine(model, device="cuda")
+eng.warmup(spatial_shapes=[(256, 256)], batch_sizes=[8])
+times = []
+for i in range(33):
+    t = time.perf_counter()
+    eng.predict(x)
+    if i >= 3:
+        times.append((time.perf_counter() - t) * 1e3)
+planner = {{}}
+chain = ((64, 256, 256, 64), True, True, torch.bfloat16, torch.float32)
+for name in ("forward_tile_rows", "_forward_plan"):
+    fn = getattr(fused_ff, name, None)
+    if fn is not None:
+        t = time.perf_counter()
+        for _ in range(10000):
+            fn(*chain)
+        planner[name + "_us"] = (time.perf_counter() - t) * 1e2
+print(json.dumps(dict(root={str(root)!r},
+                      package=resolution_pde_tpu_torch.__file__,
+                      bf16_predict_ms=statistics.median(times),
+                      bf16_predict_min_ms=min(times),
+                      bf16_predict_max_ms=max(times), **planner)))
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=1200, cwd=str(root))
+    if res.returncode != 0:
+        raise RuntimeError(f"predict at {root} failed:\n{res.stdout}\n"
+                           f"{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k2_phases")
@@ -726,16 +781,18 @@ def main() -> int:
                     help="the bf16 staged route by stage and by design")
     ap.add_argument("--wide-root", action="append", default=[])
     ap.add_argument("--e2e-root", action="append", default=[])
+    ap.add_argument("--predict-root", action="append", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k2_phases: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     print(_smi(), flush=True)
-    if args.e2e_root:
-        for root in args.e2e_root:
+    if args.e2e_root or args.predict_root:
+        for root in args.e2e_root or args.predict_root:
             t0 = time.perf_counter()
-            rec = e2e(Path(root).resolve())
+            rec = (e2e if args.e2e_root else predict_root)(
+                Path(root).resolve())
             rec["seconds"] = round(time.perf_counter() - t0, 1)
             print(json.dumps(rec), flush=True)
         return 0

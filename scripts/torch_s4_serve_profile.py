@@ -3,6 +3,7 @@
 
     python3 scripts/torch_s4_serve_profile.py [--requests 10] [--length 512]
                                               [--out build/profile]
+                                              [--root DIR ...]
 
 Serves S4Model at the width of configs/model/s4_1d.yaml (mode dplr, the
 Cauchy kernel K5) and s4d_1d.yaml (mode diag, the Vandermonde kernel K4),
@@ -10,15 +11,24 @@ random weights from seed 0, on the kernels' route (kernel_impl 'pallas')
 behind ServingEngine, warmed at batch 16 x ``--length``; then records
 ``--requests`` back-to-back predict requests of batch 16 with
 torch.profiler (CPU + CUDA activities). Prints the card's name and power
-limit and, per model: the host time per predict, the device span per
-predict, the busy and idle shares of that span, launches per predict, and
-device ms per predict by kind:
+limit and, per model: the median host time of 10 predicts of batch 16 at
+L = 128, 256 and 512 (after 3), and from the profile the host time per
+predict, the device span per predict, the busy and idle shares of that
+span, launches per predict, and device ms per predict by kind:
   K5       cauchy_kernel
   K4       vandermonde_kernel
   fft      cuFFT kernels (the DPLR kernel's inverse FFT, the FFT conv)
   other    every other kernel (complex algebra, GEMMs, GELU, GLU, copies)
 The chrome traces go to ``--out``/s4_<mode>_predict_trace.json and the
 summary, as JSON, to ``--out``/s4_predict_profile.json. Needs CUDA.
+
+With ``--root DIR`` (repeatable), the same for the package in each DIR (a
+checkout of this repository, whose kernels build into DIR/build), each in
+a process of its own, in the order given, one JSON line each: unpack the
+parent commit's ``resolution_pde_tpu_torch`` into ``build/parent`` (``git
+archive <parent> resolution_pde_tpu_torch | tar -x -C build/parent``) and
+pass ``--root build/parent --root . --root . --root build/parent`` to
+compare the two trees in one call.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -34,12 +45,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
 
 # configs/model/s4_1d.yaml / s4d_1d.yaml; configs/training/default.yaml
 S4 = dict(d_input=15, d_output=1, d_model=64, n_layers=4, dropout=0.2,
           prenorm=False)
 BATCH = 16
+LENGTHS = (128, 256, 512)   # configs/dataset/ks_s4.yaml resolutions
 
 
 def _kind(name: str) -> str:
@@ -73,10 +85,20 @@ def profile(mode: str, length: int, requests: int, out: str) -> dict:
     model = S4Model(**S4, mode=mode, kernel_impl="pallas", device="cuda",
                     generator=torch.Generator().manual_seed(0))
     eng = ServingEngine(model, device="cuda")
-    eng.warmup(spatial_shapes=[length], batch_sizes=[BATCH],
-               in_channels=S4["d_input"])
-    x = np.random.default_rng(0).standard_normal(
-        (BATCH, S4["d_input"], length)).astype(np.float32)
+    eng.warmup(spatial_shapes=sorted({*LENGTHS, length}),
+               batch_sizes=[BATCH], in_channels=S4["d_input"])
+    rng = np.random.default_rng(0)
+    medians = {}
+    for n in LENGTHS:
+        xn = rng.standard_normal((BATCH, S4["d_input"], n)).astype(np.float32)
+        times = []
+        for i in range(13):
+            t0 = time.perf_counter()
+            eng.predict(xn)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        medians[str(n)] = statistics.median(times)
+    x = rng.standard_normal((BATCH, S4["d_input"], length)).astype(np.float32)
     for _ in range(3):
         eng.predict(x)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -100,7 +122,8 @@ def profile(mode: str, length: int, requests: int, out: str) -> dict:
         kinds[_kind(e.name)] += e.time_range.elapsed_us()
     n = requests
     return {
-        "mode": mode, "batch": BATCH, "length": length, "requests": n,
+        "mode": mode, "batch": BATCH, "median_ms": medians,
+        "length": length, "requests": n,
         "host_ms_per_predict": host_ms,
         "span_ms_per_predict": (end - start) / 1e3 / n,
         "busy_ms_per_predict": busy / 1e3 / n,
@@ -115,6 +138,10 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--length", type=int, default=512)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--root", action="append", default=[],
+                    help="time the package in this checkout instead, in a "
+                    "process of its own (repeatable)")
+    ap.add_argument("--package", default=str(ROOT), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_s4_serve_profile: CUDA is not available",
@@ -127,8 +154,25 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.root:
+        for i, root in enumerate(args.root):
+            res = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--package",
+                 str(Path(root).resolve()), "--requests", str(args.requests),
+                 "--length", str(args.length),
+                 "--out", os.path.join(args.out, f"root{i}")],
+                capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                raise RuntimeError(f"{root} failed:\n{res.stdout}\n"
+                                   f"{res.stderr}")
+            rec = json.loads(res.stdout.strip().splitlines()[-1])
+            print(json.dumps({"root": root, **rec}), flush=True)
+        return 0
+    sys.path.insert(0, args.package)
     os.makedirs(args.out, exist_ok=True)
+    import resolution_pde_tpu_torch
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "package": resolution_pde_tpu_torch.__file__,
                "models": [profile(mode, args.length, args.requests, args.out)
                           for mode in ("dplr", "diag")]}
     with open(os.path.join(args.out, "s4_predict_profile.json"), "w") as f:

@@ -265,3 +265,50 @@ def test_wide_chain_320_f32_backward_matches_jax():
         for a, b in pairs:
             assert a.shape == b.shape
             assert _rel(a.numpy(), np.asarray(b)) <= 1e-5
+
+
+# The forward planner's plans by hand (csrc/fused_ff.cu ``plan``): bf16 rows
+# of pad16(widest) + 8 bf16 (h_ld), the last layer's f32 sums in rows of
+# pad16(c_out) + 8 (z_ld) followed by the residual tile in the same buffer,
+# two buffers, and a ring of 2 stages x 32 rows x (the widest pass + 8)
+# bf16; a block has 232,448 bytes.
+# - 64 -> 256 -> 256 -> 64 (the bench chain), 64 rows: buffers of
+#   max(64 x 264 x 2, 64 x 72 x 4 + 64 x 64 x 2) = 33,792, ring of
+#   2 x 32 x 264 x 2 = 33,792 (wide passes of 256): 101,376 bytes.
+# - 128 -> 512 -> 512 -> 128, 64 rows: buffers of 64 x 520 x 2 = 66,560,
+#   the same ring: 166,912.
+# - 512 -> 2048 -> 2048 -> 512: 64 rows need 2 x 263,168 and 32 rows
+#   2 x 131,584 + 17,408; 16 rows (thin 16 x 16 warp tiles, passes of 128
+#   columns) 2 x 16 x 2056 x 2 + 2 x 32 x 136 x 2 = 148,992. In f32, rows
+#   of (2048 + 27) // 32 x 32 + 4 = 2052 floats and a ring of
+#   2 x 32 x 256 floats: 8 rows, 2 x 8 x 2052 x 4 + 65,536 = 196,864.
+# - 837 -> 3348 -> 3348 -> 837: 16 rows need 2 x 16 x 3368 x 2 + 17,408 =
+#   232,960 bytes; 836 -> 3344 needs 231,936 and fits.
+@pytest.mark.parametrize("dims,cd,io,plan", [
+    ([64, 256, 256, 64], torch.bfloat16, torch.bfloat16, ("mma", 64)),
+    ([64, 256, 256, 64], torch.float32, torch.float32, ("f32_tiles", 64)),
+    ([128, 512, 512, 128], torch.bfloat16, torch.bfloat16, ("mma", 64)),
+    ([512, 2048, 2048, 512], torch.bfloat16, torch.bfloat16, ("mma", 16)),
+    ([512, 2048, 2048, 512], torch.bfloat16, torch.float32, ("mma", 16)),
+    ([512, 2048, 2048, 512], torch.float32, torch.float32, ("f32_tiles", 8)),
+    ([836, 3344, 3344, 836], torch.bfloat16, torch.bfloat16, ("mma", 16)),
+    ([837, 3348, 3348, 837], torch.bfloat16, torch.bfloat16, None)],
+    ids=["bench-bf16", "bench-f32", "w128-bf16", "w512-bf16", "w512-bf16-f32io",
+         "w512-f32", "w836-bf16", "w837-bf16-raises"])
+def test_forward_tile_rows_by_hand(dims, cd, io, plan):
+    """The forward kernel's route and tile rows for the chains above, from
+    the launcher's mirror of its planner (chip_smoke.py holds the mirror to
+    the planner); a chain no tile fits raises a ValueError naming its
+    widths and bytes, before any launch, also from the launcher on
+    tensors of any device."""
+    if plan is not None:
+        assert fused_ff.forward_tile_rows(dims, True, True, cd, io) == plan
+        return
+    with pytest.raises(ValueError, match=r"837.*232960 bytes"):
+        fused_ff.forward_tile_rows(dims, True, True, cd, io)
+    ks = [torch.zeros(a, b) for a, b in zip(dims, dims[1:])]
+    bs = [torch.zeros(d) for d in dims[1:]]
+    x = torch.zeros(4, dims[0], dtype=io)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_ff.fused_feedforward_fwd(x, ks, bs, None, x.clone(),
+                                       compute_dtype=cd)

@@ -267,3 +267,110 @@ def test_kernel_wrappers_check_devices_and_shapes():
         cauchy.cauchy_sums(torch.zeros(3, 3, 5), torch.zeros(3, 3, 5),
                            torch.zeros(3, 5), torch.zeros(3, 5),
                            torch.zeros(3, 7), torch.zeros(3, 7))
+
+
+def test_fused_entries_read_rows_mod_h_as_jax_does(rng):
+    """The fused entries' plain versions (what the kernels' fused entries
+    are held to on the card) at 2 channels x 9 features and a ragged L 40,
+    each row reading its feature's parameters at row mod H: K4's against
+    the JAX s4d_kernel_pallas and against the plane entry on the same
+    operands; K5's against the JAX dplr_kernel_pallas on the parameters
+    tiled to the rows, and the values at the roots against the four sums
+    combined by hand. Relative L2 1e-5: the same f32 formulation on both
+    sides."""
+    ch, h, n, L = 2, 9, 8, 40
+    C, A, log_dt = _s4d_inputs(rng, h, n, ch)
+    got = vandermonde.s4d_kernel_pallas(t(C), t(A), t(log_dt), L).numpy()
+    want = np.asarray(jax_s4d_kernel_pallas(
+        jnp.asarray(C), jnp.asarray(A), jnp.asarray(log_dt), L,
+        interpret=True))
+    assert got.shape == (ch, h, L)
+    assert rel_l2(got, want) <= SAME
+    planes = vandermonde.s4d_operands(t(C), t(A), t(log_dt))
+    np.testing.assert_array_equal(
+        got.reshape(ch * h, L), vandermonde.vandermonde(*planes, L).numpy())
+
+    Lam, P, B, _, log_dt = _dplr_inputs(rng, h, n)
+    Ct = (rng.standard_normal((ch * h, n))
+          + 1j * rng.standard_normal((ch * h, n))).astype(np.complex64)
+    args = [t(a) for a in (Lam, P, B, Ct, log_dt)]
+    got = cauchy.dplr_kernel_pallas(*args, L).numpy()
+    tiled = [jnp.asarray(np.concatenate([a] * ch)) for a in
+             (Lam, P, B)] + [jnp.asarray(Ct),
+                             jnp.asarray(np.concatenate([log_dt] * ch))]
+    want = np.asarray(jax_dplr_kernel_pallas(*tiled, L, interpret=True))
+    assert got.shape == (ch * h, L) and np.isfinite(got).all()
+    assert rel_l2(got, want) <= SAME
+    v, g, c = cauchy.dplr_operands(*args, L)
+    k00, k01, k10, k11 = cauchy.cauchy_pallas(v, g, args[0].repeat(ch, 1))
+    by_hand = c * (k00 - k01 * (1.0 / (1.0 + k11)) * k10)
+    at_roots = cauchy.dplr_at_roots(*args, L)
+    assert at_roots.dtype == torch.complex64
+    np.testing.assert_array_equal(at_roots.numpy(), by_hand.numpy())
+
+
+def test_fused_entries_are_forward_only_and_check_shapes():
+    """A backward through either fused entry raises, as through the plane
+    entries; the CPU launches nothing; shapes the kernels do not take and
+    devices they do not run on are refused with a ValueError."""
+    start = (vandermonde.launches, cauchy.launches)
+    c_vec = torch.randn(2, 3, 4, 2, requires_grad=True)
+    a = torch.complex(-torch.rand(3, 4) - 0.5, torch.randn(3, 4))
+    out = vandermonde.s4d_kernel_pallas(torch.view_as_complex(c_vec), a,
+                                        torch.full((3,), -3.0), 10)
+    assert out.shape == (2, 3, 10) and out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+    lam = torch.complex(-torch.rand(3, 4) - 0.1, torch.randn(3, 4))
+    out = cauchy.dplr_kernel_pallas(lam, lam, lam,
+                                    torch.view_as_complex(c_vec).reshape(6, 4),
+                                    torch.full((3,), -3.0), 10)
+    assert out.shape == (6, 10)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+    assert (vandermonde.launches, cauchy.launches) == start == (0, 0)
+    with pytest.raises(ValueError, match=r"A \(H, N\)"):
+        vandermonde.s4d_kernel_pallas(torch.zeros(2, 3, 5, dtype=a.dtype), a,
+                                      torch.zeros(3), 10)
+    with pytest.raises(ValueError, match="channels x H"):
+        cauchy.dplr_at_roots(lam, lam, lam, torch.zeros(5, 4, dtype=a.dtype),
+                             torch.zeros(3), 10)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cauchy.dplr_at_roots(*(torch.zeros(3, 4, dtype=a.dtype,
+                                           device="meta"),) * 4,
+                             torch.zeros(3, device="meta"), 10)
+
+
+def test_at_roots_limit_separates_rounding_from_a_fault(rng):
+    """The elementwise hold on the values at the roots: evaluations that
+    differ from the plain version only in rounding (the states summed in
+    reverse order; the sums in float64) depart from it by at most
+    AT_ROOTS_LIMIT, in units of 2^-24 times the rounding's scale, beyond
+    rtol 2e-4 / atol 2e-5; one state's C~ off by 2^-10 departs by far
+    more. HiPPO-LegS at N = 64, L = 512 (the s4_1d layers' operands, whose
+    Woodbury combination cancels near some roots), 2 channels x 4
+    features."""
+    ch, h, n, L = 2, 4, 64, 512
+    lam, p, b, _ = ssm.make_dplr_hippo(n)
+    lam, p, b = (t(np.broadcast_to(z, (h, n)).astype(np.complex64))
+                 for z in (lam, p, b))
+    C = t(((rng.standard_normal((ch * h, n))
+            + 1j * rng.standard_normal((ch * h, n))) * 0.5 ** 0.5
+           ).astype(np.complex64))
+    log_dt = t(np.log(rng.uniform(1e-3, 1e-1, h)).astype(np.float32))
+    args = (lam, p, b, C, log_dt)
+    ref = cauchy.dplr_at_roots_reference(*args, L)
+    scale = cauchy.dplr_at_roots_scale(*args, L)
+    assert scale.shape == (ch * h, L) and bool((scale > 0).all())
+    reversed_states = cauchy.dplr_at_roots_reference(
+        *(a.flip(-1) for a in args[:4]), log_dt, L)
+    in_f64 = cauchy.dplr_at_roots_reference(
+        *(a.to(torch.complex128) for a in args[:4]), log_dt.double(),
+        L).to(torch.complex64)
+    faulty = C.clone()
+    faulty[:, n // 2] *= 1 + 2.0 ** -10
+    fault = cauchy.dplr_at_roots_reference(lam, p, b, faulty, log_dt, L)
+    limit = cauchy.AT_ROOTS_LIMIT
+    assert cauchy.at_roots_departure(reversed_states, ref, scale) <= limit
+    assert cauchy.at_roots_departure(in_f64, ref, scale) <= limit
+    assert cauchy.at_roots_departure(fault, ref, scale) > 25 * limit
