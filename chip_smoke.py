@@ -102,7 +102,28 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      batch 5) with each launching its kernel once per layer; one predict
      against the same weights on the CPU through the plain versions and
      against the jnp route on the GPU; backward() through the kernels'
-     route must raise.
+     route must raise;
+ 11. the torch.fft spectral conv (the yaml config's route) on the card
+     against the CPU at 128² and 256² with 64 modes, the FFT resize and
+     the port's irfft (whose DC and Nyquist bins are read as real); then
+     the flagship's
+     command line: main_2d's main(argv) with its override
+     strings, as a user runs it, in a temporary working directory, on a
+     synthetic vorticity file (32 x 20 frames at 256², from SEED; .h5
+     where h5py is installed, else .mat): run A, the yaml configs as
+     shipped (width 64, 4 layers, 64 modes, dropout 0.1, torch.fft, the
+     dense FeedForward, f32, batch 16), 2 epochs, launching no kernel; run
+     B, the same on bench.py's kernel route (dropout 0, bf16, 'pallas2',
+     'fused', tanh GELU), whose launches of K1f, K1b, K2 and its adjoint
+     are counted and must each be at least one; each run's loss must fall,
+     its test loss, sweep at {32, 64, 128, 256} and rollout there be
+     finite; run C warm-starts the plain f32 route from B's checkpoint
+     with 0 epochs, and the first test batch's predictions of B's and C's
+     restored models agree within relative L2 3e-2 at each resolution;
+     logged: the epochs' and the sweep's and rollout's seconds per
+     resolution, peak memory, each run's median step, the loader's host
+     ms a batch, and the device's idle share over one profiled epoch of
+     run B.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -123,6 +144,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1661,6 +1683,313 @@ def run_s4_slice() -> dict:
     return launched
 
 
+# the flagship's command line (resolution_pde_tpu/configs/model/ffno_2d.yaml
+# and dataset/ns_naive.yaml, training/default.yaml): a synthetic vorticity
+# file of NS_TRAJ trajectories x NS_FRAMES frames at NS_RES^2
+NS_TRAJ, NS_FRAMES, NS_RES, NS_MODES = 32, 20, 256, 16
+CLI_RESOLUTIONS = [32, 64, 128, 256]
+# bench.py:73-110's settings: the four bf16 kernels of the flagship
+KERNEL_ROUTE = ["model.dropout=0", "model.compute_dtype=bfloat16",
+                "model.spectral_impl=pallas2", "model.ff_impl=fused",
+                "model.approx_gelu=true"]
+
+
+def write_vorticity(folder: str) -> str:
+    """A synthetic stand-in for the NS vorticity file, not NS physics:
+    smooth random fields (Fourier modes |k| <= NS_MODES, from SEED)
+    advected by one constant velocity and diffused, evolved exactly in
+    Fourier space, so one frame to the next is one fixed linear map (a
+    per-mode phase and decay). Written as .h5 where h5py is installed,
+    else as a MATLAB .mat of u laid out (b, h, w, t), which read_ns reads
+    too. Returns the file name."""
+    import importlib.util
+
+    rng = np.random.default_rng(SEED)
+    n = NS_RES
+    ky = np.fft.fftfreq(n, 1.0 / n)[:, None]
+    kx = np.fft.rfftfreq(n, 1.0 / n)[None, :]
+    keep = (ky ** 2 + kx ** 2) <= NS_MODES ** 2
+    coef = (rng.standard_normal((NS_TRAJ, n, n // 2 + 1))
+            + 1j * rng.standard_normal((NS_TRAJ, n, n // 2 + 1))) * keep
+    # 1.5 and -0.75 grid cells a frame; mode NS_MODES decays by e^-0.1
+    step = np.exp(-2j * np.pi * (1.5 * kx - 0.75 * ky) / n
+                  - 0.1 * (kx ** 2 + ky ** 2) / NS_MODES ** 2)
+    u = np.empty((NS_TRAJ, NS_FRAMES, n, n), np.float32)
+    for t in range(NS_FRAMES):
+        u[:, t] = np.fft.irfft2(coef * step ** t, s=(n, n))
+    u /= u[:, 0].std()
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        with h5py.File(f"{folder}/ns_synthetic.h5", "w") as f:
+            f.create_dataset("u", data=u)
+        return "ns_synthetic.h5"
+    from scipy.io import savemat
+
+    savemat(f"{folder}/ns_synthetic.mat",
+            {"u": np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1)))})
+    return "ns_synthetic.mat"
+
+
+def check_fft_path(gen) -> None:
+    """The torch.fft spectral conv (spectral_impl 'fft', the yaml config's
+    route) on the card against the CPU at the CLI's widths, 128² and 256²
+    with 64 modes, and the FFT resize 256² -> 128² (a Nyquist bin that
+    is not real), each within 1e-4; the port's irfft against the CPU over
+    24 to 32,768 rows at n = 128 with complex DC and Nyquist bins (within
+    1e-4) beside torch.fft.irfft's own reading on the card (logged: cuFFT
+    reads those bins' imaginary parts at some shapes, the CPU does not)."""
+    from resolution_pde_tpu_torch.ops.resize import fft_resize_2d
+    from resolution_pde_tpu_torch.ops.spectral import (
+        factorized_spectral_conv_2d, irfft)
+
+    for n in (128, 256):
+        x = randn((2, n, n, WIDTH), gen, device="cpu")
+        wy, wx = (randn((WIDTH, WIDTH, MODES, 2), gen, 0.05, device="cpu")
+                  for _ in range(2))
+        want = factorized_spectral_conv_2d(x, wy, wx, MODES)
+        got = factorized_spectral_conv_2d(x.cuda(), wy.cuda(), wx.cuda(),
+                                          MODES)
+        err = rel_l2(got.cpu(), want)
+        log("fft_path", grid=f"2x{n}^2x{WIDTH}", modes=MODES,
+            card_vs_cpu_rel_l2=f"{err:.3e}", tol=1e-4)
+        require(err <= 1e-4, f"fft spectral conv at {n}^2 on the card vs "
+                f"the CPU: {err}")
+    x = randn((16, 1, RES, RES), gen, device="cpu")
+    err = rel_l2(fft_resize_2d(x.cuda(), (128, 128)).cpu(),
+                 fft_resize_2d(x, (128, 128)))
+    log("fft_path", resize=f"16x{RES}^2->128^2",
+        card_vs_cpu_rel_l2=f"{err:.3e}", tol=1e-4)
+    require(err <= 1e-4, f"fft_resize_2d on the card vs the CPU: {err}")
+    raw, port = {}, {}
+    for rows in (24, 4096, 32768):
+        z = torch.complex(randn((rows, 65), gen, device="cpu"),
+                          randn((rows, 65), gen, device="cpu"))
+        want = torch.fft.irfft(z, n=128)
+        raw[rows] = rel_l2(torch.fft.irfft(z.cuda(), n=128).cpu(), want)
+        port[rows] = rel_l2(irfft(z.cuda(), 128).cpu(), want)
+    log("fft_path", n=128, bins=65, torch_irfft_card_vs_cpu=
+        {r: f"{v:.3e}" for r, v in raw.items()},
+        port_irfft_card_vs_cpu={r: f"{v:.3e}" for r, v in port.items()})
+    require(max(port.values()) <= 1e-4, f"ops.spectral.irfft: {port}")
+
+
+def _idle_share(prof) -> tuple:
+    """(device busy ms, idle share) over the window from the first device
+    event to the last: the union of the device intervals."""
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    require(bool(dev), "the profiler recorded no device events")
+    start, end = dev[0].time_range.start, max(e.time_range.end for e in dev)
+    busy, cur_s, cur_e = 0.0, None, None
+    for e in dev:
+        s, t = e.time_range.start, e.time_range.end
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    busy += cur_e - cur_s
+    return busy / 1e3, 1.0 - busy / (end - start)
+
+
+def _cli_parts(argv, ckpt):
+    """The CLI's config, data bundle, loaders and a Trainer whose state is
+    restored from the run's checkpoint: what main() builds, for the
+    measurements beside the runs."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import (instantiate_dataset,
+                                                  parse_cli)
+    from resolution_pde_tpu_torch.train import restore_checkpoint
+
+    argv = argv + ["training.scheduler=step"]
+    cfg = parse_cli(argv)
+    bundle = common.unpack_data(
+        instantiate_dataset(cfg.dataset.dataset_params),
+        cfg.dataset.dataset_params.normalization_type)
+    loaders = common.build_loaders(bundle, cfg.training.batch_size, False,
+                                   seed=cfg.training.seed)
+    trainer = common.build_trainer(cfg, common.build_model(cfg),
+                                   bundle["y_normalizer"], device="cuda")
+    state, _ = restore_checkpoint(ckpt, trainer.init())
+    return cfg, bundle, loaders, trainer, state
+
+
+def _check_run(name, out):
+    hist = out["history"].train_loss
+    log("cli", run=name, train_loss=[f"{v:.6f}" for v in hist],
+        val_loss=[f"{v:.6f}" for v in out["history"].val_loss],
+        epoch_s=[f"{v:.3f}" for v in out["history"].epoch_time_s],
+        test_loss=f"{out['test_loss']:.6f}",
+        super_resolution={r: f"{v:.6f}"
+                          for r, v in out["super_resolution"].items()},
+        rollout={r: f"{v:.6f}" for r, v in out["rollout"].items()},
+        eval_s={r: f"{v:.3f}" for r, v in out["eval_seconds"].items()},
+        rollout_s={r: f"{v:.3f}" for r, v in out["rollout_seconds"].items()},
+        platform=out["provenance"]["platform"])
+    require(len(hist) == 2 and hist[1] < hist[0],
+            f"run {name}: the train loss did not fall: {hist}")
+    require(math.isfinite(out["test_loss"]),
+            f"run {name}: test loss {out['test_loss']}")
+    for key in ("super_resolution", "rollout"):
+        got = out[key]
+        require(sorted(got) == CLI_RESOLUTIONS
+                and all(math.isfinite(v) for v in got.values()),
+                f"run {name}: {key} {got}")
+    require(out["provenance"]["platform"].startswith("cuda("),
+            f"run {name}: platform {out['provenance']['platform']}")
+
+
+def _median_step_ms(trainer, state, loader, steps=12, warm=2) -> float:
+    times = []
+    for i, (x, y) in enumerate(loader):
+        if i == warm + steps:
+            break
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = trainer.train_step(state, x, y)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def run_cli() -> dict:
+    """The flagship's command line as a user runs it: main_2d's main(argv)
+    with its override strings, in a temporary working directory (the CLI
+    writes checkpoints/ and runs/ there), on a synthetic vorticity file
+    (write_vorticity). Run A: the yaml configs as shipped (width 64, 4
+    layers, 64 modes, dropout 0.1, torch.fft, the dense FeedForward, f32,
+    batch 16, 256^2, the sweep to 256, 16 rollout steps), 2 epochs. Run
+    B: the same on bench.py's kernel route (KERNEL_ROUTE), whose launches
+    of K1f, K1b, K2 and its adjoint are counted (all four at least once).
+    Run C: the plain f32 route warm-started from B's checkpoint with 0
+    epochs; the first test batch's predictions of both at each
+    resolution within relative L2 3e-2. Then each run's median step, the
+    loader's host ms a batch, and one epoch of run B under torch.profiler
+    for the device's idle share. Returns B's launches."""
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            launched = _run_cli_in(tmp)
+        finally:
+            os.chdir(cwd)
+    log("cli", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launched
+
+
+def _run_cli_in(tmp: str) -> dict:
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.cli.main_2d import main as main_2d
+    from resolution_pde_tpu_torch.evaluation.superres import (
+        normalized_forward)
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+
+    t0 = time.perf_counter()
+    fname = write_vorticity(tmp)
+    log("cli", data=f"{tmp}/{fname}",
+        shape=(NS_TRAJ, NS_FRAMES, NS_RES, NS_RES),
+        what="synthetic stand-in (advected, diffused random fields), "
+             "not NS physics",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    base = ["model=ffno_2d", "dataset=ns_naive",
+            f"dataset.dataset_params.saved_folder={tmp}",
+            f"dataset.dataset_params.filename={fname}"]
+    runs = {"A": base + ["training.epochs=2"],
+            "B": base + KERNEL_ROUTE + ["training.epochs=2"]}
+    outs, launched = {}, {}
+    for name, argv in runs.items():
+        os.makedirs(f"{tmp}/{name}")
+        os.chdir(f"{tmp}/{name}")
+        # the main path: every launch counted here comes from main()
+        fused_ff.launches = fused_ff.bwd_launches = 0
+        spectral_mix.launches = spectral_mix.adjoint_launches = 0
+        spectral_mix.wide_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[name] = main_2d(argv)
+        launched[name] = dict(zip(("fwd", "bwd", "k2", "adj"),
+                                  _counts()))
+        launched[name]["staged"] = spectral_mix.wide_launches
+        log("cli", run=name, seconds=f"{time.perf_counter() - t0:.2f}",
+            max_memory_allocated_mb=
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f}",
+            launches=launched[name])
+        _check_run(name, outs[name])
+    require(all(v == 0 for v in launched["A"].values()),
+            f"run A (the yaml config) launched kernels: {launched['A']}")
+    b = launched["B"]
+    require(all(b[k] >= 1 for k in ("fwd", "bwd", "k2", "adj")),
+            f"run B launched K1f, K1b, K2, K2 adj {b}")
+    require(b["staged"] == b["k2"] + b["adj"],
+            f"run B: {b['staged']} of {b['k2'] + b['adj']} spectral "
+            "launches on the staged route")
+
+    # run C: the plain route from B's weights, through the warm start
+    ckpt_b = os.path.abspath(f"{tmp}/B/{outs['B']['checkpoint']}")
+    os.makedirs(f"{tmp}/C")
+    os.chdir(f"{tmp}/C")
+    plain = base + ["model.dropout=0", "model.approx_gelu=true"]
+    out_c = main_2d(plain + ["training.epochs=0",
+                             f"dataset.saved_checkpoint_path={ckpt_b}"])
+    log("cli", run="C", test_loss=f"{out_c['test_loss']:.6f}",
+        super_resolution={r: f"{v:.6f}"
+                          for r, v in out_c["super_resolution"].items()})
+    cfg, bundle, loaders_b, trainer_b, state_b = _cli_parts(
+        runs["B"], ckpt_b)
+    _, _, _, trainer_c, state_c = _cli_parts(
+        plain, os.path.abspath(f"{tmp}/C/{out_c['checkpoint']}"))
+    sd_b, sd_c = state_b.model.state_dict(), state_c.model.state_dict()
+    require(sd_b.keys() == sd_c.keys()
+            and all(torch.equal(sd_b[k], sd_c[k]) for k in sd_b),
+            "run C's warm start did not carry run B's weights")
+    builder = common.make_superres_builder(cfg)
+    errs = {}
+    with torch.inference_mode():
+        for res in CLI_RESOLUTIONS:
+            ds = builder(res)
+            bx = torch.as_tensor(ds.x[:cfg.training.batch_size],
+                                 device="cuda")
+            preds = [normalized_forward(
+                st.model.eval(), bx, bundle["x_normalizer"].to("cuda"),
+                bundle["y_normalizer"].to("cuda"), 2)
+                for st in (state_b, state_c)]
+            errs[res] = rel_l2(preds[0].float(), preds[1].float())
+    log("cli", b_vs_plain_first_test_batch_rel_l2=
+        {r: f"{v:.3e}" for r, v in errs.items()}, tol=3e-2)
+    require(all(v <= 3e-2 for v in errs.values()),
+            f"run B's predictions vs the plain f32 path: {errs}")
+
+    # beside the runs: median steps, the loader's host time, and one
+    # epoch of run B under the profiler
+    train_a = _cli_parts(runs["A"], os.path.abspath(
+        f"{tmp}/A/{outs['A']['checkpoint']}"))
+    step_a = _median_step_ms(train_a[3], train_a[4], train_a[2][0])
+    del train_a
+    step_b = _median_step_ms(trainer_b, state_b, loaders_b[0])
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loaders_b[0])
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        state_b, _ = trainer_b.train_epoch(state_b, loaders_b[0])
+        torch.cuda.synchronize()
+    busy_ms, idle = _idle_share(prof)
+    log("cli", median_step_ms_A=f"{step_a:.3f}",
+        median_step_ms_B=f"{step_b:.3f}",
+        loader_host_ms_per_batch=f"{loader_ms:.3f}", batches=n,
+        batch=f"{cfg.training.batch_size}x1x{NS_RES}^2",
+        profiled_epoch_B_s=f"{time.perf_counter() - t0:.3f}",
+        device_busy_ms=f"{busy_ms:.1f}", device_idle_share=f"{idle:.4f}")
+    return launched["B"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1695,6 +2024,8 @@ def main() -> int:
     wide = run_wide()
     k4, k5 = check_s4_kernels(gen)
     s4_served = run_s4_slice()
+    check_fft_path(gen)
+    cli = run_cli()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -1706,28 +2037,28 @@ def main() -> int:
     kernels = [
         dict(name="fused_ff_fwd_bf16", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
-             launches=served["bf16"][0] + trained["bf16"][0] + wide["fwd"],
-             **k1),
+             launches=served["bf16"][0] + trained["bf16"][0] + wide["fwd"]
+             + cli["fwd"], **k1),
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["f32"][0] + trained["f32"][0], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["bf16"][1] + wide["bwd"], **k1b),
+             launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["f32"][1], **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
-             launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"],
-             **k2, **w128(k2wide)),
+             launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"]
+             + cli["k2"], **k2, **w128(k2wide)),
         dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
              launches=served["f32"][1] + trained["f32"][2], **k3),
         dict(name="spectral_adjoint_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
-             launches=trained["bf16"][3] + wide["adj"], **adj16,
-             **w128(adjwide)),
+             launches=trained["bf16"][3] + wide["adj"] + cli["adj"],
+             **adj16, **w128(adjwide)),
         dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
              launches=trained["f32"][3], **adj32),

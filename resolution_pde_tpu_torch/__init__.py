@@ -6,12 +6,18 @@ imports JAX. Its hot ops are kernels written by hand for Hopper
 (``csrc/``), each beside a plain PyTorch version that runs on the CPU.
 
 Subpackages:
-  ops     -- grids, normalizers, losses, spectral convs, SSM kernels, the
-             CUDA kernels
-  models  -- FFNO2D; the 1D S4 family (S4Model, S4Block, S4D)
-  deploy  -- ServingEngine (bucketed inference)
-  train   -- Trainer, LR schedules, checkpoints
-  utils   -- jax_bridge (JAX parameter and gradient trees -> state_dicts)
+  ops        -- grids, normalizers, losses, FFT resampling, spectral
+                convs, SSM kernels, the CUDA kernels
+  models     -- FFNO2D; the 1D S4 family (S4Model, S4Block, S4D)
+  data       -- NS file reading, Markov pairs, normalizer fitting, loaders
+  configs    -- the yaml configs and overrides, model and dataset
+                instantiation
+  evaluation -- super-resolution sweep, rollout, frequency decomposition
+  cli        -- main_2d / main_1d, the command-line drivers
+  deploy     -- ServingEngine (bucketed inference)
+  train      -- Trainer, LR schedules, checkpoints
+  utils      -- jax_bridge (JAX parameter and gradient trees ->
+                state_dicts), metrics (the run tables)
 """
 
 __version__ = "0.1.0"

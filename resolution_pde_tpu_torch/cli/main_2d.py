@@ -1,0 +1,33 @@
+"""2D training driver (reference main_2d.py:37-325).
+
+    python -m resolution_pde_tpu_torch.cli.main_2d model=ffno_2d \\
+        dataset=ns_naive training.epochs=100
+
+Counterpart of resolution_pde_tpu/cli/main_2d.py: main_1d with
+``spatial_ndim=2``, the StepLR schedule (main_2d.py:173-174), and
+``ffno_2d`` on ``ns_naive`` unless the arguments pick others. It runs on
+one card (``device``, the card unless the caller passes "cpu"), so the
+batch is the config's: the JAX driver multiplies it by its mesh's data
+extent.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from resolution_pde_tpu_torch.cli.main_1d import main as _main
+
+
+def main(argv=None, device="cuda"):
+    argv = list(argv if argv is not None else sys.argv[1:])
+    if not any(a.startswith("training.scheduler=") for a in argv):
+        argv.append("training.scheduler=step")
+    if not any(a.startswith("dataset=") for a in argv):
+        argv.append("dataset=ns_naive")
+    if not any(a.startswith("model=") for a in argv):
+        argv.append("model=ffno_2d")
+    return _main(argv, spatial_ndim=2, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,9 @@ Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` path
 the truncated-DFT factors ``_dft_matrices`` the kernels use, and the
 f32-exact fused path ``factorized_spectral_conv_2d_pallas``. Each axis uses
 ``m = min(n_modes, n // 2 + 1)`` modes with the weight sliced to match, so
-one weight set serves every resolution.
+one weight set serves every resolution. ``irfft`` and ``irfft2`` are the
+inverse real transforms of the port's ``torch.fft`` paths: they read the
+DC and Nyquist bins as real on the card too.
 """
 
 from __future__ import annotations
@@ -25,7 +27,31 @@ def _axis_pass_fft(xc, weight, n_modes: int, dim: int, fft_norm: str):
     sub = "bixy,ioy->boxy" if dim == 3 else "bixy,iox->boxy"
     out_ft = torch.einsum(sub, x_ft, w)
     # irfft zero-pads the spectrum from m to n // 2 + 1 bins
-    return torch.fft.irfft(out_ft, n=n, dim=dim, norm=fft_norm)
+    return irfft(out_ft, n=n, dim=dim, norm=fft_norm)
+
+
+def irfft(x, n: int, dim: int = -1, norm: str = "backward"):
+    """``torch.fft.irfft`` reading only the real part of the DC bin and, for
+    an even n, of the Nyquist bin, as numpy, pocketfft (torch on the CPU)
+    and the JAX package do. cuFFT's C2R transform reads their imaginary
+    parts too at some shapes (n = 128 over thousands of rows), so they
+    are dropped here; a mixed spectrum's DC bin is complex."""
+    m = x.shape[dim]
+    keep = torch.ones(m, dtype=x.real.dtype, device=x.device)
+    keep[0] = 0
+    if n % 2 == 0 and m > n // 2:
+        keep[n // 2] = 0
+    shape = [1] * x.ndim
+    shape[dim] = m
+    x = torch.complex(x.real, x.imag * keep.reshape(shape))
+    return torch.fft.irfft(x, n=n, dim=dim, norm=norm)
+
+
+def irfft2(x, s, norm: str = "backward"):
+    """``torch.fft.irfft2`` over the last two axes as numpy computes it: the
+    inverse FFT along the first, then ``irfft`` along the last."""
+    return irfft(torch.fft.ifft(x, n=s[0], dim=-2, norm=norm), s[1], dim=-1,
+                 norm=norm)
 
 
 def factorized_spectral_conv_2d(x, weight_y, weight_x, n_modes: int,

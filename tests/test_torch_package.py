@@ -1,7 +1,8 @@
 """Hygiene of the port (resolution_pde_tpu_torch): it never imports JAX or
-the JAX package, runs on the card unless asked for the CPU, refuses a CUDA
-device without CUDA, and on the CPU runs the plain versions and never
-launches a kernel.
+the JAX package (nor h5py, unless it reads an HDF5 file), runs on the card
+unless asked for the CPU (its CLI entry points too), refuses a CUDA device
+without CUDA, and on the CPU runs the plain versions and never launches a
+kernel.
 """
 
 import subprocess
@@ -42,6 +43,23 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.train.schedules",
     "resolution_pde_tpu_torch.train.trainer",
     "resolution_pde_tpu_torch.train.checkpoint",
+    "resolution_pde_tpu_torch.ops.resize",
+    "resolution_pde_tpu_torch.data",
+    "resolution_pde_tpu_torch.data.transforms",
+    "resolution_pde_tpu_torch.data.io",
+    "resolution_pde_tpu_torch.data.dataset",
+    "resolution_pde_tpu_torch.data.loader",
+    "resolution_pde_tpu_torch.data.factories",
+    "resolution_pde_tpu_torch.configs",
+    "resolution_pde_tpu_torch.utils.metrics",
+    "resolution_pde_tpu_torch.evaluation",
+    "resolution_pde_tpu_torch.evaluation.frequency",
+    "resolution_pde_tpu_torch.evaluation.superres",
+    "resolution_pde_tpu_torch.evaluation.rollout",
+    "resolution_pde_tpu_torch.cli",
+    "resolution_pde_tpu_torch.cli.common",
+    "resolution_pde_tpu_torch.cli.main_1d",
+    "resolution_pde_tpu_torch.cli.main_2d",
 ]
 CFG = dict(in_channels=1, out_channels=1, width=4, n_layers=2, n_modes=4,
            factor=2, n_ff_layers=2, layer_norm=True)
@@ -61,6 +79,35 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_port_imports_and_reads_mat_files_without_h5py(tmp_path):
+    """h5py is imported only to read an HDF5 file: with it blocked every
+    module imports, and read_ns reads a .mat file (scipy)."""
+    from scipy.io import savemat
+
+    u = np.arange(2 * 4 * 4 * 3, dtype=np.float32).reshape(2, 4, 4, 3)
+    savemat(tmp_path / "u.mat", {"u": u})
+    code = ("import importlib, sys\n"
+            "sys.modules['h5py'] = None\n"
+            f"for name in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "from resolution_pde_tpu_torch.data.io import read_ns\n"
+            f"print(read_ns({str(tmp_path / 'u.mat')!r}).shape)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "(2, 3, 4, 4)"
+
+
+@pytest.mark.parametrize("entry", ["main_1d", "main_2d"])
+def test_cli_entry_points_default_to_the_card(monkeypatch, entry):
+    import importlib
+
+    main = importlib.import_module(f"resolution_pde_tpu_torch.cli.{entry}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["model=ffno_2d", "dataset=ns_naive"])
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
