@@ -68,11 +68,16 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      and weight gradients against the same on the CPU; in f32 the adjoint
      and the weight gradient against autograd of the plain pass;
   7. the serving slice: FFNO2D at the width of bench.py (random weights
-     from a seed) behind ServingEngine on the GPU, warmed, then serving
-     predict and forecast requests with the launch counters showing that
-     both kernels ran; then one predict in bf16 and one in the f32-exact
-     mode, each against the same weights on the CPU through the plain
-     versions; the f32-exact predict's latency at 8 x 256²;
+     from a seed) behind ServingEngine on the GPU, one CUDA graph per
+     bucket (8 x {64², 128², 256²} and a 4-step forecast, in bf16 and in
+     the f32-exact mode; each capture's seconds and launches, the peak
+     memory with all captured), serving predict and forecast requests
+     whose kernels' executions inside the replays torch.profiler counts
+     by symbol name (K1f and the staged K2 or K3, once a layer and twice
+     a layer); replay against the same engine run eagerly; one predict in
+     bf16 and one in f32 against the same weights on the CPU through the
+     plain versions; the median predict latency per bucket, graph and
+     eager;
   8. the train slice: the same model trained through the port's Trainer on
      bench.py's synthetic task (8 x 256², y = x rolled by 7 along W): 3
      warm steps and 20 timed ones, each launching every kernel of the step
@@ -97,12 +102,28 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      evaluation than its plain version;
  10. the S4 serving slice: S4Model at the width of configs/model/s4_1d.yaml
      (mode dplr, K5) and s4d_1d.yaml (mode diag, K4), random weights from
-     a seed, on the kernels' route behind ServingEngine on the GPU, warmed
-     at batch 16 x L in {128, 256, 512}, serving predict requests (one of
-     batch 5) with each launching its kernel once per layer; one predict
-     against the same weights on the CPU through the plain versions and
-     against the jnp route on the GPU; backward() through the kernels'
-     route must raise;
+     a seed, on the kernels' route behind ServingEngine on the GPU, a CUDA
+     graph per bucket at batch 16 x L in {128, 256, 512}, serving predict
+     requests (one of batch 5) each executing its kernel once per layer
+     inside the replay; replay against eager on the same engine; the
+     median latency per bucket, graph and eager; the device's idle share
+     over 10 predicts at 16 x 512; one predict against the same weights
+     on the CPU through the plain versions and against the jnp route on
+     the GPU; backward() through the kernels' route must raise;
+ 10b. the S4 family trained, then served: s4_1d.yaml and s4d_1d.yaml as
+     shipped (jnp route, dropout 0.2, batch 16, the cosine schedule,
+     ssm_lr through cli.common.build_trainer), 2 epochs on a synthetic
+     stand-in for the KS files (32 x 51 frames x 512 points from SEED,
+     split 24 / 4 / 4 as the train, valid and test files) through
+     ks_window_splits (window 15): the loss falls and stays finite, the
+     state-space rate is the ratio times the main one at every step, a
+     checkpoint saved with block=False after each epoch (the stall timed
+     beside a blocking save); the sweep at {32, ..., 512} and the window
+     rollout of 16 steps at each; then the checkpoint served through
+     ServingEngine.from_checkpoint into S4Model(kernel_impl='pallas'),
+     graphs at 16 x {128, 256, 512}: replay against eager on the same
+     engine, against the jnp route of the trained model within relative
+     L2 1e-4, K5 or K4 executing 4 times a replay;
  11. the torch.fft spectral conv (the yaml config's route) on the card
      against the CPU at 128² and 256² with 64 modes, the FFT resize and
      the port's irfft (whose DC and Nyquist bins are read as real); then
@@ -120,7 +141,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      finite; run C warm-starts the plain f32 route from B's checkpoint
      with 0 epochs, and the first test batch's predictions of B's and C's
      restored models agree within relative L2 3e-2 at each resolution;
-     logged: the epochs' and the sweep's and rollout's seconds per
+     autoregressive_eval and frequency_evaluation on B's checkpoint and
+     file repeat main_2d's sweep and rollout to 1e-6 and give a finite
+     frequency table, launching K1f and K2; logged: the epochs' and the sweep's and rollout's seconds per
      resolution, peak memory, each run's median step, the loader's host
      ms a batch, and the device's idle share over one profiled epoch of
      run B.
@@ -134,7 +157,8 @@ its function needs over the peak rate of their type: for the spectral
 pass, its DFTs counted as real FFTs where that is cheaper than the dense
 products the kernels do); the K2 and K3 entries also give the H pass's
 (added into acc) as h_acc_*, and the bf16 ones the same at width 128 as
-w128_*; the last line is
+w128_*; a kernel on a serving path says in launches_counted_as that its
+launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
 CUDA: without it, it exits 1 and prints no result. Plain versions run with
 TF32 off.
@@ -250,44 +274,23 @@ def bound(ops: float, nbytes: float, peak: float) -> dict:
 
 
 def _ff_cost(n, dims, ln, residual, dtype, passes, saved=0):
-    """FeedForward products (``passes`` times the forward's: 1 forward, 3
-    for the recompute backward, 2 for the backward that reads ``saved``
-    pre-activations a row) and bytes: the activations in ``dtype`` (x and
-    out, and a residual, for the forward; x, g and dx, and the saved
-    pre-activations, for the backward), the f32 parameters (and their
-    gradients for the backward)."""
-    e = torch.finfo(dtype).bits // 8
-    macs = sum(a * b for a, b in zip(dims, dims[1:]))
-    params = macs + sum(dims[1:]) + (2 * dims[-1] if ln else 0)
-    acts = n * ((2 * dims[0] + dims[-1] + saved) if passes > 1
-                else (dims[0] + dims[-1])) * e
-    nbytes = (acts + (n * dims[-1] * e if residual else 0)
-              + params * 4 * (2 if passes > 1 else 1))
+    """``bound`` of a FeedForward call, from the operations and bytes that
+    ``fused_ff.cost`` counts (its docstring says what they are)."""
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff
+
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    return bound(2.0 * n * macs * passes, nbytes, peak)
-
-
-def _dft_flops(n, m):
-    """The operations one truncated DFT of n points to m modes (or its
-    zero-padded inverse) needs: the cheaper of a real FFT, 2.5 n log2 n
-    (FFTW's count for real data), and the dense product of n points by 2m
-    packed modes, 4 n m."""
-    return min(2.5 * n * math.log2(n), 4.0 * n * m)
+    return bound(*fused_ff.cost(n, dims, ln, residual, dtype, passes, saved),
+                 peak)
 
 
 def _pass_cost(rows, n, c, o, m, io, cd, acc=False):
-    """One spectral axis pass (forward or adjoint) of ``rows`` rows of n
-    points, c channels in and o out. Operations: what the function needs,
-    each channel's forward and inverse DFT as ``_dft_flops`` counts it and
-    the mix's complex product, 8 c o real operations a mode, in ``cd``
-    (the kernels compute the DFTs as dense products instead, 4 n m a
-    channel). Bytes: x and out in ``io`` (out read too with ``acc``), the
-    two factors and the weight's blocks a | b in ``cd``."""
-    e, ec = (torch.finfo(t).bits // 8 for t in (io, cd))
-    ops = rows * ((c + o) * _dft_flops(n, m) + 8.0 * m * c * o)
-    nbytes = (rows * n * (c + o * (2 if acc else 1)) * e
-              + (2 * n * 2 * m + m * 2 * c * o) * ec)
-    return bound(ops, nbytes, PEAK_BF16 if cd == torch.bfloat16 else PEAK_F32)
+    """``bound`` of one spectral axis pass, from the operations and bytes
+    that ``spectral_mix.pass_cost`` counts (each DFT as the cheaper of a
+    real FFT and the dense product, ``spectral_mix.dft_flops``)."""
+    from resolution_pde_tpu_torch.ops.kernels import spectral_mix
+
+    return bound(*spectral_mix.pass_cost(rows, n, c, o, m, io, cd, acc),
+                 PEAK_BF16 if cd == torch.bfloat16 else PEAK_F32)
 
 
 def randn(shape, gen, scale=1.0, dtype=torch.float32, device="cuda"):
@@ -991,7 +994,116 @@ def build_model(device, compute_dtype, spectral_impl, gen=None,
                   ff_impl=ff_impl, device=device, generator=gen)
 
 
+# the kernels of the serving graphs, by a part of their symbol names on the
+# card: K1f's forward kernels, the staged route's first stage (one a bf16
+# pass), K3 (one launch a f32 pass at these shapes), K4 and K5
+SYMBOLS = {"K1f": "fused_ff_fwd", "K2": "staged_forward_kernel",
+           "K3": "spectral_pass_kernel", "K4": "vandermonde_kernel",
+           "K5": "cauchy_kernel"}
+# how the executions inside graph replays were counted in this run
+REPLAYS_COUNTED_BY: set = set()
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler (CPU and CUDA activities), the device
+    synchronized before the profile closes; returns (result, profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def _device_kernels(prof) -> list:
+    """The names of the kernels the profile recorded on the device (not
+    its copies and fills)."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def graph_executions(fn, per_call: dict, calls: int, what: str) -> tuple:
+    """Serve ``calls`` requests (``fn()``) through an engine's CUDA graphs
+    under torch.profiler and count each kernel's executions inside the
+    replays by its symbol name (``SYMBOLS``): each must be ``per_call[k]``
+    a request. The kernels' Python counters count host launches, which a
+    replay makes none of. Should the profiler record no kernel inside a
+    replay, the executions are counted as the launches a capture records
+    times the replays, and the log says so. Returns (result, {kernel:
+    executions}, how they were counted)."""
+    out, prof = profiled(fn)
+    names = _device_kernels(prof)
+    want = {k: v * calls for k, v in per_call.items()}
+    if not names:
+        how = "launches at capture x replays"
+        log("graphs", what=what, executions=want,
+            counted=how + " (the profiler recorded no kernel inside a "
+                          "replay)")
+    else:
+        how = "torch.profiler, by symbol name"
+        got = {k: sum(SYMBOLS[k] in n for n in names) for k in per_call}
+        require(got == want, f"{what}: kernels executed in the graph "
+                f"replays {got}, expected {want}")
+    REPLAYS_COUNTED_BY.add(how)
+    return out, want, how
+
+
+def eager(eng, fn):
+    """``fn()`` with the engine's graphs switched off (its private switch):
+    the same engine run eagerly, for comparison."""
+    eng._use_graphs = False
+    try:
+        return fn()
+    finally:
+        eng._use_graphs = True
+
+
+def median_ms(fn, reps: int = 10) -> float:
+    """Median host time of ``fn()`` (a request, which ends in its copy to
+    the host) after 2 warm calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def warm_graphs(eng, buckets, counters, per_call, what, **kw) -> None:
+    """Capture each (spatial, batch) bucket of ``buckets`` (with ``kw``,
+    e.g. rollout_steps) on ``eng``, logging its capture seconds, and the
+    peak memory with them all captured; each capture must launch the
+    kernels ``per_call`` says twice from the host (its eager warm-up run
+    and the run it captures; a forecast of s steps s times more)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    for spatial, batch in buckets:
+        before = counters()
+        t0 = time.perf_counter()
+        eng.compile_bucket(spatial, batch, **kw)
+        seconds[f"{batch}x{spatial}"] = f"{time.perf_counter() - t0:.3f}"
+        d = {k: counters()[k] - before[k] for k in per_call}
+        steps = 1 + sum(kw.get("rollout_steps", ()))
+        want = {k: 2 * v * steps for k, v in per_call.items()}
+        require(d == want, f"{what}: capturing {spatial} x {batch} launched "
+                f"{d}, expected {want}")
+    log("graphs", what=what, capture_s=seconds, buckets=len(eng.buckets()),
+        max_memory_allocated_mb=
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")
+
+
 def run_slice(gen) -> dict:
+    """FFNO2D serving through one CUDA graph per bucket: bf16 (K1f, the
+    staged K2) and f32-exact (K1f f32, K3) engines, each bucket captured
+    (capture seconds, peak memory), requests counted by their kernels'
+    executions in the replays, graph against eager on the same engine,
+    both against the CPU, and the median predict latency per bucket, graph
+    and eager. Returns the executions of K1f and the spectral pass, bf16
+    and f32."""
     from resolution_pde_tpu_torch.deploy import ServingEngine
     from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
     from resolution_pde_tpu_torch.ops.normalizers import SimpleNormalizer
@@ -1002,16 +1114,23 @@ def run_slice(gen) -> dict:
                         torch.Generator().manual_seed(SEED))
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     eng = ServingEngine(model, device="cuda", **norms)
+
+    def counters():
+        return {"K1f": fused_ff.launches, "K2": spectral_mix.wide_launches,
+                "K3": spectral_mix.k3_launches}
+
+    bf16_call = {"K1f": LAYERS, "K2": 2 * LAYERS}
+    f32_call = {"K1f": LAYERS, "K3": 2 * LAYERS}
     t0 = time.perf_counter()
-    eng.warmup(spatial_shapes=[(r, r) for r in (64, 128, RES)],
-               batch_sizes=[BATCH], rollout_steps=[4])
+    warm_graphs(eng, [((r, r), BATCH) for r in (64, 128, RES)], counters,
+                bf16_call, "ffno_bf16", rollout_steps=[4])
     log("slice", warmup_s=f"{time.perf_counter() - t0:.3f}",
         buckets=len(eng.buckets()))
     f32_model = build_model("cuda", None, "pallas")
     f32_model.load_state_dict(state)
     eng32 = ServingEngine(f32_model, device="cuda", **norms)
-    eng32.warmup(spatial_shapes=[(128, 128), (RES, RES)],
-                 batch_sizes=[2, BATCH])
+    warm_graphs(eng32, [((r, r), BATCH) for r in (64, 128, RES)]
+                + [((128, 128), 2)], counters, f32_call, "ffno_f32")
 
     rng = np.random.default_rng(SEED)
     reqs = {res: rng.standard_normal((5 if res == RES else BATCH, 1, res,
@@ -1019,60 +1138,55 @@ def run_slice(gen) -> dict:
             for res in (RES, 64, 128)}
     x128 = rng.standard_normal((2, 1, 128, 128)).astype(np.float32)
 
-    def counts():
-        return fused_ff.launches, spectral_mix.launches
-
-    # the main path: every launch counted here comes from serving requests
+    # the main path: every count from here comes from serving requests
     fused_ff.launches = spectral_mix.launches = 0
-    spectral_mix.wide_launches = 0
+    spectral_mix.wide_launches = spectral_mix.k3_launches = 0
     launched = {"bf16": [0, 0], "f32": [0, 0]}
-    outs = {}
+    outs, how = {}, set()
+
+    def serve(key, fn, per_call, calls, what):
+        out, ex, h = graph_executions(fn, per_call, calls, what)
+        how.add(h)
+        spec = "K2" if key == "bf16" else "K3"
+        launched[key] = [launched[key][0] + ex["K1f"],
+                         launched[key][1] + ex[spec]]
+        return out
+
     for res, x in reqs.items():
-        before = counts()
-        outs[res] = eng.predict(x)
-        d = [a - b for a, b in zip(counts(), before)]
-        require(d == [LAYERS, 2 * LAYERS],
-                f"predict at {res}^2 launched (K1, K2) {d}")
-        launched["bf16"] = [a + b for a, b in zip(launched["bf16"], d)]
-    before = counts()
-    roll = eng.forecast(reqs[RES], 4)
-    d = [a - b for a, b in zip(counts(), before)]
-    require(d == [4 * LAYERS, 8 * LAYERS], f"forecast launched {d}")
-    launched["bf16"] = [a + b for a, b in zip(launched["bf16"], d)]
-    require(spectral_mix.wide_launches == launched["bf16"][1],
-            f"bf16 serving: {spectral_mix.wide_launches} of "
-            f"{launched['bf16'][1]} spectral launches on the staged route")
-    before = counts()
-    out32 = eng32.predict(x128)
-    d = [a - b for a, b in zip(counts(), before)]
-    require(d == [LAYERS, 2 * LAYERS], f"f32 predict launched {d}")
-    launched["f32"] = d
-    # the f32-exact predict's latency at the full bucket
+        outs[res] = serve("bf16", lambda x=x: eng.predict(x), bf16_call, 1,
+                          f"bf16 predict at {res}^2")
+    roll = serve("bf16", lambda: eng.forecast(reqs[RES], 4), bf16_call, 4,
+                 "bf16 forecast of 4 steps")
+    out32 = serve("f32", lambda: eng32.predict(x128), f32_call, 1,
+                  "f32 predict of 2 at 128^2")
     x32 = rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32)
-    times = []
-    for _ in range(10):
-        before = counts()
-        t = time.perf_counter()
-        y32 = eng32.predict(x32)
-        times.append((time.perf_counter() - t) * 1e3)
-        d = [a - b for a, b in zip(counts(), before)]
-        require(d == [LAYERS, 2 * LAYERS], f"f32 predict at {RES}^2 "
-                f"launched {d}")
-        launched["f32"] = [a + b for a, b in zip(launched["f32"], d)]
+    y32 = serve("f32", lambda: eng32.predict(x32), f32_call, 1,
+                f"f32 predict at {RES}^2")
+    require(counters() == {"K1f": 0, "K2": 0, "K3": 0},
+            f"serving through graphs launched kernels from the host: "
+            f"{counters()}")
+    log("slice", executions_bf16=launched["bf16"],
+        executions_f32=launched["f32"], counted=sorted(how))
     require(y32.shape == x32.shape and np.isfinite(y32).all(),
             f"f32 predict at {RES}^2: shape {y32.shape} or non-finite")
-    log("latency", bucket=f"{BATCH}x{RES}^2", mode="f32_exact", batch=BATCH,
-        median_ms=f"{statistics.median(times):.3f}")
-    require(spectral_mix.wide_launches == launched["bf16"][1],
-            "f32 predicts launched the staged route")
-    log("slice", launches_k1=counts()[0], launches_k2=counts()[1],
-        launches_staged=spectral_mix.wide_launches)
-
     for res, x in reqs.items():
         require(outs[res].shape == x.shape and np.isfinite(outs[res]).all(),
                 f"predict at {res}^2: shape {outs[res].shape} or non-finite")
     require(roll.shape == (5, 4, 1, RES, RES) and np.isfinite(roll).all(),
             f"forecast: shape {roll.shape} or non-finite")
+
+    # graph against eager on the same engines
+    for name, e, x, got in (("bf16", eng, reqs[RES], outs[RES]),
+                            ("f32", eng32, x32, y32)):
+        ref = eager(e, lambda e=e, x=x: e.predict(x))
+        log("graphs", what=f"ffno_{name} predict at {RES}^2",
+            graph_vs_eager_max_abs=f"{np.abs(got - ref).max():.3e}",
+            bit_equal=bool(np.array_equal(got, ref)))
+        require(rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
+                <= 1e-6, f"{name}: graph replay vs eager")
+    ref = eager(eng, lambda: eng.forecast(reqs[RES], 4))
+    require(rel_l2(torch.from_numpy(roll), torch.from_numpy(ref)) <= 1e-6,
+            "bf16 forecast: graph replay vs eager")
 
     # the same weights on the CPU through the plain versions, in f32
     cpu_model = build_model("cpu", None, "pallas2")
@@ -1087,14 +1201,16 @@ def run_slice(gen) -> dict:
     require(err16 <= 3e-2, f"bf16 slice vs CPU f32: {err16}")
     require(err32 <= 1e-4, f"f32 slice vs CPU f32: {err32}")
 
-    for res, x in reqs.items():
-        times = []
-        for _ in range(10):
-            t = time.perf_counter()
-            eng.predict(x)
-            times.append((time.perf_counter() - t) * 1e3)
-        log("latency", bucket=f"{BATCH}x{res}^2", batch=x.shape[0],
-            median_ms=f"{statistics.median(times):.3f}")
+    # median predict latency per bucket, graph and eager, in turns
+    for name, e in (("bf16", eng), ("f32_exact", eng32)):
+        for res in (64, 128, RES):
+            x = rng.standard_normal((BATCH, 1, res, res)).astype(np.float32)
+            g1 = median_ms(lambda: e.predict(x))
+            e1 = eager(e, lambda: median_ms(lambda: e.predict(x)))
+            g2 = median_ms(lambda: e.predict(x))
+            log("latency", model=f"ffno_{name}", bucket=f"{BATCH}x{res}^2",
+                graph_median_ms=f"{g1:.3f}/{g2:.3f}",
+                eager_median_ms=f"{e1:.3f}")
     return launched
 
 
@@ -1303,11 +1419,11 @@ def run_wide() -> dict:
         require(d == want, f"width {WIDE} {what}: {d} launches on the wide "
                 f"route, expected {want}")
 
-    before = spectral_mix.wide_launches
-    t = time.perf_counter()
-    y = eng.predict(x)
-    predict_ms = (time.perf_counter() - t) * 1e3
-    wide_since(before, "predict", 2 * LAYERS)
+    # the predict replays its bucket's graph: its kernels are counted by
+    # their executions in the replay
+    y, served, _ = graph_executions(lambda: eng.predict(x),
+                                    {"K1f": LAYERS, "K2": 2 * LAYERS}, 1,
+                                    f"width {WIDE} predict")
     require(y.shape == x.shape and np.isfinite(y).all(),
             f"width {WIDE} predict: shape {y.shape} or non-finite")
     trainer = Trainer(model(), learning_rate=1e-3, device="cuda")
@@ -1320,10 +1436,11 @@ def run_wide() -> dict:
         losses.append(float(loss))  # syncs
         step_ms.append((time.perf_counter() - t) * 1e3)
         wide_since(before, "train step", 4 * LAYERS)
-    launched = dict(wide=spectral_mix.wide_launches,
-                    k2=spectral_mix.launches,
+    launched = dict(wide=spectral_mix.wide_launches + served["K2"],
+                    k2=spectral_mix.launches + served["K2"],
                     adj=spectral_mix.adjoint_launches,
-                    fwd=fused_ff.launches, bwd=fused_ff.bwd_launches)
+                    fwd=fused_ff.launches + served["K1f"],
+                    bwd=fused_ff.bwd_launches)
     require(launched["k2"] + launched["adj"] == launched["wide"],
             f"width {WIDE}: spectral launches {launched} off the staged "
             "route")
@@ -1337,8 +1454,7 @@ def run_wide() -> dict:
                 and float(gr.abs().sum()) > 0,
                 f"width {WIDE} parameter {name}: gradient missing, "
                 "non-finite or zero")
-    log("wide", model=f"FFNO2D width {WIDE} pallas2 bf16",
-        predict_ms=f"{predict_ms:.3f}", losses=[f"{v:.6f}" for v in losses],
+    log("wide", model=f"FFNO2D width {WIDE} pallas2 bf16", losses=[f"{v:.6f}" for v in losses],
         step_ms=[f"{v:.3f}" for v in step_ms], launches=launched)
 
     # against the same weights in f32 on the CPU through the plain versions
@@ -1353,7 +1469,8 @@ def run_wide() -> dict:
     trainer = Trainer(model(), learning_rate=1e-3, device="cuda")
     state, _ = trainer.train_step(trainer.init(), x128, y128)
     gerr = rel_l2(_flat_grads(state.model), _flat_grads(cpu))
-    wide_since(before, "predict and step at 128^2", 6 * LAYERS)
+    # the predict replays a graph, so only the step launches from the host
+    wide_since(before, "predict and step at 128^2", 4 * LAYERS)
     log("wide", predict_vs_cpu_f32_rel_l2=f"{err:.3e}",
         grads_vs_cpu_f32_rel_l2=f"{gerr:.3e}", tol=3e-2)
     require(err <= 3e-2, f"width {WIDE} predict vs CPU f32: {err}")
@@ -1369,33 +1486,6 @@ def _log_uniform_dt(h, gen):
 
 def _close(got, ref, rtol, atol) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
-
-
-def _k4_ops(rows, h, n, L) -> float:
-    """The operations s4d_kernel_pallas needs (an FMA two, exp, sin and
-    cos one each) when the powers e^{dtA l} are factored as a table and
-    anchors: per (row, state, position) 2 FMAs (the real part of an anchor
-    times a table entry); per (feature, state) the table's 32 powers
-    e^{dtA j} (17 each: the exponent with its FMA remainder, exp, sincos and
-    the first-order correction), and its L / 32 anchors' powers; per (row,
-    state) dtA and C' (27) and C' times each anchor (6); per (row,
-    position) the last 2. dtA is a feature's, C' a row's."""
-    anchors = -(-L // 32)
-    return (4.0 * rows * n * L + 2.0 * rows * L
-            + 17.0 * h * n * (32 + anchors)
-            + rows * n * (27.0 + 6.0 * anchors))
-
-
-def _k5_ops(rows, h, n, L) -> float:
-    """The operations dplr_at_roots needs (an FMA two, a reciprocal, exp
-    and sin or cos one each): per (feature, state, position) d, |d|^2, its
-    reciprocal and d / |d|^2 (8) and the sums k10, k11 (16), which a
-    feature's rows share (v2 = conj(P) B, v3 = conj(P) P); per (row, state,
-    position) the sums k00, k01 (16); per (row, position) the Woodbury
-    combination (31); per (feature, position) g and c (32); per (row,
-    state) v0, v1 (12), per (feature, state) v2, v3 (12)."""
-    return (24.0 * h * n * L + 16.0 * rows * n * L + 31.0 * rows * L
-            + 32.0 * h * L + 12.0 * (rows + h) * n)
 
 
 def check_s4_kernels(gen) -> tuple:
@@ -1476,7 +1566,7 @@ def check_s4_kernels(gen) -> tuple:
         return dict(max_abs_err=rec["fused"]["max_abs_err"], ms=fused_ms,
                     plain_ms=plain, plane_ms=plane_ms,
                     plane_plain_ms=plane_plain,
-                    **bound(_k4_ops(rows, h, n_half, L),
+                    **bound(vandermonde.operations(rows, h, n_half, L),
                             8.0 * (rows + h) * n_half + 4.0 * h
                             + 4.0 * rows * L, PEAK_F32))
 
@@ -1563,7 +1653,7 @@ def check_s4_kernels(gen) -> tuple:
         # values at the roots out
         return dict(max_abs_err=rec["fused"], ms=fused_ms, plain_ms=plain,
                     sums_ms=sums_ms, sums_plain_ms=sums_plain,
-                    **bound(_k5_ops(rows, h, n, L),
+                    **bound(cauchy.operations(rows, h, n, L),
                             8.0 * (3 * h + rows) * n + 4.0 * h
                             + 8.0 * rows * L, PEAK_F32))
 
@@ -1587,8 +1677,12 @@ def build_s4(mode, kernel_impl, device, gen=None):
 
 def run_s4_slice() -> dict:
     """S4Model in both modes on the kernels' route behind ServingEngine on
-    the GPU. Every launch counted here comes from serving requests; returns
-    the launches of K5 (mode dplr) and K4 (mode diag)."""
+    the GPU, one CUDA graph per bucket: each bucket captured (capture
+    seconds, peak memory), requests counted by their kernel's executions
+    in the replays, graph against eager on the same engine, the median
+    predict latency per bucket, graph and eager, and the device's idle
+    share over 10 predicts at 16 x 512; one predict against the CPU and
+    the jnp route. Returns the executions of K5 (dplr) and K4 (diag)."""
     from resolution_pde_tpu_torch.deploy import ServingEngine
     from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
     from resolution_pde_tpu_torch.ops.normalizers import SimpleNormalizer
@@ -1597,16 +1691,19 @@ def run_s4_slice() -> dict:
                  y_normalizer=SimpleNormalizer(-0.2, 0.9))
     d_in, layers = S4["d_input"], S4["n_layers"]
     launched = {}
-    for mode, kernel, other in (("dplr", cauchy, vandermonde),
-                                ("diag", vandermonde, cauchy)):
-        name = "K5" if mode == "dplr" else "K4"
+
+    def counters():
+        return {"K4": vandermonde.launches, "K5": cauchy.launches}
+
+    for mode, name, other in (("dplr", "K5", "K4"), ("diag", "K4", "K5")):
+        per_call = {name: layers, other: 0}
         model = build_s4(mode, "pallas", "cuda",
                          torch.Generator().manual_seed(SEED))
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         eng = ServingEngine(model, device="cuda", **norms)
         t0 = time.perf_counter()
-        eng.warmup(spatial_shapes=S4_LENGTHS, batch_sizes=[S4_BATCH],
-                   in_channels=d_in)
+        warm_graphs(eng, [(n, S4_BATCH) for n in S4_LENGTHS], counters,
+                    per_call, f"s4_{mode}", in_channels=d_in)
         log("s4", mode=mode, warmup_s=f"{time.perf_counter() - t0:.3f}",
             buckets=len(eng.buckets()))
         rng = np.random.default_rng(SEED)
@@ -1615,15 +1712,16 @@ def run_s4_slice() -> dict:
                 for n in S4_LENGTHS}
         x256 = rng.standard_normal((2, d_in, 256)).astype(np.float32)
 
-        # the main path: every launch counted from here comes from requests
+        # the main path: every count from here comes from requests
         cauchy.launches = vandermonde.launches = 0
+        executed, how = 0, set()
 
-        def predict(x, what):
-            before = kernel.launches
-            out = eng.predict(x)
-            d = kernel.launches - before
-            require(d == layers, f"{mode} {what}: {name} launched {d} times, "
-                    f"expected {layers}")
+        def predict(x, what, calls=1):
+            nonlocal executed
+            out, ex, h = graph_executions(lambda: eng.predict(x), per_call,
+                                          calls, f"{mode} {what}")
+            executed += ex[name]
+            how.add(h)
             require(out.shape == (x.shape[0], 1, x.shape[2])
                     and np.isfinite(out).all(),
                     f"{mode} {what}: shape {out.shape} or non-finite")
@@ -1632,22 +1730,50 @@ def run_s4_slice() -> dict:
         for n, x in reqs.items():
             predict(x, f"predict of {x.shape[0]} at L {n}")
         got = predict(x256, "predict of 2 at L 256")
+        require(counters() == {"K4": 0, "K5": 0},
+                f"{mode}: serving through graphs launched {counters()} "
+                "from the host")
+        launched[mode] = executed
+        log("s4", mode=mode, **{f"executions_{name}": executed},
+            counted=sorted(how))
+
+        # graph against eager on the same engine, bit for bit
+        for n, x in reqs.items():
+            g, e = eng.predict(x), eager(eng, lambda x=x: eng.predict(x))
+            log("graphs", what=f"s4_{mode} predict at L {n}",
+                graph_vs_eager_max_abs=f"{np.abs(g - e).max():.3e}",
+                bit_equal=bool(np.array_equal(g, e)))
+            require(rel_l2(torch.from_numpy(g), torch.from_numpy(e)) <= 1e-6,
+                    f"{mode}: graph replay vs eager at L {n}")
+        # median latency per bucket, graph and eager, in turns
         for n in S4_LENGTHS:
             x = rng.standard_normal((S4_BATCH, d_in, n)).astype(np.float32)
-            before = kernel.launches
-            times = []
-            for _ in range(10):
-                t = time.perf_counter()
-                eng.predict(x)
-                times.append((time.perf_counter() - t) * 1e3)
-            require(kernel.launches - before == 10 * layers,
-                    f"{mode}: 10 timed predicts at L {n} launched {name} "
-                    f"{kernel.launches - before} times")
+            g1 = median_ms(lambda: eng.predict(x))
+            e1 = eager(eng, lambda: median_ms(lambda: eng.predict(x)))
+            g2 = median_ms(lambda: eng.predict(x))
             log("latency", model=f"s4_{mode}", bucket=f"{S4_BATCH}x{n}",
-                median_ms=f"{statistics.median(times):.3f}")
-        launched[mode] = kernel.launches
-        require(other.launches == 0, f"{mode}: the other kernel launched")
-        log("s4", mode=mode, **{f"launches_{name}": kernel.launches})
+                graph_median_ms=f"{g1:.3f}/{g2:.3f}",
+                eager_median_ms=f"{e1:.3f}")
+        # the device's idle share over 10 predicts of 16 x 512
+        x = rng.standard_normal((S4_BATCH, d_in, 512)).astype(np.float32)
+        for _ in range(3):
+            eng.predict(x)
+        def ten():
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eng.predict(x)
+            return (time.perf_counter() - t0) * 1e3 / 10
+
+        host_ms, prof = profiled(ten)
+        if _device_kernels(prof):
+            busy_ms, idle = _idle_share(prof)
+            log("s4", mode=mode, profiled="10 predicts of 16 x 512 (graphs)",
+                host_ms_per_predict=f"{host_ms:.3f}",
+                device_busy_ms_per_predict=f"{busy_ms / 10:.4f}",
+                device_idle_share=f"{idle:.4f}")
+        else:
+            log("s4", mode=mode, device_idle_share="not measured (the "
+                "profiler recorded no kernel inside a replay)")
 
         # the same weights on the CPU through the plain versions, and on the
         # card through the jnp route; a predict of 2 pads to the bucket of 16
@@ -1680,6 +1806,220 @@ def run_s4_slice() -> dict:
             raised = "forward-only" in str(e)
         require(raised, f"{mode}: backward() through the kernels' route "
                 "did not raise")
+    return launched
+
+
+# the S4 family's training (configs/model/s4_1d.yaml and s4d_1d.yaml,
+# dataset/ks_s4.yaml, training/default.yaml, depth cut to S4_EPOCHS epochs)
+# on a synthetic stand-in for the KS files: KS_TRAJ trajectories x
+# KS_FRAMES frames x KS_RES points, split as the train, valid and test files
+KS_TRAJ, KS_FRAMES, KS_RES, KS_MODES = 32, 51, 512, 16
+KS_SPLIT = (24, 4, 4)
+S4_EPOCHS = 2
+S4_RESOLUTIONS = [32, 64, 128, 256, 512]
+
+
+def make_ks_splits() -> tuple:
+    """A synthetic stand-in for the KS files, not KS physics: smooth random
+    fields (Fourier modes k <= KS_MODES, from SEED) under a linear
+    dispersive and diffusive evolution, per frame a phase 0.15 k + 4e-5 k^3
+    and a decay 2e-4 k^2 of mode k, evolved exactly, so the next frame is
+    one fixed linear map of the last. The (train, valid, test)
+    trajectories (b, t, s), float32."""
+    rng = np.random.default_rng(SEED)
+    k = np.arange(KS_RES // 2 + 1)
+    coef = (rng.standard_normal((KS_TRAJ, k.size))
+            + 1j * rng.standard_normal((KS_TRAJ, k.size))) * (k <= KS_MODES)
+    step = np.exp(-1j * (0.15 * k + 4e-5 * k ** 3) - 2e-4 * k ** 2)
+    u = np.stack([np.fft.irfft(coef * step ** t, n=KS_RES)
+                  for t in range(KS_FRAMES)], axis=1)
+    u = (u / u[:, 0].std()).astype(np.float32)
+    a, b = KS_SPLIT[0], KS_SPLIT[0] + KS_SPLIT[1]
+    return u[:a], u[a:b], u[b:]
+
+
+def run_s4_train() -> dict:
+    """The S4 family from training to serving, at s4_1d.yaml's and
+    s4d_1d.yaml's width as shipped (d_input 15, d_model 64, 4 layers,
+    dropout 0.2, f32, the jnp route; batch 16, the cosine schedule and
+    ssm_lr through cli.common.build_trainer): the window dataset through
+    ks_window_splits (window 15), S4_EPOCHS epochs of Trainer.fit (the
+    loss must fall and stay finite, the state-space group's rate the
+    ratio times the main one at every step), a checkpoint saved with
+    block=False after each epoch (the loop's stall timed beside a blocking
+    save), the sweep at S4_RESOLUTIONS and the window rollout of 16 steps
+    at each. Then the checkpoint served through
+    ServingEngine.from_checkpoint in S4Model(kernel_impl='pallas'), graphs
+    at 16 x S4_LENGTHS: replay against the same engine run eagerly, and
+    against the jnp route of the trained model (1e-4), each request
+    executing K5 (dplr) or K4 (diag) once a layer. Returns those
+    executions."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import model_kwargs, parse_cli
+    from resolution_pde_tpu_torch.data.factories import ks_window_splits
+    from resolution_pde_tpu_torch.data.transforms import reduce_trajectories
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+    from resolution_pde_tpu_torch.evaluation import (
+        evaluate_all_resolutions, evaluate_rollout_all_resolutions)
+    from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
+    from resolution_pde_tpu_torch.train import (save_checkpoint,
+                                                wait_for_checkpoints)
+
+    t_phase = time.perf_counter()
+    splits = make_ks_splits()
+    log("s4_train", data=[tuple(u.shape) for u in splits],
+        what="synthetic stand-in (dispersed, diffused random fields), not "
+             "KS physics")
+    launched = {}
+
+    def counters():
+        return {"K4": vandermonde.launches, "K5": cauchy.launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg_name, mode, kname, other in (("s4_1d", "dplr", "K5", "K4"),
+                                             ("s4d_1d", "diag", "K4", "K5")):
+            cfg = parse_cli([f"model={cfg_name}", "dataset=ks_s4",
+                             f"training.epochs={S4_EPOCHS}"])
+            dp = cfg.dataset.dataset_params
+            w = int(dp.window_size)
+            bundle = common.unpack_data(
+                ks_window_splits(*splits, window_size=w,
+                                 data_normalizer=dp.data_normalizer),
+                "simple")
+            xn, yn = bundle["x_normalizer"], bundle["y_normalizer"]
+            batch = cfg.training.batch_size
+            train_loader, val_loader, _ = common.build_loaders(
+                bundle, batch, False, seed=cfg.training.seed)
+            trainer = common.build_trainer(cfg, common.build_model(cfg), yn,
+                                           device="cuda")
+            state = trainer.init()
+            groups = state.optimizer.param_groups
+            ratio = trainer.ssm_ratio
+            require(len(groups) == 2, f"{mode}: optimizer groups {groups}")
+            lrs = []
+
+            def train_batches():
+                # the state-space group's rate at every step
+                for xb, yb in train_loader:
+                    lrs.append((groups[0]["lr"], groups[1]["lr"]))
+                    yield xb, yb
+
+            ckpt, stalls = f"{tmp}/{cfg_name}", []
+
+            def on_epoch(epoch, st, hist):
+                t = time.perf_counter()
+                save_checkpoint(ckpt, st, history={"train_loss":
+                                                   hist.train_loss},
+                                block=False)
+                stalls.append((time.perf_counter() - t) * 1e3)
+
+            state, hist = trainer.fit(
+                state, train_batches, val_loader, epochs=S4_EPOCHS,
+                schedule=common.build_schedule(cfg), epoch_callback=on_epoch)
+            t = time.perf_counter()
+            wait_for_checkpoints()
+            drain_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            save_checkpoint(f"{tmp}/{cfg_name}_blocking", state)
+            block_ms = (time.perf_counter() - t) * 1e3
+            losses = hist.train_loss + hist.val_loss
+            require(all(math.isfinite(v) for v in losses),
+                    f"{mode}: non-finite losses {losses}")
+            require(hist.train_loss[-1] < hist.train_loss[0],
+                    f"{mode}: the train loss did not fall: {hist.train_loss}")
+            require(len(lrs) == S4_EPOCHS * len(train_loader)
+                    and all(s == ratio * m for m, s in lrs),
+                    f"{mode}: the state-space rate is not {ratio} x the main "
+                    f"rate at every step: {sorted(set(lrs))}")
+            # a step's median on a fresh model (the trained one is served)
+            fresh = common.build_trainer(cfg, common.build_model(cfg), yn,
+                                         device="cuda")
+            step_ms = _median_step_ms(fresh, fresh.init(), train_loader)
+            del fresh
+            log("s4_train", mode=mode, ssm_ratio=ratio,
+                steps_per_epoch=len(train_loader),
+                train_loss=[f"{v:.6f}" for v in hist.train_loss],
+                val_loss=[f"{v:.6f}" for v in hist.val_loss],
+                lr=hist.lr, epoch_s=[f"{v:.3f}" for v in hist.epoch_time_s],
+                median_step_ms=f"{step_ms:.3f}",
+                save_stall_ms_async=[f"{v:.2f}" for v in stalls],
+                drain_ms=f"{drain_ms:.2f}",
+                save_stall_ms_blocking=f"{block_ms:.2f}")
+
+            # the sweep and the window rollout at every resolution
+            def builder(res):
+                red = [reduce_trajectories(u, reduced_resolution=KS_RES // res)
+                       for u in splits]
+                return ks_window_splits(*red, window_size=w,
+                                        data_normalizer=False)[2]
+
+            sweep = evaluate_all_resolutions(
+                state.model, builder, current_res=KS_RES,
+                test_resolutions=S4_RESOLUTIONS, x_normalizer=xn,
+                y_normalizer=yn, batch_size=batch, strict=True)
+            roll_s = {}
+            roll = evaluate_rollout_all_resolutions(
+                state.model, lambda res: splits[2][..., ::KS_RES // res],
+                current_res=KS_RES, test_resolutions=S4_RESOLUTIONS,
+                rollout_steps=cfg.dataset.rollout_steps, x_normalizer=xn,
+                y_normalizer=yn, batch_size=batch, strict=True,
+                window_size=w, seconds_out=roll_s)
+            for name, res in (("sweep", sweep["results"]), ("rollout", roll)):
+                require(sorted(res) == S4_RESOLUTIONS
+                        and all(math.isfinite(v) for v in res.values()),
+                        f"{mode}: {name} {res}")
+            log("s4_train", mode=mode,
+                sweep={r: f"{v:.6f}" for r, v in sweep["results"].items()},
+                sweep_s={r: f"{v:.3f}" for r, v in sweep["seconds"].items()},
+                rollout={r: f"{v:.6f}" for r, v in roll.items()},
+                rollout_s={r: f"{v:.3f}" for r, v in roll_s.items()})
+
+            # serve the checkpoint on the kernels' route through graphs
+            cls, kw = model_kwargs(cfg.model, kernel_impl="pallas")
+            per_call = {kname: S4["n_layers"], other: 0}
+            eng = ServingEngine.from_checkpoint(
+                cls(**kw, generator=torch.Generator().manual_seed(SEED + 1)),
+                ckpt, None, device="cuda", x_normalizer=xn, y_normalizer=yn)
+            warm_graphs(eng, [(n, S4_BATCH) for n in S4_LENGTHS], counters,
+                        per_call, f"s4_{mode} from_checkpoint",
+                        in_channels=w)
+            ref_eng = ServingEngine(state.model, device="cuda",
+                                    x_normalizer=xn, y_normalizer=yn)
+            ref_eng.warmup(S4_LENGTHS, [S4_BATCH], in_channels=w)
+            requests = {n: builder(n).x[:S4_BATCH] for n in S4_LENGTHS}
+            # the main path: every count from here comes from requests
+            cauchy.launches = vandermonde.launches = 0
+            executed, how = 0, set()
+            outs = {}
+            for n, x in requests.items():
+                outs[n], ex, h = graph_executions(
+                    lambda x=x: eng.predict(x), per_call, 1,
+                    f"s4_{mode} served checkpoint at L {n}")
+                executed += ex[kname]
+                how.add(h)
+            require(counters() == {"K4": 0, "K5": 0},
+                    f"{mode}: the served checkpoint launched {counters()} "
+                    "from the host")
+            launched[mode] = executed
+            for n, x in requests.items():
+                got = outs[n]
+                ref = eager(eng, lambda x=x: eng.predict(x))
+                jnp_ref = ref_eng.predict(x)
+                err = rel_l2(torch.from_numpy(got), torch.from_numpy(jnp_ref))
+                log("s4_train", mode=mode, served=f"{S4_BATCH}x{n}",
+                    graph_vs_eager_max_abs=f"{np.abs(got - ref).max():.3e}",
+                    bit_equal=bool(np.array_equal(got, ref)),
+                    vs_jnp_route_rel_l2=f"{err:.3e}", tol=1e-4)
+                require(got.shape == (S4_BATCH, 1, n)
+                        and np.isfinite(got).all(),
+                        f"{mode}: served output {got.shape} or non-finite")
+                require(rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
+                        <= 1e-6, f"{mode}: graph replay vs eager at L {n}")
+                require(err <= 1e-4, f"{mode}: served checkpoint vs the jnp "
+                        f"route at L {n}: {err}")
+            log("s4_train", mode=mode, **{f"executions_{kname}": executed},
+                counted=sorted(how))
+    log("s4_train", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
     return launched
 
 
@@ -1882,7 +2222,8 @@ def run_cli() -> dict:
 
 
 def _run_cli_in(tmp: str) -> dict:
-    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.cli import (autoregressive_eval, common,
+                                              frequency_evaluation)
     from resolution_pde_tpu_torch.cli.main_2d import main as main_2d
     from resolution_pde_tpu_torch.evaluation.superres import (
         normalized_forward)
@@ -1928,8 +2269,44 @@ def _run_cli_in(tmp: str) -> dict:
             f"run B: {b['staged']} of {b['k2'] + b['adj']} spectral "
             "launches on the staged route")
 
-    # run C: the plain route from B's weights, through the warm start
+    # the evaluation CLIs on run B's checkpoint and file, on its route:
+    # the sweep and the rollout must repeat what main_2d printed
     ckpt_b = os.path.abspath(f"{tmp}/B/{outs['B']['checkpoint']}")
+    os.makedirs(f"{tmp}/eval")
+    os.chdir(f"{tmp}/eval")
+    eval_argv = runs["B"] + [f"dataset.saved_checkpoint_path={ckpt_b}"]
+    before = _counts()
+    t0 = time.perf_counter()
+    ev = autoregressive_eval.main(eval_argv)
+    t_ev = time.perf_counter() - t0
+    freq = frequency_evaluation.main(eval_argv)
+    t_freq = time.perf_counter() - t0 - t_ev
+    d = dict(zip(("fwd", "bwd", "k2", "adj"),
+                 (a - b for a, b in zip(_counts(), before))))
+    for key, got in (("super_resolution", ev["teacher_forcing"]),
+                     ("rollout", ev["rollout"])):
+        want = outs["B"][key]
+        require(sorted(got) == sorted(want) and all(
+            abs(got[r] - want[r]) <= 1e-6 * abs(want[r]) for r in want),
+            f"autoregressive_eval's {key} {got} vs main_2d's {want}")
+    err = freq["default"]["error_per_mode"]
+    require(np.isfinite(err).all() and np.isfinite(
+        freq["default"]["magnitude_per_mode"]).all(),
+        "frequency_evaluation: non-finite table")
+    require(d["fwd"] >= 1 and d["k2"] >= 1,
+            f"the eval CLIs launched K1f and K2 {d}")
+    for k in ("fwd", "k2"):
+        launched["B"][k] += d[k]
+    launched["B"]["staged"] += d["k2"]
+    log("cli", eval_clis="autoregressive_eval, frequency_evaluation on run "
+        "B's checkpoint", seconds=f"{t_ev:.2f}/{t_freq:.2f}",
+        teacher_forcing={r: f"{v:.6f}" for r, v in ev["teacher_forcing"]
+                         .items()},
+        rollout={r: f"{v:.6f}" for r, v in ev["rollout"].items()},
+        total_err=f"{np.linalg.norm(err):.6f}", launches=d,
+        equal_to_main_2d="1e-6")
+
+    # run C: the plain route from B's weights, through the warm start
     os.makedirs(f"{tmp}/C")
     os.chdir(f"{tmp}/C")
     plain = base + ["model.dropout=0", "model.approx_gelu=true"]
@@ -1973,13 +2350,9 @@ def _run_cli_in(tmp: str) -> dict:
     t0 = time.perf_counter()
     n = sum(1 for _ in loaders_b[0])
     loader_ms = (time.perf_counter() - t0) * 1e3 / n
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        state_b, _ = trainer_b.train_epoch(state_b, loaders_b[0])
-        torch.cuda.synchronize()
+    _, prof = profiled(lambda: trainer_b.train_epoch(state_b, loaders_b[0]))
     busy_ms, idle = _idle_share(prof)
     log("cli", median_step_ms_A=f"{step_a:.3f}",
         median_step_ms_B=f"{step_b:.3f}",
@@ -2024,6 +2397,7 @@ def main() -> int:
     wide = run_wide()
     k4, k5 = check_s4_kernels(gen)
     s4_served = run_s4_slice()
+    s4_trained = run_s4_train()
     check_fft_path(gen)
     cli = run_cli()
 
@@ -2065,12 +2439,22 @@ def main() -> int:
         dict(name="s4d_vandermonde", route="cuda",
              source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
              replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",
-             launches=s4_served["diag"], **k4),
+             launches=s4_served["diag"] + s4_trained["diag"], **k4),
         dict(name="cauchy", route="cuda",
              source="resolution_pde_tpu_torch/csrc/cauchy.cu",
              replaces="resolution_pde_tpu/ops/pallas/cauchy.py:52",
-             launches=s4_served["dplr"], **k5),
+             launches=s4_served["dplr"] + s4_trained["dplr"], **k5),
     ]
+    # the serving paths' counts are executions inside CUDA graph replays
+    counted = ("host launches (the wrappers' counters) on the training and "
+               "command-line paths; executions inside the serving paths' "
+               "CUDA graph replays, counted by "
+               + " and ".join(sorted(REPLAYS_COUNTED_BY)))
+    for k in kernels:
+        if k["name"] in ("fused_ff_fwd_bf16", "fused_ff_fwd_f32",
+                         "spectral_pass_bf16", "spectral_pass_f32",
+                         "s4d_vandermonde", "cauchy"):
+            k["launches_counted_as"] = counted
     dead = [k["name"] for k in kernels if k["launches"] < 1]
     require(not dead, f"kernels never launched on the main paths: {dead}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,9 +5,9 @@ main_1d.py:33-310, main_2d.py:37-325): dataset factory -> (grouped)
 loaders -> model -> AdamW and scheduler -> train and evaluate ->
 checkpoint -> super-resolution sweep -> rollout -> tables.
 
-Checkpoints are the port's own format (``train/checkpoint.py``). Every
-save blocks: the JAX package's asynchronous save is ROADMAP.md section 1,
-item 3. The JAX package's ``sample_input`` has no counterpart: a torch
+Checkpoints are the port's own format (``train/checkpoint.py``); the
+periodic ones are saved asynchronously, the run's last one blocks, as in
+the JAX package. The JAX package's ``sample_input`` has no counterpart: a torch
 model holds its parameters from construction, so ``Trainer.init`` takes
 no sample batch.
 """
@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import inspect
 import os
+
+import numpy as np
+import torch
 
 from resolution_pde_tpu_torch.configs import (
     Config,
@@ -174,6 +177,33 @@ def _filter_to_factory_signature(params: dict) -> dict:
             if k == "_target_" or k in accepted}
 
 
+def require_device(device, what: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device={str(device)!r}): CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def target_spatial_ndim(cfg: Config, test) -> int:
+    """1 or 2, from the test targets' layout ((N, C, X) or (N, C, H, W))
+    rather than the pde's name; window (S4-family) targets carry no
+    channel axis, (N, X) or (N, H, W) (JAX
+    cli/frequency_evaluation.py:33-47)."""
+    target = str(cfg.dataset.dataset_params.get("_target_", ""))
+    if isinstance(test, MultiResDataset):
+        test = test.buckets[test.resolutions[0]]
+    sample_y = np.asarray(test.y[0])
+    ndim = sample_y.ndim - (0 if "window" in target else 1)
+    if ndim not in (1, 2):
+        raise ValueError(
+            f"cannot infer spatial ndim from target sample shape "
+            f"{sample_y.shape} (factory {target!r}); pass spatial_ndim "
+            "explicitly")
+    return ndim
+
+
 def rollout_window_size(cfg: Config) -> int:
     """The sliding-window rollout's window, for window (S4-family)
     datasets only: Markov configs carry a vestigial top-level
@@ -246,9 +276,11 @@ def _scheduler_extra(schedule) -> dict | None:
     return None
 
 
-def save_run_checkpoint(cfg: Config, state, history, schedule=None) -> str:
-    """Save the full resumable state to the run checkpoint path; blocks
-    until it is on disk."""
+def save_run_checkpoint(cfg: Config, state, history, schedule=None,
+                        block: bool = True) -> str:
+    """Save the full resumable state to the run checkpoint path; with
+    ``block`` it is on disk on return, else it is written in the
+    background (``train.checkpoint.wait_for_checkpoints``)."""
     path = run_checkpoint_path(cfg)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     hist = history if isinstance(history, dict) else {
@@ -257,7 +289,7 @@ def save_run_checkpoint(cfg: Config, state, history, schedule=None) -> str:
         "lr": history.lr,
     }
     save_checkpoint(path, state, history=hist,
-                    extra=_scheduler_extra(schedule))
+                    extra=_scheduler_extra(schedule), block=block)
     return path
 
 
@@ -266,8 +298,8 @@ def periodic_checkpointer(cfg: Config, schedule, prior_hist=None):
     epochs, save the full resumable state (step, optimizer, dropout
     generator, history, scheduler counters) to the run checkpoint path, so
     a killed run resumes exactly with training.resume_from. None when
-    checkpoint_every is unset. The save blocks the epoch loop (the JAX
-    package saves asynchronously: ROADMAP.md section 1, item 3).
+    checkpoint_every is unset. The save is asynchronous: the epoch loop
+    waits only for the state's copy to host memory.
 
     prior_hist: a resumed run's restored history, stitched in front of
     fit's (which holds only the resumed epochs), so a second resume counts
@@ -282,7 +314,8 @@ def periodic_checkpointer(cfg: Config, schedule, prior_hist=None):
         if (epoch + 1) % every == 0:
             stitched = {k: prior[k] + [float(v) for v in getattr(history, k)]
                         for k in prior}
-            save_run_checkpoint(cfg, state, stitched, schedule)
+            save_run_checkpoint(cfg, state, stitched, schedule,
+                                block=False)
 
     return callback
 

@@ -39,10 +39,7 @@ def _platform(device: torch.device) -> str:
 
 
 def main(argv=None, spatial_ndim: int = 1, device="cuda"):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"main(device={str(device)!r}): CUDA is not "
-                           "available; pass device='cpu' to run on the CPU")
+    device = common.require_device(device, "main")
     cfg = parse_cli(argv if argv is not None else sys.argv[1:])
     if cfg.training.get("cno_resize_training"):
         raise NotImplementedError(

@@ -1,5 +1,5 @@
 """Data path of the port: file reading -> reduction and filtering ->
-Markov pairing -> normalization -> batched loaders with resolution
+Markov pairing or sliding windows -> normalization -> batched loaders with resolution
 buckets. Host-side numpy (spectral transforms on CPU tensors), as in the
 JAX package's data/ layer; the Trainer copies batches to the card.
 """
@@ -13,6 +13,7 @@ from resolution_pde_tpu_torch.data.dataset import (
     fit_normalizers,
 )
 from resolution_pde_tpu_torch.data.factories import (
+    ks_window_dataset,
     ns_markov_dataset,
     ns_true_multires_markov_dataset,
 )
@@ -32,6 +33,7 @@ __all__ = [
     "TrajectoryDataset",
     "create_grouped_dataloaders",
     "fit_normalizers",
+    "ks_window_dataset",
     "ns_markov_dataset",
     "ns_true_multires_markov_dataset",
 ]

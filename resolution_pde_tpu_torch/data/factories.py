@@ -1,9 +1,10 @@
-"""Dataset factories of the Navier-Stokes path.
+"""Dataset factories of the Navier-Stokes path and the S4 family's KS
+windows.
 
 Counterpart of resolution_pde_tpu/data/factories.py's
-``ns_markov_dataset`` (:458) and ``ns_true_multires_markov_dataset``
-(:485), with the helpers they call. Each returns the positional tuple the
-drivers consume:
+``ns_markov_dataset`` (:458), ``ns_true_multires_markov_dataset`` (:485)
+and ``ks_window_dataset`` (:711, with ``_ks_load``, :142), with the
+helpers they call. Each returns the positional tuple the drivers consume:
 
   'simple' / 'unit_gaussian':
      (train, val, test, rollout, x_normalizer, y_normalizer)
@@ -38,6 +39,7 @@ from resolution_pde_tpu_torch.data.transforms import (
     markov_pairs_2d,
     reduce_trajectories,
     resize_trajectories,
+    sliding_windows,
     split_ratio_indices,
 )
 
@@ -290,3 +292,49 @@ def ns_true_multires_markov_dataset(
                     MultiResDataset(buckets["val"]),
                     MultiResDataset(buckets["test"]), rollout,
                     data_normalizer, normalization_type)
+
+
+# ---------------------------------------------------------------------------
+# KS (separate train/valid/test files)
+# ---------------------------------------------------------------------------
+
+def _ks_load(filename, saved_folder, *, s=None, resize_method="resize",
+             **red_kw) -> np.ndarray:
+    """A KS file's trajectories (b, t, s), reduced (``red_kw``: the
+    ``reduce_trajectories`` strides and filter) and, with ``s``, resized."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u = data_io.read_ks_h5(path)["u"]
+    u = reduce_trajectories(u, spatial_ndim=1, **red_kw)
+    if s is not None:
+        u = resize_trajectories(u, s, spatial_ndim=1, method=resize_method)
+    return u
+
+
+def ks_window_splits(train_u, val_u, test_u, window_size=10,
+                     data_normalizer=True):
+    """``ks_window_dataset`` on trajectories already read: (b, t, s) arrays
+    of the train, valid and test files. Each split's sliding windows
+    (x (N, window_size, s), y (N, s), no channel axis), SimpleNormalizers
+    fit on train, and the raw test trajectories in the rollout slot."""
+    splits = [ArrayDataset(*sliding_windows(u, window_size))
+              for u in (train_u, val_u, test_u)]
+    return _package(*splits, TrajectoryDataset(test_u), data_normalizer,
+                    "simple")
+
+
+def ks_window_dataset(filename, saved_folder, window_size=10,
+                      data_normalizer=True, reduced_batch=1,
+                      reduced_resolution=1, reduced_resolution_t=1,
+                      num_samples_max=-1, val_filename="KS_valid.h5",
+                      test_filename="KS_test.h5"):
+    """Sliding-window dataset from KS-format files (the S4 path on KS data;
+    the window template of dataloaders/burger_s4.py applied to the KS
+    reader)."""
+    red = dict(reduced_batch=reduced_batch,
+               reduced_resolution=reduced_resolution,
+               reduced_resolution_t=reduced_resolution_t,
+               num_samples_max=num_samples_max)
+    us = [_ks_load(fn, saved_folder, **red)
+          for fn in (filename, val_filename, test_filename)]
+    return ks_window_splits(*us, window_size=window_size,
+                            data_normalizer=data_normalizer)

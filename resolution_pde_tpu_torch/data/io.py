@@ -1,9 +1,15 @@
-"""Readers of the Navier-Stokes vorticity files.
+"""Readers of the Kuramoto-Sivashinsky and Navier-Stokes files.
 
-Counterpart of resolution_pde_tpu/data/io.py's ``read_ns`` and
-``_load_mat`` (reference dataloaders/ns_naive_markov.py:276-315): an .h5
-file's key 'u' as (b, t, h, w), or (b, h, w, t) when its trailing axis is
-short (a transpose heuristic), or a .mat file's key 'u' as (b, h, w, t).
+Counterpart of resolution_pde_tpu/data/io.py's ``read_ks_h5`` (with
+``_ks_group``, ``_ks_pde_key`` and ``split_from_filename``), ``read_ns``
+and ``_load_mat``:
+  - KS HDF5: split groups 'train'/'valid'/'test' (or a single group), the
+    data under the key holding 'pde' and '-' (e.g. 'pde_128-256') as
+    (b, t, s), optional 'x' and 't' (reference
+    dataloaders/ks_naive_markov.py:190-252);
+  - NS: an .h5 file's key 'u' as (b, t, h, w), or (b, h, w, t) when its
+    trailing axis is short (a transpose heuristic), or a .mat file's key
+    'u' as (b, h, w, t) (reference dataloaders/ns_naive_markov.py:276-315).
 h5py is imported only to read an HDF5 file (.h5, or a MATLAB v7.3 .mat),
 so the module imports where h5py is absent; .mat files up to v7 go
 through scipy.
@@ -12,8 +18,59 @@ through scipy.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
+
+
+def _ks_group(f, split: str):
+    """The split's group of an open KS file: the split by name, the only
+    group, or the first whose name says data, pde or train."""
+    if split in f:
+        return f[split]
+    keys = list(f.keys())
+    if len(keys) == 1:
+        return f[keys[0]]
+    for key in keys:
+        if key.lower() in ("data", "pde", "train") or "pde" in key.lower():
+            return f[key]
+    raise ValueError(f"could not find split {split!r}; available: {keys}")
+
+
+def _ks_pde_key(group) -> str:
+    for key in group.keys():
+        if "pde" in key.lower() and "-" in key:
+            return key
+    raise ValueError(f"no PDE data key in {list(group.keys())}")
+
+
+def split_from_filename(filename: str) -> str:
+    """'train', 'valid' or 'test' as the file's name says; 'train' when
+    it says none."""
+    low = filename.lower()
+    for split in ("train", "valid", "test"):
+        if split in low:
+            return split
+    return "train"
+
+
+def read_ks_h5(path: str, split: Optional[str] = None) -> dict:
+    """{'u': (b, t, s) float32, 'x': coordinates or None, 't': times or
+    None}; ``split`` defaults to the one the file's name says."""
+    import h5py
+
+    if split is None:
+        split = split_from_filename(os.path.basename(path))
+    with h5py.File(path, "r") as f:
+        group = _ks_group(f, split)
+        u = np.array(group[_ks_pde_key(group)], dtype=np.float32)
+        out = {"u": u, "x": None, "t": None}
+        if "x" in group:
+            x = np.array(group["x"], dtype=np.float32)
+            out["x"] = x[0] if x.ndim == 2 else x
+        if "t" in group:
+            out["t"] = np.array(group["t"], dtype=np.float32)
+    return out
 
 
 def read_ns(path: str) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Host-side transforms of trajectories: batch and time strides, spatial
-reduction (naive stride, spectral low-pass or FFT resize), Markov pairing
-and split boundaries.
+reduction (naive stride, spectral low-pass or FFT resize), Markov pairing,
+the S4 family's sliding windows and split boundaries.
 
 Counterpart of resolution_pde_tpu/data/transforms.py (reference
 dataloaders/ks_naive_markov.py:253-280, ns_naive_markov.py:218-272). The
@@ -111,3 +111,21 @@ def split_ratio_indices(n: int, split_ratio=(0.8, 0.1, 0.1)):
     (burger_naive_markov.py:96-100)."""
     train_end = int(n * split_ratio[0])
     return train_end, train_end + int(n * split_ratio[1])
+
+
+def sliding_windows(u: np.ndarray, window_size: int):
+    """Sequence windows for S4-style models (dataloaders/burger_s4.py:
+    49-77): inputs u[:, i:i+w], target u[:, i+w] for every valid i, the
+    windows of one i for every trajectory together.
+
+    u: (b, t, s) -> x (N, window_size, s), y (N, s), N = b (t - w).
+    """
+    b, t, s = u.shape
+    n_win = t - window_size
+    if n_win <= 0:
+        raise ValueError(f"window_size {window_size} >= trajectory length {t}")
+    x = np.stack([u[:, i:i + window_size] for i in range(n_win)])
+    y = np.stack([u[:, i + window_size] for i in range(n_win)])
+    return (np.ascontiguousarray(x.reshape(b * n_win, window_size, s),
+                                 dtype=np.float32),
+            np.ascontiguousarray(y.reshape(b * n_win, s), dtype=np.float32))

@@ -1,32 +1,58 @@
 """Serving: bucketed inference for a trained operator.
 
 Counterpart of resolution_pde_tpu/deploy/serving.py ``ServingEngine``:
-- **Buckets per (spatial shape, channels, batch)**: ``warmup`` runs each
-  bucket once, which builds the CUDA kernels and allocates the memory the
-  shapes need, so a first request pays neither.
+- **One CUDA graph per (spatial shape, channels, batch) bucket** on the
+  card, the counterpart of the JAX package's AOT-compiled program per
+  bucket: ``compile_bucket`` runs the bucket once eagerly on a side stream
+  (which builds the kernel library, makes cuFFT's plans and fills the
+  kernel planners' caches) and then captures its predict, and each
+  forecast length, into a ``torch.cuda.CUDAGraph`` with static input and
+  output buffers. A request copies its padded input into the static
+  input, replays the graph and copies the output out, so its latency is
+  one graph launch and two copies, not a launch from Python per kernel.
+  Every bucket's graph allocates from one memory pool. A capture that
+  fails raises: the card never serves eagerly. On the CPU the engine
+  runs eagerly.
 - **Pad-and-slice**: a request of B rows runs on the smallest warmed
   bucket >= B, padded with its first row (the models are per-sample
   independent in eval mode), and the output is sliced back to B.
 - **Normalizer round-trip**: encode(x) -> model -> decode(pred) on the
   device; ``forecast`` re-encodes each decoded step, as evaluation/rollout
-  does.
+  does, and on the card its whole loop is one graph, as JAX's forecast is
+  one ``lax.scan`` program.
+
+The kernels' launch counters (``ops/kernels/*.launches``) count launches
+from the host, so a graph's kernels count once, at capture, and not at
+each replay.
 """
 
 from __future__ import annotations
 
 import warnings
+from dataclasses import dataclass
 from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from resolution_pde_tpu_torch.models.registry import unwrap_output
+from resolution_pde_tpu_torch.ops.kernels._cost import count_operations
 
 
 def _as_shape_tuple(spatial) -> tuple:
     if isinstance(spatial, int):
         return (spatial,)
     return tuple(int(s) for s in spatial)
+
+
+@dataclass
+class _BucketGraph:
+    """A captured bucket: replaying ``graph`` reads ``x`` and writes
+    ``out``."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    out: torch.Tensor
 
 
 class ServingEngine:
@@ -59,8 +85,14 @@ class ServingEngine:
                              if y_normalizer is not None else None)
         self.compute_dtype = compute_dtype
         self.strict_buckets = strict_buckets
-        # (kind, spatial, in_channels, batch[, steps]) of every warmed bucket
-        self._buckets: set = set()
+        # (kind, spatial, in_channels, batch[, steps]) of every warmed
+        # bucket -> its _BucketGraph on the card, None on the CPU
+        self._programs: dict = {}
+        # serve through the graphs; a private switch, so a check can run
+        # the same engine eagerly beside them
+        self._use_graphs = device.type == "cuda"
+        self._pool = None
+        self._stream = None
 
     # -- the computation --------------------------------------------------
 
@@ -87,24 +119,52 @@ class ServingEngine:
             preds.append(decoded)
         return torch.stack(preds, dim=1)  # (B, steps, C, *spatial)
 
+    def _fn(self, key):
+        if key[0] == "predict":
+            return self._predict
+        return lambda x: self._forecast(x, key[4])
+
     # -- buckets ----------------------------------------------------------
+
+    def _capture(self, fn, shape) -> _BucketGraph:
+        """Run ``fn`` once eagerly on the engine's side stream, then
+        capture it into a graph on that stream, allocating from the
+        engine's pool. Buckets are replayed one at a time and each
+        request copies its output out before the next replay, so the
+        graphs may share the pool's memory."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        x = torch.zeros(shape, device=self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            fn(x)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            out = fn(x)
+        return _BucketGraph(graph, x, out)
+
+    def _warm(self, key) -> None:
+        if key in self._programs:
+            return
+        shape = (key[3], key[2]) + key[1]
+        if self.device.type == "cuda":
+            self._programs[key] = self._capture(self._fn(key), shape)
+        else:
+            self._fn(key)(torch.zeros(shape, device=self.device))
+            self._programs[key] = None
 
     def compile_bucket(self, spatial, batch_size: int, in_channels: int = 1,
                        rollout_steps: Iterable[int] = ()) -> None:
         """Warm the predict (and optional forecast) bucket of one (spatial
-        shape, batch): run it once on zeros."""
+        shape, batch): on the card, capture each into a CUDA graph; on the
+        CPU, run it once on zeros."""
         spatial = _as_shape_tuple(spatial)
-        x = torch.zeros((batch_size, in_channels) + spatial,
-                        device=self.device)
-        key = ("predict", spatial, in_channels, batch_size)
-        if key not in self._buckets:
-            self._predict(x)
-            self._buckets.add(key)
+        self._warm(("predict", spatial, in_channels, batch_size))
         for steps in rollout_steps:
-            k = ("forecast", spatial, in_channels, batch_size, int(steps))
-            if k not in self._buckets:
-                self._forecast(x, int(steps))
-                self._buckets.add(k)
+            self._warm(("forecast", spatial, in_channels, batch_size,
+                        int(steps)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -123,7 +183,7 @@ class ServingEngine:
         """Smallest warmed batch bucket >= b for this (spatial shape,
         channel count); None when there is none."""
         candidates = sorted(
-            k[3] for k in self._buckets
+            k[3] for k in self._programs
             if k[0] == kind and k[1] == spatial and k[2] == channels
             and tuple(k[4:]) == tuple(extra) and k[3] >= b)
         return candidates[0] if candidates else None
@@ -138,49 +198,107 @@ class ServingEngine:
         warnings.warn(msg + " — warming it inside the serving path",
                       RuntimeWarning, stacklevel=3)
 
-    def _put(self, x: np.ndarray, bucket: int) -> torch.Tensor:
-        """Pad to the bucket with copies of the first row; move to device."""
+    @staticmethod
+    def _pad(x: np.ndarray, bucket: int) -> torch.Tensor:
+        """Pad to the bucket with copies of the first row, as a CPU
+        tensor."""
         b = x.shape[0]
         if b != bucket:
             pad = np.broadcast_to(x[:1], (bucket - b,) + x.shape[1:])
             x = np.concatenate([x, pad], axis=0)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    def _run(self, key, x: np.ndarray) -> torch.Tensor:
+        """The bucket ``key`` on x padded to it: the graph's output buffer
+        (valid until its next replay), or the eager result."""
+        xb = self._pad(x, key[3])
+        if self._use_graphs:
+            bg = self._programs[key]
+            bg.x.copy_(xb)
+            bg.graph.replay()
+            return bg.out
+        return self._fn(key)(xb.to(self.device))
+
+    def _key(self, kind: str, x: np.ndarray, extra=()) -> tuple:
+        """The bucket a request runs on, warmed on a miss."""
+        b, c, spatial = x.shape[0], x.shape[1], tuple(x.shape[2:])
+        bucket = self._bucket_for(kind, spatial, c, b, extra)
+        if bucket is None:
+            self._on_bucket_miss(kind, spatial, c, b)
+            self.compile_bucket(spatial, b, in_channels=c,
+                                rollout_steps=extra)
+            bucket = b
+        return (kind, spatial, c, bucket) + tuple(extra)
 
     # -- serving ----------------------------------------------------------
 
     def predict_device(self, x) -> torch.Tensor:
         """Like predict() but returns the bucket-padded f32 tensor on the
-        device without waiting for it; slice to the request's batch."""
+        device without waiting for it (a copy: a graph's output buffer is
+        overwritten by its next replay); slice to the request's batch."""
         x = np.asarray(x, np.float32)
-        b, c, spatial = x.shape[0], x.shape[1], tuple(x.shape[2:])
-        bucket = self._bucket_for("predict", spatial, c, b)
-        if bucket is None:
-            self._on_bucket_miss("predict", spatial, c, b)
-            self.compile_bucket(spatial, b, in_channels=c)
-            bucket = b
-        return self._predict(self._put(x, bucket))
+        out = self._run(self._key("predict", x), x)
+        return out.clone() if self._use_graphs else out
 
     def predict(self, x) -> np.ndarray:
         """x: raw (B, C, *spatial) float32. Returns the decoded predictions
         (B, C_out, *spatial) as float32 numpy."""
-        b = np.asarray(x).shape[0]
-        return self.predict_device(x)[:b].cpu().numpy()
+        x = np.asarray(x, np.float32)
+        return self._run(self._key("predict", x), x)[:x.shape[0]].cpu().numpy()
 
     def forecast(self, x0, steps: int) -> np.ndarray:
         """Autoregressive rollout from raw x0 (B, C, *spatial). Returns the
         decoded (B, steps, C, *spatial) float32 numpy, with the normalizer
         round-trip between steps."""
         x0 = np.asarray(x0, np.float32)
-        b, c, spatial = x0.shape[0], x0.shape[1], tuple(x0.shape[2:])
-        bucket = self._bucket_for("forecast", spatial, c, b, (int(steps),))
-        if bucket is None:
-            self._on_bucket_miss("forecast", spatial, c, b)
-            self.compile_bucket(spatial, b, in_channels=c,
-                                rollout_steps=(int(steps),))
-            bucket = b
-        return self._forecast(self._put(x0, bucket),
-                              int(steps))[:b].cpu().numpy()
+        key = self._key("forecast", x0, (int(steps),))
+        return self._run(key, x0)[:x0.shape[0]].cpu().numpy()
+
+    # -- introspection ----------------------------------------------------
 
     def buckets(self) -> list:
         """Warmed buckets: [(kind, spatial, in_channels, batch, *extra)]."""
-        return sorted(self._buckets, key=str)
+        return sorted(self._programs, key=str)
+
+    def cost_summary(self) -> dict:
+        """{str(bucket): {"flops": ...}} for every warmed bucket: one eager
+        run of the bucket on zeros under FlopCounterMode (PyTorch's
+        operators: its matrix products and convolutions; it counts no
+        FFT), plus each hand kernel's own operation count for the shapes
+        it was launched with (``ops/kernels/_cost.py``), which
+        FlopCounterMode cannot see. On the CPU the kernels' plain versions
+        run and FlopCounterMode counts their products instead. No count of
+        bytes covers a whole bucket, so "bytes accessed" is left out: an
+        absent entry is a backend limitation, as in the JAX package."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        out = {}
+        for key in self.buckets():
+            x = torch.zeros((key[3], key[2]) + key[1], device=self.device)
+            counter = FlopCounterMode(display=False)
+            with count_operations() as tally, counter:
+                self._fn(key)(x)
+            out[str(key)] = {"flops": float(counter.get_total_flops()
+                                            + tally["operations"])}
+        return out
+
+    # -- construction helpers ---------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, model, checkpoint_path: str, sample_x=None,
+                        **engine_kwargs) -> "ServingEngine":
+        """An engine serving the parameters of a trained checkpoint (the
+        port's format, ``train/checkpoint.py``) restored into ``model``,
+        on ``engine_kwargs``' device (the card by default). The model may
+        take another route than the one it trained on (an S4Model with
+        ``kernel_impl='pallas'`` for weights trained on 'jnp': the
+        parameters are the same). ``sample_x`` is kept for the JAX
+        package's signature, where it builds the restore template; a
+        torch model holds its parameters, so it is not used."""
+        from resolution_pde_tpu_torch.train import Trainer
+        from resolution_pde_tpu_torch.train.checkpoint import (
+            restore_checkpoint)
+
+        trainer = Trainer(model, device=engine_kwargs.get("device", "cuda"))
+        state, _ = restore_checkpoint(checkpoint_path, trainer.init())
+        return cls(state.model, **engine_kwargs)

@@ -8,7 +8,9 @@ from resolution_pde_tpu_torch.evaluation.frequency import (
 from resolution_pde_tpu_torch.evaluation.rollout import (
     evaluate_rollout_all_resolutions,
     perform_rollout,
+    perform_window_rollout,
     rollout_loss,
+    window_rollout_loss,
 )
 from resolution_pde_tpu_torch.evaluation.superres import (
     evaluate_all_resolutions,
@@ -22,5 +24,7 @@ __all__ = [
     "evaluate_rollout_all_resolutions",
     "get_lower_resolutions",
     "perform_rollout",
+    "perform_window_rollout",
     "rollout_loss",
+    "window_rollout_loss",
 ]

@@ -10,10 +10,16 @@ decoded rollout and the raw trajectory[:, 1:steps+1]. A Python loop over
 the steps takes the place of ``lax.scan``. States are (B, C, S) in 1D
 and (B, C, H, W) in 2D.
 
+The S4 family's window rollout (``perform_window_rollout``,
+``window_rollout_loss``; ``window_size`` > 1): the state is the last W
+frames (B, W, X), seeded with the first W normalized frames; each step
+predicts the next frame, round-trips it through the normalizers and
+shifts the window; the decoded rollout is scored against frames
+[W, W + steps).
+
 The forward runs on the model's device under ``torch.inference_mode()``
 in eval mode; the per-step losses add up on the device and are fetched
-once per resolution. Not ported: the window rollout of the S4 family
-(ROADMAP.md section 1, item 5) and ``mesh=``.
+once per resolution. Not ported: ``mesh=``.
 """
 
 from __future__ import annotations
@@ -132,6 +138,74 @@ def rollout_loss(model, trajectories, rollout_steps: int,
     return float(per_step.mean())
 
 
+def perform_window_rollout(model, initial_window, rollout_steps: int,
+                           x_normalizer=None, y_normalizer=None):
+    """Roll a sliding-window (S4-style) model forward: each step predicts
+    the next frame from the window (B, W, X) and the window shifts by one,
+    with the normalizer round-trip of ``perform_rollout`` between steps.
+
+    initial_window: NORMALIZED (B, W, X). Returns the NORMALIZED
+    predictions (B, rollout_steps, 1, X)."""
+    window, preds = initial_window, []
+    for _ in range(rollout_steps):
+        pred = unwrap_output(model(window))[:, -1:]  # (B, 1, X)
+        nxt = pred
+        if y_normalizer is not None and x_normalizer is not None:
+            nxt = x_normalizer.encode(y_normalizer.decode(pred))
+        window = torch.cat([window[:, 1:], nxt], dim=1)
+        preds.append(pred)
+    return torch.stack(preds, dim=1)
+
+
+def window_rollout_loss(model, trajectories, rollout_steps: int,
+                        window_size: int, x_normalizer=None,
+                        y_normalizer=None, batch_size: int = 16,
+                        per_step_losses: Optional[list] = None) -> float:
+    """Mean over steps of the per-step batch-mean relative L2 for window
+    models: seed with the first ``window_size`` frames of the raw
+    trajectories (N, T, X), score the decoded rollout against frames
+    [W, W + steps)."""
+    n, t = trajectories.shape[0], trajectories.shape[1]
+    steps = min(rollout_steps, t - window_size)
+    if steps <= 0:
+        raise ValueError(
+            f"trajectories of {t} frames cannot seed a window of "
+            f"{window_size} and roll out")
+    if n == 0:
+        warnings.warn(
+            "window_rollout_loss: empty trajectory set, returning NaN",
+            stacklevel=2)
+        if per_step_losses is not None:
+            per_step_losses[:] = [float("nan")] * steps
+        return float("nan")
+
+    device = model_device(model)
+    sp_shape = trajectories.shape[2:]
+    x_normalizer = adapt_normalizer(on_device(x_normalizer, device), sp_shape)
+    y_normalizer = adapt_normalizer(on_device(y_normalizer, device), sp_shape)
+
+    total, batches = None, 0
+    with torch.inference_mode():
+        for i in range(0, n, batch_size):
+            traj = torch.as_tensor(np.asarray(trajectories[i:i + batch_size]),
+                                   device=device)
+            win = traj[:, :window_size]
+            if x_normalizer is not None:
+                win = x_normalizer.encode(win)
+            preds = perform_window_rollout(model, win, steps, x_normalizer,
+                                           y_normalizer)
+            if y_normalizer is not None:
+                preds = y_normalizer.decode(preds)
+            gt = traj[:, window_size:window_size + steps]
+            losses = _per_step_rel_l2(preds[:, :, 0], gt)
+            total = losses if total is None else total + losses
+            batches += 1
+    per_step = total.cpu().numpy() / max(batches, 1)  # one host fetch
+    if per_step_losses is not None:
+        per_step_losses[:] = per_step.tolist()
+    return float(per_step.mean())
+
+
 def evaluate_rollout_all_resolutions(
     model,
     rollout_builder: Callable,
@@ -154,11 +228,8 @@ def evaluate_rollout_all_resolutions(
     with ``.u``). per_step_out and seconds_out: optional dicts, filled
     {res: per-step losses} and {res: wall seconds}. resize_to_train: a
     fixed-size (CNO) model round-trips each step through ``current_res``.
-    window_size > 1 (the S4 family's window rollout) is not ported."""
-    if window_size > 1:
-        raise NotImplementedError(
-            "the window rollout (perform_window_rollout, window_rollout_loss) "
-            "is not ported: ROADMAP.md section 1, item 5")
+    window_size > 1 selects the sliding-window rollout (S4-style models),
+    on raw trajectories (N, T, X)."""
     if test_resolutions is None:
         test_resolutions = get_lower_resolutions(
             max_test_resolution or current_res)
@@ -172,12 +243,17 @@ def evaluate_rollout_all_resolutions(
                 traj = rollout_builder(res)
                 u = traj.u if hasattr(traj, "u") else np.asarray(traj)
                 per_step: list = []
-                results[res] = rollout_loss(
-                    model, u, rollout_steps, x_normalizer, y_normalizer,
-                    batch_size, per_step_losses=per_step,
-                    resize_to=(current_res if resize_to_train
-                               and res != current_res else None),
-                    spatial_ndim=spatial_ndim)
+                if window_size > 1:
+                    results[res] = window_rollout_loss(
+                        model, u, rollout_steps, window_size, x_normalizer,
+                        y_normalizer, batch_size, per_step_losses=per_step)
+                else:
+                    results[res] = rollout_loss(
+                        model, u, rollout_steps, x_normalizer, y_normalizer,
+                        batch_size, per_step_losses=per_step,
+                        resize_to=(current_res if resize_to_train
+                                   and res != current_res else None),
+                        spatial_ndim=spatial_ndim)
                 if per_step_out is not None:
                     per_step_out[res] = per_step
             except Exception as e:  # a failed resolution is recorded as NaN

@@ -30,11 +30,23 @@ from __future__ import annotations
 
 import torch
 
-from resolution_pde_tpu_torch.ops.kernels import _build
+from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 from resolution_pde_tpu_torch.ops.ssm import roots_of_unity
 
 # kernel launches in this process (the plain version never counts)
 launches = 0
+
+
+def operations(rows, h, n, L) -> float:
+    """The operations ``dplr_at_roots`` needs (an FMA two, a reciprocal,
+    exp and sin or cos one each): per (feature, state, position) d,
+    |d|^2, its reciprocal and d / |d|^2 (8) and the sums k10, k11 (16),
+    which a feature's rows share (v2 = conj(P) B, v3 = conj(P) P); per
+    (row, state, position) the sums k00, k01 (16); per (row, position) the
+    Woodbury combination (31); per (feature, position) g and c (32); per
+    (row, state) v0, v1 (12), per (feature, state) v2, v3 (12)."""
+    return (24.0 * h * n * L + 16.0 * rows * n * L + 31.0 * rows * L
+            + 32.0 * h * L + 12.0 * (rows + h) * n)
 
 # the most an evaluation of the values at the roots may depart from the
 # plain version (``at_roots_departure``): above what the states summed in
@@ -220,6 +232,8 @@ class DplrAtRoots(torch.autograd.Function):
             return dplr_at_roots_reference(Lambda, P, B, C_tilde, log_dt, L)
         out = _launch_at_roots(Lambda, P, B, C_tilde, log_dt, L)
         launches += 1
+        h, n = Lambda.shape
+        _cost.add(operations, C_tilde.shape[0], h, n, L)
         return out
 
     @staticmethod

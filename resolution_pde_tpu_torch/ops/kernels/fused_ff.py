@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from resolution_pde_tpu_torch.ops.kernels import _build
+from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default (reference parity)
 MAX_LAYERS = 32  # kMaxLayers of csrc/fused_ff.cuh
@@ -40,6 +40,25 @@ _INV_SQRT_2PI = 0.3989422804014327
 # kernel launches in this process (the plain versions never count)
 launches = 0       # forward, csrc/fused_ff.cu
 bwd_launches = 0   # backward, csrc/fused_ff_bwd.cu
+
+
+def cost(n, dims, ln, residual, dtype, passes, saved=0) -> tuple:
+    """(operations, bytes) of a FeedForward call over ``n`` rows of the
+    chain ``dims``: the products, ``passes`` times the forward's (1 for
+    the forward, 3 for the recompute backward, 2 for the backward that
+    reads ``saved`` pre-activations a row), and the bytes the function
+    must move: the activations in ``dtype`` (x and out, and a residual,
+    for the forward; x, g and dx, and the saved pre-activations, for the
+    backward), the f32 parameters (and their gradients for the
+    backward)."""
+    e = torch.finfo(dtype).bits // 8
+    macs = sum(a * b for a, b in zip(dims, dims[1:]))
+    params = macs + sum(dims[1:]) + (2 * dims[-1] if ln else 0)
+    acts = n * ((2 * dims[0] + dims[-1] + saved) if passes > 1
+                else (dims[0] + dims[-1])) * e
+    nbytes = (acts + (n * dims[-1] * e if residual else 0)
+              + params * 4 * (2 if passes > 1 else 1))
+    return 2.0 * n * macs * passes, nbytes
 
 
 def _gelu(z: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -419,6 +438,8 @@ def fused_feedforward_fwd(x, kernels, biases, ln=None, residual=None, *,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rpde_fused_ff_forward")
     launches += 1
+    _cost.add(lambda: cost(n, dims, ln is not None, residual is not None,
+                           x.dtype, 1)[0])
     return out, zs
 
 
@@ -484,6 +505,10 @@ def fused_feedforward_bwd(x, g, kernels, biases, ln=None, *,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "rpde_fused_ff_backward")
         bwd_launches += 1
+        _cost.add(lambda: cost(
+            n, dims, ln is not None, False, x.dtype,
+            2 if zs_saved is not None else 3,
+            zs_saved.shape[1] if zs_saved is not None else 0)[0])
     dks, off = [], 0
     for k, (a, b) in zip(kernels, zip(dims[:-1], dims[1:])):
         dks.append(grads[off:off + a * b].view(a, b).to(k.dtype))

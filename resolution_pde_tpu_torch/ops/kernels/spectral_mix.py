@@ -48,11 +48,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import numpy as np
 import torch
 
-from resolution_pde_tpu_torch.ops.kernels import _build
+from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 from resolution_pde_tpu_torch.ops.spectral import _dft_matrices
 
 # kernel launches in this process (the plain versions never count)
@@ -86,6 +87,30 @@ def pack_mix_weight(weight: torch.Tensor, m: int) -> torch.Tensor:
     return pack_blocks(mix_blocks(weight, m))
 
 
+def dft_flops(n, m) -> float:
+    """The operations one truncated DFT of n points to m modes (or its
+    zero-padded inverse) needs: the cheaper of a real FFT, 2.5 n log2 n
+    (FFTW's count for real data), and the dense product of n points by 2m
+    packed modes, 4 n m."""
+    return min(2.5 * n * math.log2(n), 4.0 * n * m)
+
+
+def pass_cost(rows, n, c, o, m, io, cd, acc=False) -> tuple:
+    """(operations, bytes) of one axis pass (forward or adjoint) of
+    ``rows`` rows of n points, c channels in and o out. Operations: what
+    the function needs, each channel's forward and inverse DFT as
+    ``dft_flops`` counts it and the mix's complex product, 8 c o real
+    operations a mode (the kernels compute the DFTs as dense products
+    instead, 4 n m a channel). Bytes: x and out in ``io`` (out read too
+    with ``acc``), the two factors and the weight's blocks a | b in
+    ``cd``."""
+    e, ec = (torch.finfo(t).bits // 8 for t in (io, cd))
+    ops = rows * ((c + o) * dft_flops(n, m) + 8.0 * m * c * o)
+    nbytes = (rows * n * (c + o * (2 if acc else 1)) * e
+              + (2 * n * 2 * m + m * 2 * c * o) * ec)
+    return ops, nbytes
+
+
 def adjoint_blocks(wab: torch.Tensor) -> torch.Tensor:
     """(m, 2, C, O) blocks of a pass -> (m, 2, O, C) blocks of its adjoint:
     each mode's weight conjugated and transposed, a^T | -b^T, whose packed
@@ -101,7 +126,10 @@ def _blocks_grad(dwpk: torch.Tensor) -> torch.Tensor:
                         dwpk[:, :c, o:] - dwpk[:, c:, :o]], dim=1)
 
 
-@functools.lru_cache(maxsize=64)
+# The factor caches are unbounded: a captured CUDA graph (deploy/serving.py)
+# reads these tensors by address, so none may be evicted and freed. Their
+# keys are the shapes a process serves and trains.
+@functools.cache
 def packed_factors(n: int, m: int, norm: str, device: torch.device):
     """f32 packed DFT factors on ``device``: f2 (n, 2m) with columns (s, m)
     and i2 (2m, n) with rows (t, m). Shared between callers, so read-only."""
@@ -110,7 +138,7 @@ def packed_factors(n: int, m: int, norm: str, device: torch.device):
             torch.from_numpy(np.concatenate([ic, is_], axis=0)).to(device))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def adjoint_factors(n: int, m: int, norm: str, device: torch.device):
     """The adjoint's factors: i2^T (n, 2m) in f2's place and f2^T (2m, n)
     in i2's, contiguous. Shared between callers, so read-only."""
@@ -141,7 +169,7 @@ def mode_factors(f2, i2, k0: int, k1: int) -> tuple:
     return f2[:, cols], i2[cols]
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def kernel_factors_f32(n: int, m: int, norm: str, device: torch.device,
                        adjoint: bool = False, k0: int = 0, k1=None):
     """The f32 kernel's DFT factors for a pass, or with ``adjoint`` for its
@@ -228,7 +256,7 @@ def staged_fits(n: int, m: int, c: int, o: int) -> bool:
             and 2 * c8 * o8 < 2 ** 31)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def staged_factors(n: int, m: int, norm: str, device: torch.device,
                    adjoint: bool = False):
     """The staged route's DFT factors for a pass, or with ``adjoint`` for
@@ -464,6 +492,8 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
     if out.numel() == 0:
         return out
     rows, rows_lo = b * (h * w // n), h if axis == 2 else w
+    _cost.add(lambda: pass_cost(rows, n, c, o, m, x.dtype, cd,
+                                acc is not None)[0])
     with torch.cuda.device(x.device):
         if route == "staged":
             _launch_staged(x, wab, axis, norm, adjoint, out, acc is not None,

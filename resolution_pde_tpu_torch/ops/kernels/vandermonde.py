@@ -27,11 +27,26 @@ from __future__ import annotations
 
 import torch
 
-from resolution_pde_tpu_torch.ops.kernels import _build
+from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 from resolution_pde_tpu_torch.ops.ssm import cexp
 
 # kernel launches in this process (the plain version never counts)
 launches = 0
+
+
+def operations(rows, h, n, L) -> float:
+    """The operations ``s4d_kernel_pallas`` needs (an FMA two, exp, sin and
+    cos one each) when the powers e^{dtA l} are factored as a table and
+    anchors: per (row, state, position) 2 FMAs (the real part of an anchor
+    times a table entry); per (feature, state) the table's 32 powers
+    e^{dtA j} (17 each: the exponent with its FMA remainder, exp, sincos
+    and the first-order correction), and its L / 32 anchors' powers; per
+    (row, state) dtA and C' (27) and C' times each anchor (6); per (row,
+    position) the last 2. dtA is a feature's, C' a row's."""
+    anchors = -(-L // 32)
+    return (4.0 * rows * n * L + 2.0 * rows * L
+            + 17.0 * h * n * (32 + anchors)
+            + rows * n * (27.0 + 6.0 * anchors))
 
 
 def vandermonde_reference(ar, ai, cr, ci, L: int) -> torch.Tensor:
@@ -146,6 +161,8 @@ class S4DKernel(torch.autograd.Function):
             return s4d_kernel_reference(C, A, log_dt, L)
         out = _launch_fused(C, A, log_dt, L)
         launches += 1
+        h, n = A.shape
+        _cost.add(operations, C.numel() // n, h, n, L)
         return out
 
     @staticmethod

@@ -1,8 +1,9 @@
 """Training harness: train and eval steps, torch-semantics LR schedules,
-``torch.save`` checkpoints."""
+``torch.save`` checkpoints (blocking or asynchronous)."""
 
 from resolution_pde_tpu_torch.train.checkpoint import (restore_checkpoint,
-                                                       save_checkpoint)
+                                                       save_checkpoint,
+                                                       wait_for_checkpoints)
 from resolution_pde_tpu_torch.train.schedules import (ReduceLROnPlateau,
                                                       constant_lr,
                                                       cosine_annealing_lr,
@@ -20,4 +21,5 @@ __all__ = [
     "restore_checkpoint",
     "save_checkpoint",
     "step_lr",
+    "wait_for_checkpoints",
 ]

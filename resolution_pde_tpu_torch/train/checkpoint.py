@@ -5,14 +5,23 @@ directory holding ``state.pt`` (the parameters, the optimizer state, the
 step, the dropout generator's state, and optionally the epoch history and
 a free-form ``extra`` payload such as ``ReduceLROnPlateau.state_dict()``)
 and ``manifest.json``, the named structure of the parameters, which makes a
-restore into a mismatched model fail loudly. The JAX package's
-``block=False`` asynchronous save is not ported.
+restore into a mismatched model fail loudly.
+
+``block=False`` saves asynchronously, as the JAX package's Orbax saver
+does: the state is copied to host memory on the caller's thread (the next
+optimizer step updates the live tensors in place, so the copy shares no
+storage with them), then written, with its manifest, by one background
+writer shared by every save. ``wait_for_checkpoints()`` drains it, and
+runs at exit.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -28,12 +37,70 @@ def _manifest(model) -> list:
     return [[k, list(v.shape)] for k, v in model.state_dict().items()]
 
 
+# one writer for every asynchronous save, so saves land in the order they
+# were issued and wait_for_checkpoints() can drain them all
+_WRITER: Optional[ThreadPoolExecutor] = None
+_PENDING: list = []
+_LOCK = threading.Lock()
+
+
+def _host_copy(obj):
+    """A copy of a nest of dicts, lists and tensors with every tensor
+    copied to host memory: storage of its own, complete on return."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def _write(path: str, payload: dict, manifest: dict) -> None:
+    """The payload to a temporary file renamed into place, then the
+    manifest."""
+    tmp = os.path.join(path, _PAYLOAD + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, _PAYLOAD))
+    with open(os.path.join(path, _MANIFEST), "w") as f:
+        json.dump(manifest, f)
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every asynchronous save issued so far is on disk with
+    its manifest; raises the first save's error. Runs at exit (atexit
+    below); call it before reading a checkpoint back."""
+    with _LOCK:
+        pending = list(_PENDING)
+        _PENDING.clear()
+    error = None
+    for fut in pending:
+        try:
+            fut.result()
+        except Exception as e:  # read every future, raise the first
+            error = error or e
+    if error is not None:
+        raise error
+
+
+# a clean exit drains the asynchronous saves
+atexit.register(wait_for_checkpoints)
+
+
 def save_checkpoint(path: str, state, history: Optional[dict] = None,
-                    extra: Optional[dict] = None) -> None:
+                    extra: Optional[dict] = None,
+                    block: bool = True) -> None:
     """Save a TrainState (+ scalar history) to ``path`` (a directory).
     history: e.g. ``dataclasses.asdict(History)``; empty series are left
     out. The payload is written to a temporary file and renamed into place,
-    so a crash never leaves half a checkpoint under the name."""
+    so a crash never leaves half a checkpoint under the name.
+
+    block=False returns once the state is copied to host memory and leaves
+    the writing to the background writer: the training loop goes on while
+    the file is written. Call ``wait_for_checkpoints()`` before relying on
+    the files. A blocking save first waits for the saves in flight, so a
+    late asynchronous write cannot land over it."""
+    global _WRITER
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     payload = {
@@ -48,12 +115,19 @@ def save_checkpoint(path: str, state, history: Optional[dict] = None,
                               for k, v in history.items() if v}
     if extra is not None:
         payload["extra"] = extra
-    tmp = os.path.join(path, _PAYLOAD + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, _PAYLOAD))
-    with open(os.path.join(path, _MANIFEST), "w") as f:
-        json.dump({"format_version": CHECKPOINT_FORMAT_VERSION,
-                   "params": _manifest(state.model)}, f)
+    manifest = {"format_version": CHECKPOINT_FORMAT_VERSION,
+                "params": _manifest(state.model)}
+    if block:
+        wait_for_checkpoints()
+        _write(path, payload, manifest)
+        return
+    snapshot = _host_copy(payload)
+    with _LOCK:
+        if _WRITER is None:
+            _WRITER = ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="checkpoint")
+        fut: Future = _WRITER.submit(_write, path, snapshot, manifest)
+        _PENDING.append(fut)
 
 
 def restore_checkpoint(path: str, state, with_extra: bool = False):

@@ -22,18 +22,24 @@ parameters (``models.s4.SSM_PARAM_NAMES``), scale by -lr): that is
 ``weight_decay`` for the others and 0 for those (an empty group is left
 out, so a model without them has one group), with
 the clip written out as optax writes it (scale by c / ||g|| when
-||g|| >= c; ``clip_grad_norm_`` would add 1e-6 to the norm). Dropout draws
+||g|| >= c; ``clip_grad_norm_`` would add 1e-6 to the norm). With
+``ssm_lr`` the state-space group trains at ``ratio * lr``, ratio =
+min(ssm_lr, lr) / lr, which optax writes as ``scale(ratio)`` masked to
+those parameters inside one injected rate: ``set_lr`` keeps the ratio, so
+they anneal with the main rate. Dropout draws
 from one ``torch.Generator`` on the device, seeded with ``seed + 1``, which
 the checkpoint saves. Batches are staged in pinned host memory and copied
 with ``non_blocking``, one batch ahead of the step that uses them.
 
-Not ported (JAX-only or later slices): ``mesh`` and ``param_specs`` (data
-and tensor parallelism), ``auto_layout`` (an XLA layout tool),
-``profile_step``, and ``ssm_lr`` (the S4 family's parameter groups).
+``profile_step`` traces steps with ``torch.profiler`` where JAX uses
+``jax.profiler``. Not ported (JAX-only or later slices): ``mesh`` and
+``param_specs`` (data and tensor parallelism) and ``auto_layout`` (an XLA
+layout tool).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Optional
@@ -70,6 +76,12 @@ class History:
     epoch_time_s: list = field(default_factory=list)
 
 
+def _ssm_ids(model: nn.Module) -> set:
+    """ids of the model's state-space parameters (``SSM_PARAM_NAMES``)."""
+    return {id(p) for name, p in model.named_parameters()
+            if name.rsplit(".", 1)[-1] in SSM_PARAM_NAMES}
+
+
 class Trainer:
     """Runs train and eval steps of ``model`` on ``device``, the card unless
     the caller asks for the CPU; the model is moved there, and a CUDA
@@ -81,9 +93,10 @@ class Trainer:
                  y_normalizer=None, grad_clip: Optional[float] = None,
                  ssm_lr: Optional[float] = None, seed: int = 0,
                  accum_steps: int = 1, device="cuda"):
-        if ssm_lr is not None:
-            raise NotImplementedError(
-                "ssm_lr (the S4 family's parameter groups) is not ported")
+        """ssm_lr: the S4 family's state-space parameters
+        (``SSM_PARAM_NAMES``) train at min(ssm_lr, learning_rate), with no
+        weight decay, and anneal in proportion with the main rate (JAX
+        Trainer, the reference's ``_optim`` attributes)."""
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         device = torch.device(device)
@@ -100,19 +113,23 @@ class Trainer:
         self.grad_clip = grad_clip
         self.seed = seed
         self.accum_steps = int(accum_steps)
+        self.ssm_ratio = (min(ssm_lr, learning_rate) / learning_rate
+                          if ssm_lr is not None else 1.0)
 
     # -- state ----------------------------------------------------------
     def init(self) -> TrainState:
         """A fresh optimizer over the model's current parameters, step 0,
         and the dropout generator, which every Dropout of the model then
         draws from."""
-        decayed, ssm = [], []
-        for name, p in self.model.named_parameters():
-            is_ssm = name.rsplit(".", 1)[-1] in SSM_PARAM_NAMES
-            (ssm if is_ssm else decayed).append(p)
+        ssm_ids = _ssm_ids(self.model)
+        decayed = [p for p in self.model.parameters()
+                   if id(p) not in ssm_ids]
+        ssm = [p for p in self.model.parameters() if id(p) in ssm_ids]
         groups = [g for g in (
             dict(params=decayed, weight_decay=self.weight_decay),
-            dict(params=ssm, weight_decay=0.0)) if g["params"]]
+            dict(params=ssm, weight_decay=0.0,
+                 lr=self.ssm_ratio * self.learning_rate))
+            if g["params"]]
         opt = torch.optim.AdamW(groups, lr=self.learning_rate,
                                 betas=(0.9, 0.999), eps=1e-8)
         gen = torch.Generator(device=self.device)
@@ -124,12 +141,20 @@ class Trainer:
                           dropout_generator=gen)
 
     def set_lr(self, state: TrainState, lr: float) -> TrainState:
+        """The main rate ``lr``; the state-space group's ``ratio * lr``."""
+        ssm_ids = _ssm_ids(state.model)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr
+            is_ssm = id(group["params"][0]) in ssm_ids
+            group["lr"] = self.ssm_ratio * lr if is_ssm else lr
         return state
 
     def current_lr(self, state: TrainState) -> float:
-        return float(state.optimizer.param_groups[0]["lr"])
+        """The main rate (the state-space group's over the ratio where the
+        model has no other parameter)."""
+        group = state.optimizer.param_groups[0]
+        if id(group["params"][0]) in _ssm_ids(state.model):
+            return float(group["lr"]) / self.ssm_ratio
+        return float(group["lr"])
 
     # -- steps ----------------------------------------------------------
     def _to_device(self, a) -> torch.Tensor:
@@ -219,6 +244,26 @@ class Trainer:
         state.model.eval()
         x, y = self._to_device(x), self._to_device(y)
         return self._loss(state.model, x, y, None, y_normalizer)
+
+    def profile_step(self, state: TrainState, x, y, trace_dir: str,
+                     n_steps: int = 5) -> tuple:
+        """Trace ``n_steps`` train steps on (x, y), after one to warm up,
+        with torch.profiler (CPU activity, and CUDA's on the card); the
+        Chrome trace goes into ``trace_dir``. Returns (state,
+        trace_dir)."""
+        state, loss = self.train_step(state, x, y)
+        float(loss)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n_steps):
+                state, loss = self.train_step(state, x, y)
+            float(loss)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"train_step_{state.step}.pt.trace.json"))
+        return state, trace_dir
 
     # -- loops ----------------------------------------------------------
     def _prefetch(self, loader: Iterable):

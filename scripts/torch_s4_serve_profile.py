@@ -8,13 +8,15 @@
 Serves S4Model at the width of configs/model/s4_1d.yaml (mode dplr, the
 Cauchy kernel K5) and s4d_1d.yaml (mode diag, the Vandermonde kernel K4),
 random weights from seed 0, on the kernels' route (kernel_impl 'pallas')
-behind ServingEngine, warmed at batch 16 x ``--length``; then records
+behind ServingEngine, which replays one CUDA graph per bucket, warmed at
+batch 16 x ``--length``; then records
 ``--requests`` back-to-back predict requests of batch 16 with
 torch.profiler (CPU + CUDA activities). Prints the card's name and power
 limit and, per model: the median host time of 10 predicts of batch 16 at
 L = 128, 256 and 512 (after 3), and from the profile the host time per
 predict, the device span per predict, the busy and idle shares of that
-span, launches per predict, and device ms per predict by kind:
+span, kernels executed per predict (inside the graph's replay), and
+device ms per predict by kind:
   K5       cauchy_kernel
   K4       vandermonde_kernel
   fft      cuFFT kernels (the DPLR kernel's inverse FFT, the FFT conv)

@@ -171,3 +171,26 @@ def test_main_defaults_to_the_card(data_dir, monkeypatch):
 def test_unported_options_raise(data_dir, override, item):
     with pytest.raises(NotImplementedError, match=item):
         main(_argv(data_dir, override), device="cpu")
+
+
+def test_eval_clis_repeat_main_2d(data_dir, tmp_path, monkeypatch):
+    """autoregressive_eval on main_2d's checkpoint repeats main_2d's sweep
+    and rollout (the spatial rank inferred from the 2D targets), and
+    frequency_evaluation's radial decomposition is finite."""
+    from resolution_pde_tpu_torch.cli import (autoregressive_eval,
+                                              frequency_evaluation)
+
+    monkeypatch.delenv("SLURM_JOB_ID", raising=False)
+    with _cwd(tmp_path):
+        out = main(_argv(data_dir, "training.epochs=1",
+                         "training.batch_size=8"), device="cpu")
+        ckpt = f"dataset.saved_checkpoint_path={out['checkpoint']}"
+        argv = _argv(data_dir, ckpt, "training.batch_size=8",
+                     "training.scheduler=step")
+        ev = autoregressive_eval.main(argv, device="cpu")
+        freq = frequency_evaluation.main(argv, device="cpu")
+    assert ev["teacher_forcing"] == pytest.approx(out["super_resolution"],
+                                                  rel=1e-6)
+    assert ev["rollout"] == pytest.approx(out["rollout"], rel=1e-6)
+    err = freq["default"]["error_per_mode"]
+    assert err.shape == (64,) and np.isfinite(err).all()

@@ -95,7 +95,7 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
 @pytest.mark.parametrize("target,item", [
     ("ks_markov_dataset", 4),
     ("dataloaders.ks_naive_markov.ks_markov_dataset", 4),
-    ("ks_window_dataset", 5),
+    ("ns_window_dataset", 5),
     ("dataloaders.burger_naive_true_multires."
      "burger_true_multires_markov_dataset", 6),
     ("dataloaders.darcy_loader.get_darcy_dataset", 7),

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from resolution_pde_tpu import evaluation as jev  # noqa: E402
 from resolution_pde_tpu.evaluation import frequency as jfreq  # noqa: E402
+from resolution_pde_tpu.evaluation import rollout as jroll  # noqa: E402
 from resolution_pde_tpu.models import FFNO2D as JaxFFNO2D  # noqa: E402
 from resolution_pde_tpu.ops import normalizers as jnorm  # noqa: E402
 from resolution_pde_tpu_torch import evaluation as tev  # noqa: E402
@@ -115,9 +116,12 @@ def test_rollout_matches_jax(setup, kind):
 
 def test_rollout_edge_cases(setup):
     s = setup
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tev.evaluate_rollout_all_resolutions(
-            s["model"], lambda r: s["traj"], current_res=32, window_size=4)
+    # window_size > 1 takes the window route (ported): trajectories too
+    # short to seed the window raise as JAX's do
+    for fn, args in ((jroll.window_rollout_loss, (s["jmodel"], s["params"])),
+                     (tev.window_rollout_loss, (s["model"],))):
+        with pytest.raises(ValueError, match="cannot seed a window"):
+            fn(*args, s["traj"][:, :4, 0], 3, 4)
     with pytest.raises(ValueError, match="cannot roll out"):
         tev.rollout_loss(s["model"], s["traj"][:, :1], 3, spatial_ndim=2)
     per_step = []

@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.ops.spectral",
     "resolution_pde_tpu_torch.ops.ssm",
     "resolution_pde_tpu_torch.ops.kernels._build",
+    "resolution_pde_tpu_torch.ops.kernels._cost",
     "resolution_pde_tpu_torch.ops.kernels.fused_ff",
     "resolution_pde_tpu_torch.ops.kernels.spectral_mix",
     "resolution_pde_tpu_torch.ops.kernels.vandermonde",
@@ -60,6 +61,8 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.cli.common",
     "resolution_pde_tpu_torch.cli.main_1d",
     "resolution_pde_tpu_torch.cli.main_2d",
+    "resolution_pde_tpu_torch.cli.autoregressive_eval",
+    "resolution_pde_tpu_torch.cli.frequency_evaluation",
 ]
 CFG = dict(in_channels=1, out_channels=1, width=4, n_layers=2, n_modes=4,
            factor=2, n_ff_layers=2, layer_norm=True)
@@ -100,7 +103,9 @@ def test_port_imports_and_reads_mat_files_without_h5py(tmp_path):
     assert proc.stdout.strip() == "(2, 3, 4, 4)"
 
 
-@pytest.mark.parametrize("entry", ["main_1d", "main_2d"])
+@pytest.mark.parametrize("entry", ["main_1d", "main_2d",
+                                   "autoregressive_eval",
+                                   "frequency_evaluation"])
 def test_cli_entry_points_default_to_the_card(monkeypatch, entry):
     import importlib
 

@@ -281,10 +281,21 @@ def test_dropout_draws_from_the_seeded_generator():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ssm_lr"):
-        Trainer(_model(), ssm_lr=1e-4, device="cpu")
+    """accum_steps below 1 raises. ssm_lr is ported: on a model without
+    state-space parameters it changes nothing, as JAX's scale masked to no
+    leaf (one group, the same steps bit for bit)."""
     with pytest.raises(ValueError, match="accum_steps"):
         Trainer(_model(), accum_steps=0, device="cpu")
+    batches = [_data(seed=s, batch=2) for s in range(2)]
+    runs = []
+    for ssm_lr in (None, 1e-4):
+        trainer = Trainer(_model(), ssm_lr=ssm_lr, device="cpu")
+        state = trainer.init()
+        assert len(state.optimizer.param_groups) == 1
+        trainer.set_lr(state, 5e-4)
+        assert trainer.current_lr(state) == 5e-4
+        runs.append(_run(trainer, state, batches))
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("mode", ["diag", "dplr"])
