@@ -18,9 +18,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      too wide for f32_tile_gemm's buffers) and at the train shape, two
      calls there compared bit for bit; bf16 at width 128's chain
      (128->512->512->128, LayerNorm and residual) at the train shape's
-     rows, as the width-128 model of phase 8 runs it; the factor-4 chain
-     at width 512 in bf16 (16-row tiles) and f32, with and without the
-     saved pre-activations, on 4,096 rows, timed; each case with the
+     rows, as the width-128 model of phase 8 runs it; f32 at FFNO1D's
+     chain (128->512->512->128, exact GELU, LayerNorm, no residual) on
+     16 x 512 rows, timed, two calls compared bit for bit; the factor-4
+     chain at width 512 in bf16 (16-row tiles) and f32, with and without
+     the saved pre-activations, on 4,096 rows, timed; each case with the
      planner's route and tile rows;
   4. K1b, its backward kernel, against the plain backward: bf16 (its
      tensor-core products) at the train shape with LayerNorm, at a ragged
@@ -32,7 +34,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      (column chunks, shorter tiles) recomputed and with saved
      pre-activations; the saved-pre-activation variant in bf16
      (ff_impl 'fused_saved'); bf16 at width 128's chain at the train
-     shape's rows, recomputed and saved; factor-4 chains at widths 320
+     shape's rows, recomputed and saved; f32 at FFNO1D's chain on 16 x
+     512 rows, timed, two calls bit for bit; factor-4 chains at widths 320
      and 512 in f32 and bf16, recomputed and saved (their
      pre-activations in device memory); each case with its tile rows.
      Then the launchers' Python mirrors of the planners against the
@@ -125,7 +128,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      engine, against the jnp route of the trained model within relative
      L2 1e-4, K5 or K4 executing 4 times a replay;
  11. the torch.fft spectral conv (the yaml config's route) on the card
-     against the CPU at 128² and 256² with 64 modes, the FFT resize and
+     against the CPU at 128² and 256² with 64 modes, FFNO1D's conv at
+     16 x {32, 64, 512} x 128 with 64 modes (the Nyquist bin kept at 32
+     and 64), the FFT resize and
      the port's irfft (whose DC and Nyquist bins are read as real); then
      the flagship's
      command line: main_2d's main(argv) with its override
@@ -146,7 +151,30 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      frequency table, launching K1f and K2; logged: the epochs' and the sweep's and rollout's seconds per
      resolution, peak memory, each run's median step, the loader's host
      ms a batch, and the device's idle share over one profiled epoch of
-     run B.
+     run B;
+ 12. FFNO1D on generated KS: the port's generate_ks array part on the
+     card (64 trajectories x 51 snapshots at 512 points, visc 0.075, L
+     64, lmax 8, et 5, split 52 / 6 / 6 by generate_data's rule; finite,
+     within the solver's amplitude bound, consecutive frames correlating
+     above 0.8; its seconds), the solver's CUDA graph against its steps
+     launched one by one (bit for bit, both timed, the eager steps
+     profiled); main_1d's path for ffno_1d.yaml with
+     ks_naive_true_mres1.yaml composed from cli.common's parts on those
+     arrays (the train file's trajectories through
+     ks_true_multires_splits, one 512-point bucket; the eval data through
+     ks_markov_splits), batch 16, 2 epochs: run A as shipped (dense
+     FeedForward, dropout 0.2, f32), launching no kernel, and run B on the
+     kernel route (dropout 0, ff_impl 'fused': K1f and K1b in f32, 4 of
+     each a train step, counted); each run's loss must fall, its test
+     loss, sweep at {32, ..., 512} and 16-step rollout there be finite;
+     B's trained model on the card within relative L2 1e-4 of the same
+     weights on the CPU through the plain versions at 512 and 64 points,
+     and A's weights on the fused route within 1e-4 of A's dense one;
+     B's checkpoint served through ServingEngine.from_checkpoint into
+     FFNO1D(ff_impl='fused'), graphs at 16 x {128, 256, 512}: replay
+     equal to eager bit for bit, K1f executing 4 times a replay; logged:
+     epochs, median step, peak memory, sweep and rollout seconds a
+     resolution, the median predict, graph and eager.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -157,7 +185,11 @@ its function needs over the peak rate of their type: for the spectral
 pass, its DFTs counted as real FFTs where that is cheaper than the dense
 products the kernels do); the K2 and K3 entries also give the H pass's
 (added into acc) as h_acc_*, and the bf16 ones the same at width 128 as
-w128_*; a kernel on a serving path says in launches_counted_as that its
+w128_*; the f32 K1f and K1b entries also give FFNO1D's chain as
+ffno1d_* (time, plain time, bound, error) and its launches on phase 12's
+paths as ffno1d_launches (run B, and for K1f the served executions),
+which ``launches`` includes, as it sums every path's; a kernel on a
+serving path says in launches_counted_as that its
 launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
 CUDA: without it, it exits 1 and prints no result. Plain versions run with
@@ -191,6 +223,9 @@ SEED = 0
 S4 = dict(d_input=15, d_output=1, d_model=64, n_layers=4, dropout=0.2,
           prenorm=False)
 S4_STATE, S4_BATCH, S4_LENGTHS = 64, 16, (128, 256, 512)
+# FFNO1D's FeedForward chain (configs/model/ffno_1d.yaml: width 128,
+# factor 4, 3 layers)
+FFNO1D_CHAIN = [WIDE, WIDE * FACTOR, WIDE * FACTOR, WIDE]
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and
 # f32 (CUDA-core) FLOP/s
@@ -440,6 +475,12 @@ def check_fused_ff(gen) -> tuple:
     f32 = case(BATCH * RES * RES, dims, ln=True, residual=True, approx=True,
                dtype=torch.float32, tol=1e-4, label="train_f32", route=f32t,
                repeat=True)
+    # f32 at FFNO1D's chain (ffno_1d.yaml: width WIDE, exact GELU,
+    # LayerNorm, the residual outside) on its train batch's rows
+    ffno1d = case(S4_BATCH * KS_RES, FFNO1D_CHAIN, ln=True, residual=False,
+                  approx=False, dtype=torch.float32, tol=1e-5,
+                  label=f"ffno1d_w{WIDE}_f32", route=f32t, repeat=True)
+    f32.update({f"ffno1d_{k}": v for k, v in ffno1d.items()})
     # bf16 at the chain run_wide's model runs (width WIDE), at its rows
     case(BATCH * RES * RES, [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1)
          + [WIDE], ln=True, residual=True, approx=True, dtype=torch.bfloat16,
@@ -663,6 +704,12 @@ def check_fused_ff_bwd(gen) -> tuple:
                      dtype=dtype, tol=tol,
                      label=f"width{w}_{str(dtype)[6:]}"
                      + ("_saved" if save else ""), save=save)
+    # f32 at FFNO1D's chain on its train batch's rows, recomputed (its
+    # route, ff_impl 'fused')
+    ffno1d = case(S4_BATCH * KS_RES, FFNO1D_CHAIN, ln=True, approx=False,
+                  dtype=torch.float32, tol=1e-5,
+                  label=f"ffno1d_w{WIDE}_f32", repeat=True)
+    f32.update({f"ffno1d_{k}": v for k, v in ffno1d.items()})
     # bf16 at the chain run_wide's model runs (width WIDE), at its rows,
     # recomputed and with saved pre-activations
     wide = [WIDE] + [WIDE * FACTOR] * (FF_LAYERS - 1) + [WIDE]
@@ -2023,6 +2070,319 @@ def run_s4_train() -> dict:
     return launched
 
 
+# FFNO1D on generated KS (configs/model/ffno_1d.yaml, dataset/
+# ks_naive_true_mres1.yaml, training/default.yaml, depth cut to
+# FFNO1D_EPOCHS epochs): KS_GEN trajectories at KS_RES points from the
+# port's generator (visc 0.075, L 64, lmax 8, et 5, KS_FRAMES snapshots),
+# split as generate_data splits them
+KS_GEN, KS_VISC = 64, 0.075
+FFNO1D_EPOCHS = 2
+FFNO1D_ROUTE = ["model.dropout=0", "model.ff_impl=fused"]
+FFNO1D_SERVE = (128, 256, 512)
+
+
+def generate_ks_on_card() -> dict:
+    """The port's generate_ks array part on the card: KS_GEN trajectories
+    of KS_FRAMES snapshots at KS_RES points. Checks that they are finite,
+    within the solver's amplitude bound, and that consecutive frames
+    correlate above 0.8 (learnable Markov pairs)."""
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        generate_ks_arrays)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = generate_ks_arrays(KS_GEN, [KS_RES], KS_FRAMES, SEED,
+                                viscosity=KS_VISC, device="cuda")
+    seconds = time.perf_counter() - t0
+    u = arrays["by_res"][KS_RES]
+    peak, ic_peak = float(np.abs(u).max()), float(np.abs(u[:, 0]).max())
+    amp_bound = max(10.0 / math.sqrt(KS_VISC), 1.5 * ic_peak)
+    a, b = u[:, :-1].astype(np.float64), u[:, 1:].astype(np.float64)
+    corr = float(((a * b).sum(-1) / np.sqrt((a * a).sum(-1)
+                                            * (b * b).sum(-1))).mean())
+    steps = int(round(arrays["snap_dt"] / (0.05 * KS_VISC))) * (KS_FRAMES
+                                                                 - 1)
+    log("ks_gen", shape=u.shape, split=arrays["split_counts"],
+        snap_dt=f"{arrays['snap_dt']:.5f}", solver_steps=steps,
+        seconds=f"{seconds:.2f}", ms_per_step=f"{seconds * 1e3 / steps:.3f}",
+        max_abs=f"{peak:.3f}", bound=f"{amp_bound:.3f}",
+        consecutive_corr=f"{corr:.4f}")
+    # the solver through its CUDA graph (the generator's route) against
+    # the same steps launched one by one: equal bits; both timed, and the
+    # eager steps under the profiler (the launch-bound case the graph is for)
+    from resolution_pde_tpu_torch.datagen.ks import solve_ks
+
+    u0 = torch.as_tensor(u[:, 0], device="cuda")
+    spb = steps // (KS_FRAMES - 1)
+    kw = dict(visc=KS_VISC, dt=0.05 * KS_VISC, n_snapshots=6,
+              steps_per_snapshot=spb)
+    walls = {}
+    for graph in (True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_ks(u0, graph=graph, **kw)
+        torch.cuda.synchronize()
+        walls.setdefault(graph, []).append(
+            (time.perf_counter() - t0) * 1e3 / (5 * spb))
+        if graph is False:
+            eager_out = out
+        elif graph and len(walls[True]) == 1:
+            graph_out = out
+    require(torch.equal(graph_out, eager_out),
+            "KS solver: the CUDA graph's steps differ from eager ones")
+    require(torch.equal(graph_out[:, 5], torch.as_tensor(u[:, 5],
+                                                         device="cuda")),
+            "KS solver: the generator's snapshot 5 differs from a re-solve")
+    _, prof = profiled(lambda: solve_ks(u0, graph=False, **dict(
+        kw, n_snapshots=2)))
+    busy_ms, idle = _idle_share(prof)
+    n_kernels = len(_device_kernels(prof))
+    log("ks_gen", graph_vs_eager="bit_equal",
+        ms_per_step_graph="/".join(f"{v:.4f}" for v in walls[True]),
+        ms_per_step_eager=f"{walls[False][0]:.4f}", profiled_eager_steps=spb,
+        device_busy_ms_per_step=f"{busy_ms / spb:.4f}",
+        kernels_per_step=f"{n_kernels / spb:.1f}",
+        device_idle_share_eager=f"{idle:.4f}")
+    require(bool(np.isfinite(u).all()) and peak <= amp_bound,
+            f"generated KS: max|u| {peak} (bound {amp_bound}) or non-finite")
+    require(corr > 0.8, f"generated KS: consecutive frames correlate "
+            f"{corr} <= 0.8")
+    return arrays
+
+
+def _ffno1d_run(name, argv, arrays, counters) -> dict:
+    """main_1d's path, composed from cli.common's parts as main_1d composes
+    them, on the generated arrays: the true multi-resolution data through
+    ks_true_multires_splits (the train file of the tree: the first split
+    count's trajectories), FFNO1D_EPOCHS epochs of Trainer.fit, the test
+    loss, and the sweep and 16-step rollout at S4_RESOLUTIONS, the eval
+    data through ks_markov_splits (the tree's 512-point valid and test
+    files, strided to each resolution). Returns the run's record."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import parse_cli
+    from resolution_pde_tpu_torch.data.dataset import TrajectoryDataset
+    from resolution_pde_tpu_torch.data.factories import (
+        ks_markov_splits, ks_true_multires_splits)
+    from resolution_pde_tpu_torch.data.transforms import reduce_trajectories
+    from resolution_pde_tpu_torch.evaluation import (
+        evaluate_all_resolutions, evaluate_rollout_all_resolutions)
+
+    cfg = parse_cli(argv)
+    dp = dict(cfg.dataset.dataset_params)
+    u = arrays["by_res"][KS_RES]
+    n_tr, n_va, n_te = arrays["split_counts"]
+    files = (u[:n_tr], u[n_tr:n_tr + n_va], u[n_tr + n_va:])
+    keys = ("data_mres_size", "add_res", "add_res_samples",
+            "downsample_from_res", "use_low_pass_filter",
+            "lowpass_cutoff_ratio", "random_seed", "data_normalizer",
+            "normalization_type")
+    bundle = common.unpack_data(ks_true_multires_splits(
+        {KS_RES: files[0]}, **{k: dp[k] for k in keys if k in dp}),
+        dp["normalization_type"])
+    xn, yn = bundle["x_normalizer"], bundle["y_normalizer"]
+    batch = cfg.training.batch_size
+    train_loader, val_loader, test_loader = common.build_loaders(
+        bundle, batch, cfg.dataset.train_mres, seed=cfg.training.seed)
+    trainer = common.build_trainer(cfg, common.build_model(cfg), yn,
+                                   device="cuda")
+    state = trainer.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    state, hist = trainer.fit(state, train_loader, val_loader,
+                              epochs=FFNO1D_EPOCHS,
+                              schedule=common.build_schedule(cfg))
+    fit = {k: counters()[k] - before[k] for k in before}
+    test_loss = trainer.evaluate(state, test_loader)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    def builder(res):
+        red = [reduce_trajectories(f, reduced_resolution=KS_RES // res)
+               for f in files]
+        return ks_markov_splits(*red, data_normalizer=False)[2]
+
+    def rollout_builder(res):
+        stored = bundle["rollout"].at(res)
+        return stored if stored is not None else TrajectoryDataset(
+            reduce_trajectories(files[2], reduced_resolution=KS_RES // res))
+
+    sweep = evaluate_all_resolutions(
+        state.model, builder, current_res=KS_RES,
+        test_resolutions=S4_RESOLUTIONS, x_normalizer=xn, y_normalizer=yn,
+        batch_size=batch, strict=True)
+    roll_s = {}
+    roll = evaluate_rollout_all_resolutions(
+        state.model, rollout_builder, current_res=KS_RES,
+        test_resolutions=S4_RESOLUTIONS,
+        rollout_steps=cfg.dataset.rollout_steps, x_normalizer=xn,
+        y_normalizer=yn, batch_size=batch, strict=True, seconds_out=roll_s)
+    total = {k: counters()[k] - before[k] for k in before}
+    losses = hist.train_loss + hist.val_loss + [test_loss]
+    require(all(math.isfinite(v) for v in losses),
+            f"ffno1d run {name}: non-finite losses {losses}")
+    require(hist.train_loss[-1] < hist.train_loss[0],
+            f"ffno1d run {name}: the train loss did not fall: "
+            f"{hist.train_loss}")
+    for what, res in (("sweep", sweep["results"]), ("rollout", roll)):
+        require(sorted(res) == S4_RESOLUTIONS
+                and all(math.isfinite(v) for v in res.values()),
+                f"ffno1d run {name}: {what} {res}")
+    # a fresh model's median step, and 10 steps under the profiler: the
+    # device's busy time a step, its idle share and its largest kernels
+    fresh = common.build_trainer(cfg, common.build_model(cfg), yn,
+                                 device="cuda")
+    fresh_state = fresh.init()
+    step_ms = _median_step_ms(fresh, fresh_state, train_loader)
+
+    def ten_steps():
+        for i, (x, y) in enumerate(train_loader):
+            if i == 10:
+                break
+            fresh.train_step(fresh_state, x, y)
+
+    _, prof = profiled(ten_steps)
+    busy_ms, idle = _idle_share(prof)
+    by_kernel = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.end - e.time_range.start)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+    del fresh, fresh_state
+    log("ffno1d", run=name, profiled_steps=10,
+        device_busy_ms_per_step=f"{busy_ms / 10:.3f}",
+        device_idle_share=f"{idle:.4f}",
+        top_kernels_ms_per_step={n[:48]: f"{v / 1e4:.3f}" for n, v in top})
+    log("ffno1d", run=name, steps_per_epoch=len(train_loader),
+        batch=f"{batch}x1x{KS_RES}",
+        train_loss=[f"{v:.6f}" for v in hist.train_loss],
+        val_loss=[f"{v:.6f}" for v in hist.val_loss],
+        test_loss=f"{test_loss:.6f}",
+        epoch_s=[f"{v:.3f}" for v in hist.epoch_time_s],
+        median_step_ms=f"{step_ms:.3f}",
+        max_memory_allocated_mb=f"{peak_mb:.1f}",
+        sweep={r: f"{v:.6f}" for r, v in sweep["results"].items()},
+        sweep_s={r: f"{v:.3f}" for r, v in sweep["seconds"].items()},
+        rollout={r: f"{v:.6f}" for r, v in roll.items()},
+        rollout_s={r: f"{v:.3f}" for r, v in roll_s.items()},
+        fit_launches=fit, launches=total)
+    return dict(cfg=cfg, state=state, bundle=bundle, files=files, fit=fit,
+                total=total, steps=FFNO1D_EPOCHS * len(train_loader),
+                val_batches=FFNO1D_EPOCHS * len(val_loader))
+
+
+def run_ffno1d() -> dict:
+    """FFNO1D from the KS generator to serving, at ffno_1d.yaml's width
+    (128, 4 layers, 64 modes, factor 4, 3 FeedForward layers, LayerNorm,
+    weight norm, exact GELU) on ks_naive_true_mres1.yaml's data path,
+    batch 16: the KS trajectories generated on the card
+    (generate_ks_on_card); run A, the yaml as shipped (dropout 0.2, the
+    dense FeedForward, f32), which launches no kernel; run B on the kernel
+    route (FFNO1D_ROUTE: K1f and K1b in f32, 4 of each a train step). B's
+    trained model on the card against the same weights on the CPU through
+    the plain versions at 512 and 64 points, and A's weights in the fused
+    route against A's dense one on the card (1e-4). Then B's checkpoint
+    served through ServingEngine.from_checkpoint in FFNO1D(ff_impl=
+    'fused'), graphs at 16 x FFNO1D_SERVE: replay against the same engine
+    run eagerly (bit for bit), K1f executing 4 times a replay, the median
+    predict graph and eager. Returns B's launches and the served
+    executions."""
+    import copy
+
+    from resolution_pde_tpu_torch.configs import model_kwargs
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff
+    from resolution_pde_tpu_torch.train import save_checkpoint
+
+    t_phase = time.perf_counter()
+    arrays = generate_ks_on_card()
+    base = ["model=ffno_1d", "dataset=ks_naive_true_mres1",
+            f"training.epochs={FFNO1D_EPOCHS}"]
+
+    def counters():
+        return {"K1f": fused_ff.launches, "K1b": fused_ff.bwd_launches}
+
+    a = _ffno1d_run("A", base, arrays, counters)
+    require(all(v == 0 for v in a["total"].values()),
+            f"ffno1d run A (the yaml config) launched kernels: {a['total']}")
+    b = _ffno1d_run("B", base + FFNO1D_ROUTE, arrays, counters)
+    layers = b["cfg"].model.n_layers
+    want_fit = {"K1f": layers * (b["steps"] + b["val_batches"]),
+                "K1b": layers * b["steps"]}
+    require(b["fit"] == want_fit, f"ffno1d run B: Trainer.fit launched "
+            f"{b['fit']}, expected {want_fit} ({layers} a step each)")
+
+    # B on the card against the same weights on the CPU (plain versions);
+    # A's weights on the fused route against A's dense route on the card
+    test = b["bundle"]["test"].buckets[KS_RES]
+    x512 = torch.as_tensor(test.x[:S4_BATCH], device="cuda")
+    model_b = b["state"].model.eval()
+    cpu_b = copy.deepcopy(model_b).cpu()
+    cls, kw = model_kwargs(a["cfg"].model, dropout=0.0, ff_impl="fused")
+    fused_a = cls(**kw).cuda().eval()
+    fused_a.load_state_dict(a["state"].model.state_dict())
+    model_a = a["state"].model.eval()
+    errs = {}
+    with torch.inference_mode():
+        for n in (KS_RES, 64):
+            x = x512[..., ::KS_RES // n].contiguous()
+            errs[f"B_card_vs_cpu_{n}"] = rel_l2(model_b(x).cpu(),
+                                                cpu_b(x.cpu()))
+            errs[f"A_fused_vs_dense_{n}"] = rel_l2(fused_a(x), model_a(x))
+    log("ffno1d", agreement={k: f"{v:.3e}" for k, v in errs.items()},
+        tol=1e-4)
+    require(all(v <= 1e-4 for v in errs.values()),
+            f"ffno1d agreement: {errs}")
+    del cpu_b, fused_a
+
+    # B's checkpoint served through graphs
+    xn, yn = b["bundle"]["x_normalizer"], b["bundle"]["y_normalizer"]
+    launched = {"fwd": b["total"]["K1f"], "bwd": b["total"]["K1b"],
+                "served": 0}
+    per_call = {"K1f": layers}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(f"{tmp}/ffno1d_B", b["state"])
+        cls, kw = model_kwargs(b["cfg"].model, ff_impl="fused")
+        eng = ServingEngine.from_checkpoint(
+            cls(**kw, generator=torch.Generator().manual_seed(SEED + 2)),
+            f"{tmp}/ffno1d_B", None, device="cuda", x_normalizer=xn,
+            y_normalizer=yn)
+    warm_graphs(eng, [(n, S4_BATCH) for n in FFNO1D_SERVE], counters,
+                per_call, "ffno1d from_checkpoint")
+    raw_test = b["files"][2]
+    requests = {n: np.ascontiguousarray(
+        raw_test[:, :-1, ::KS_RES // n].reshape(-1, 1, n)[:S4_BATCH])
+        for n in FFNO1D_SERVE}
+    fused_ff.launches = fused_ff.bwd_launches = 0
+    outs, how = {}, set()
+    for n, x in requests.items():
+        outs[n], ex, h = graph_executions(
+            lambda x=x: eng.predict(x), per_call, 1,
+            f"ffno1d served checkpoint at {S4_BATCH} x {n}")
+        launched["served"] += ex["K1f"]
+        how.add(h)
+    require(counters() == {"K1f": 0, "K1b": 0},
+            f"ffno1d: the served checkpoint launched {counters()} from the "
+            "host")
+    for n, x in requests.items():
+        got = outs[n]
+        ref = eager(eng, lambda x=x: eng.predict(x))
+        require(got.shape == (S4_BATCH, 1, n) and np.isfinite(got).all(),
+                f"ffno1d: served output {got.shape} or non-finite")
+        require(np.array_equal(got, ref),
+                f"ffno1d: graph replay differs from eager at {n}")
+        g1 = median_ms(lambda x=x: eng.predict(x))
+        e1 = eager(eng, lambda x=x: median_ms(lambda: eng.predict(x)))
+        g2 = median_ms(lambda x=x: eng.predict(x))
+        log("ffno1d", served=f"{S4_BATCH}x{n}", bit_equal=True,
+            median_ms_graph=f"{g1:.3f}/{g2:.3f}",
+            median_ms_eager=f"{e1:.3f}")
+    log("ffno1d", executions_K1f=launched["served"], counted=sorted(how),
+        phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launched
+
+
 # the flagship's command line (resolution_pde_tpu/configs/model/ffno_2d.yaml
 # and dataset/ns_naive.yaml, training/default.yaml): a synthetic vorticity
 # file of NS_TRAJ trajectories x NS_FRAMES frames at NS_RES^2
@@ -2074,14 +2434,16 @@ def write_vorticity(folder: str) -> str:
 def check_fft_path(gen) -> None:
     """The torch.fft spectral conv (spectral_impl 'fft', the yaml config's
     route) on the card against the CPU at the CLI's widths, 128² and 256²
-    with 64 modes, and the FFT resize 256² -> 128² (a Nyquist bin that
+    with 64 modes, FFNO1D's conv at 16 x {32, 64, 512} x 128 with 64
+    modes (the Nyquist bin kept at 32 and 64), the FFT resize 256² ->
+    128² (a Nyquist bin that
     is not real), each within 1e-4; the port's irfft against the CPU over
     24 to 32,768 rows at n = 128 with complex DC and Nyquist bins (within
     1e-4) beside torch.fft.irfft's own reading on the card (logged: cuFFT
     reads those bins' imaginary parts at some shapes, the CPU does not)."""
     from resolution_pde_tpu_torch.ops.resize import fft_resize_2d
     from resolution_pde_tpu_torch.ops.spectral import (
-        factorized_spectral_conv_2d, irfft)
+        factorized_spectral_conv_1d, factorized_spectral_conv_2d, irfft)
 
     for n in (128, 256):
         x = randn((2, n, n, WIDTH), gen, device="cpu")
@@ -2095,6 +2457,19 @@ def check_fft_path(gen) -> None:
             card_vs_cpu_rel_l2=f"{err:.3e}", tol=1e-4)
         require(err <= 1e-4, f"fft spectral conv at {n}^2 on the card vs "
                 f"the CPU: {err}")
+    # FFNO1D's conv at ffno_1d.yaml's width and modes: all 17 and 33
+    # bins, the Nyquist bin among them, at 32 and 64 points
+    w1 = randn((WIDE, WIDE, MODES, 2), gen, 0.05, device="cpu")
+    for n in (32, 64, KS_RES):
+        x = randn((S4_BATCH, n, WIDE), gen, device="cpu")
+        err = rel_l2(factorized_spectral_conv_1d(x.cuda(), w1.cuda(),
+                                                 MODES).cpu(),
+                     factorized_spectral_conv_1d(x, w1, MODES))
+        log("fft_path", conv_1d=f"{S4_BATCH}x{n}x{WIDE}", modes=MODES,
+            kept=min(MODES, n // 2 + 1), card_vs_cpu_rel_l2=f"{err:.3e}",
+            tol=1e-4)
+        require(err <= 1e-4, f"fft 1D conv at {n} on the card vs the CPU: "
+                f"{err}")
     x = randn((16, 1, RES, RES), gen, device="cpu")
     err = rel_l2(fft_resize_2d(x.cuda(), (128, 128)).cpu(),
                  fft_resize_2d(x, (128, 128)))
@@ -2116,9 +2491,12 @@ def check_fft_path(gen) -> None:
 
 def _idle_share(prof) -> tuple:
     """(device busy ms, idle share) over the window from the first device
-    event to the last: the union of the device intervals."""
+    event to the last: the union of the device intervals (kernels, copies
+    and fills; not the ranges that user annotations such as the
+    optimizer's step span on the device's timeline)."""
     dev = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     require(bool(dev), "the profiler recorded no device events")
     start, end = dev[0].time_range.start, max(e.time_range.end for e in dev)
@@ -2400,6 +2778,7 @@ def main() -> int:
     s4_trained = run_s4_train()
     check_fft_path(gen)
     cli = run_cli()
+    ffno1d = run_ffno1d()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -2415,13 +2794,16 @@ def main() -> int:
              + cli["fwd"], **k1),
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
-             launches=served["f32"][0] + trained["f32"][0], **k1f32),
+             launches=served["f32"][0] + trained["f32"][0] + ffno1d["fwd"]
+             + ffno1d["served"],
+             ffno1d_launches=ffno1d["fwd"] + ffno1d["served"], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["f32"][1], **k1b32),
+             launches=trained["f32"][1] + ffno1d["bwd"],
+             ffno1d_launches=ffno1d["bwd"], **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
              launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"]

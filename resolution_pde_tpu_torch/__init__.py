@@ -8,12 +8,14 @@ imports JAX. Its hot ops are kernels written by hand for Hopper
 Subpackages:
   ops        -- grids, normalizers, losses, FFT resampling, spectral
                 convs, SSM kernels, the CUDA kernels
-  models     -- FFNO2D; the 1D S4 family (S4Model, S4Block, S4D)
-  data       -- NS file reading, Markov pairs, normalizer fitting, loaders
+  models     -- FFNO1D, FFNO2D; the 1D S4 family (S4Model, S4Block, S4D)
+  data       -- NS and KS file reading, Markov pairs and windows,
+                normalizer fitting, loaders
+  datagen    -- the KS solver (ETDRK4) and the KS file writers
   configs    -- the yaml configs and overrides, model and dataset
                 instantiation
   evaluation -- super-resolution sweep, rollout, frequency decomposition
-  cli        -- main_2d / main_1d, the command-line drivers
+  cli        -- main_2d / main_1d, the eval CLIs, generate_data
   deploy     -- ServingEngine (bucketed inference)
   train      -- Trainer, LR schedules, checkpoints
   utils      -- jax_bridge (JAX parameter and gradient trees ->

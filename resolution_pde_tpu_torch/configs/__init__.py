@@ -10,7 +10,7 @@ files and set dotted keys.
 
 ``instantiate_model`` builds the port's model from ``models.registry``;
 ``instantiate_dataset`` calls the port's dataset factories, which so far
-are the Navier-Stokes ones and the S4 family's KS windows.
+are the Navier-Stokes and the Kuramoto-Sivashinsky ones.
 """
 
 from __future__ import annotations
@@ -169,16 +169,19 @@ def _dataset_factories() -> dict:
     return {"ns_markov_dataset": f.ns_markov_dataset,
             "ns_true_multires_markov_dataset":
                 f.ns_true_multires_markov_dataset,
-            "ks_window_dataset": f.ks_window_dataset}
+            "ks_window_dataset": f.ks_window_dataset,
+            "ks_markov_dataset": f.ks_markov_dataset,
+            "ks_true_multires_markov_dataset":
+                f.ks_true_multires_markov_dataset,
+            "ks_multires_markov_dataset": f.ks_multires_markov_dataset,
+            "ks_resize_multires_markov_dataset":
+                f.ks_resize_multires_markov_dataset,
+            "ks_pino_markov_dataset": f.ks_pino_markov_dataset}
 
 
 # the JAX package's factories that the port has not yet, by the ROADMAP
 # item (section 1) that ports them
 NOT_PORTED = {
-    **dict.fromkeys(("ks_markov_dataset", "ks_true_multires_markov_dataset",
-                     "ks_multires_markov_dataset",
-                     "ks_resize_multires_markov_dataset",
-                     "ks_pino_markov_dataset"), 4),
     "ns_window_dataset": 5,
     **dict.fromkeys(("burger_markov_dataset",
                      "burger_true_multires_markov_dataset",

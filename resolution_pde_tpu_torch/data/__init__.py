@@ -13,6 +13,11 @@ from resolution_pde_tpu_torch.data.dataset import (
     fit_normalizers,
 )
 from resolution_pde_tpu_torch.data.factories import (
+    ks_markov_dataset,
+    ks_multires_markov_dataset,
+    ks_pino_markov_dataset,
+    ks_resize_multires_markov_dataset,
+    ks_true_multires_markov_dataset,
     ks_window_dataset,
     ns_markov_dataset,
     ns_true_multires_markov_dataset,
@@ -33,6 +38,11 @@ __all__ = [
     "TrajectoryDataset",
     "create_grouped_dataloaders",
     "fit_normalizers",
+    "ks_markov_dataset",
+    "ks_multires_markov_dataset",
+    "ks_pino_markov_dataset",
+    "ks_resize_multires_markov_dataset",
+    "ks_true_multires_markov_dataset",
     "ks_window_dataset",
     "ns_markov_dataset",
     "ns_true_multires_markov_dataset",

@@ -1,26 +1,32 @@
-"""Dataset factories of the Navier-Stokes path and the S4 family's KS
-windows.
+"""Dataset factories of the Navier-Stokes path and the KS path.
 
 Counterpart of resolution_pde_tpu/data/factories.py's
-``ns_markov_dataset`` (:458), ``ns_true_multires_markov_dataset`` (:485)
-and ``ks_window_dataset`` (:711, with ``_ks_load``, :142), with the
-helpers they call. Each returns the positional tuple the drivers consume:
+``ns_markov_dataset`` (:458), ``ns_true_multires_markov_dataset`` (:485),
+``ks_window_dataset`` (:711, with ``_ks_load``, :142) and the KS Markov
+factories: ``ks_markov_dataset`` (:152), ``ks_true_multires_markov_dataset``
+(:192, with ``_generic_true_multires_1d``, :355),
+``ks_multires_markov_dataset`` (:919), ``ks_resize_multires_markov_dataset``
+(:1059) and ``ks_pino_markov_dataset`` (:799), with the helpers they call.
+Each returns the positional tuple the command lines consume:
 
   'simple' / 'unit_gaussian':
      (train, val, test, rollout, x_normalizer, y_normalizer)
   'minmax':
      (train, val, test, rollout, min_data, max_data, min_model, max_model)
 
+(ks_pino_markov_dataset: the minmax 7-tuple without the rollout slot.)
 train/val/test are ArrayDatasets (MultiResDatasets for true-multires),
 already encoded with the normalizers fit on train; rollout holds the raw
-test trajectories, which the rollout encodes itself.
+test trajectories, which the rollout encodes itself. ``ks_window_splits``,
+``ks_markov_splits`` and ``ks_true_multires_splits`` take trajectories
+already read, as arrays: the file-reading factories call them.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,7 +41,9 @@ from resolution_pde_tpu_torch.data.dataset import (
     fit_normalizers,
 )
 from resolution_pde_tpu_torch.data.transforms import (
+    lowpass_1d,
     lowpass_2d_channels_last,
+    markov_pairs_1d,
     markov_pairs_2d,
     reduce_trajectories,
     resize_trajectories,
@@ -192,6 +200,76 @@ def _subsample(part, target, n_total, k_ratio, seed):
                           replace=False)]
 
 
+def _merge_bucket(buckets, key, x, y):
+    if key in buckets:
+        old = buckets[key]
+        buckets[key] = ArrayDataset(np.concatenate([old.x, x]),
+                                    np.concatenate([old.y, y]))
+    else:
+        buckets[key] = ArrayDataset(x, y)
+
+
+def _true_multires(load_res, data_mres_size, add_res, add_res_samples,
+                   base_res, split_ratio, random_seed, pair, reduce, to_traj,
+                   data_normalizer, normalization_type):
+    """The true multi-resolution factories' pipeline, whose tuple it
+    returns. Per resolution of ``data_mres_size`` with a nonzero target:
+    a contiguous ``split_ratio`` split of ``load_res(resolution)``, each
+    split subsampled (``_subsample``, RandomState(random_seed + resolution
+    + split index)), its Markov pairs (``pair``) a bucket. Then ``add_res``
+    from the base resolution: per split int(add_res_samples[r] x ratio)
+    trajectories drawn with replacement by RandomState(random_seed + r +
+    split index + 10000), ``reduce(sampled, r, src_res)`` (a stride, or a
+    low-pass that keeps src_res), merged into the bucket of their width;
+    src_res is the base's axis 2 and no r at or above it is drawn. The
+    rollout holds each resolution's test trajectories (``to_traj``),
+    subsampled as the Markov test split, and the base's."""
+    buckets = {name: {} for name in SPLITS}
+    for resolution, target in sorted(data_mres_size.items()):
+        if target == 0:
+            continue
+        u = load_res(resolution)
+        if u is None:
+            continue
+        tr_end, va_end = split_ratio_indices(u.shape[0], split_ratio)
+        parts = (u[:tr_end], u[tr_end:va_end], u[va_end:])
+        for si, name in enumerate(SPLITS):
+            part = _subsample(parts[si], target, u.shape[0], split_ratio[si],
+                              random_seed + resolution + si)
+            if part is None:
+                continue
+            x, y = pair(part.astype(np.float32))
+            buckets[name][x.shape[-1]] = ArrayDataset(x, y)
+    u_base = (load_res(base_res)
+              if add_res and add_res_samples and base_res else None)
+    if u_base is not None:
+        src_res = u_base.shape[2]
+        tr_end, va_end = split_ratio_indices(u_base.shape[0], split_ratio)
+        parts = (u_base[:tr_end], u_base[tr_end:va_end], u_base[va_end:])
+        for target_res in (r for r in add_res if r < src_res):
+            n_target = (add_res_samples.get(target_res, 100)
+                        if isinstance(add_res_samples, dict)
+                        else int(add_res_samples))
+            for si, name in enumerate(SPLITS):
+                k = int(n_target * split_ratio[si])
+                if k <= 0:
+                    continue
+                rs = np.random.RandomState(
+                    random_seed + target_res + si + 10000)
+                sampled = parts[si][rs.choice(parts[si].shape[0], k,
+                                              replace=True)]
+                x, y = pair(reduce(sampled, target_res, src_res)
+                            .astype(np.float32))
+                _merge_bucket(buckets[name], x.shape[-1], x, y)
+    rollout_buckets = _rollout_buckets_per_res(
+        load_res, data_mres_size, split_ratio, random_seed, base_res,
+        to_traj)
+    rollout = (MultiResTrajectoryDataset(rollout_buckets)
+               if rollout_buckets else None)
+    return _package(*(MultiResDataset(buckets[name]) for name in SPLITS),
+                    rollout, data_normalizer, normalization_type)
+
+
 def ns_true_multires_markov_dataset(
         saved_folder, file_map: Optional[Dict[int, str]] = None,
         viscosity="1e-3", file_extension=".h5",
@@ -217,7 +295,6 @@ def ns_true_multires_markov_dataset(
         file_map = {r: f"ns_{r}_{viscosity}{file_extension}"
                     for r in resolutions}
     data_mres_size = data_mres_size or {r: -1 for r in file_map}
-    buckets = {name: {} for name in SPLITS}
 
     def load_res(resolution):
         if resolution not in file_map:
@@ -228,70 +305,22 @@ def ns_true_multires_markov_dataset(
         u = data_io.read_ns(path)[..., None]
         return u[::reduced_batch, ::reduced_resolution_t]
 
+    def reduce(sampled, target_res, src_res):
+        if use_low_pass_filter:
+            # filtered only: the samples stay at src_res
+            return lowpass_2d_channels_last(
+                sampled, (target_res / src_res) * lowpass_cutoff_ratio)
+        f = src_res // target_res
+        return sampled[:, :, ::f, ::f]
+
     load_res = _memo_loader(load_res)
-    for resolution, target in sorted(data_mres_size.items()):
-        if target == 0:
-            continue
-        u = load_res(resolution)
-        if u is None:
-            continue
-        tr_end, va_end = split_ratio_indices(u.shape[0], split_ratio)
-        parts = (u[:tr_end], u[tr_end:va_end], u[va_end:])
-        for si, name in enumerate(SPLITS):
-            part = _subsample(parts[si], target, u.shape[0], split_ratio[si],
-                              random_seed + resolution + si)
-            if part is None:
-                continue
-            x, y = markov_pairs_2d(part.astype(np.float32))
-            buckets[name][x.shape[-1]] = ArrayDataset(x, y)
-
-    # extra resolutions, naive strides or low-passed, from the base file
     base_res = downsample_from_res or (max(file_map) if file_map else None)
-    if add_res and add_res_samples and base_res:
-        u_base = load_res(base_res)
-        if u_base is not None:
-            src_res = u_base.shape[2]
-            tr_end, va_end = split_ratio_indices(u_base.shape[0], split_ratio)
-            parts = (u_base[:tr_end], u_base[tr_end:va_end], u_base[va_end:])
-            for target_res in add_res:
-                if target_res >= src_res:
-                    continue
-                n_target = add_res_samples.get(target_res, 100)
-                for si, name in enumerate(SPLITS):
-                    k = int(n_target * split_ratio[si])
-                    if k <= 0:
-                        continue
-                    rs = np.random.RandomState(
-                        random_seed + target_res + si + 10000)
-                    sampled = parts[si][rs.choice(parts[si].shape[0], k,
-                                                  replace=True)]
-                    if use_low_pass_filter:
-                        # filtered only: the samples stay at src_res
-                        down = lowpass_2d_channels_last(
-                            sampled,
-                            (target_res / src_res) * lowpass_cutoff_ratio)
-                    else:
-                        f = src_res // target_res
-                        down = sampled[:, :, ::f, ::f]
-                    x, y = markov_pairs_2d(down.astype(np.float32))
-                    key = x.shape[-1]
-                    if key in buckets[name]:
-                        old = buckets[name][key]
-                        x = np.concatenate([old.x, x])
-                        y = np.concatenate([old.y, y])
-                    buckets[name][key] = ArrayDataset(x, y)
-
-    rollout_buckets = _rollout_buckets_per_res(
-        load_res, data_mres_size, split_ratio, random_seed, base_res,
-        to_traj=lambda test_u: (
-            test_u.shape[2],
-            np.ascontiguousarray(test_u[:, :, :, :, 0], dtype=np.float32)))
-    rollout = (MultiResTrajectoryDataset(rollout_buckets)
-               if rollout_buckets else None)
-    return _package(MultiResDataset(buckets["train"]),
-                    MultiResDataset(buckets["val"]),
-                    MultiResDataset(buckets["test"]), rollout,
-                    data_normalizer, normalization_type)
+    return _true_multires(
+        load_res, data_mres_size, add_res, add_res_samples, base_res,
+        split_ratio, random_seed, markov_pairs_2d, reduce,
+        lambda test_u: (test_u.shape[2], np.ascontiguousarray(
+            test_u[:, :, :, :, 0], dtype=np.float32)),
+        data_normalizer, normalization_type)
 
 
 # ---------------------------------------------------------------------------
@@ -338,3 +367,263 @@ def ks_window_dataset(filename, saved_folder, window_size=10,
           for fn in (filename, val_filename, test_filename)]
     return ks_window_splits(*us, window_size=window_size,
                             data_normalizer=data_normalizer)
+
+
+def ks_markov_splits(train_u, val_u, test_u, data_normalizer=True):
+    """``ks_markov_dataset`` on trajectories already read and reduced:
+    (b, t, s) arrays of the train, valid and test files. Each split's
+    Markov pairs (x = u[:, :-1], y = u[:, 1:], (N, 1, s)),
+    SimpleNormalizers fit on train, the raw test trajectories in the
+    rollout slot."""
+    splits = [ArrayDataset(*markov_pairs_1d(u))
+              for u in (train_u, val_u, test_u)]
+    return _package(*splits, TrajectoryDataset(test_u), data_normalizer,
+                    "simple")
+
+
+def ks_markov_dataset(filename, saved_folder, data_normalizer=True,
+                      use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
+                      val_filename="KS_valid.h5", test_filename="KS_test.h5",
+                      reduced_batch=1, reduced_resolution=1,
+                      reduced_resolution_t=1, num_samples_max=-1,
+                      s=None, normalization_type="simple",
+                      viscosity=None, L=None, lmax=None, et=None, nte=None,
+                      nt=None):
+    """KS, naive or low-passed (ks_naive_markov.py:309); ``s`` FFT-resizes
+    (ks_resize_markov.py:206). Always SimpleNormalizers, whatever
+    ``normalization_type`` says (main_1d reads it to decode); the
+    generator's provenance keys (viscosity ... nt) are accepted and
+    ignored, as the reference does."""
+    red = dict(reduced_batch=reduced_batch,
+               reduced_resolution=reduced_resolution,
+               reduced_resolution_t=reduced_resolution_t,
+               use_low_pass_filter=use_low_pass_filter,
+               lowpass_cutoff_ratio=lowpass_cutoff_ratio,
+               num_samples_max=num_samples_max)
+    us = [_ks_load(fn, saved_folder, s=s, **red)
+          for fn in (filename, val_filename, test_filename)]
+    return ks_markov_splits(*us, data_normalizer=data_normalizer)
+
+
+def _ks_res_dir(saved_folder, resolution, viscosity, L, lmax, et, nte, nt):
+    dir_name = f"visc_{viscosity}_L{L}_lmax{lmax}_et{et}_nte{nte}_nt{nt}"
+    return os.path.join(saved_folder, f"res_{resolution}", dir_name)
+
+
+def _base_resolution(data_mres_size, downsample_from_res):
+    return downsample_from_res or (max(data_mres_size)
+                                   if data_mres_size else None)
+
+
+def ks_true_multires_splits(
+        u_by_res: Dict[int, np.ndarray],
+        data_mres_size: Optional[Dict[int, int]] = None,
+        add_res: Optional[Sequence[int]] = None,
+        add_res_samples=None, downsample_from_res: Optional[int] = None,
+        use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
+        split_ratio=None, random_seed=42, data_normalizer=True,
+        normalization_type="simple"):
+    """The true multi-resolution pipeline on trajectories already read:
+    ``u_by_res`` {resolution: (n, t, s) array} (a missing resolution is
+    skipped). Per resolution of ``data_mres_size`` with a nonzero target:
+    a contiguous ``split_ratio`` split, each split subsampled to
+    int(target x ratio) trajectories by RandomState(random_seed +
+    resolution + split index) when the target is below the count, Markov
+    pairs in a bucket per resolution. ``add_res`` adds resolutions drawn
+    from the base one (``downsample_from_res``, else the largest): per
+    split int(add_res_samples[r] x ratio) trajectories with replacement by
+    RandomState(random_seed + r + split index + 10000), strided to r, or
+    with ``use_low_pass_filter`` low-passed and left at the base
+    resolution. The rollout holds each resolution's test trajectories
+    (subsampled as the Markov test split) and the base's."""
+    if split_ratio is None:
+        split_ratio = [0.8, 0.1, 0.1]
+    data_mres_size = data_mres_size or {}
+
+    def reduce(sampled, target_res, src_res):
+        if use_low_pass_filter:
+            # filtered only: the samples stay at src_res
+            return lowpass_1d(sampled,
+                              (target_res / src_res) * lowpass_cutoff_ratio)
+        # ceil(src / factor) points when target_res does not divide
+        # src_res, as the reference keeps
+        return sampled[:, :, ::src_res // target_res]
+
+    return _true_multires(
+        u_by_res.get, data_mres_size, add_res, add_res_samples,
+        _base_resolution(data_mres_size, downsample_from_res), split_ratio,
+        random_seed, markov_pairs_1d, reduce,
+        lambda test_u: (test_u.shape[-1], np.ascontiguousarray(
+            test_u, dtype=np.float32)),
+        data_normalizer, normalization_type)
+
+
+def ks_true_multires_markov_dataset(
+        saved_folder, viscosity=0.05, L=64.0, lmax=8, et=5.0, nte=51, nt=51,
+        train_s=2048, reduced_batch=1, reduced_resolution_t=1,
+        data_mres_size: Optional[Dict[int, int]] = None,
+        add_res: Optional[Sequence[int]] = None,
+        add_res_samples: Optional[Dict[int, int]] = None,
+        downsample_from_res: Optional[int] = None,
+        use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
+        split_ratio=None, random_seed=42, data_normalizer=True,
+        normalization_type="simple", num_samples_max=-1,
+        eval_dataset_target=None, eval_filename=None,
+        eval_saved_folder=None):
+    """True multi-resolution KS (ks_naive_true_multires.py:173-535): the
+    train file of each resolution's directory
+    res_{R}/visc_{viscosity}_L{L}_lmax{lmax}_et{et}_nte{nte}_nt{nt}/
+    KS_train_{train_s}.h5, batch and time strided, through
+    ``ks_true_multires_splits``. ``num_samples_max`` is accepted and
+    ignored, as the reference does; the eval_* keys are read by
+    cli/common.py's eval swap."""
+    data_mres_size = data_mres_size or {}
+    needed = {r for r, target in data_mres_size.items() if target != 0}
+    base_res = _base_resolution(data_mres_size, downsample_from_res)
+    if base_res:
+        needed.add(base_res)
+    u_by_res = {}
+    for resolution in sorted(needed):
+        path = os.path.join(
+            _ks_res_dir(saved_folder, resolution, viscosity, L, lmax, et,
+                        nte, nt), f"KS_train_{train_s}.h5")
+        if os.path.exists(path):
+            u = data_io.read_ks_h5(path, split="train")["u"]
+            u_by_res[resolution] = u[::reduced_batch, ::reduced_resolution_t]
+    return ks_true_multires_splits(
+        u_by_res, data_mres_size, add_res, add_res_samples,
+        downsample_from_res, use_low_pass_filter, lowpass_cutoff_ratio,
+        split_ratio, random_seed, data_normalizer, normalization_type)
+
+
+def _add_res_list(add_res):
+    if add_res is None:
+        return []
+    if hasattr(add_res, "__iter__") and not isinstance(add_res, str):
+        return [int(r) for r in add_res]
+    return [int(add_res)]
+
+
+def _sample_at_resolutions(u_orig, add_res, k, seed, method):
+    """k trajectories drawn with replacement from the full-resolution data
+    by RandomState(seed), reduced to each resolution of ``add_res`` by a
+    naive stride (ks_naive_multires.py:115-131) or spectral truncation
+    (ks_resize_multires.py:143-165); larger ones are skipped. Returns
+    [(res, array), ...]."""
+    out = []
+    src_res = u_orig.shape[-1]
+    rng = np.random.RandomState(seed)
+    for res in _add_res_list(add_res):
+        if res > src_res:
+            continue
+        samp = u_orig[rng.choice(u_orig.shape[0], k, replace=True)]
+        if res != src_res:
+            if method == "resize":
+                samp = resize_trajectories(samp, res, spatial_ndim=1,
+                                           method="downsample")
+            else:
+                samp = samp[:, :, :: src_res // res][:, :, :res]
+        out.append((samp.shape[-1], np.ascontiguousarray(
+            samp, dtype=np.float32)))
+    return out
+
+
+def _as_res_dataset(buckets):
+    if len(buckets) == 1:
+        return next(iter(buckets.values()))
+    return MultiResDataset(buckets)
+
+
+def ks_multires_markov_dataset(filename, saved_folder, data_normalizer=True,
+                               normalization_type="simple",
+                               add_res=None, num_add_res_samples=0,
+                               random_seed=42, multires_method="naive",
+                               val_filename="KS_valid.h5",
+                               test_filename="KS_test.h5",
+                               reduced_batch=1, reduced_resolution=1,
+                               reduced_resolution_t=1, num_samples_max=-1,
+                               s=None, split_ratio=(0.8, 0.1, 0.1),
+                               eval_dataset_target=None,
+                               eval_filename=None,
+                               eval_saved_folder=None):
+    """Single-file-per-split KS multires (ks_naive_multires.py:242-340;
+    ks_resize_multires.py:332-470 with multires_method='resize'): each
+    split's file reduced, plus int(num_add_res_samples x ratio) extra
+    trajectories from its full-resolution data at each resolution of
+    ``add_res`` (RandomState(random_seed + split index)). One bucket is an
+    ArrayDataset, more a MultiResDataset; the rollout slot holds the
+    reduced test trajectories."""
+    buckets = {n: {} for n in SPLITS}
+    rollout_u = None
+    red = dict(reduced_batch=reduced_batch,
+               reduced_resolution=reduced_resolution,
+               reduced_resolution_t=reduced_resolution_t,
+               num_samples_max=num_samples_max)
+    for si, (name, fn) in enumerate(zip(
+            SPLITS, (filename, val_filename, test_filename))):
+        path = os.path.join(os.path.abspath(saved_folder), fn)
+        u_orig = data_io.read_ks_h5(path)["u"]
+        u = reduce_trajectories(u_orig, spatial_ndim=1, **red)
+        if s is not None:
+            u = resize_trajectories(u, s, spatial_ndim=1)
+        x, y = markov_pairs_1d(u)
+        _merge_bucket(buckets[name], u.shape[-1], x, y)
+        if name == "test":
+            rollout_u = u
+        k = int(num_add_res_samples * split_ratio[si])
+        if k > 0:
+            for key, samp in _sample_at_resolutions(
+                    u_orig, add_res, k, random_seed + si, multires_method):
+                _merge_bucket(buckets[name], key, *markov_pairs_1d(samp))
+    rollout = (TrajectoryDataset(np.ascontiguousarray(rollout_u,
+                                                      dtype=np.float32))
+               if rollout_u is not None else None)
+    return _package(_as_res_dataset(buckets["train"]),
+                    _as_res_dataset(buckets["val"]),
+                    _as_res_dataset(buckets["test"]),
+                    rollout, data_normalizer, normalization_type)
+
+
+def _alias_of(base):
+    """Mark a delegating alias so ``inspect.signature`` resolves the base
+    factory's parameters (through ``__wrapped__``), keeping the alias's
+    own name and docstring."""
+    def deco(fn):
+        fn.__wrapped__ = base
+        return fn
+    return deco
+
+
+@_alias_of(ks_multires_markov_dataset)
+def ks_resize_multires_markov_dataset(*args, **kwargs):
+    """dataloaders.ks_resize_multires.ks_multires_markov_dataset: the FFT
+    resize flavor of the single-file multires strategy."""
+    kwargs.setdefault("multires_method", "resize")
+    return ks_multires_markov_dataset(*args, **kwargs)
+
+
+def ks_pino_markov_dataset(filename, saved_folder=None, data_normalizer=True,
+                           s=None, reduced_batch=1, reduced_resolution=1,
+                           reduced_resolution_t=1, num_samples_max=-1,
+                           split_ratio=(0.8, 0.1, 0.1),
+                           normalization_type="minmax"):
+    """PINO-style KS (ks_pino_resize_markov.py:115-232): one file, a
+    contiguous ratio split, minmax normalization, an optional FFT resize
+    to ``s``. Returns (train, val, test, min_data, max_data, min_model,
+    max_model): no rollout slot, as the reference's 7-tuple."""
+    if normalization_type != "minmax":
+        raise ValueError("ks_pino_markov_dataset normalization is minmax "
+                         f"only, got {normalization_type!r}")
+    u = _ks_load(filename, saved_folder or ".", s=s,
+                 reduced_batch=reduced_batch,
+                 reduced_resolution=reduced_resolution,
+                 reduced_resolution_t=reduced_resolution_t,
+                 num_samples_max=num_samples_max)
+    tr_end, va_end = split_ratio_indices(u.shape[0], split_ratio)
+    parts = [u[:tr_end], u[tr_end:va_end], u[va_end:]]
+    train, val, test = (ArrayDataset(*markov_pairs_1d(p)) for p in parts)
+    out = _package(train, val, test, None, data_normalizer, "minmax")
+    if not data_normalizer:
+        return (*out[:3], None, None, None, None)
+    train, val, test, _, mn_d, mx_d, mn_m, mx_m = out
+    return train, val, test, mn_d, mx_d, mn_m, mx_m

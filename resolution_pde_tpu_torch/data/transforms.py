@@ -29,6 +29,11 @@ def _host(fn, u: np.ndarray, *args, **kw) -> np.ndarray:
     return fn(t, *args, **kw).numpy().astype(np.float32, copy=False)
 
 
+def lowpass_1d(u: np.ndarray, cutoff: float) -> np.ndarray:
+    """The 1D low-pass along the last axis of (b, t, s), shape-preserving."""
+    return _host(lowpass_filter_1d, u, cutoff_ratio=cutoff)
+
+
 def lowpass_2d_channels_last(u: np.ndarray, cutoff: float) -> np.ndarray:
     """The 2D low-pass over the spatial axes 2 and 3 of (b, t, h, w, c)."""
     u_cf = np.moveaxis(u, -1, 2)
@@ -57,7 +62,7 @@ def reduce_trajectories(
         if use_low_pass_filter:
             cutoff = (1.0 / reduced_resolution) * lowpass_cutoff_ratio
             if spatial_ndim == 1:
-                u = _host(lowpass_filter_1d, u, cutoff_ratio=cutoff)
+                u = lowpass_1d(u, cutoff)
             elif u.ndim == 5:
                 u = lowpass_2d_channels_last(u, cutoff)
             else:

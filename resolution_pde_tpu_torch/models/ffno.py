@@ -1,9 +1,12 @@
-"""FFNO 2D: factorized Fourier neural operator with resolution-adaptive
-mode slicing, so one weight set serves every grid size.
+"""FFNO 1D and 2D: factorized Fourier neural operators with
+resolution-adaptive mode slicing, so one weight set serves every grid size.
 
-Counterpart of resolution_pde_tpu/models/ffno.py (``FSpectralConv2d``,
-``FFNO2D``). Layout: (B, C, H, W) at the model boundary, channels-last
-(B, H, W, C) inside. ``spectral_impl`` selects the spectral pass:
+Counterpart of resolution_pde_tpu/models/ffno.py (``FSpectralConv1d``,
+``FFNO1D``, ``FSpectralConv2d``, ``FFNO2D``). Layout: (B, C, X) or
+(B, C, H, W) at the model boundary, channels-last inside. FFNO1D runs its
+spectral pass through torch.fft in f32, as the JAX package does; its
+FeedForward runs the fused kernels with ``ff_impl='fused'`` at dropout 0.
+FFNO2D's ``spectral_impl`` selects its spectral pass:
   - 'fft':     torch.fft, f32 (the plain reference);
   - 'pallas':  the spectral kernel in f32 (the f32-exact mode);
   - 'pallas2': the spectral kernels in ``compute_dtype`` (bf16: the staged
@@ -19,16 +22,97 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from resolution_pde_tpu_torch.models.layers import (Dropout, FeedForward,
-                                                    WNDense,
+from resolution_pde_tpu_torch.models.layers import (ACTIVATIONS, Dropout,
+                                                    FeedForward, WNDense,
                                                     xavier_normal_init)
-from resolution_pde_tpu_torch.ops.grids import concat_grid_2d
+from resolution_pde_tpu_torch.ops.grids import concat_grid_1d, concat_grid_2d
 from resolution_pde_tpu_torch.ops.kernels.spectral_mix import (
     factorized_spectral_conv_2d_pallas2)
 from resolution_pde_tpu_torch.ops.spectral import (
-    factorized_spectral_conv_2d, factorized_spectral_conv_2d_pallas)
+    factorized_spectral_conv_1d, factorized_spectral_conv_2d,
+    factorized_spectral_conv_2d_pallas, truncate_modes_1d)
 
 SPECTRAL_IMPLS = ("fft", "pallas", "pallas2")
+MODES_1D = ("full", "low-pass", "no-fourier")
+
+
+class FSpectralConv1d(nn.Module):
+    """FFNO 1D layer: factorized spectral conv, then the FeedForward, then
+    ``activation``. mode 'full' mixes the kept modes with
+    ``fourier_weight[0]``, 'low-pass' only truncates them, 'no-fourier'
+    skips the spectral pass. The residual add stays outside the layer."""
+
+    def __init__(self, d_model: int, n_modes: int, factor: int = 4,
+                 ff_weight_norm: bool = False, n_ff_layers: int = 2,
+                 layer_norm: bool = False, dropout: float = 0.0,
+                 mode: str = "full", fft_norm: str = "ortho",
+                 activation: str = "identity", ff_impl: str = "dense",
+                 generator=None):
+        super().__init__()
+        if mode not in MODES_1D:
+            raise ValueError(f"unknown mode {mode!r}; supported: "
+                             f"{', '.join(MODES_1D)}")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.n_modes = n_modes
+        self.mode = mode
+        self.fft_norm = fft_norm
+        self.activation = activation
+        if mode == "full":
+            self.fourier_weight = nn.ParameterList([nn.Parameter(
+                xavier_normal_init((d_model, d_model, n_modes, 2),
+                                   generator))])
+        self.backcast_ff = FeedForward(
+            d_model, factor, n_ff_layers, ff_weight_norm, layer_norm,
+            dropout, ff_impl=ff_impl, generator=generator)
+
+    def forward(self, x):
+        """x: (B, X, C) -> (B, X, C)."""
+        if self.mode == "full":
+            x = factorized_spectral_conv_1d(x, self.fourier_weight[0],
+                                            self.n_modes, self.fft_norm)
+        elif self.mode == "low-pass":
+            x = truncate_modes_1d(x, self.n_modes, self.fft_norm)
+        return ACTIVATIONS[self.activation](self.backcast_ff(x))
+
+
+class FFNO1D(nn.Module):
+    """1D FFNO. Input (B, C_in, X) -> (B, C_out, X). ``use_grid`` appends a
+    linspace(0, 1) channel as named (the yaml sets it false, the
+    reference's effective behaviour). Parameters are drawn from
+    ``generator`` on the CPU and then moved to ``device``."""
+
+    def __init__(self, in_channels: int, out_channels: int, width: int = 64,
+                 n_layers: int = 4, n_modes: int = 16, factor: int = 4,
+                 ff_weight_norm: bool = False, n_ff_layers: int = 2,
+                 layer_norm: bool = False, dropout: float = 0.0,
+                 mode: str = "full", fft_norm: str = "ortho",
+                 activation: str = "identity", use_grid: bool = False,
+                 ff_impl: str = "dense", *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.use_grid = use_grid
+        g = generator
+        self.in_proj = WNDense(in_channels + (1 if use_grid else 0), width,
+                               wnorm=ff_weight_norm, generator=g)
+        self.fourier_layers = nn.ModuleList([
+            FSpectralConv1d(width, n_modes, factor, ff_weight_norm,
+                            n_ff_layers, layer_norm, dropout, mode, fft_norm,
+                            activation, ff_impl, generator=g)
+            for _ in range(n_layers)])
+        self.out_proj = WNDense(width, out_channels, wnorm=ff_weight_norm,
+                                generator=g)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x):
+        x = x.transpose(1, 2)  # (B, X, C)
+        if self.use_grid:
+            x = concat_grid_1d(x, 0.0, 1.0)
+        x = self.in_proj(x)
+        for layer in self.fourier_layers:
+            x = x + layer(x)
+        return self.out_proj(x).transpose(1, 2)
 
 
 class FSpectralConv2d(nn.Module):

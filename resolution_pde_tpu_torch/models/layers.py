@@ -190,7 +190,10 @@ class FeedForward(nn.Module):
             biases = [seq[0].bias for seq in self.layers]
             ln = ((self.layers[-1][3].weight, self.layers[-1][3].bias)
                   if self.layer_norm else None)
-            return fused_feedforward(x, kernels, biases, ln, residual,
+            # the kernels read rows in place: a transposed view (FFNO1D's
+            # spectral output) is copied once here
+            return fused_feedforward(x.contiguous(), kernels, biases, ln,
+                                     residual,
                                      approx_gelu=self.approx_gelu,
                                      compute_dtype=cd,
                                      save_acts=self.ff_impl == "fused_saved")

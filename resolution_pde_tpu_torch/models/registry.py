@@ -1,16 +1,18 @@
 """Model registry: short names and the reference's ``_target_`` dotted
 paths to the port's modules.
 
-Counterpart of resolution_pde_tpu/models/registry.py; FFNO2D and the 1D S4
-family (S4Model, S4Block, S4D) are ported so far.
+Counterpart of resolution_pde_tpu/models/registry.py; FFNO1D, FFNO2D and
+the 1D S4 family (S4Model, S4Block, S4D) are ported so far.
 """
 
 from __future__ import annotations
 
-from resolution_pde_tpu_torch.models.ffno import FFNO2D
+from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D
 from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model
 
 MODEL_REGISTRY = {
+    "FFNO1D": FFNO1D,
+    "models.ffno.FFNO1D": FFNO1D,
     "FFNO2D": FFNO2D,
     "models.ffno.FFNO2D": FFNO2D,
     "S4Model": S4Model,

@@ -1,7 +1,8 @@
 """FFNO factorized spectral convolution, channels-last.
 
-Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` path
-(``factorized_spectral_conv_2d``, the plain reference of the whole pass),
+Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` paths
+(``factorized_spectral_conv_1d`` of FFNO1D, and
+``factorized_spectral_conv_2d``, the plain reference of the whole pass),
 the truncated-DFT factors ``_dft_matrices`` the kernels use, and the
 f32-exact fused path ``factorized_spectral_conv_2d_pallas``. Each axis uses
 ``m = min(n_modes, n // 2 + 1)`` modes with the weight sliced to match, so
@@ -37,13 +38,15 @@ def irfft(x, n: int, dim: int = -1, norm: str = "backward"):
     parts too at some shapes (n = 128 over thousands of rows), so they
     are dropped here; a mixed spectrum's DC bin is complex."""
     m = x.shape[dim]
-    keep = torch.ones(m, dtype=x.real.dtype, device=x.device)
-    keep[0] = 0
+    # the mask is made on x's device, with no copy from the host, so the
+    # transform can be captured in a CUDA graph
+    idx = torch.arange(m, device=x.device)
+    drop = idx == 0
     if n % 2 == 0 and m > n // 2:
-        keep[n // 2] = 0
+        drop = drop | (idx == n // 2)
     shape = [1] * x.ndim
     shape[dim] = m
-    x = torch.complex(x.real, x.imag * keep.reshape(shape))
+    x = torch.complex(x.real, x.imag.masked_fill(drop.reshape(shape), 0.0))
     return torch.fft.irfft(x, n=n, dim=dim, norm=norm)
 
 
@@ -52,6 +55,30 @@ def irfft2(x, s, norm: str = "backward"):
     inverse FFT along the first, then ``irfft`` along the last."""
     return irfft(torch.fft.ifft(x, n=s[0], dim=-2, norm=norm), s[1], dim=-1,
                  norm=norm)
+
+
+def factorized_spectral_conv_1d(x, weight, n_modes: int,
+                                fft_norm: str = "ortho"):
+    """x: (B, X, C) real; weight: (C, C, n_modes, 2). Returns (B, X, C):
+    rfft along X, the first ``min(n_modes, X // 2 + 1)`` modes mixed by
+    the weight sliced to match, and ``irfft``, which reads a kept Nyquist
+    bin as real (its product with a complex weight is not)."""
+    n = x.shape[-2]
+    m = min(n_modes, n // 2 + 1)
+    x_ft = torch.fft.rfft(x.transpose(-1, -2), dim=-1, norm=fft_norm)
+    w = torch.complex(weight[:, :, :m, 0], weight[:, :, :m, 1])
+    out_ft = torch.einsum("bix,iox->box", x_ft[..., :m], w)
+    return irfft(out_ft, n=n, dim=-1, norm=fft_norm).transpose(-1, -2)
+
+
+def truncate_modes_1d(x, n_modes: int, fft_norm: str = "ortho"):
+    """x: (B, X, C) real with every mode from ``min(n_modes, X // 2 + 1)``
+    on set to zero (FFNO1D's 'low-pass' mode)."""
+    n = x.shape[-2]
+    m = min(n_modes, n // 2 + 1)
+    x_ft = torch.fft.rfft(x.transpose(-1, -2), dim=-1, norm=fft_norm)
+    return irfft(x_ft[..., :m], n=n, dim=-1,
+                 norm=fft_norm).transpose(-1, -2)
 
 
 def factorized_spectral_conv_2d(x, weight_y, weight_x, n_modes: int,

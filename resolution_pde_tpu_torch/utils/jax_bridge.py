@@ -14,7 +14,10 @@ the leaves; a tree of JAX arrays works too, read through ``np.asarray``):
 reference PyTorch code's, so ``resolution_pde_tpu.utils.torch_import.
 import_ffno2d`` maps the result back. A gradient tree from ``jax.grad`` has
 the params' structure, so it maps the same way, onto the names of
-``model.named_parameters()``.
+``model.named_parameters()``. ``ffno1d_state_dict`` does the same for
+``FFNO1D``, whose layers ``FSpectralConv1d_i`` hold one
+``fourier_weight`` (-> ``fourier_layers.{i}.fourier_weight.0``, as
+``import_ffno1d`` reads it) beside ``FeedForward_0``.
 
 The JAX ``S4Model`` tree
 
@@ -66,31 +69,49 @@ def _index(key: str, stem: str) -> int:
     return int(m.group(1))
 
 
-def ffno2d_state_dict(params: dict) -> dict:
-    """JAX ``FFNO2D`` params (the ``params`` collection, or the variables
-    dict holding it) -> the port's ``FFNO2D`` state_dict (f32 tensors)."""
+def _feedforward(ff: dict, prefix: str) -> dict:
+    """JAX ``FeedForward`` params -> the port's, under ``prefix``."""
+    sd = {}
+    dense = sorted(_index(k, "WNDense") for k in ff if k != "LayerNorm_0")
+    for j in dense:
+        sd.update(_dense(ff[f"WNDense_{j}"]["TorchLinear_0"],
+                         f"{prefix}.layers.{j}.0"))
+    if "LayerNorm_0" in ff:
+        pre = f"{prefix}.layers.{dense[-1]}.3"
+        sd[f"{pre}.weight"] = _t(ff["LayerNorm_0"]["scale"])
+        sd[f"{pre}.bias"] = _t(ff["LayerNorm_0"]["bias"])
+    return sd
+
+
+def _ffno_state_dict(params: dict, stem: str, weights: dict) -> dict:
+    """An FFNO's params -> the port's state_dict: the projections, and per
+    layer ``{stem}_i`` its Fourier weights (JAX name -> the index in
+    ``fourier_weight``) and its FeedForward."""
     params = params.get("params", params)
     sd = {}
     sd.update(_wn_dense(params["WNDense_0"], "in_proj"))
     sd.update(_wn_dense(params["WNDense_1"], "out_proj"))
-    layers = [k for k in params if k.startswith("FSpectralConv2d_")]
-    for key in layers:
-        i = _index(key, "FSpectralConv2d")
+    for key in (k for k in params if k.startswith(f"{stem}_")):
         p = params[key]
-        base = f"fourier_layers.{i}"
-        if "fourier_weight_y" in p:
-            sd[f"{base}.fourier_weight.0"] = _t(p["fourier_weight_y"])
-            sd[f"{base}.fourier_weight.1"] = _t(p["fourier_weight_x"])
-        ff = p["FeedForward_0"]
-        dense = sorted(_index(k, "WNDense") for k in ff if k != "LayerNorm_0")
-        for j in dense:
-            sd.update(_dense(ff[f"WNDense_{j}"]["TorchLinear_0"],
-                             f"{base}.backcast_ff.layers.{j}.0"))
-        if "LayerNorm_0" in ff:
-            pre = f"{base}.backcast_ff.layers.{dense[-1]}.3"
-            sd[f"{pre}.weight"] = _t(ff["LayerNorm_0"]["scale"])
-            sd[f"{pre}.bias"] = _t(ff["LayerNorm_0"]["bias"])
+        base = f"fourier_layers.{_index(key, stem)}"
+        for name, j in weights.items():
+            if name in p:
+                sd[f"{base}.fourier_weight.{j}"] = _t(p[name])
+        sd.update(_feedforward(p["FeedForward_0"], f"{base}.backcast_ff"))
     return sd
+
+
+def ffno2d_state_dict(params: dict) -> dict:
+    """JAX ``FFNO2D`` params (the ``params`` collection, or the variables
+    dict holding it) -> the port's ``FFNO2D`` state_dict (f32 tensors)."""
+    return _ffno_state_dict(params, "FSpectralConv2d",
+                            {"fourier_weight_y": 0, "fourier_weight_x": 1})
+
+
+def ffno1d_state_dict(params: dict) -> dict:
+    """JAX ``FFNO1D`` params (the ``params`` collection, or the variables
+    dict holding it) -> the port's ``FFNO1D`` state_dict (f32 tensors)."""
+    return _ffno_state_dict(params, "FSpectralConv1d", {"fourier_weight": 0})
 
 
 def fftconv_state_dict(p: dict, prefix: str = "") -> dict:

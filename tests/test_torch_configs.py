@@ -93,8 +93,8 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("ks_markov_dataset", 4),
-    ("dataloaders.ks_naive_markov.ks_markov_dataset", 4),
+    ("burger_markov_dataset", 6),
+    ("dataloaders.ns_s4.ns_window_dataset", 5),
     ("ns_window_dataset", 5),
     ("dataloaders.burger_naive_true_multires."
      "burger_true_multires_markov_dataset", 6),

@@ -63,6 +63,10 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.cli.main_2d",
     "resolution_pde_tpu_torch.cli.autoregressive_eval",
     "resolution_pde_tpu_torch.cli.frequency_evaluation",
+    "resolution_pde_tpu_torch.cli.generate_data",
+    "resolution_pde_tpu_torch.datagen",
+    "resolution_pde_tpu_torch.datagen.ks",
+    "resolution_pde_tpu_torch.datagen.writers",
 ]
 CFG = dict(in_channels=1, out_channels=1, width=4, n_layers=2, n_modes=4,
            factor=2, n_ff_layers=2, layer_norm=True)
