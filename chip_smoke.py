@@ -160,9 +160,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      launched one by one (bit for bit, both timed, the eager steps
      profiled); main_1d's path for ffno_1d.yaml with
      ks_naive_true_mres1.yaml composed from cli.common's parts on those
-     arrays (the train file's trajectories through
-     ks_true_multires_splits, one 512-point bucket; the eval data through
-     ks_markov_splits), batch 16, 2 epochs: run A as shipped (dense
+     arrays, held in memory as the files generate_data writes
+     (cli.generate_data.ks_in_memory; the factory reads the tree's
+     512-point train file into one bucket, the eval swap its valid and
+     test files), batch 16, 2 epochs: run A as shipped (dense
      FeedForward, dropout 0.2, f32), launching no kernel, and run B on the
      kernel route (dropout 0, ff_impl 'fused': K1f and K1b in f32, 4 of
      each a train step, counted); each run's loss must fall, its test
@@ -174,7 +175,19 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      FFNO1D(ff_impl='fused'), graphs at 16 x {128, 256, 512}: replay
      equal to eager bit for bit, K1f executing 4 times a replay; logged:
      epochs, median step, peak memory, sweep and rollout seconds a
-     resolution, the median predict, graph and eager.
+     resolution, the median predict, graph and eager;
+ 13. the NS generator and the sweep runner: the port's generate_ns array
+     part on the card (16 trajectories x 26 snapshots at 256², viscosity
+     1e-03, 2,600 steps: finite, each snapshot's spatial mean zero; its
+     seconds), the solver's CUDA graph against its steps launched one by
+     one (bit for bit, both timed, the eager steps profiled) and the card
+     against the CPU (64², 50 steps, relative L2 1e-4); the data written
+     as a .mat file; then cli.sweep family=ns_models only=ffno2d_ns
+     training.epochs=1 on it in a temporary working directory (the yaml
+     files as shipped, 128² from the 256² file, launching no kernel): the
+     leg green, its test loss, sweep and rollout at {32, ..., 256}
+     finite, sweep.csv and sweep.md written with platform cuda(...), no
+     .ok (a subset of the family) and no .incomplete.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -2152,33 +2165,33 @@ def generate_ks_on_card() -> dict:
 
 def _ffno1d_run(name, argv, arrays, counters) -> dict:
     """main_1d's path, composed from cli.common's parts as main_1d composes
-    them, on the generated arrays: the true multi-resolution data through
-    ks_true_multires_splits (the train file of the tree: the first split
-    count's trajectories), FFNO1D_EPOCHS epochs of Trainer.fit, the test
-    loss, and the sweep and 16-step rollout at S4_RESOLUTIONS, the eval
-    data through ks_markov_splits (the tree's 512-point valid and test
-    files, strided to each resolution). Returns the run's record."""
+    them, on the generated arrays held as the KS files generate_data would
+    write (cli.generate_data.ks_in_memory): the dataset factory of the
+    config (the tree's train file through ks_true_multires_markov_dataset),
+    FFNO1D_EPOCHS epochs of Trainer.fit, the test loss, and the sweep and
+    16-step rollout at S4_RESOLUTIONS through cli.common's builders (the
+    eval swap to ks_markov_dataset on the tree's 512-point files).
+    Returns the run's record."""
     from resolution_pde_tpu_torch.cli import common
-    from resolution_pde_tpu_torch.configs import parse_cli
-    from resolution_pde_tpu_torch.data.dataset import TrajectoryDataset
-    from resolution_pde_tpu_torch.data.factories import (
-        ks_markov_splits, ks_true_multires_splits)
-    from resolution_pde_tpu_torch.data.transforms import reduce_trajectories
+    from resolution_pde_tpu_torch.cli.generate_data import ks_in_memory
+    from resolution_pde_tpu_torch.configs import (instantiate_dataset,
+                                                  parse_cli)
     from resolution_pde_tpu_torch.evaluation import (
         evaluate_all_resolutions, evaluate_rollout_all_resolutions)
 
     cfg = parse_cli(argv)
-    dp = dict(cfg.dataset.dataset_params)
     u = arrays["by_res"][KS_RES]
     n_tr, n_va, n_te = arrays["split_counts"]
     files = (u[:n_tr], u[n_tr:n_tr + n_va], u[n_tr + n_va:])
-    keys = ("data_mres_size", "add_res", "add_res_samples",
-            "downsample_from_res", "use_low_pass_filter",
-            "lowpass_cutoff_ratio", "random_seed", "data_normalizer",
-            "normalization_type")
-    bundle = common.unpack_data(ks_true_multires_splits(
-        {KS_RES: files[0]}, **{k: dp[k] for k in keys if k in dp}),
-        dp["normalization_type"])
+
+    def in_memory():
+        return ks_in_memory(cfg.dataset.dataset_params.saved_folder, arrays,
+                            KS_FRAMES)
+
+    with in_memory():
+        bundle = common.unpack_data(
+            instantiate_dataset(cfg.dataset.dataset_params),
+            cfg.dataset.dataset_params.normalization_type)
     xn, yn = bundle["x_normalizer"], bundle["y_normalizer"]
     batch = cfg.training.batch_size
     train_loader, val_loader, test_loader = common.build_loaders(
@@ -2196,26 +2209,18 @@ def _ffno1d_run(name, argv, arrays, counters) -> dict:
     test_loss = trainer.evaluate(state, test_loader)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
 
-    def builder(res):
-        red = [reduce_trajectories(f, reduced_resolution=KS_RES // res)
-               for f in files]
-        return ks_markov_splits(*red, data_normalizer=False)[2]
-
-    def rollout_builder(res):
-        stored = bundle["rollout"].at(res)
-        return stored if stored is not None else TrajectoryDataset(
-            reduce_trajectories(files[2], reduced_resolution=KS_RES // res))
-
-    sweep = evaluate_all_resolutions(
-        state.model, builder, current_res=KS_RES,
-        test_resolutions=S4_RESOLUTIONS, x_normalizer=xn, y_normalizer=yn,
-        batch_size=batch, strict=True)
-    roll_s = {}
-    roll = evaluate_rollout_all_resolutions(
-        state.model, rollout_builder, current_res=KS_RES,
-        test_resolutions=S4_RESOLUTIONS,
-        rollout_steps=cfg.dataset.rollout_steps, x_normalizer=xn,
-        y_normalizer=yn, batch_size=batch, strict=True, seconds_out=roll_s)
+    with in_memory():
+        sweep = evaluate_all_resolutions(
+            state.model, common.make_superres_builder(cfg),
+            current_res=KS_RES, test_resolutions=S4_RESOLUTIONS,
+            x_normalizer=xn, y_normalizer=yn, batch_size=batch, strict=True)
+        roll_s = {}
+        roll = evaluate_rollout_all_resolutions(
+            state.model, common.make_rollout_builder(cfg, bundle["rollout"]),
+            current_res=KS_RES, test_resolutions=S4_RESOLUTIONS,
+            rollout_steps=cfg.dataset.rollout_steps, x_normalizer=xn,
+            y_normalizer=yn, batch_size=batch, strict=True,
+            seconds_out=roll_s)
     total = {k: counters()[k] - before[k] for k in before}
     losses = hist.train_loss + hist.val_loss + [test_loss]
     require(all(math.isfinite(v) for v in losses),
@@ -2741,6 +2746,149 @@ def _run_cli_in(tmp: str) -> dict:
     return launched["B"]
 
 
+# phase 13: NS generated on the card (generate_data pde=ns's settings:
+# 26 snapshots, viscosity 1e-03, dt 1e-3), then the ns_models family's
+# ffno2d_ns leg through cli.sweep on that file
+NS_GEN, NS_GEN_FRAMES, NS_VISC = 16, 26, "1e-03"
+
+
+def generate_ns_on_card(folder: str) -> str:
+    """The port's generate_data pde=ns on the card: NS_GEN trajectories of
+    NS_GEN_FRAMES snapshots at NS_RES², each finite with a spatial mean
+    of zero (the initial fields and the forcing have none), timed; the
+    solver's CUDA graph against its steps launched one by one (bit for
+    bit) and against the CPU (64², 2 trajectories, 50 steps, relative L2
+    1e-4), each from the same initial condition; the data written as the
+    .mat file the NS factories read without h5py. Returns its name."""
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        generate_ns_arrays, write_ns)
+    from resolution_pde_tpu_torch.datagen import (GaussianRF,
+                                                  navier_stokes_2d,
+                                                  ns_forcing)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = generate_ns_arrays(NS_GEN, [NS_RES], NS_GEN_FRAMES, SEED,
+                                viscosity=NS_VISC, device="cuda")
+    seconds = time.perf_counter() - t0
+    u = arrays["by_res"][NS_RES]
+    scale = float(np.abs(u).max())
+    mean = float(np.abs(u.astype(np.float64).mean(axis=(2, 3))).max())
+    steps = NS_GEN_FRAMES * int(round(0.1 / 1e-3))
+    log("ns_gen", shape=u.shape, steps=steps, seconds=f"{seconds:.2f}",
+        ms_per_step=f"{seconds * 1e3 / steps:.3f}", max_abs=f"{scale:.4f}",
+        max_abs_spatial_mean=f"{mean:.3e}", t_last=f"{arrays['t'][-1]:.3f}")
+    require(u.shape == (NS_GEN, NS_GEN_FRAMES, NS_RES, NS_RES)
+            and bool(np.isfinite(u).all()) and 0 < scale < 100,
+            f"generated NS: shape {u.shape}, max|w| {scale} or non-finite")
+    require(mean <= 1e-4 * scale,
+            f"generated NS: spatial mean {mean} of a field of max {scale}")
+
+    # the graph against eager steps on the card, timed as the difference
+    # between 10 and 2 snapshots of 100 steps (a solve captures its graph
+    # first, which takes longer than 200 steps and varies more), at
+    # NS_GEN x NS_RES²; then the card against the CPU
+    grf = GaussianRF(2, NS_RES, alpha=2.5, tau=7.0)
+    w0 = grf.sample(torch.Generator().manual_seed(SEED + 1), NS_GEN, "cuda")
+    f = ns_forcing(NS_RES)
+    kw = dict(visc=float(NS_VISC), delta_t=1e-3)
+    walls, outs = {}, {}
+    for graph in (True, False, True):
+        wall = []
+        for snaps in (2, 10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = navier_stokes_2d(w0, f, T=snaps * 0.1, record_steps=snaps,
+                                   graph=graph, **kw)[0]
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        outs.setdefault(graph, sol)
+        walls.setdefault(graph, []).append((wall[1] - wall[0]) * 1e3 / 800)
+    require(torch.equal(outs[True], outs[False]),
+            "NS solver: the CUDA graph's steps differ from eager ones")
+    _, prof = profiled(lambda: navier_stokes_2d(
+        w0, f, graph=False, T=0.02, record_steps=1, **kw))
+    busy_ms, idle = _idle_share(prof)
+    w_small = GaussianRF(2, 64, alpha=2.5, tau=7.0).sample(
+        torch.Generator().manual_seed(SEED + 2), 2)
+    kw_small = dict(visc=float(NS_VISC), T=0.05, delta_t=1e-3,
+                    record_steps=2, f=ns_forcing(64))
+    card_sol = navier_stokes_2d(w_small.cuda(), **kw_small)[0].cpu()
+    cpu_sol = navier_stokes_2d(w_small, **kw_small)[0]
+    err = rel_l2(card_sol, cpu_sol)
+    log("ns_gen", graph_vs_eager="bit_equal",
+        ms_per_step_graph="/".join(f"{v:.4f}" for v in walls[True]),
+        ms_per_step_eager=f"{walls[False][0]:.4f}",
+        device_busy_ms_per_step=f"{busy_ms / 20:.4f}",
+        kernels_per_step=f"{len(_device_kernels(prof)) / 20:.1f}",
+        device_idle_share_eager=f"{idle:.4f}",
+        card_vs_cpu_64=f"{err:.3e}", tol=1e-4)
+    require(err <= 1e-4, f"NS solver: card vs CPU relative L2 {err}")
+    t0 = time.perf_counter()
+    [path] = write_ns(folder, arrays, file_format="mat")
+    log("ns_gen", wrote=path, seconds=f"{time.perf_counter() - t0:.2f}")
+    return os.path.basename(path)
+
+
+def run_ns_sweep() -> None:
+    """NS generated on the card (generate_ns_on_card), then cli.sweep
+    family=ns_models only=ffno2d_ns training.epochs=1 on that .mat file, in
+    a temporary working directory: ffno_2d.yaml and ns_naive.yaml as
+    shipped (the 256² file strided to 128², 8 rollout steps), which
+    launch no hand kernel. The leg must be green with a finite test loss,
+    sweep and rollout at CLI_RESOLUTIONS; sweep.csv and sweep.md written,
+    their platform cuda(...); no .ok (only= was given) and no
+    .incomplete."""
+    import csv
+
+    from resolution_pde_tpu_torch.cli import sweep
+
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fname = generate_ns_on_card(f"{tmp}/data")
+            before = _counts()
+            t0 = time.perf_counter()
+            out = sweep.main(["family=ns_models", "only=ffno2d_ns",
+                              "training.epochs=1",
+                              f"dataset.dataset_params.saved_folder={tmp}/data",
+                              f"dataset.dataset_params.filename={fname}"])
+            seconds = time.perf_counter() - t0
+            launched = [a - b for a, b in zip(_counts(), before)]
+            [run_dir] = os.listdir("runs/sweeps")
+            run_dir = f"runs/sweeps/{run_dir}"
+            files = sorted(os.listdir(run_dir))
+            with open(f"{run_dir}/sweep.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            with open(f"{run_dir}/sweep.md") as f:
+                md = f.read()
+        finally:
+            os.chdir(cwd)
+    leg = out["ffno2d_ns"]
+    log("ns_sweep", leg="ns_models/ffno2d_ns", seconds=f"{seconds:.2f}",
+        files=files, launches=launched,
+        row={k: v for k, v in rows[0].items() if k != "checkpoint"})
+    require(leg is not None, "ns_sweep: the ffno2d_ns leg failed")
+    require(math.isfinite(leg["test_loss"]) and all(
+        sorted(leg[k]) == CLI_RESOLUTIONS
+        and all(math.isfinite(v) for v in leg[k].values())
+        for k in ("super_resolution", "rollout")),
+        f"ns_sweep: test {leg['test_loss']}, sweep "
+        f"{leg['super_resolution']}, rollout {leg['rollout']}")
+    require(files == ["sweep.csv", "sweep.md"],
+            f"ns_sweep: the run directory holds {files} (no .ok or "
+            ".incomplete expected)")
+    require(len(rows) == 1 and rows[0]["platform"].startswith("cuda(")
+            and rows[0]["error"] == "" and rows[0]["legs_green"] == "1/1"
+            and "| cuda(" in md,
+            f"ns_sweep: table {rows}")
+    require(not any(launched),
+            f"ns_sweep: the yaml config launched kernels {launched}")
+    log("ns_sweep", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2779,6 +2927,7 @@ def main() -> int:
     check_fft_path(gen)
     cli = run_cli()
     ffno1d = run_ffno1d()
+    run_ns_sweep()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"

@@ -1,19 +1,29 @@
-"""Dataset generation from the command line: the Kuramoto-Sivashinsky
-files.
+"""Dataset generation from the command line: the Kuramoto-Sivashinsky,
+Navier-Stokes and active-matter files.
 
     python -m resolution_pde_tpu_torch.cli.generate_data pde=ks \\
         out=data/ks n=512 resolutions=[512,256,128,64,32] n_snapshots=51 \\
         viscosity=0.075 seed=11
+    python -m resolution_pde_tpu_torch.cli.generate_data pde=ns \\
+        out=data/ns n=128 resolutions=[256] n_snapshots=26 \\
+        viscosity=1e-03 seed=13 [format=mat]
 
-Counterpart of resolution_pde_tpu/cli/generate_data.py for ``pde=ks``: the
-same options, file layouts and solver settings; the initial conditions
-come from a ``torch.Generator`` seeded with ``seed``, so the samples are
-not the JAX package's. Writes KS_train_2048.h5, KS_valid.h5 and
-KS_test.h5 at the base (largest) resolution and the res_{R}/visc_...
-true multi-resolution tree (writing needs h5py). ``generate_ks_arrays``
-is the array part, which returns the trajectories instead. The solver
-runs on the card unless ``main`` is given ``device="cpu"``. The other
-pdes (burgers, ns, active, darcy) are not ported yet.
+Counterpart of resolution_pde_tpu/cli/generate_data.py for ``pde=ks``,
+``ns`` and ``active``: the same options, file layouts and solver
+settings; the initial conditions come from a ``torch.Generator`` seeded
+with ``seed``, so the samples are not the JAX package's. Writes, per pde:
+  ks:     KS_train_2048.h5, KS_valid.h5 and KS_test.h5 at the base
+          (largest) resolution and the res_{R}/visc_... true
+          multi-resolution tree;
+  ns:     ns_{res}_{viscosity}.h5 per resolution (solved at that grid),
+          or with ``format=mat`` the same data as .mat files (scipy),
+          which the NS factories read where h5py is absent;
+  active: active_matter_{i}.hdf5, NS trajectories in the Well's layout
+          over ``n_files`` files (a stand-in for the active-matter data).
+HDF5 files need h5py. ``generate_ks_arrays`` and ``generate_ns_arrays``
+are the array parts, which return the trajectories instead. The solvers
+run on the card unless ``main`` is given ``device="cpu"``. The burgers
+and darcy pdes are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,13 +34,15 @@ import sys
 import numpy as np
 import torch
 
-NOT_PORTED = ("burgers", "ns", "active", "darcy")
+# the pdes not ported yet, by the ROADMAP item (section 1) that ports them
+NOT_PORTED = {"burgers": 6, "darcy": 7}
 
 
 def _parse(argv):
     opts = {"pde": "ks", "out": "data", "n": 64, "resolutions": [128],
             "n_snapshots": 26, "viscosity": None, "seed": 0,
-            "splits": (0.8, 0.1, 0.1), "et": 5.0, "lmax": 8}
+            "splits": (0.8, 0.1, 0.1), "et": 5.0, "lmax": 8,
+            "format": "h5"}
     given = set()
     for a in argv:
         if "=" not in a:
@@ -58,7 +70,21 @@ def _parse(argv):
     if ks_only and opts["pde"] != "ks":
         raise SystemExit(f"option(s) {sorted(ks_only)} only apply to "
                          f"pde=ks, not pde={opts['pde']}")
+    if "format" in given and opts["pde"] != "ns":
+        raise SystemExit(f"option 'format' only applies to pde=ns, not "
+                         f"pde={opts['pde']}")
+    if opts["format"] not in ("h5", "mat"):
+        raise SystemExit(f"format={opts['format']!r}: one of h5, mat")
     return opts
+
+
+def _grf_ics(generator, n, res, dim, alpha, tau, device):
+    """``n`` Gaussian random fields at ``res`` (JAX generate_data's
+    initial conditions), drawn from ``generator``, on ``device``."""
+    from resolution_pde_tpu_torch.datagen.random_fields import GaussianRF
+
+    return GaussianRF(dim=dim, size=res, alpha=alpha,
+                      tau=tau).sample(generator, n, device)
 
 
 def split_counts(n: int, splits=(0.8, 0.1, 0.1)) -> tuple:
@@ -138,27 +164,46 @@ def generate_ks_arrays(n, resolutions, n_snapshots, seed, viscosity=None,
             "snap_dt": spb * dt, "visc": visc}
 
 
-def write_ks(out, arrays: dict, n_snapshots, et=5.0, lmax=8):
-    """The naive files at the base resolution and the true
-    multi-resolution tree, split at the same contiguous boundaries."""
-    from resolution_pde_tpu_torch.datagen.writers import (
-        write_ks_file, write_ks_multires_tree)
+def ks_files(out, arrays: dict, n_snapshots, et=5.0, lmax=8) -> dict:
+    """The KS files ``generate_ks`` writes, {path: (u, split)}: the naive
+    files at the base resolution and the true multi-resolution tree,
+    split at the same contiguous boundaries."""
+    from resolution_pde_tpu_torch.datagen.writers import ks_tree_files
 
-    by_res, snap_dt = arrays["by_res"], arrays["snap_dt"]
+    by_res = arrays["by_res"]
     n_tr, n_va, n_te = arrays["split_counts"]
     u = by_res[max(by_res)]
-    os.makedirs(out, exist_ok=True)
-    write_ks_file(os.path.join(out, "KS_train_2048.h5"), u[:n_tr],
-                  dt=snap_dt, split="train")
-    write_ks_file(os.path.join(out, "KS_valid.h5"), u[n_tr:n_tr + n_va],
-                  dt=snap_dt, split="valid")
-    write_ks_file(os.path.join(out, "KS_test.h5"),
-                  u[n_tr + n_va:n_tr + n_va + n_te], dt=snap_dt,
-                  split="test")
-    write_ks_multires_tree(out, by_res, viscosity=arrays["visc"],
-                           et=float(et), lmax=int(lmax), nte=n_snapshots,
-                           nt=n_snapshots, split_counts=(n_tr, n_va, n_te),
-                           dt=snap_dt)
+    files = {
+        os.path.join(out, "KS_train_2048.h5"): (u[:n_tr], "train"),
+        os.path.join(out, "KS_valid.h5"): (u[n_tr:n_tr + n_va], "valid"),
+        os.path.join(out, "KS_test.h5"): (u[n_tr + n_va:n_tr + n_va + n_te],
+                                          "test"),
+    }
+    files.update(ks_tree_files(
+        out, by_res, viscosity=arrays["visc"], et=float(et), lmax=int(lmax),
+        nte=n_snapshots, nt=n_snapshots, split_counts=(n_tr, n_va, n_te)))
+    return files
+
+
+def ks_in_memory(out, arrays: dict, n_snapshots, et=5.0, lmax=8):
+    """A context within which the KS factories read ``ks_files`` from
+    memory (``data.io.ks_files_in_memory``) instead of from files: the
+    command lines run on generated trajectories without h5py."""
+    from resolution_pde_tpu_torch.data.io import ks_files_in_memory
+
+    return ks_files_in_memory({
+        path: u for path, (u, _) in ks_files(out, arrays, n_snapshots, et,
+                                             lmax).items()})
+
+
+def write_ks(out, arrays: dict, n_snapshots, et=5.0, lmax=8):
+    """``ks_files`` written (h5py), with the actual snapshot spacing as
+    their dt."""
+    from resolution_pde_tpu_torch.datagen.writers import write_ks_file
+
+    for path, (u, split) in ks_files(out, arrays, n_snapshots, et,
+                                     lmax).items():
+        write_ks_file(path, u, dt=arrays["snap_dt"], split=split)
     print("wrote KS naive files (KS_train_2048/valid/test) + true-multires "
           f"tree under {out}")
 
@@ -171,21 +216,110 @@ def generate_ks(out, n, resolutions, n_snapshots, seed, viscosity=None,
     return arrays
 
 
+def _ns_trajectories(w0, res, visc, n_snapshots):
+    """The NS solve of ``generate_ns``: the whole batch at once, snapshots
+    every 0.1 time units (dt 1e-3) under the reference's forcing. Returns
+    (u (n, n_snapshots, res, res) float32 numpy, sol_t)."""
+    from resolution_pde_tpu_torch.datagen.navier_stokes import (
+        navier_stokes_2d, ns_forcing)
+
+    sol, sol_t = navier_stokes_2d(w0, ns_forcing(res), visc=visc,
+                                  T=float(n_snapshots) * 0.1, delta_t=1e-3,
+                                  record_steps=n_snapshots)
+    return sol.permute(0, 3, 1, 2).contiguous().cpu().numpy(), sol_t
+
+
+def generate_ns_arrays(n, resolutions, n_snapshots, seed, viscosity=None,
+                       device="cuda") -> dict:
+    """NS vorticity trajectories solved at each resolution from GRF
+    (alpha 2.5, tau 7) initial conditions, all n in one batch. Returns
+    {"by_res": {res: (n, n_snapshots, res, res) float32}, "t": the
+    snapshot times, "visc": the viscosity as the file names write it}."""
+    visc_str = viscosity or "1e-3"
+    visc = float(visc_str)
+    gen = torch.Generator().manual_seed(int(seed))
+    by_res, sol_t = {}, None
+    for res in sorted(resolutions, reverse=True):
+        w0 = _grf_ics(gen, n, res, dim=2, alpha=2.5, tau=7.0, device=device)
+        by_res[res], sol_t = _ns_trajectories(w0, res, visc, n_snapshots)
+        print(f"ns res {res}: {by_res[res].shape}", flush=True)
+    return {"by_res": by_res, "t": sol_t, "visc": visc_str}
+
+
+def write_ns(out, arrays: dict, file_format="h5") -> list:
+    """ns_{res}_{visc}.h5 (or .mat) per resolution under ``out``; returns
+    the paths."""
+    from resolution_pde_tpu_torch.datagen.writers import (write_ns_file,
+                                                          write_ns_mat)
+
+    write = write_ns_file if file_format == "h5" else write_ns_mat
+    paths = []
+    for res, u in arrays["by_res"].items():
+        paths.append(os.path.join(
+            out, f"ns_{res}_{arrays['visc']}.{file_format}"))
+        write(paths[-1], u)
+    print(f"wrote ns_<res>_{arrays['visc']}.{file_format} files under {out}")
+    return paths
+
+
+def generate_ns(out, n, resolutions, n_snapshots, seed, viscosity=None,
+                device="cuda", file_format="h5"):
+    arrays = generate_ns_arrays(n, resolutions, n_snapshots, seed,
+                                viscosity, device)
+    write_ns(out, arrays, file_format)
+    return arrays
+
+
+def generate_active(out, n, resolutions, n_snapshots, seed, viscosity=None,
+                    n_files=4, device="cuda"):
+    """The Well's active-matter layout for the ns_active_t* datasets
+    (active_matter_{i}.hdf5, t0_fields/concentration (b, t, h, w)), with
+    NS vorticity trajectories at the largest resolution standing in for
+    the concentration field, ``n`` split over ``n_files`` files: the
+    layout is exact, the physics a stand-in (the Well's data is not in
+    the repository)."""
+    from resolution_pde_tpu_torch.datagen.writers import write_well_file
+
+    visc = float(viscosity) if viscosity else 1e-3
+    gen = torch.Generator().manual_seed(int(seed))
+    res = max(resolutions)
+    per_file, rem = divmod(n, n_files)
+    sizes = [per_file + (1 if i < rem else 0) for i in range(n_files)]
+    written = []
+    for i, size in enumerate(sizes):
+        if size == 0:
+            continue
+        w0 = _grf_ics(gen, size, res, dim=2, alpha=2.5, tau=7.0,
+                      device=device)
+        u, _ = _ns_trajectories(w0, res, visc, n_snapshots)
+        written.append(os.path.join(out, f"active_matter_{i}.hdf5"))
+        write_well_file(written[-1], {"concentration": u})
+    print(f"wrote {len(written)} active_matter_*.hdf5 files under {out}")
+    return written
+
+
 def main(argv=None, device="cuda"):
     from resolution_pde_tpu_torch.cli.common import require_device
 
     opts = _parse(list(argv if argv is not None else sys.argv[1:]))
-    if opts["pde"] in NOT_PORTED:
+    pde = opts["pde"]
+    if pde in NOT_PORTED:
         raise NotImplementedError(
-            f"generate_data pde={opts['pde']} is not ported: ROADMAP.md "
-            "section 1, item 8")
-    if opts["pde"] != "ks":
-        raise SystemExit(f"unknown pde {opts['pde']!r}; "
+            f"generate_data pde={pde} is not ported: ROADMAP.md section 1, "
+            f"item {NOT_PORTED[pde]}")
+    if pde not in ("ks", "ns", "active"):
+        raise SystemExit(f"unknown pde {pde!r}; "
                          "one of ks/burgers/ns/active/darcy")
     device = require_device(device, "generate_data")
-    return generate_ks(opts["out"], opts["n"], opts["resolutions"],
-                       opts["n_snapshots"], opts["seed"], opts["viscosity"],
-                       opts["splits"], opts["et"], opts["lmax"], device)
+    args = (opts["out"], opts["n"], opts["resolutions"], opts["n_snapshots"],
+            opts["seed"], opts["viscosity"])
+    if pde == "ks":
+        return generate_ks(*args, opts["splits"], opts["et"], opts["lmax"],
+                           device)
+    if pde == "ns":
+        return generate_ns(*args, device=device,
+                           file_format=opts["format"])
+    return generate_active(*args, device=device)
 
 
 if __name__ == "__main__":

@@ -487,7 +487,7 @@ def ks_true_multires_markov_dataset(
         path = os.path.join(
             _ks_res_dir(saved_folder, resolution, viscosity, L, lmax, et,
                         nte, nt), f"KS_train_{train_s}.h5")
-        if os.path.exists(path):
+        if data_io.ks_file_exists(path):
             u = data_io.read_ks_h5(path, split="train")["u"]
             u_by_res[resolution] = u[::reduced_batch, ::reduced_resolution_t]
     return ks_true_multires_splits(

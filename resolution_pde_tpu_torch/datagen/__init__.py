@@ -1,8 +1,10 @@
-"""Data generation of the port: the Kuramoto-Sivashinsky solver and the
-writers of the KS file layouts the data factories read.
+"""Data generation of the port: the Kuramoto-Sivashinsky and
+Navier-Stokes solvers, Gaussian random fields, and the writers of the
+file layouts the data factories read.
 
-Counterpart of resolution_pde_tpu/datagen/ (``ks.py`` and the KS part of
-``writers.py``); the NS, Burgers and Darcy generators are not ported yet.
+Counterpart of resolution_pde_tpu/datagen/ (``ks.py``,
+``navier_stokes.py``, ``random_fields.py`` and ``writers.py``); the
+Burgers and Darcy generators are not ported yet.
 """
 
 from resolution_pde_tpu_torch.datagen.ks import (
@@ -10,15 +12,31 @@ from resolution_pde_tpu_torch.datagen.ks import (
     random_ks_initial_conditions,
     solve_ks,
 )
+from resolution_pde_tpu_torch.datagen.navier_stokes import (
+    generate_ns_dataset,
+    navier_stokes_2d,
+    ns_forcing,
+)
+from resolution_pde_tpu_torch.datagen.random_fields import GaussianRF
 from resolution_pde_tpu_torch.datagen.writers import (
     write_ks_file,
     write_ks_multires_tree,
+    write_ns_file,
+    write_ns_mat,
+    write_well_file,
 )
 
 __all__ = [
+    "GaussianRF",
+    "generate_ns_dataset",
     "ks_initial_conditions",
+    "navier_stokes_2d",
+    "ns_forcing",
     "random_ks_initial_conditions",
     "solve_ks",
     "write_ks_file",
     "write_ks_multires_tree",
+    "write_ns_file",
+    "write_ns_mat",
+    "write_well_file",
 ]

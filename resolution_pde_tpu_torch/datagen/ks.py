@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from resolution_pde_tpu_torch.datagen.graphs import graphed
 from resolution_pde_tpu_torch.ops.spectral import irfft
 
 
@@ -84,35 +85,12 @@ def solve_ks(u0: torch.Tensor, L: float = 64.0, visc: float = 1.0,
 
     v = torch.fft.rfft(u0)
     if (u0.is_cuda if graph is None else graph) and n_snapshots > 1:
-        snapshot = _graphed(snapshot, v)
+        snapshot = graphed(snapshot, v)
     snaps = [u0]
     for _ in range(n_snapshots - 1):
         v = snapshot(v)
         snaps.append(irfft(v, n=n))
     return torch.stack(snaps, dim=1).to(torch.float32)
-
-
-def _graphed(fn, example):
-    """``fn`` (a tensor to a tensor of its shape) captured in a CUDA graph
-    on ``example``'s shape: the returned function copies its argument into
-    the graph's input, replays, and returns a copy of the output. A first
-    run on a side stream makes cuFFT's plans before the capture."""
-    static_in = example.clone()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(static_in)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static_out = fn(static_in)
-
-    def replay(v):
-        static_in.copy_(v)
-        graph.replay()
-        return static_out.clone()
-
-    return replay
 
 
 def ks_initial_conditions(amps: torch.Tensor, phases: torch.Tensor,

@@ -2,7 +2,9 @@
 paths to the port's modules.
 
 Counterpart of resolution_pde_tpu/models/registry.py; FFNO1D, FFNO2D and
-the 1D S4 family (S4Model, S4Block, S4D) are ported so far.
+the 1D S4 family (S4Model, S4Block, S4D) are ported so far. A model of
+the JAX registry that is not raises a KeyError naming the ROADMAP item
+(section 1) that ports it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,20 @@ def unwrap_output(pred):
     return pred["output"] if isinstance(pred, dict) else pred
 
 
+# the JAX registry's models not ported yet (short names), by the ROADMAP
+# item (section 1) that ports them
+NOT_PORTED = {
+    **dict.fromkeys(("S4NDModel", "S4BaseModel", "S4SeqModel",
+                     "OneToSeqModel", "S4BaseSeqModel", "S4DualSeqModel",
+                     "SeqAdd", "ChainModel"), 5),
+    **dict.fromkeys(("FNO1d", "FNO2d"), 6),
+    **dict.fromkeys(("UNet1d", "UNet2d", "CNO1d", "CNO2d", "CNO2dOriginal",
+                     "CNO"), 7),
+    **dict.fromkeys(("MoEGPTNO", "GNOTOperator", "SwinOperator2d", "ScOT2d",
+                     "pos", "ScOT"), 9),
+}
+
+
 def get_model(name: str):
     """Look up by short name or reference ``_target_`` dotted path."""
     if name in MODEL_REGISTRY:
@@ -36,5 +52,9 @@ def get_model(name: str):
     short = name.rsplit(".", 1)[-1]
     if short in MODEL_REGISTRY:
         return MODEL_REGISTRY[short]
+    if short in NOT_PORTED:
+        raise KeyError(
+            f"model {name!r} is not ported to resolution_pde_tpu_torch yet: "
+            f"ROADMAP.md section 1, item {NOT_PORTED[short]}")
     raise KeyError(f"unknown model {name!r}; available: "
                    f"{sorted(MODEL_REGISTRY)}")

@@ -1,0 +1,227 @@
+#!/usr/bin/env python3
+"""One quality row of the baseline family, reproduced by the PyTorch port
+from data it generates itself.
+
+    python3 scripts/torch_quality_rows.py leg=<name> [out=build/quality_rows]
+
+Legs (the JAX package's rows are in runs/sweeps/baseline_1787270482 and,
+for ffno2d_ns, runs/sweeps/ns_models_1787155138):
+  ffno1d_ks_true_mres  baseline family: ffno_1d.yaml on
+                       ks_naive_true_mres1.yaml
+  s4_ks_window         baseline family: s4_1d.yaml on ks_s4.yaml
+  ffno2d_ns            ns_models family: ffno_2d.yaml on ns_naive.yaml,
+                       trained at 128² (the 256² file strided by 2)
+  ffno2d_ns_true_mres  baseline family: ffno_2d.yaml on
+                       ns_naive_true_mres1.yaml, trained at 256²
+
+The data are scripts/gen_baseline_data.sh's settings, generated by the
+port on the device (``device``, the card unless "cpu"):
+  KS: n 512, resolutions [512, 256, 128, 64, 32], 51 snapshots,
+      viscosity 0.075, seed 11 (cli.generate_data.generate_ks_arrays);
+  NS: n 128, resolution 256, 26 snapshots, viscosity 1e-03, seed 13
+      (generate_ns_arrays), written as data/ns/ns_256_1e-03.mat (scipy:
+      the card's machine has no h5py).
+The NS data are solved a second time without the CUDA graph (timed; the
+two must be equal bit for bit). The KS factories read HDF5 files, so the KS legs read the arrays held in
+memory under the paths generate_data would write
+(cli.generate_data.ks_in_memory). Then the leg runs through cli.sweep
+(``family=<its family> only=<leg> training.epochs=20 training.t_max=20``,
+the epochs of the JAX rows) in a temporary working directory holding
+data/ (the yaml files' relative data folders) and the sweep's runs/ and
+checkpoints/; the NS legs' overrides name the .mat file. The yaml files
+run as shipped otherwise. Prints the card's name and power limit, the
+data's seconds, every epoch's losses, the sweep's table row (test,
+super-resolution and rollout rel-L2 at every resolution, train seconds)
+and, last, the row as JSON; copies sweep.csv and sweep.md to
+``out``/quality_<leg>/.
+
+Smaller runs, for a rehearsal on the CPU: ``n=``, ``res=`` (NS),
+``epochs=`` and any other ``key=value`` (passed to every leg as a config
+override) change the run and stamp its table rehearsal=true.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+KS = dict(n=512, resolutions=[512, 256, 128, 64, 32], n_snapshots=51,
+          viscosity=0.075, seed=11)
+NS = dict(n=128, res=256, n_snapshots=26, viscosity="1e-03", seed=13)
+# leg -> (family, pde)
+LEGS = {"ffno1d_ks_true_mres": ("baseline", "ks"),
+        "s4_ks_window": ("baseline", "ks"),
+        "ffno2d_ns": ("ns_models", "ns"),
+        "ffno2d_ns_true_mres": ("baseline", "ns")}
+EPOCHS = 20
+
+
+def card() -> str:
+    """nvidia-smi's name and power limit of the card, or 'cpu'."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def parse(argv) -> dict:
+    opts = {"leg": None, "out": "build/quality_rows", "device": "cuda",
+            "n": None, "res": None, "epochs": EPOCHS, "extras": []}
+    for a in argv:
+        k, sep, v = a.partition("=")
+        if not sep:
+            raise SystemExit(f"expected key=value, got {a!r}")
+        if k in ("leg", "out", "device"):
+            opts[k] = v
+        elif k in ("n", "res", "epochs"):
+            opts[k] = int(v)
+        else:
+            opts["extras"].append(a)
+    if opts["leg"] not in LEGS:
+        raise SystemExit(f"leg= one of {sorted(LEGS)}")
+    return opts
+
+
+def generate(pde: str, opts: dict, data_dir: str) -> tuple:
+    """The leg's data on the device: (a context to run the leg in, the
+    sweep overrides naming the data, a description, seconds)."""
+    from resolution_pde_tpu_torch.cli import generate_data as gd
+
+    if opts["device"] == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if pde == "ks":
+        ks = dict(KS, n=opts["n"] or KS["n"])
+        arrays = gd.generate_ks_arrays(
+            ks["n"], ks["resolutions"], ks["n_snapshots"], ks["seed"],
+            viscosity=ks["viscosity"], device=opts["device"])
+        seconds = time.perf_counter() - t0
+        # the yaml files' saved_folder is data/ks, relative to the sweep's
+        # working directory
+        context = gd.ks_in_memory(os.path.join(data_dir, "ks"), arrays,
+                                  ks["n_snapshots"])
+        return context, [], f"KS {ks} split {arrays['split_counts']}", \
+            seconds
+    ns = dict(NS, n=opts["n"] or NS["n"], res=opts["res"] or NS["res"])
+    arrays = gd.generate_ns_arrays(ns["n"], [ns["res"]], ns["n_snapshots"],
+                                   ns["seed"], viscosity=ns["viscosity"],
+                                   device=opts["device"])
+    if opts["device"] == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    u = arrays["by_res"][ns["res"]]
+    if not (u.shape == (ns["n"], ns["n_snapshots"], ns["res"], ns["res"])
+            and bool(torch.isfinite(torch.as_tensor(u)).all())):
+        raise RuntimeError(f"generated NS: shape {u.shape} or non-finite")
+    eager_s = eager_ns(ns, u, opts["device"])
+    [path] = gd.write_ns(os.path.join(data_dir, "ns"), arrays,
+                         file_format="mat")
+    name = os.path.basename(path)
+    overrides = [f"dataset.dataset_params.filename={name}",
+                 f"dataset.dataset_params.file_map={{{ns['res']}: {name}}}",
+                 f"dataset.eval_filename={name}"]
+    if opts["leg"] == "ffno2d_ns":
+        overrides = overrides[:1]  # ns_naive.yaml reads one file
+    else:
+        overrides = overrides[1:]
+    return contextlib.nullcontext(), overrides, \
+        f"NS {ns} max|w| {float(abs(u).max()):.3f} eager_seconds " \
+        f"{eager_s:.2f}", seconds
+
+
+def eager_ns(ns: dict, u, device) -> float:
+    """The same NS data solved again with every step launched on its own
+    (no CUDA graph), timed; on the card it must equal the graphed solve
+    bit for bit. Returns its seconds."""
+    from resolution_pde_tpu_torch.datagen import (GaussianRF,
+                                                  navier_stokes_2d,
+                                                  ns_forcing)
+
+    w0 = GaussianRF(2, ns["res"], alpha=2.5, tau=7.0).sample(
+        torch.Generator().manual_seed(ns["seed"]), ns["n"], device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, _ = navier_stokes_2d(w0, ns_forcing(ns["res"]),
+                              visc=float(ns["viscosity"]),
+                              T=ns["n_snapshots"] * 0.1, delta_t=1e-3,
+                              record_steps=ns["n_snapshots"], graph=False)
+    eager = sol.permute(0, 3, 1, 2).contiguous().cpu().numpy()
+    seconds = time.perf_counter() - t0
+    if not np.array_equal(eager, u):
+        raise RuntimeError("NS: the eager solve differs from the graphed one")
+    return seconds
+
+
+def main(argv=None) -> int:
+    from resolution_pde_tpu_torch.cli import sweep
+
+    opts = parse(list(argv if argv is not None else sys.argv[1:]))
+    leg = opts["leg"]
+    family, pde = LEGS[leg]
+    rehearsal = bool(opts["n"] or opts["res"] or opts["epochs"] != EPOCHS
+                     or opts["extras"])
+    print(f"[quality] leg={leg} family={family} device={opts['device']} "
+          f"rehearsal={str(rehearsal).lower()}", flush=True)
+    print(card(), flush=True)
+    out_dir = os.path.abspath(os.path.join(opts["out"], f"quality_{leg}"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            context, overrides, what, data_s = generate(
+                pde, opts, os.path.join(tmp, "data"))
+            print(f"[quality] data: {what} seconds={data_s:.2f}", flush=True)
+            argv = ([f"family={family}", f"only={leg}",
+                     f"training.epochs={opts['epochs']}",
+                     f"training.t_max={opts['epochs']}"]
+                    + overrides + opts["extras"]
+                    + (["rehearsal=true"] if rehearsal else []))
+            print(f"[quality] sweep {' '.join(argv)}", flush=True)
+            t0 = time.perf_counter()
+            with context:
+                out = sweep.main(argv, device=opts["device"])[leg]
+            sweep_s = time.perf_counter() - t0
+            [run_dir] = [os.path.join("runs", "sweeps", d)
+                         for d in os.listdir(os.path.join("runs", "sweeps"))]
+            os.makedirs(out_dir, exist_ok=True)
+            for name in ("sweep.csv", "sweep.md"):
+                shutil.copy(os.path.join(run_dir, name), out_dir)
+            with open(os.path.join(run_dir, "sweep.csv"), newline="") as f:
+                [row] = list(csv.DictReader(f))
+        finally:
+            os.chdir(cwd)
+    if out is not None:
+        hist = out["history"]
+        for e, (tl, vl, s) in enumerate(zip(hist.train_loss, hist.val_loss,
+                                            hist.epoch_time_s)):
+            print(f"[quality] epoch {e + 1} train_loss={tl:.6f} "
+                  f"val_loss={vl:.6f} seconds={s:.2f}", flush=True)
+    print(f"[quality] sweep seconds={sweep_s:.2f}", flush=True)
+    seconds = {} if out is None else {
+        "train_seconds": out["train_seconds"],
+        "eval_seconds": out["eval_seconds"],
+        "rollout_seconds": out["rollout_seconds"]}
+    print(json.dumps({"leg": leg, "data_seconds": data_s,
+                      "sweep_seconds": sweep_s, **seconds, "card": card(),
+                      **row}), flush=True)
+    return 0 if out is not None else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -104,9 +104,12 @@ def _check(got, want, rel):
             assert got[key][r] == pytest.approx(want[key][r], rel=rel), key
 
 
-@pytest.mark.parametrize("route,epochs,rel", [([], 2, 1e-4),
-                                              (KERNEL_ROUTE, 1, 2e-2)],
-                         ids=["f32", "kernel_route_bf16"])
+@pytest.mark.parametrize("route,epochs,rel", [
+    ([], 2, 1e-4), (KERNEL_ROUTE, 1, 2e-2),
+    # the ns_models sweep's ffno2d_ns leg: trained at 32² (the file
+    # strided by 2), evaluated at 32² and at the file's 64²
+    (["dataset.dataset_params.reduced_resolution=2"], 2, 1e-4)],
+    ids=["f32", "kernel_route_bf16", "f32_trained_at_half_resolution"])
 def test_main_2d_matches_jax(data_dir, tmp_path, monkeypatch, route, epochs,
                              rel):
     # the run checkpoint's name reads SLURM_JOB_ID, which the JAX sweep

@@ -141,7 +141,8 @@ def test_generated_frames_are_learnable(tmp_path):
 @pytest.mark.parametrize("pde", tgen.NOT_PORTED)
 def test_other_pdes_raise_with_their_item(pde):
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md section 1, item 8"):
+                       match=f"ROADMAP.md section 1, item "
+                             f"{tgen.NOT_PORTED[pde]}"):
         tgen.main([f"pde={pde}"], device="cpu")
     with pytest.raises(SystemExit, match="unknown pde"):
         tgen.main(["pde=wave"], device="cpu")
