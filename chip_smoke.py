@@ -187,7 +187,25 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      files as shipped, 128² from the 256² file, launching no kernel): the
      leg green, its test loss, sweep and rollout at {32, ..., 256}
      finite, sweep.csv and sweep.md written with platform cuda(...), no
-     .ok (a subset of the family) and no .incomplete.
+     .ok (a subset of the family) and no .incomplete;
+ 14. FNO and the Burgers and Darcy data paths: the port's generate_burgers
+     array part on the card (64 trajectories x 11 snapshots at 1024, 512,
+     256 and 128 points, 1,000 steps each, viscosity 0.001: finite,
+     within the maximum principle; its seconds), the solver's CUDA graph
+     against its steps launched one by one (bit for bit) and the card
+     against the CPU (relative L2 1e-5); generate_darcy's (64 samples at
+     128², beta 0.01: each batch's CG iterations and largest relative
+     residual against the 1e-2 gate; the card's CG against the CPU's at
+     32², 1e-4); FNO1d's train step at 16 x 1024 (median, and the
+     device's busy time and idle share over 10 profiled steps); then, in
+     a temporary working directory holding both as
+     the files generate_data writes (cli.generate_data.burgers_in_memory,
+     darcy_in_memory), cli.sweep for 1 epoch: baseline/fno1d_burger_naive
+     (the yaml files as shipped), burger_ladder/
+     ffno1d_burger_naive_true_mres on FFNO1D's kernel route (dropout 0,
+     ff_impl 'fused': K1f and K1b in f32, counted) and darcy/fno2d_darcy;
+     each leg green with a finite test loss and sweep (and rollout), its
+     table written with platform cuda(...); the FNO legs launch no kernel.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -200,8 +218,9 @@ products the kernels do); the K2 and K3 entries also give the H pass's
 (added into acc) as h_acc_*, and the bf16 ones the same at width 128 as
 w128_*; the f32 K1f and K1b entries also give FFNO1D's chain as
 ffno1d_* (time, plain time, bound, error) and its launches on phase 12's
-paths as ffno1d_launches (run B, and for K1f the served executions),
-which ``launches`` includes, as it sums every path's; a kernel on a
+paths as ffno1d_launches (run B, and for K1f the served executions) and
+on phase 14's Burgers leg as burgers_launches, which ``launches``
+includes, as it sums every path's; a kernel on a
 serving path says in launches_counted_as that its
 launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
@@ -2448,7 +2467,8 @@ def check_fft_path(gen) -> None:
     reads those bins' imaginary parts at some shapes, the CPU does not)."""
     from resolution_pde_tpu_torch.ops.resize import fft_resize_2d
     from resolution_pde_tpu_torch.ops.spectral import (
-        factorized_spectral_conv_1d, factorized_spectral_conv_2d, irfft)
+        factorized_spectral_conv_1d, factorized_spectral_conv_2d, irfft,
+        spectral_conv_1d, spectral_conv_2d)
 
     for n in (128, 256):
         x = randn((2, n, n, WIDTH), gen, device="cpu")
@@ -2475,6 +2495,30 @@ def check_fft_path(gen) -> None:
             tol=1e-4)
         require(err <= 1e-4, f"fft 1D conv at {n} on the card vs the CPU: "
                 f"{err}")
+    # FNO's convs at fno_1d.yaml's width and modes (16 of 17 bins at 32)
+    # and fno_2d.yaml's (both corners; at 24² with 13 column modes the
+    # corners meet and the Nyquist column, complex after the mix, is kept)
+    w1 = randn((64, 64, 16, 2), gen, 0.05, device="cpu")
+    for n in (32, 1024):
+        x = randn((S4_BATCH, 64, n), gen, device="cpu")
+        err = rel_l2(spectral_conv_1d(x.cuda(), w1.cuda(), 16).cpu(),
+                     spectral_conv_1d(x, w1, 16))
+        log("fft_path", fno_conv_1d=f"{S4_BATCH}x64x{n}", modes=16,
+            card_vs_cpu_rel_l2=f"{err:.3e}", tol=1e-4)
+        require(err <= 1e-4, f"FNO 1D conv at {n} on the card vs the CPU: "
+                f"{err}")
+    for n, m1, m2 in ((32, 12, 12), (64, 12, 12), (128, 12, 12),
+                      (24, 12, 13)):
+        x = randn((4, 32, n, n), gen, device="cpu")
+        wa, wb = (randn((32, 32, m1, m2, 2), gen, 0.05, device="cpu")
+                  for _ in range(2))
+        err = rel_l2(spectral_conv_2d(x.cuda(), wa.cuda(), wb.cuda(), m1,
+                                      m2).cpu(),
+                     spectral_conv_2d(x, wa, wb, m1, m2))
+        log("fft_path", fno_conv_2d=f"4x32x{n}^2", modes=(m1, m2),
+            card_vs_cpu_rel_l2=f"{err:.3e}", tol=1e-4)
+        require(err <= 1e-4, f"FNO 2D conv at {n}^2 modes {(m1, m2)} on "
+                f"the card vs the CPU: {err}")
     x = randn((16, 1, RES, RES), gen, device="cpu")
     err = rel_l2(fft_resize_2d(x.cuda(), (128, 128)).cpu(),
                  fft_resize_2d(x, (128, 128)))
@@ -2833,15 +2877,11 @@ def generate_ns_on_card(folder: str) -> str:
 def run_ns_sweep() -> None:
     """NS generated on the card (generate_ns_on_card), then cli.sweep
     family=ns_models only=ffno2d_ns training.epochs=1 on that .mat file, in
-    a temporary working directory: ffno_2d.yaml and ns_naive.yaml as
-    shipped (the 256² file strided to 128², 8 rollout steps), which
-    launch no hand kernel. The leg must be green with a finite test loss,
-    sweep and rollout at CLI_RESOLUTIONS; sweep.csv and sweep.md written,
-    their platform cuda(...); no .ok (only= was given) and no
-    .incomplete."""
-    import csv
-
-    from resolution_pde_tpu_torch.cli import sweep
+    a temporary working directory (_sweep_leg): ffno_2d.yaml and
+    ns_naive.yaml as shipped (the 256² file strided to 128², 8 rollout
+    steps), which launch no hand kernel; the sweep and rollout at
+    CLI_RESOLUTIONS."""
+    import contextlib
 
     cwd = os.getcwd()
     t_phase = time.perf_counter()
@@ -2849,44 +2889,275 @@ def run_ns_sweep() -> None:
         os.chdir(tmp)
         try:
             fname = generate_ns_on_card(f"{tmp}/data")
-            before = _counts()
-            t0 = time.perf_counter()
-            out = sweep.main(["family=ns_models", "only=ffno2d_ns",
-                              "training.epochs=1",
-                              f"dataset.dataset_params.saved_folder={tmp}/data",
-                              f"dataset.dataset_params.filename={fname}"])
-            seconds = time.perf_counter() - t0
-            launched = [a - b for a, b in zip(_counts(), before)]
-            [run_dir] = os.listdir("runs/sweeps")
-            run_dir = f"runs/sweeps/{run_dir}"
-            files = sorted(os.listdir(run_dir))
-            with open(f"{run_dir}/sweep.csv", newline="") as f:
-                rows = list(csv.DictReader(f))
-            with open(f"{run_dir}/sweep.md") as f:
-                md = f.read()
+            leg, launched, _ = _sweep_leg(
+                "ns_models", "ffno2d_ns",
+                [f"dataset.dataset_params.saved_folder={tmp}/data",
+                 f"dataset.dataset_params.filename={fname}"],
+                contextlib.nullcontext())
         finally:
             os.chdir(cwd)
-    leg = out["ffno2d_ns"]
-    log("ns_sweep", leg="ns_models/ffno2d_ns", seconds=f"{seconds:.2f}",
-        files=files, launches=launched,
-        row={k: v for k, v in rows[0].items() if k != "checkpoint"})
-    require(leg is not None, "ns_sweep: the ffno2d_ns leg failed")
-    require(math.isfinite(leg["test_loss"]) and all(
-        sorted(leg[k]) == CLI_RESOLUTIONS
-        and all(math.isfinite(v) for v in leg[k].values())
-        for k in ("super_resolution", "rollout")),
-        f"ns_sweep: test {leg['test_loss']}, sweep "
-        f"{leg['super_resolution']}, rollout {leg['rollout']}")
-    require(files == ["sweep.csv", "sweep.md"],
-            f"ns_sweep: the run directory holds {files} (no .ok or "
-            ".incomplete expected)")
-    require(len(rows) == 1 and rows[0]["platform"].startswith("cuda(")
-            and rows[0]["error"] == "" and rows[0]["legs_green"] == "1/1"
-            and "| cuda(" in md,
-            f"ns_sweep: table {rows}")
+    require(all(sorted(leg[k]) == CLI_RESOLUTIONS
+                for k in ("super_resolution", "rollout")),
+            f"ns_sweep: sweep {leg['super_resolution']}, rollout "
+            f"{leg['rollout']}")
     require(not any(launched),
             f"ns_sweep: the yaml config launched kernels {launched}")
     log("ns_sweep", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
+# phase 14: Burgers and Darcy generated on the card (generate_data's
+# settings: 100 steps of dt 1e-4 a snapshot, viscosity 0.001; Darcy at
+# 128², beta 0.01), then the legs of the baseline, burger_ladder and darcy
+# families that run on them, through cli.sweep
+BURGERS_GEN, BURGERS_FRAMES, BURGERS_VISC = 64, 11, 0.001
+BURGERS_RESOLUTIONS = [1024, 512, 256, 128]
+DARCY_GEN, DARCY_RES = 64, 128
+SWEEP_RESOLUTIONS_1D = [32, 64, 128, 256, 512, 1024]
+
+
+def generate_burgers_on_card() -> dict:
+    """The port's generate_data pde=burgers array part on the card:
+    BURGERS_GEN trajectories of BURGERS_FRAMES snapshots at each of
+    BURGERS_RESOLUTIONS (solved at that grid), finite and within the
+    maximum principle (1.05 x the initial peak), timed; at 1024 points
+    the solver's CUDA graph against its steps launched one by one (bit
+    for bit, both equal to the generator's snapshots), and the card
+    against the CPU on the first 4 trajectories (relative L2 1e-5)."""
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        generate_burgers_arrays)
+    from resolution_pde_tpu_torch.datagen.burgers import solve_burgers
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = generate_burgers_arrays(BURGERS_GEN, BURGERS_RESOLUTIONS,
+                                     BURGERS_FRAMES, SEED,
+                                     viscosity=BURGERS_VISC, device="cuda")
+    seconds = time.perf_counter() - t0
+    steps = (BURGERS_FRAMES - 1) * 100
+    peaks = {}
+    for res, u in arrays["by_res"].items():
+        peaks[res] = (float(np.abs(u).max()), float(np.abs(u[:, 0]).max()))
+        require(u.shape == (BURGERS_GEN, BURGERS_FRAMES, res)
+                and bool(np.isfinite(u).all())
+                and peaks[res][0] <= 1.05 * peaks[res][1],
+                f"generated Burgers at {res}: shape {u.shape}, max|u| "
+                f"{peaks[res]} or non-finite")
+    log("burgers_gen", resolutions=BURGERS_RESOLUTIONS,
+        trajectories=BURGERS_GEN, snapshots=BURGERS_FRAMES,
+        steps_per_resolution=steps, seconds=f"{seconds:.2f}",
+        ms_per_step=f"{seconds * 1e3 / (steps * len(peaks)):.4f}",
+        max_abs={r: f"{p[0]:.4f}" for r, p in peaks.items()},
+        initial_max_abs={r: f"{p[1]:.4f}" for r, p in peaks.items()})
+    u = arrays["by_res"][BURGERS_RESOLUTIONS[0]]
+    u0 = torch.as_tensor(u[:, 0], device="cuda")
+    kw = dict(nu=BURGERS_VISC, dt=1e-4, n_snapshots=3,
+              steps_per_snapshot=100)
+    walls, outs = {}, {}
+    for graph in (True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_burgers(u0, graph=graph, **kw)
+        torch.cuda.synchronize()
+        walls.setdefault(graph, []).append(
+            (time.perf_counter() - t0) * 1e3 / 200)
+        outs.setdefault(graph, out)
+    require(torch.equal(outs[True], outs[False]),
+            "Burgers solver: the CUDA graph's steps differ from eager ones")
+    require(np.array_equal(outs[True].cpu().numpy(), u[:, :3]),
+            "Burgers solver: a re-solve differs from the generator's "
+            "snapshots")
+    err = rel_l2(outs[True][:4].cpu(), solve_burgers(u0[:4].cpu(), **kw))
+    log("burgers_gen", graph_vs_eager="bit_equal",
+        ms_per_step_graph="/".join(f"{v:.4f}" for v in walls[True]),
+        ms_per_step_eager=f"{walls[False][0]:.4f}",
+        card_vs_cpu_1024=f"{err:.3e}", tol=1e-5)
+    require(err <= 1e-5, f"Burgers solver: card vs CPU relative L2 {err}")
+    return arrays
+
+
+def generate_darcy_on_card() -> dict:
+    """The port's generate_data pde=darcy array part on the card:
+    DARCY_GEN samples at DARCY_RES² (beta 0.01, batches of 32): the
+    coefficients 3 or 12, the solutions finite and positive, each batch's
+    CG iterations and largest relative residual beside the gate, timed;
+    the card's CG against the CPU's on 4 samples at 32² (relative L2
+    1e-4)."""
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        generate_darcy_arrays)
+    from resolution_pde_tpu_torch.datagen.darcy import solve_darcy
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = generate_darcy_arrays(DARCY_GEN, [DARCY_RES], SEED,
+                                   device="cuda")
+    seconds = time.perf_counter() - t0
+    d = arrays["by_res"][DARCY_RES]
+    cg = arrays["cg"][DARCY_RES]
+    log("darcy_gen", shape=d["u"].shape, beta=arrays["beta"],
+        seconds=f"{seconds:.2f}", cg_iterations=[c[0] for c in cg],
+        max_relative_residual=f"{max(c[1] for c in cg):.3e}", gate=1e-2,
+        u_range=f"[{d['u'].min():.3e}, {d['u'].max():.3e}]")
+    require(set(np.unique(d["a"])) == {3.0, 12.0}
+            and bool(np.isfinite(d["u"]).all()) and d["u"].min() > 0
+            and max(c[1] for c in cg) <= 1e-2,
+            f"generated Darcy: coefficients {np.unique(d['a'])}, u range "
+            f"[{d['u'].min()}, {d['u'].max()}], CG {cg}")
+    a = torch.as_tensor(d["a"][:4, ::4, ::4])
+    err = rel_l2(solve_darcy(a.cuda(), beta=0.01).cpu(),
+                 solve_darcy(a, beta=0.01))
+    log("darcy_gen", cg_card_vs_cpu_32=f"{err:.3e}", tol=1e-4)
+    require(err <= 1e-4, f"Darcy CG: card vs CPU relative L2 {err}")
+    return arrays
+
+
+def _sweep_leg(family: str, leg: str, argv, context) -> tuple:
+    """cli.sweep family=<family> only=<leg> training.epochs=1 <argv>, in
+    the working directory, inside ``context`` (the generated arrays held
+    as the files generate_data writes): the leg green with a finite test
+    loss and sweep (and rollout where it has one), sweep.csv and sweep.md
+    written with platform cuda(...), no .ok (a subset of the family) and
+    no .incomplete. Returns (the leg's
+    record, the kernels' launches in it (K1f, K1b, K2, K2 adjoint), its
+    table row)."""
+    import csv
+
+    from resolution_pde_tpu_torch.cli import sweep
+
+    before = _counts()
+    t0 = time.perf_counter()
+    with context:
+        out = sweep.main([f"family={family}", f"only={leg}",
+                          "training.epochs=1", *argv])[leg]
+    seconds = time.perf_counter() - t0
+    launched = [a - b for a, b in zip(_counts(), before)]
+    # each leg's family differs, so its run directory is the only one
+    # named after it
+    [run_dir] = [f"runs/sweeps/{d}" for d in os.listdir("runs/sweeps")
+                 if d.startswith(f"{family}_")]
+    files = sorted(os.listdir(run_dir))
+    with open(f"{run_dir}/sweep.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    with open(f"{run_dir}/sweep.md") as f:
+        md = f.read()
+    log("sweep_leg", leg=f"{family}/{leg}", seconds=f"{seconds:.2f}",
+        files=files, launches=launched,
+        row={k: v for k, v in rows[0].items() if k != "checkpoint"})
+    require(out is not None, f"sweep leg {family}/{leg} failed: "
+            f"{rows[0]['error'] if rows else '?'}")
+    require(math.isfinite(out["test_loss"]) and all(
+        math.isfinite(v) for k in ("super_resolution", "rollout")
+        for v in out[k].values()),
+        f"sweep leg {leg}: test {out['test_loss']}, sweep "
+        f"{out['super_resolution']}, rollout {out['rollout']}")
+    require(files == ["sweep.csv", "sweep.md"] and len(rows) == 1
+            and rows[0]["platform"].startswith("cuda(")
+            and rows[0]["error"] == "" and rows[0]["legs_green"] == "1/1"
+            and "| cuda(" in md,
+            f"sweep leg {leg}: files {files}, table {rows}")
+    return out, launched, rows[0]
+
+
+def fno1d_step() -> None:
+    """FNO1d at fno_1d.yaml's width (64, 4 blocks, 16 modes) on random
+    batches of 16 x 1 x 1024 (burger_naive.yaml's grid and
+    training/default.yaml's batch): the median Trainer step, and over 10
+    profiled steps the device's busy time a step and its idle share."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import parse_cli
+    from resolution_pde_tpu_torch.data.dataset import ArrayDataset
+    from resolution_pde_tpu_torch.data.loader import Loader
+
+    cfg = parse_cli(["model=fno_1d", "dataset=burger_naive"])
+    x = np.random.default_rng(SEED).standard_normal(
+        (320, 1, BURGERS_RESOLUTIONS[0])).astype(np.float32)
+    loader = Loader(ArrayDataset(x, np.roll(x, 3, axis=-1)),
+                    cfg.training.batch_size, shuffle=True)
+    trainer = common.build_trainer(cfg, common.build_model(cfg), None,
+                                   device="cuda")
+    state = trainer.init()
+    step_ms = _median_step_ms(trainer, state, loader)
+
+    def ten_steps():
+        for i, (xb, yb) in enumerate(loader):
+            if i == 10:
+                break
+            trainer.train_step(state, xb, yb)
+
+    _, prof = profiled(ten_steps)
+    busy_ms, idle = _idle_share(prof)
+    log("fno1d_step", batch=f"{cfg.training.batch_size}x1x"
+        f"{BURGERS_RESOLUTIONS[0]}", median_step_ms=f"{step_ms:.3f}",
+        device_busy_ms_per_step=f"{busy_ms / 10:.3f}",
+        kernels_per_step=f"{len(_device_kernels(prof)) / 10:.1f}",
+        device_idle_share=f"{idle:.4f}")
+
+
+def run_burgers_darcy() -> dict:
+    """Burgers and Darcy generated on the card (generate_burgers_on_card,
+    generate_darcy_on_card), then, in a temporary working directory
+    holding them as the files generate_data writes under data/
+    (cli.generate_data.burgers_in_memory, darcy_in_memory; the yaml
+    files' relative folders), three legs through cli.sweep for 1 epoch:
+    the baseline family's fno1d_burger_naive (fno_1d.yaml, burger_naive
+    .yaml as shipped: 1024 points, the sweep at 32 ... 1024, the rollout),
+    the burger_ladder's ffno1d_burger_naive_true_mres on FFNO1D's kernel
+    route (dropout 0, ff_impl 'fused': K1f and K1b in f32, each launched
+    at least 4 times a step; the true multi-resolution folders at 1024,
+    512, 256 and 128, the extra resolutions 64 and 32 strided from 1024),
+    and the darcy family's fno2d_darcy (fno_2d.yaml, darcy.yaml, 128²);
+    before them FNO1d's train step (fno1d_step). The FNO legs launch no
+    hand kernel. Returns the Burgers FFNO1D leg's
+    launches of K1f and K1b."""
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        burgers_in_memory, darcy_in_memory)
+
+    t_phase = time.perf_counter()
+    burgers = generate_burgers_on_card()
+    darcy = generate_darcy_on_card()
+    fno1d_step()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fno1d, fno1d_k, _ = _sweep_leg(
+                "baseline", "fno1d_burger_naive", [],
+                burgers_in_memory("data/burgers", burgers))
+            folder = f"burgers_{BURGERS_RESOLUTIONS[0]}_{BURGERS_VISC}"
+            ffno1d, ffno1d_k, _ = _sweep_leg(
+                "burger_ladder", "ffno1d_burger_naive_true_mres",
+                [*FFNO1D_ROUTE,
+                 "dataset.dataset_params.saved_folder=data/burgers",
+                 "dataset.dataset_params.eval_saved_folder="
+                 f"data/burgers/{folder}"],
+                burgers_in_memory("data/burgers", burgers))
+            fno2d, fno2d_k, _ = _sweep_leg(
+                "darcy", "fno2d_darcy", [],
+                darcy_in_memory("data/darcy", darcy))
+        finally:
+            os.chdir(cwd)
+    for name, out, want in (("fno1d", fno1d, SWEEP_RESOLUTIONS_1D),
+                            ("ffno1d", ffno1d, SWEEP_RESOLUTIONS_1D),
+                            ("fno2d", fno2d, [32, 64, 128])):
+        require(sorted(out["super_resolution"]) == want,
+                f"{name} leg: sweep at {sorted(out['super_resolution'])}")
+    require(sorted(fno1d["rollout"]) == sorted(ffno1d["rollout"])
+            == SWEEP_RESOLUTIONS_1D and not fno2d["rollout"],
+            f"rollouts: {fno1d['rollout']}, {ffno1d['rollout']}, "
+            f"{fno2d['rollout']}")
+    require(not any(fno1d_k) and not any(fno2d_k),
+            f"the FNO legs launched kernels: {fno1d_k}, {fno2d_k}")
+    layers = 4  # ffno_1d.yaml's n_layers
+    require(ffno1d_k[0] >= layers and ffno1d_k[1] >= layers
+            and not any(ffno1d_k[2:]),
+            f"the FFNO1D Burgers leg launched {ffno1d_k} (K1f, K1b, K2, "
+            "K2 adjoint)")
+    log("burgers_darcy", ffno1d_K1f_f32=ffno1d_k[0],
+        ffno1d_K1b_f32=ffno1d_k[1], train_seconds={
+            "fno1d": f"{fno1d['train_seconds']:.2f}",
+            "ffno1d": f"{ffno1d['train_seconds']:.2f}",
+            "fno2d": f"{fno2d['train_seconds']:.2f}"},
+        phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return {"fwd": ffno1d_k[0], "bwd": ffno1d_k[1]}
 
 
 def main() -> int:
@@ -2928,6 +3199,7 @@ def main() -> int:
     cli = run_cli()
     ffno1d = run_ffno1d()
     run_ns_sweep()
+    burgers = run_burgers_darcy()
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -2944,15 +3216,17 @@ def main() -> int:
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["f32"][0] + trained["f32"][0] + ffno1d["fwd"]
-             + ffno1d["served"],
-             ffno1d_launches=ffno1d["fwd"] + ffno1d["served"], **k1f32),
+             + ffno1d["served"] + burgers["fwd"],
+             ffno1d_launches=ffno1d["fwd"] + ffno1d["served"],
+             burgers_launches=burgers["fwd"], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["f32"][1] + ffno1d["bwd"],
-             ffno1d_launches=ffno1d["bwd"], **k1b32),
+             launches=trained["f32"][1] + ffno1d["bwd"] + burgers["bwd"],
+             ffno1d_launches=ffno1d["bwd"], burgers_launches=burgers["bwd"],
+             **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
              launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"]

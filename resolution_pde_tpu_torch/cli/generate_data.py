@@ -1,29 +1,44 @@
 """Dataset generation from the command line: the Kuramoto-Sivashinsky,
-Navier-Stokes and active-matter files.
+Burgers, Navier-Stokes, active-matter and Darcy files.
 
     python -m resolution_pde_tpu_torch.cli.generate_data pde=ks \\
         out=data/ks n=512 resolutions=[512,256,128,64,32] n_snapshots=51 \\
         viscosity=0.075 seed=11
+    python -m resolution_pde_tpu_torch.cli.generate_data pde=burgers \\
+        out=data/burgers n=512 resolutions=[1024] n_snapshots=51 \\
+        viscosity=0.001 seed=12
     python -m resolution_pde_tpu_torch.cli.generate_data pde=ns \\
         out=data/ns n=128 resolutions=[256] n_snapshots=26 \\
         viscosity=1e-03 seed=13 [format=mat]
+    python -m resolution_pde_tpu_torch.cli.generate_data pde=darcy \\
+        out=data/darcy n=256 resolutions=[128]
 
-Counterpart of resolution_pde_tpu/cli/generate_data.py for ``pde=ks``,
-``ns`` and ``active``: the same options, file layouts and solver
-settings; the initial conditions come from a ``torch.Generator`` seeded
-with ``seed``, so the samples are not the JAX package's. Writes, per pde:
-  ks:     KS_train_2048.h5, KS_valid.h5 and KS_test.h5 at the base
-          (largest) resolution and the res_{R}/visc_... true
-          multi-resolution tree;
-  ns:     ns_{res}_{viscosity}.h5 per resolution (solved at that grid),
-          or with ``format=mat`` the same data as .mat files (scipy),
-          which the NS factories read where h5py is absent;
-  active: active_matter_{i}.hdf5, NS trajectories in the Well's layout
-          over ``n_files`` files (a stand-in for the active-matter data).
-HDF5 files need h5py. ``generate_ks_arrays`` and ``generate_ns_arrays``
-are the array parts, which return the trajectories instead. The solvers
-run on the card unless ``main`` is given ``device="cpu"``. The burgers
-and darcy pdes are not ported yet.
+Counterpart of resolution_pde_tpu/cli/generate_data.py: the same
+options, file layouts and solver settings; the initial conditions and
+coefficients come from a ``torch.Generator`` seeded with ``seed``, so the
+samples are not the JAX package's. Writes, per pde:
+  ks:      KS_train_2048.h5, KS_valid.h5 and KS_test.h5 at the base
+           (largest) resolution and the res_{R}/visc_... true
+           multi-resolution tree;
+  burgers: 1D_Burgers_Sols_Nu{nu}.hdf5 (PDEBench's layout) at the base
+           resolution and burgers_{res}_{nu}/1D_Burgers_Sols_Nu{nu}.hdf5
+           per resolution (solved at that grid);
+  ns:      ns_{res}_{viscosity}.h5 per resolution (solved at that grid),
+           or with ``format=mat`` the same data as .mat files (scipy),
+           which the NS factories read where h5py is absent;
+  active:  active_matter_{i}.hdf5, NS trajectories in the Well's layout
+           over ``n_files`` files (a stand-in for the active-matter data);
+  darcy:   darcy_flow_beta_{beta}_{res}.hdf5 per resolution (``viscosity``
+           is PDEBench's beta, default 0.01; no time axis), and the base
+           resolution's again as darcy_flow_beta_{beta}.hdf5 and
+           darcy_flow.h5, the names the reference's and the shipped yaml
+           read.
+HDF5 files need h5py. The ``generate_*_arrays`` functions are the array
+parts, which return the data instead; ``ks_in_memory``,
+``burgers_in_memory`` and ``darcy_in_memory`` hold them under the paths
+the files would have (``data.io.files_in_memory``), so the factories and
+the command lines read them where h5py is absent. The solvers run on the
+card unless ``main`` is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -33,10 +48,6 @@ import sys
 
 import numpy as np
 import torch
-
-# the pdes not ported yet, by the ROADMAP item (section 1) that ports them
-NOT_PORTED = {"burgers": 6, "darcy": 7}
-
 
 def _parse(argv):
     opts = {"pde": "ks", "out": "data", "n": 64, "resolutions": [128],
@@ -189,9 +200,9 @@ def ks_in_memory(out, arrays: dict, n_snapshots, et=5.0, lmax=8):
     """A context within which the KS factories read ``ks_files`` from
     memory (``data.io.ks_files_in_memory``) instead of from files: the
     command lines run on generated trajectories without h5py."""
-    from resolution_pde_tpu_torch.data.io import ks_files_in_memory
+    from resolution_pde_tpu_torch.data.io import files_in_memory
 
-    return ks_files_in_memory({
+    return files_in_memory({
         path: u for path, (u, _) in ks_files(out, arrays, n_snapshots, et,
                                              lmax).items()})
 
@@ -213,6 +224,127 @@ def generate_ks(out, n, resolutions, n_snapshots, seed, viscosity=None,
     arrays = generate_ks_arrays(n, resolutions, n_snapshots, seed,
                                 viscosity, splits, et, lmax, device)
     write_ks(out, arrays, n_snapshots, et, lmax)
+    return arrays
+
+
+def generate_burgers_arrays(n, resolutions, n_snapshots, seed,
+                            viscosity=None, device="cuda") -> dict:
+    """Burgers trajectories solved at each resolution from GRF (alpha 2.5,
+    tau 7) initial conditions: 100 steps of dt 1e-4 a snapshot. Returns
+    {"by_res": {res: (n, n_snapshots, res) float32}, "nu": the viscosity
+    as the file names write it}."""
+    from resolution_pde_tpu_torch.datagen.burgers import solve_burgers
+
+    nu = float(viscosity) if viscosity else 0.001
+    gen = torch.Generator().manual_seed(int(seed))
+    by_res = {}
+    for res in sorted(resolutions, reverse=True):
+        u0 = _grf_ics(gen, n, res, dim=1, alpha=2.5, tau=7.0, device=device)
+        by_res[res] = solve_burgers(u0, nu=nu, dt=1e-4,
+                                    n_snapshots=n_snapshots,
+                                    steps_per_snapshot=100).cpu().numpy()
+        print(f"burgers res {res}: {by_res[res].shape}", flush=True)
+    return {"by_res": by_res, "nu": nu}
+
+
+def burgers_files(out, arrays: dict) -> dict:
+    """The files ``generate_burgers`` writes, {path: u (n, t, res)}: the
+    PDEBench file at the base resolution and one per resolution in
+    burgers_{res}_{nu}/ (the true multi-resolution folders)."""
+    by_res, nu = arrays["by_res"], arrays["nu"]
+    name = f"1D_Burgers_Sols_Nu{nu}.hdf5"
+    files = {os.path.join(out, name): by_res[max(by_res)]}
+    for res, u in by_res.items():
+        files[os.path.join(out, f"burgers_{res}_{nu}", name)] = u
+    return files
+
+
+def burgers_in_memory(out, arrays: dict):
+    """A context within which the Burgers factories read ``burgers_files``
+    from memory instead of from files."""
+    from resolution_pde_tpu_torch.data.io import files_in_memory
+
+    return files_in_memory(burgers_files(out, arrays))
+
+
+def write_burgers(out, arrays: dict):
+    """``burgers_files`` written (h5py)."""
+    from resolution_pde_tpu_torch.datagen.writers import write_pdebench_file
+
+    for path, u in burgers_files(out, arrays).items():
+        write_pdebench_file(path, u)
+    print(f"wrote PDEBench file + burgers_<res>_<nu>/ dirs under {out}")
+
+
+def generate_burgers(out, n, resolutions, n_snapshots, seed, viscosity=None,
+                     device="cuda"):
+    arrays = generate_burgers_arrays(n, resolutions, n_snapshots, seed,
+                                     viscosity, device)
+    write_burgers(out, arrays)
+    return arrays
+
+
+def generate_darcy_arrays(n, resolutions, seed, viscosity=None,
+                          device="cuda") -> dict:
+    """Darcy coefficients and solutions at each resolution (GRF alpha 2,
+    tau 3 thresholded to 12 and 3; the CG solve gated on its residual).
+    Returns {"by_res": {res: {"a": (n, res, res), "u": (n, res, res)}},
+    "beta": beta as the file names write it, "cg": {res: each batch's
+    iterations and largest residual}}."""
+    from resolution_pde_tpu_torch.datagen.darcy import generate_darcy_dataset
+
+    beta = viscosity or "0.01"
+    gen = torch.Generator().manual_seed(int(seed))
+    by_res, cg = {}, {}
+    for res in sorted(resolutions, reverse=True):
+        info = []
+        a, u = generate_darcy_dataset(gen, n, s=res, beta=float(beta),
+                                      device=device, info=info)
+        by_res[res] = {"a": a, "u": u}
+        cg[res] = [(r["iterations"], float(r["residuals"].max()))
+                   for r in info]
+        print(f"darcy res {res}: a {a.shape}, u in [{u.min():.2e}, "
+              f"{u.max():.2e}], CG (iterations, largest residual) a batch "
+              f"{cg[res]}", flush=True)
+    return {"by_res": by_res, "beta": beta, "cg": cg}
+
+
+def darcy_files(out, arrays: dict) -> dict:
+    """The files ``generate_darcy`` writes, {path: {"a", "u"}}: one per
+    resolution, and the base resolution's again under the names the
+    reference's yaml (darcy_flow_beta_{beta}.hdf5) and the shipped one
+    (darcy_flow.h5) read."""
+    by_res, beta = arrays["by_res"], arrays["beta"]
+    files = {os.path.join(out, f"darcy_flow_beta_{beta}_{res}.hdf5"): d
+             for res, d in by_res.items()}
+    for name in (f"darcy_flow_beta_{beta}.hdf5", "darcy_flow.h5"):
+        files[os.path.join(out, name)] = by_res[max(by_res)]
+    return files
+
+
+def darcy_in_memory(out, arrays: dict):
+    """A context within which the Darcy factory reads ``darcy_files`` from
+    memory instead of from files."""
+    from resolution_pde_tpu_torch.data.io import files_in_memory
+
+    return files_in_memory(darcy_files(out, arrays))
+
+
+def write_darcy(out, arrays: dict):
+    """``darcy_files`` written (h5py)."""
+    from resolution_pde_tpu_torch.datagen.writers import write_darcy_file
+
+    for path, d in darcy_files(out, arrays).items():
+        write_darcy_file(path, d["a"], d["u"])
+    print(f"wrote darcy_flow_beta_{arrays['beta']}[_res].hdf5 (+ "
+          f"darcy_flow.h5 alias) under {out}")
+
+
+def generate_darcy(out, n, resolutions, n_snapshots, seed, viscosity=None,
+                   device="cuda"):
+    """``n_snapshots`` is ignored: Darcy is steady."""
+    arrays = generate_darcy_arrays(n, resolutions, seed, viscosity, device)
+    write_darcy(out, arrays)
     return arrays
 
 
@@ -302,24 +434,19 @@ def main(argv=None, device="cuda"):
     from resolution_pde_tpu_torch.cli.common import require_device
 
     opts = _parse(list(argv if argv is not None else sys.argv[1:]))
-    pde = opts["pde"]
-    if pde in NOT_PORTED:
-        raise NotImplementedError(
-            f"generate_data pde={pde} is not ported: ROADMAP.md section 1, "
-            f"item {NOT_PORTED[pde]}")
-    if pde not in ("ks", "ns", "active"):
-        raise SystemExit(f"unknown pde {pde!r}; "
+    gen = {"ks": generate_ks, "burgers": generate_burgers,
+           "ns": generate_ns, "active": generate_active,
+           "darcy": generate_darcy}.get(opts["pde"])
+    if gen is None:
+        raise SystemExit(f"unknown pde {opts['pde']!r}; "
                          "one of ks/burgers/ns/active/darcy")
     device = require_device(device, "generate_data")
-    args = (opts["out"], opts["n"], opts["resolutions"], opts["n_snapshots"],
-            opts["seed"], opts["viscosity"])
-    if pde == "ks":
-        return generate_ks(*args, opts["splits"], opts["et"], opts["lmax"],
-                           device)
-    if pde == "ns":
-        return generate_ns(*args, device=device,
-                           file_format=opts["format"])
-    return generate_active(*args, device=device)
+    extra = {"ks": {"splits": opts["splits"], "et": opts["et"],
+                    "lmax": opts["lmax"]},
+             "ns": {"file_format": opts["format"]}}.get(opts["pde"], {})
+    return gen(opts["out"], opts["n"], opts["resolutions"],
+               opts["n_snapshots"], opts["seed"], opts["viscosity"],
+               device=device, **extra)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ files and set dotted keys.
 
 ``instantiate_model`` builds the port's model from ``models.registry``;
 ``instantiate_dataset`` calls the port's dataset factories, which so far
-are the Navier-Stokes and the Kuramoto-Sivashinsky ones.
+are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers and Darcy ones.
 """
 
 from __future__ import annotations
@@ -166,32 +166,24 @@ def instantiate_model(model_cfg: dict, seed: int = 0, **extra):
 def _dataset_factories() -> dict:
     from resolution_pde_tpu_torch.data import factories as f
 
-    return {"ns_markov_dataset": f.ns_markov_dataset,
-            "ns_true_multires_markov_dataset":
-                f.ns_true_multires_markov_dataset,
-            "ks_window_dataset": f.ks_window_dataset,
-            "ks_markov_dataset": f.ks_markov_dataset,
-            "ks_true_multires_markov_dataset":
-                f.ks_true_multires_markov_dataset,
-            "ks_multires_markov_dataset": f.ks_multires_markov_dataset,
-            "ks_resize_multires_markov_dataset":
-                f.ks_resize_multires_markov_dataset,
-            "ks_pino_markov_dataset": f.ks_pino_markov_dataset}
+    names = ("ns_markov_dataset", "ns_true_multires_markov_dataset",
+             "ks_window_dataset", "ks_markov_dataset",
+             "ks_true_multires_markov_dataset", "ks_multires_markov_dataset",
+             "ks_resize_multires_markov_dataset", "ks_pino_markov_dataset",
+             "burger_markov_dataset", "burger_true_multires_markov_dataset",
+             "burger_multires_markov_dataset",
+             "burger_resize_multires_markov_dataset",
+             "burger_resize_true_multires_markov_dataset",
+             "burger_window_dataset", "load_burger_data_from_mat",
+             "darcy_dataset", "load_darcy_data_from_mat", "load_darcy_data")
+    return {name: getattr(f, name) for name in names}
 
 
 # the JAX package's factories that the port has not yet, by the ROADMAP
 # item (section 1) that ports them
 NOT_PORTED = {
     "ns_window_dataset": 5,
-    **dict.fromkeys(("burger_markov_dataset",
-                     "burger_true_multires_markov_dataset",
-                     "burger_multires_markov_dataset",
-                     "burger_resize_multires_markov_dataset",
-                     "burger_resize_true_multires_markov_dataset",
-                     "burger_window_dataset", "load_burger_data_from_mat"),
-                    6),
-    **dict.fromkeys(("darcy_dataset", "load_darcy_data_from_mat",
-                     "load_darcy_data", "active_matter_markov_dataset",
+    **dict.fromkeys(("active_matter_markov_dataset",
                      "active_matter_all_markov_dataset",
                      "multi_file_active_matter_markov_dataset"), 7),
     "point_cloud_markov_dataset": 9,

@@ -1,12 +1,19 @@
-"""Dataset factories of the Navier-Stokes path and the KS path.
+"""Dataset factories of the Navier-Stokes, KS, Burgers and Darcy paths.
 
 Counterpart of resolution_pde_tpu/data/factories.py's
 ``ns_markov_dataset`` (:458), ``ns_true_multires_markov_dataset`` (:485),
-``ks_window_dataset`` (:711, with ``_ks_load``, :142) and the KS Markov
+``ks_window_dataset`` (:711, with ``_ks_load``, :142), the KS Markov
 factories: ``ks_markov_dataset`` (:152), ``ks_true_multires_markov_dataset``
 (:192, with ``_generic_true_multires_1d``, :355),
 ``ks_multires_markov_dataset`` (:919), ``ks_resize_multires_markov_dataset``
-(:1059) and ``ks_pino_markov_dataset`` (:799), with the helpers they call.
+(:1059) and ``ks_pino_markov_dataset`` (:799); the Burgers factories:
+``burger_markov_dataset`` (:244), ``burger_true_multires_markov_dataset``
+(:274), ``burger_multires_markov_dataset`` (:976),
+``burger_resize_multires_markov_dataset`` (:1067),
+``burger_resize_true_multires_markov_dataset`` (:1097),
+``burger_window_dataset`` (:666) and ``load_burger_data_from_mat`` (:736);
+and the Darcy ones: ``darcy_dataset`` (:617), ``load_darcy_data_from_mat``
+(:758) and ``load_darcy_data`` (:774); with the helpers they call.
 Each returns the positional tuple the command lines consume:
 
   'simple' / 'unit_gaussian':
@@ -14,13 +21,15 @@ Each returns the positional tuple the command lines consume:
   'minmax':
      (train, val, test, rollout, min_data, max_data, min_model, max_model)
 
-(ks_pino_markov_dataset: the minmax 7-tuple without the rollout slot.)
-train/val/test are ArrayDatasets (MultiResDatasets for true-multires),
-already encoded with the normalizers fit on train; rollout holds the raw
-test trajectories, which the rollout encodes itself. ``ks_window_splits``,
-``ks_markov_splits`` and ``ks_true_multires_splits`` take trajectories
-already read, as arrays: the file-reading factories call them.
-"""
+(ks_pino_markov_dataset: the minmax 7-tuple without the rollout slot;
+load_darcy_data: the legacy 4-tuple (train, test, x_normalizer,
+y_normalizer).) train/val/test are ArrayDatasets (MultiResDatasets for
+true-multires), already encoded with the normalizers fit on train;
+rollout holds the raw test trajectories, which the rollout encodes
+itself (None for the steady-state and single-step datasets).
+``ks_window_splits``, ``ks_markov_splits`` and ``ks_true_multires_splits``
+take trajectories already read, as arrays: the file-reading factories
+call them."""
 
 from __future__ import annotations
 
@@ -415,6 +424,24 @@ def _base_resolution(data_mres_size, downsample_from_res):
                                    if data_mres_size else None)
 
 
+def _reduce_1d(method, use_low_pass_filter, lowpass_cutoff_ratio):
+    """reduce(sampled, target_res, src_res) of the 1D true-multires
+    factories' extra resolutions: an FFT downsample ('resize'), else a
+    low-pass that keeps src_res, else a stride that keeps ceil(src /
+    factor) points when target_res does not divide src_res, as the
+    reference does."""
+    def reduce(sampled, target_res, src_res):
+        if method == "resize":
+            return resize_trajectories(sampled, target_res, spatial_ndim=1,
+                                       method="downsample")
+        if use_low_pass_filter:
+            return lowpass_1d(sampled,
+                              (target_res / src_res) * lowpass_cutoff_ratio)
+        return sampled[:, :, ::src_res // target_res]
+
+    return reduce
+
+
 def ks_true_multires_splits(
         u_by_res: Dict[int, np.ndarray],
         data_mres_size: Optional[Dict[int, int]] = None,
@@ -422,40 +449,45 @@ def ks_true_multires_splits(
         add_res_samples=None, downsample_from_res: Optional[int] = None,
         use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
         split_ratio=None, random_seed=42, data_normalizer=True,
-        normalization_type="simple"):
+        normalization_type="simple", pair=markov_pairs_1d,
+        add_res_method="naive"):
     """The true multi-resolution pipeline on trajectories already read:
     ``u_by_res`` {resolution: (n, t, s) array} (a missing resolution is
     skipped). Per resolution of ``data_mres_size`` with a nonzero target:
     a contiguous ``split_ratio`` split, each split subsampled to
     int(target x ratio) trajectories by RandomState(random_seed +
     resolution + split index) when the target is below the count, Markov
-    pairs in a bucket per resolution. ``add_res`` adds resolutions drawn
-    from the base one (``downsample_from_res``, else the largest): per
-    split int(add_res_samples[r] x ratio) trajectories with replacement by
-    RandomState(random_seed + r + split index + 10000), strided to r, or
-    with ``use_low_pass_filter`` low-passed and left at the base
-    resolution. The rollout holds each resolution's test trajectories
-    (subsampled as the Markov test split) and the base's."""
+    pairs (``pair``; the Burgers factories skip the first snapshot) in a
+    bucket per resolution. ``add_res`` adds resolutions drawn from the
+    base one (``downsample_from_res``, else the largest): per split
+    int(add_res_samples[r] x ratio) trajectories with replacement by
+    RandomState(random_seed + r + split index + 10000), reduced to r
+    (``_reduce_1d``: ``add_res_method`` 'resize', or a low-pass left at
+    the base resolution, or a stride). The rollout holds each
+    resolution's test trajectories (subsampled as the Markov test split)
+    and the base's."""
     if split_ratio is None:
         split_ratio = [0.8, 0.1, 0.1]
     data_mres_size = data_mres_size or {}
-
-    def reduce(sampled, target_res, src_res):
-        if use_low_pass_filter:
-            # filtered only: the samples stay at src_res
-            return lowpass_1d(sampled,
-                              (target_res / src_res) * lowpass_cutoff_ratio)
-        # ceil(src / factor) points when target_res does not divide
-        # src_res, as the reference keeps
-        return sampled[:, :, ::src_res // target_res]
-
     return _true_multires(
         u_by_res.get, data_mres_size, add_res, add_res_samples,
         _base_resolution(data_mres_size, downsample_from_res), split_ratio,
-        random_seed, markov_pairs_1d, reduce,
+        random_seed, pair,
+        _reduce_1d(add_res_method, use_low_pass_filter,
+                   lowpass_cutoff_ratio),
         lambda test_u: (test_u.shape[-1], np.ascontiguousarray(
             test_u, dtype=np.float32)),
         data_normalizer, normalization_type)
+
+
+def _needed_resolutions(data_mres_size, downsample_from_res) -> list:
+    """The resolutions a true-multires factory reads: those of
+    ``data_mres_size`` with a nonzero target, and the base one."""
+    needed = {r for r, target in data_mres_size.items() if target != 0}
+    base_res = _base_resolution(data_mres_size, downsample_from_res)
+    if base_res:
+        needed.add(base_res)
+    return sorted(needed)
 
 
 def ks_true_multires_markov_dataset(
@@ -478,16 +510,13 @@ def ks_true_multires_markov_dataset(
     ignored, as the reference does; the eval_* keys are read by
     cli/common.py's eval swap."""
     data_mres_size = data_mres_size or {}
-    needed = {r for r, target in data_mres_size.items() if target != 0}
-    base_res = _base_resolution(data_mres_size, downsample_from_res)
-    if base_res:
-        needed.add(base_res)
     u_by_res = {}
-    for resolution in sorted(needed):
+    for resolution in _needed_resolutions(data_mres_size,
+                                          downsample_from_res):
         path = os.path.join(
             _ks_res_dir(saved_folder, resolution, viscosity, L, lmax, et,
                         nte, nt), f"KS_train_{train_s}.h5")
-        if data_io.ks_file_exists(path):
+        if data_io.file_exists(path):
             u = data_io.read_ks_h5(path, split="train")["u"]
             u_by_res[resolution] = u[::reduced_batch, ::reduced_resolution_t]
     return ks_true_multires_splits(
@@ -627,3 +656,256 @@ def ks_pino_markov_dataset(filename, saved_folder=None, data_normalizer=True,
         return (*out[:3], None, None, None, None)
     train, val, test, _, mn_d, mx_d, mn_m, mx_m = out
     return train, val, test, mn_d, mx_d, mn_m, mx_m
+
+
+# ---------------------------------------------------------------------------
+# Burgers (PDEBench single file, pairing x = u[:, 1:-1], y = u[:, 2:])
+# ---------------------------------------------------------------------------
+
+def _pdebench_pairs(u):
+    """(b, t, m) trajectories -> x = u[:, 1:-1], y = u[:, 2:], each
+    (b (t - 2), 1, m): the PDEBench pairing, past the first snapshot."""
+    x, y = u[:, 1:-1], u[:, 2:]
+    b, t, m = x.shape
+    return (np.ascontiguousarray(x.reshape(b * t, 1, m)),
+            np.ascontiguousarray(y.reshape(b * t, 1, m)))
+
+
+def _rollout_of(u) -> TrajectoryDataset:
+    """The test trajectories of the contiguous ratio split
+    (burger_naive_markov.py:96-110)."""
+    _, va_end = split_ratio_indices(u.shape[0])
+    return TrajectoryDataset(np.ascontiguousarray(u[va_end:],
+                                                  dtype=np.float32))
+
+
+def burger_markov_dataset(filename, saved_folder, data_normalizer=True,
+                          normalization_type="minmax",
+                          use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
+                          reduced_batch=1, reduced_resolution=1,
+                          reduced_resolution_t=1, num_samples_max=-1,
+                          s=None):
+    """Burgers, naive or low-passed (burger_naive_markov.py:204); ``s``
+    FFT-resizes (burger_resize_markov.py:106). The PDEBench pairs split
+    0.8 / 0.1 / 0.1 by the seed-42 permutation; the rollout holds the
+    contiguous split's test trajectories."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u = data_io.read_pdebench_h5(path)["u"]
+    u = reduce_trajectories(
+        u, reduced_batch, reduced_resolution, reduced_resolution_t,
+        use_low_pass_filter, lowpass_cutoff_ratio, num_samples_max,
+        spatial_ndim=1)
+    if s is not None:
+        u = resize_trajectories(u, s, spatial_ndim=1)
+    train, val, test = _split_pairs(*_pdebench_pairs(u), seed=42)
+    return _package(train, val, test, _rollout_of(u), data_normalizer,
+                    normalization_type)
+
+
+def burger_true_multires_markov_dataset(
+        saved_folder, viscosity=0.001,
+        filename_pattern="1D_Burgers_Sols_Nu*.hdf5",
+        reduced_batch=1, reduced_resolution_t=1,
+        data_mres_size: Optional[Dict[int, int]] = None,
+        add_res=None, add_res_samples=None, downsample_from_res=None,
+        use_low_pass_filter=False, lowpass_cutoff_ratio=1.0,
+        add_res_method="naive", split_ratio=None, random_seed=42,
+        data_normalizer=True, normalization_type="simple",
+        num_samples_max=-1, eval_dataset_target=None, eval_filename=None,
+        eval_saved_folder=None):
+    """True multi-resolution Burgers (burger_naive_true_multires.py:61-72):
+    per resolution the sorted first file of burgers_{res}_{viscosity}/
+    matching ``filename_pattern`` (among the files and the paths held by
+    ``data.io.files_in_memory``), batch and time strided, through
+    ``ks_true_multires_splits`` with the pairs past the first snapshot;
+    ``add_res_method`` 'resize' FFT-downsamples the extra resolutions
+    (burger_resize_true_multires.py:251). ``num_samples_max`` is accepted
+    and ignored, as the reference does; the eval_* keys are read by
+    cli/common.py's eval swap."""
+    data_mres_size = data_mres_size or {}
+    u_by_res = {}
+    for resolution in _needed_resolutions(data_mres_size,
+                                          downsample_from_res):
+        folder = os.path.join(saved_folder,
+                              f"burgers_{resolution}_{viscosity}")
+        matches = data_io.glob_files(os.path.join(folder, filename_pattern))
+        if matches:
+            u = data_io.read_pdebench_h5(matches[0])["u"]
+            u_by_res[resolution] = u[::reduced_batch, ::reduced_resolution_t]
+    return ks_true_multires_splits(
+        u_by_res, data_mres_size, add_res, add_res_samples,
+        downsample_from_res, use_low_pass_filter, lowpass_cutoff_ratio,
+        split_ratio, random_seed, data_normalizer, normalization_type,
+        # the Burgers pairs start past the first snapshot
+        pair=lambda u: markov_pairs_1d(u[:, 1:]),
+        add_res_method=add_res_method)
+
+
+@_alias_of(burger_true_multires_markov_dataset)
+def burger_resize_true_multires_markov_dataset(*args, **kwargs):
+    """dataloaders.burger_resize_true_multires.
+    burger_true_multires_markov_dataset: true-multires Burgers whose extra
+    resolutions are FFT-downsampled."""
+    kwargs.setdefault("add_res_method", "resize")
+    return burger_true_multires_markov_dataset(*args, **kwargs)
+
+
+def burger_multires_markov_dataset(filename, saved_folder,
+                                   data_normalizer=True,
+                                   normalization_type="minmax",
+                                   add_res=None, num_add_res_samples=0,
+                                   random_seed=42, multires_method="naive",
+                                   reduced_batch=1, reduced_resolution=1,
+                                   reduced_resolution_t=1,
+                                   num_samples_max=-1, s=None,
+                                   eval_dataset_target=None,
+                                   eval_filename=None,
+                                   eval_saved_folder=None):
+    """Single-file Burgers multires (burger_naive_multires.py:200-320;
+    burger_resize_multires.py:233-360 with multires_method='resize'): the
+    reduced file's PDEBench pairs, then int(0.8 num_add_res_samples)
+    trajectories of the full-resolution data at each resolution of
+    ``add_res`` (``_sample_at_resolutions``, RandomState(random_seed)),
+    and the combined sample list split 0.8 / 0.1 / 0.1 by the seed-42
+    permutation into a bucket per width. The rollout holds the contiguous
+    split's test trajectories of the reduced file."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u_orig = data_io.read_pdebench_h5(path)["u"]
+    u = reduce_trajectories(u_orig, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=1)
+    if s is not None:
+        u = resize_trajectories(u, s, spatial_ndim=1)
+    # per-resolution chunks in order: the main data first, then the extras
+    chunks = [(u.shape[-1],) + _pdebench_pairs(u)]
+    k = int(num_add_res_samples * 0.8)
+    if k > 0:
+        for key, samp in _sample_at_resolutions(
+                u_orig, add_res, k, random_seed, multires_method):
+            chunks.append((key,) + _pdebench_pairs(samp))
+    total = sum(c[1].shape[0] for c in chunks)
+    perm = _randsplit_indices(total, 42)
+    tr_end = int(0.8 * total)
+    va_end = tr_end + int(0.1 * total)
+    split_of = np.empty(total, dtype=np.int8)
+    split_of[perm[:tr_end]] = 0
+    split_of[perm[tr_end:va_end]] = 1
+    split_of[perm[va_end:]] = 2
+    buckets = [{}, {}, {}]
+    offset = 0
+    for key, x, y in chunks:
+        local = split_of[offset:offset + x.shape[0]]
+        for si in range(3):
+            sel = np.nonzero(local == si)[0]
+            if sel.size:
+                _merge_bucket(buckets[si], key, x[sel], y[sel])
+        offset += x.shape[0]
+    return _package(*(_as_res_dataset(b) for b in buckets), _rollout_of(u),
+                    data_normalizer, normalization_type)
+
+
+@_alias_of(burger_multires_markov_dataset)
+def burger_resize_multires_markov_dataset(*args, **kwargs):
+    """dataloaders.burger_resize_multires.burger_multires_markov_dataset."""
+    kwargs.setdefault("multires_method", "resize")
+    return burger_multires_markov_dataset(*args, **kwargs)
+
+
+def burger_window_dataset(filename, saved_folder, window_size=10,
+                          data_normalizer=True, reduced_batch=1,
+                          reduced_resolution=1, reduced_resolution_t=1,
+                          num_samples_max=-1):
+    """Sliding-window Burgers for the S4-style models
+    (dataloaders/burger_s4.py:13-96): x (N, window_size, m), y (N, m),
+    split by the seed-42 permutation, SimpleNormalizers."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u = data_io.read_pdebench_h5(path)["u"]
+    u = reduce_trajectories(u, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=1)
+    train, val, test = _split_pairs(*sliding_windows(u, window_size),
+                                    seed=42)
+    return _package(train, val, test, _rollout_of(u), data_normalizer,
+                    "simple")
+
+
+def _single_step(a, u, split, data_normalizer, normalization_type):
+    """a -> u pairs with a channel axis, split by the seed-42 permutation
+    at ``split``; no rollout."""
+    x = np.ascontiguousarray(a[:, None], dtype=np.float32)
+    y = np.ascontiguousarray(u[:, None], dtype=np.float32)
+    train, val, test = _split_pairs(x, y, split=split, seed=42)
+    return _package(train, val, test, None, data_normalizer,
+                    normalization_type)
+
+
+def load_burger_data_from_mat(data_path1, data_path2=None, res_scale=1,
+                              split=(0.8, 0.1, 0.1), data_normalizer=True,
+                              normalization_type="unit_gaussian"):
+    """FNO-paper Burgers .mat (the initial condition 'a' -> the solution
+    'u'), a second file's samples appended (load_data.py:12-101), every
+    ``res_scale``-th point. No rollout: a single-step map."""
+    d = data_io.read_fno_burgers_mat(data_path1)
+    a, u = d["a"], d["u"]
+    if data_path2:
+        d2 = data_io.read_fno_burgers_mat(data_path2)
+        a, u = np.vstack([a, d2["a"]]), np.vstack([u, d2["u"]])
+    if res_scale > 1:
+        a, u = a[:, ::res_scale], u[:, ::res_scale]
+    return _single_step(a, u, split, data_normalizer, normalization_type)
+
+
+# ---------------------------------------------------------------------------
+# Darcy (steady state: coefficient -> solution)
+# ---------------------------------------------------------------------------
+
+def darcy_dataset(filename, saved_folder, data_normalizer=True,
+                  normalization_type="unit_gaussian", reduced_batch=1,
+                  reduced_resolution=1, num_samples_max=-1,
+                  reduced_resolution_t=1):
+    """Steady-state Darcy flow, the coefficient field -> the pressure
+    (dataloaders/darcy_loader.py:7-126): strided, the first
+    ``num_samples_max``, split by the seed-42 permutation; no rollout.
+    ``reduced_resolution_t`` is accepted and ignored (no time axis; the
+    yaml carries it)."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    d = data_io.read_darcy_h5(path)
+    a = d["a"][::reduced_batch, ::reduced_resolution, ::reduced_resolution]
+    u = d["u"][::reduced_batch, ::reduced_resolution, ::reduced_resolution]
+    if num_samples_max > 0:
+        a, u = a[:num_samples_max], u[:num_samples_max]
+    return _single_step(a, u, (0.8, 0.1, 0.1), data_normalizer,
+                        normalization_type)
+
+
+def load_darcy_data_from_mat(data_path, res_scale=1, split=(0.8, 0.1, 0.1),
+                             data_normalizer=True,
+                             normalization_type="unit_gaussian"):
+    """FNO-paper Darcy .mat ('coeff' -> 'sol', load_data.py:182), every
+    ``res_scale``-th point along each axis."""
+    d = data_io.read_fno_darcy_mat(data_path)
+    a, u = d["a"], d["u"]
+    if res_scale > 1:
+        a = a[:, ::res_scale, ::res_scale]
+        u = u[:, ::res_scale, ::res_scale]
+    return _single_step(a, u, split, data_normalizer, normalization_type)
+
+
+def load_darcy_data(saved_folder="2D_DarcyFlow_beta0.01", ntrain=9000,
+                    ntest=1000, x_file="nu.npy", y_file="tensor.npy"):
+    """Legacy PDEBench Darcy .npy loader (load_data.py:276-313): x from
+    ``x_file``, y from ``y_file``, a channel axis added to (n, h, w)
+    arrays, the first ``ntrain`` for training and the next ``ntest`` for
+    testing (no shuffle, no validation split), per-location
+    UnitGaussianNormalizers fit on the train split. Returns the
+    reference's 4-tuple (train, test, x_normalizer, y_normalizer)."""
+    x = np.load(os.path.join(saved_folder, x_file)).astype(np.float32)
+    y = np.load(os.path.join(saved_folder, y_file)).astype(np.float32)
+    x = x[:, None] if x.ndim == 3 else x
+    y = y[:, None] if y.ndim == 3 else y
+    stats = fit_normalizers(x[:ntrain], y[:ntrain], "unit_gaussian")
+    xn, yn = stats["x_normalizer"], stats["y_normalizer"]
+    train = ArrayDataset(x[:ntrain], y[:ntrain]).encoded(xn, yn)
+    test = ArrayDataset(x[ntrain:ntrain + ntest],
+                        y[ntrain:ntrain + ntest]).encoded(xn, yn)
+    return train, test, xn, yn

@@ -1,7 +1,9 @@
-"""Writers of the KS, NS and Well file layouts the data factories read.
+"""Writers of the KS, Burgers, Darcy, NS and Well file layouts the data
+factories read.
 
 Counterpart of resolution_pde_tpu/datagen/writers.py's ``write_ks_file``,
-``write_ks_multires_tree``, ``write_ns_file`` and ``write_well_file``;
+``write_ks_multires_tree``, ``write_pdebench_file``, ``write_darcy_file``,
+``write_ns_file`` and ``write_well_file``;
 ``write_ns_mat`` writes the NS data as a .mat file through scipy. h5py is
 imported only when an HDF5 file is written, so the module imports where
 h5py is absent.
@@ -77,6 +79,31 @@ def write_ks_multires_tree(base_folder: str, data_by_res: dict,
             base_folder, data_by_res, viscosity, L, lmax, et, nte, nt,
             train_s, split_counts).items():
         write_ks_file(path, part, L=L, dt=dt, split=split)
+
+
+def write_pdebench_file(path: str, u: np.ndarray):
+    """PDEBench's Burgers layout: 'tensor' (n, t, x) float32 and
+    'x-coordinate', the grid of [0, 1) without its endpoint."""
+    import h5py
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("tensor", data=np.asarray(u, np.float32))
+        f.create_dataset(
+            "x-coordinate",
+            data=np.linspace(0, 1, u.shape[-1], endpoint=False)
+            .astype(np.float32))
+
+
+def write_darcy_file(path: str, a: np.ndarray, u: np.ndarray):
+    """PDEBench's DarcyFlow layout (``read_darcy_h5``): the coefficient
+    'nu' (n, h, w) and the solution 'tensor' (n, 1, h, w), float32."""
+    import h5py
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("nu", data=np.asarray(a, np.float32))
+        f.create_dataset("tensor", data=np.asarray(u, np.float32)[:, None])
 
 
 def _ns_canonical(u: np.ndarray) -> np.ndarray:

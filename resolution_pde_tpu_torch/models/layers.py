@@ -1,5 +1,5 @@
 """Shared layers: torch-default initialisers, weight-normed linear, the FFNO
-FeedForward.
+FeedForward, FNO's pointwise projection.
 
 Counterpart of resolution_pde_tpu/models/layers.py. Parameters use the
 reference PyTorch code's names and layouts (``weight`` (out, in),
@@ -76,6 +76,23 @@ class TorchLinear(nn.Module):
 
     def forward(self, x):
         return _dense(x, self.weight, self.bias, self.dtype or x.dtype)
+
+
+class PointwiseMLP(nn.Module):
+    """FNO's projection: two pointwise linear layers (the reference's 1x1
+    convs ``mlp1`` and ``mlp2``) with the exact GELU between,
+    channels-last."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 mid_features: int, generator=None):
+        super().__init__()
+        self.mlp1 = TorchLinear(in_features, mid_features,
+                                generator=generator)
+        self.mlp2 = TorchLinear(mid_features, out_features,
+                                generator=generator)
+
+    def forward(self, x):
+        return self.mlp2(gelu(self.mlp1(x)))
 
 
 class WNDense(nn.Module):

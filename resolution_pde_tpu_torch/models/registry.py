@@ -1,8 +1,9 @@
 """Model registry: short names and the reference's ``_target_`` dotted
 paths to the port's modules.
 
-Counterpart of resolution_pde_tpu/models/registry.py; FFNO1D, FFNO2D and
-the 1D S4 family (S4Model, S4Block, S4D) are ported so far. A model of
+Counterpart of resolution_pde_tpu/models/registry.py; FNO1d, FNO2d,
+FFNO1D, FFNO2D and the 1D S4 family (S4Model, S4Block, S4D) are ported
+so far. A model of
 the JAX registry that is not raises a KeyError naming the ROADMAP item
 (section 1) that ports it.
 """
@@ -10,9 +11,14 @@ the JAX registry that is not raises a KeyError naming the ROADMAP item
 from __future__ import annotations
 
 from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D
+from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d
 from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model
 
 MODEL_REGISTRY = {
+    "FNO1d": FNO1d,
+    "models.fno.FNO1d": FNO1d,
+    "FNO2d": FNO2d,
+    "models.fno.FNO2d": FNO2d,
     "FFNO1D": FFNO1D,
     "models.ffno.FFNO1D": FFNO1D,
     "FFNO2D": FFNO2D,
@@ -37,7 +43,6 @@ NOT_PORTED = {
     **dict.fromkeys(("S4NDModel", "S4BaseModel", "S4SeqModel",
                      "OneToSeqModel", "S4BaseSeqModel", "S4DualSeqModel",
                      "SeqAdd", "ChainModel"), 5),
-    **dict.fromkeys(("FNO1d", "FNO2d"), 6),
     **dict.fromkeys(("UNet1d", "UNet2d", "CNO1d", "CNO2d", "CNO2dOriginal",
                      "CNO"), 7),
     **dict.fromkeys(("MoEGPTNO", "GNOTOperator", "SwinOperator2d", "ScOT2d",

@@ -1,7 +1,8 @@
 """FFNO factorized spectral convolution, channels-last.
 
 Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` paths
-(``factorized_spectral_conv_1d`` of FFNO1D, and
+(FNO's ``spectral_conv_1d`` and ``spectral_conv_2d``,
+``factorized_spectral_conv_1d`` of FFNO1D, and
 ``factorized_spectral_conv_2d``, the plain reference of the whole pass),
 the truncated-DFT factors ``_dft_matrices`` the kernels use, and the
 f32-exact fused path ``factorized_spectral_conv_2d_pallas``. Each axis uses
@@ -55,6 +56,50 @@ def irfft2(x, s, norm: str = "backward"):
     inverse FFT along the first, then ``irfft`` along the last."""
     return irfft(torch.fft.ifft(x, n=s[0], dim=-2, norm=norm), s[1], dim=-1,
                  norm=norm)
+
+
+def _complex(weight):
+    """Real storage with a trailing (re, im) axis as a complex tensor."""
+    return torch.complex(weight[..., 0], weight[..., 1])
+
+
+def spectral_conv_1d(x, weights, modes: int):
+    """FNO's 1D spectral conv. x: (B, C_in, X) real; weights: (C_in, C_out,
+    modes, 2). Returns (B, C_out, X): backward-norm rfft, the first
+    ``modes`` bins mixed by the weights, ``irfft`` of the zero-padded
+    spectrum (a kept Nyquist bin is read as real)."""
+    n = x.shape[-1]
+    n_freq = n // 2 + 1
+    if modes > n_freq:
+        raise ValueError(f"modes={modes} exceeds available frequencies "
+                         f"{n_freq}")
+    x_ft = torch.fft.rfft(x, dim=-1)
+    out_ft = torch.einsum("bix,iox->box", x_ft[..., :modes],
+                          _complex(weights))
+    return irfft(out_ft, n=n, dim=-1)
+
+
+def spectral_conv_2d(x, weights1, weights2, modes1: int, modes2: int):
+    """FNO's 2D spectral conv. x: (B, C_in, H, W) real; weights1/weights2:
+    (C_in, C_out, modes1, modes2, 2), mixing the low ([:modes1]) and the
+    high ([-modes1:]) corner of the first spatial axis over the first
+    ``modes2`` bins of the last. Returns (B, C_out, H, W) through
+    ``irfft2`` (the mixed DC and Nyquist columns are complex; the inverse
+    reads them as numpy does). The corners must not overlap: 2 modes1 <=
+    H, and modes2 <= W // 2 + 1."""
+    h, w = x.shape[-2], x.shape[-1]
+    n_freq = w // 2 + 1
+    if 2 * modes1 > h or modes2 > n_freq:
+        raise ValueError(f"modes ({modes1},{modes2}) exceed spectrum "
+                         f"({h // 2},{n_freq})")
+    x_ft = torch.fft.rfft2(x)
+    sub = "bixy,ioxy->boxy"
+    lo = torch.einsum(sub, x_ft[:, :, :modes1, :modes2], _complex(weights1))
+    hi = torch.einsum(sub, x_ft[:, :, h - modes1:, :modes2],
+                      _complex(weights2))
+    mid = lo.new_zeros((lo.shape[0], lo.shape[1], h - 2 * modes1, modes2))
+    # irfft2 zero-pads the last axis from modes2 to W // 2 + 1 bins
+    return irfft2(torch.cat([lo, mid, hi], dim=2), s=(h, w))
 
 
 def factorized_spectral_conv_1d(x, weight, n_modes: int,

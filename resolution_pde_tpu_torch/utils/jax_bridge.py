@@ -19,6 +19,17 @@ the params' structure, so it maps the same way, onto the names of
 ``fourier_weight`` (-> ``fourier_layers.{i}.fourier_weight.0``, as
 ``import_ffno1d`` reads it) beside ``FeedForward_0``.
 
+The JAX ``FNO1d`` and ``FNO2d`` trees
+
+    {TorchLinear_0, FNOBlock{1,2}d_i: {SpectralConv{1,2}dLayer_0: {weights1
+     [, weights2]}, TorchLinear_0}, PointwiseMLP_0: {TorchLinear_0,
+     TorchLinear_1}}
+
+map to ``lifting``, ``fno_blocks.{i}.spectral_conv.weights1`` /
+``weights2``, ``fno_blocks.{i}.bypass_conv`` and ``projection.mlp1`` /
+``mlp2`` (``fno1d_state_dict``, ``fno2d_state_dict``), the names
+``resolution_pde_tpu.utils.torch_import.import_fno1d`` reads.
+
 The JAX ``S4Model`` tree
 
     {Dense_0, [LayerNorm_i,] S4Block_i: {FFTConvLayer_0: {DPLRKernelLayer_0
@@ -112,6 +123,32 @@ def ffno1d_state_dict(params: dict) -> dict:
     """JAX ``FFNO1D`` params (the ``params`` collection, or the variables
     dict holding it) -> the port's ``FFNO1D`` state_dict (f32 tensors)."""
     return _ffno_state_dict(params, "FSpectralConv1d", {"fourier_weight": 0})
+
+
+def _fno_state_dict(params: dict, ndim: int) -> dict:
+    params = params.get("params", params)
+    sd = _dense(params["TorchLinear_0"], "lifting")
+    mlp = params["PointwiseMLP_0"]
+    sd.update(_dense(mlp["TorchLinear_0"], "projection.mlp1"))
+    sd.update(_dense(mlp["TorchLinear_1"], "projection.mlp2"))
+    stem = f"FNOBlock{ndim}d"
+    for key in (k for k in params if k.startswith(f"{stem}_")):
+        p, base = params[key], f"fno_blocks.{_index(key, stem)}"
+        for name, w in p[f"SpectralConv{ndim}dLayer_0"].items():
+            sd[f"{base}.spectral_conv.{name}"] = _t(w)
+        sd.update(_dense(p["TorchLinear_0"], f"{base}.bypass_conv"))
+    return sd
+
+
+def fno1d_state_dict(params: dict) -> dict:
+    """JAX ``FNO1d`` params (the ``params`` collection, or the variables
+    dict holding it) -> the port's ``FNO1d`` state_dict (f32 tensors)."""
+    return _fno_state_dict(params, 1)
+
+
+def fno2d_state_dict(params: dict) -> dict:
+    """JAX ``FNO2d`` params -> the port's ``FNO2d`` state_dict."""
+    return _fno_state_dict(params, 2)
 
 
 def fftconv_state_dict(p: dict, prefix: str = "") -> dict:

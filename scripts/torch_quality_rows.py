@@ -4,8 +4,10 @@ from data it generates itself.
 
     python3 scripts/torch_quality_rows.py leg=<name> [out=build/quality_rows]
 
-Legs (the JAX package's rows are in runs/sweeps/baseline_1787270482 and,
-for ffno2d_ns, runs/sweeps/ns_models_1787155138):
+Legs (the JAX package's rows are in runs/sweeps/baseline_1787270482, for
+ffno2d_ns in runs/sweeps/ns_models_1787155138, for fno2d_darcy in
+runs/sweeps/darcy_1787187199):
+  fno1d_burger_naive   baseline family: fno_1d.yaml on burger_naive.yaml
   ffno1d_ks_true_mres  baseline family: ffno_1d.yaml on
                        ks_naive_true_mres1.yaml
   s4_ks_window         baseline family: s4_1d.yaml on ks_s4.yaml
@@ -13,18 +15,27 @@ for ffno2d_ns, runs/sweeps/ns_models_1787155138):
                        trained at 128² (the 256² file strided by 2)
   ffno2d_ns_true_mres  baseline family: ffno_2d.yaml on
                        ns_naive_true_mres1.yaml, trained at 256²
+  fno2d_darcy          darcy family: fno_2d.yaml on darcy.yaml
+  ffno2d_darcy         darcy family: ffno_2d.yaml on darcy.yaml (the JAX
+                       run of this leg has no row)
 
-The data are scripts/gen_baseline_data.sh's settings, generated by the
-port on the device (``device``, the card unless "cpu"):
+The data are scripts/gen_baseline_data.sh's settings, and for Darcy
+cli/sweep.py's, generated by the port on the device (``device``, the card
+unless "cpu"):
   KS: n 512, resolutions [512, 256, 128, 64, 32], 51 snapshots,
       viscosity 0.075, seed 11 (cli.generate_data.generate_ks_arrays);
+  Burgers: n 512, resolution 1024, 51 snapshots, viscosity 0.001, seed
+      12 (generate_burgers_arrays);
   NS: n 128, resolution 256, 26 snapshots, viscosity 1e-03, seed 13
       (generate_ns_arrays), written as data/ns/ns_256_1e-03.mat (scipy:
-      the card's machine has no h5py).
+      the card's machine has no h5py);
+  Darcy: n 256, resolution 128, beta 0.01, seed 0 (generate_darcy_arrays;
+      the CG iterations and largest residual of each batch are printed).
 The NS data are solved a second time without the CUDA graph (timed; the
-two must be equal bit for bit). The KS factories read HDF5 files, so the KS legs read the arrays held in
-memory under the paths generate_data would write
-(cli.generate_data.ks_in_memory). Then the leg runs through cli.sweep
+two must be equal bit for bit). The KS, Burgers and Darcy factories read
+HDF5 files, so those legs read the arrays held in memory under the paths
+generate_data would write (cli.generate_data.ks_in_memory,
+burgers_in_memory, darcy_in_memory). Then the leg runs through cli.sweep
 (``family=<its family> only=<leg> training.epochs=20 training.t_max=20``,
 the epochs of the JAX rows) in a temporary working directory holding
 data/ (the yaml files' relative data folders) and the sweep's runs/ and
@@ -35,7 +46,7 @@ super-resolution and rollout rel-L2 at every resolution, train seconds)
 and, last, the row as JSON; copies sweep.csv and sweep.md to
 ``out``/quality_<leg>/.
 
-Smaller runs, for a rehearsal on the CPU: ``n=``, ``res=`` (NS),
+Smaller runs, for a rehearsal on the CPU: ``n=``, ``res=`` (NS, Darcy),
 ``epochs=`` and any other ``key=value`` (passed to every leg as a config
 override) change the run and stamp its table rehearsal=true.
 """
@@ -60,12 +71,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 KS = dict(n=512, resolutions=[512, 256, 128, 64, 32], n_snapshots=51,
           viscosity=0.075, seed=11)
+BURGERS = dict(n=512, resolutions=[1024], n_snapshots=51, viscosity=0.001,
+               seed=12)
 NS = dict(n=128, res=256, n_snapshots=26, viscosity="1e-03", seed=13)
+DARCY = dict(n=256, res=128, seed=0)
 # leg -> (family, pde)
-LEGS = {"ffno1d_ks_true_mres": ("baseline", "ks"),
+LEGS = {"fno1d_burger_naive": ("baseline", "burgers"),
+        "ffno1d_ks_true_mres": ("baseline", "ks"),
         "s4_ks_window": ("baseline", "ks"),
         "ffno2d_ns": ("ns_models", "ns"),
-        "ffno2d_ns_true_mres": ("baseline", "ns")}
+        "ffno2d_ns_true_mres": ("baseline", "ns"),
+        "fno2d_darcy": ("darcy", "darcy"),
+        "ffno2d_darcy": ("darcy", "darcy")}
 EPOCHS = 20
 
 
@@ -117,6 +134,32 @@ def generate(pde: str, opts: dict, data_dir: str) -> tuple:
                                   ks["n_snapshots"])
         return context, [], f"KS {ks} split {arrays['split_counts']}", \
             seconds
+    if pde == "burgers":
+        bu = dict(BURGERS, n=opts["n"] or BURGERS["n"])
+        arrays = gd.generate_burgers_arrays(
+            bu["n"], bu["resolutions"], bu["n_snapshots"], bu["seed"],
+            viscosity=bu["viscosity"], device=opts["device"])
+        seconds = time.perf_counter() - t0
+        u = arrays["by_res"][max(bu["resolutions"])]
+        if not bool(np.isfinite(u).all()):
+            raise RuntimeError("generated Burgers: non-finite")
+        # burger_naive.yaml's saved_folder is data/burgers
+        return gd.burgers_in_memory(os.path.join(data_dir, "burgers"),
+                                    arrays), [], \
+            f"Burgers {bu} max|u| {float(abs(u).max()):.3f}", seconds
+    if pde == "darcy":
+        da = dict(DARCY, n=opts["n"] or DARCY["n"],
+                  res=opts["res"] or DARCY["res"])
+        arrays = gd.generate_darcy_arrays(da["n"], [da["res"]], da["seed"],
+                                          device=opts["device"])
+        seconds = time.perf_counter() - t0
+        overrides = [f"dataset.original_res={da['res']}",
+                     f"dataset.max_test_resolution={da['res']}"]
+        # darcy.yaml's saved_folder is data/darcy, its file darcy_flow.h5
+        return gd.darcy_in_memory(os.path.join(data_dir, "darcy"), arrays), \
+            overrides if opts["res"] else [], \
+            f"Darcy {da} beta {arrays['beta']} CG (iterations, largest " \
+            f"residual) a batch {arrays['cg'][da['res']]}", seconds
     ns = dict(NS, n=opts["n"] or NS["n"], res=opts["res"] or NS["res"])
     arrays = gd.generate_ns_arrays(ns["n"], [ns["res"]], ns["n_snapshots"],
                                    ns["seed"], viscosity=ns["viscosity"],

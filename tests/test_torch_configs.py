@@ -93,12 +93,12 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("burger_markov_dataset", 6),
+    ("active_matter_markov_dataset", 7),
     ("dataloaders.ns_s4.ns_window_dataset", 5),
     ("ns_window_dataset", 5),
-    ("dataloaders.burger_naive_true_multires."
-     "burger_true_multires_markov_dataset", 6),
-    ("dataloaders.darcy_loader.get_darcy_dataset", 7),
+    ("dataloaders.active_matter_all_markov."
+     "multi_file_active_matter_markov_dataset", 7),
+    ("dataloaders.active_matter_markov.active_matter_markov_dataset", 7),
     ("point_cloud_markov_dataset", 9),
 ])
 def test_unported_dataset_factory_raises(target, item):

@@ -138,14 +138,17 @@ def test_generated_frames_are_learnable(tmp_path):
     assert ident.mean() < 0.7
 
 
-@pytest.mark.parametrize("pde", tgen.NOT_PORTED)
-def test_other_pdes_raise_with_their_item(pde):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md section 1, item "
-                             f"{tgen.NOT_PORTED[pde]}"):
-        tgen.main([f"pde={pde}"], device="cpu")
+@pytest.mark.parametrize("pde", ["burgers", "darcy"])
+def test_other_pdes_refuse_ks_options(pde, tmp_path):
+    for opt in ("lmax=4", "et=2.0", "splits=[0.8,0.1,0.1]"):
+        with pytest.raises(SystemExit, match="only apply to pde=ks"):
+            tgen.main([f"pde={pde}", f"out={tmp_path}", opt],
+                      device="cpu")
+    with pytest.raises(SystemExit, match="only applies to pde=ns"):
+        tgen.main([f"pde={pde}", "format=mat"], device="cpu")
     with pytest.raises(SystemExit, match="unknown pde"):
         tgen.main(["pde=wave"], device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_generate_data_defaults_to_the_card(monkeypatch, tmp_path):

@@ -179,12 +179,13 @@ def test_generate_data_options():
             tgen.main(argv, device="cpu")
 
 
-@pytest.mark.parametrize("pde,item", [("burgers", 6), ("darcy", 7)])
-def test_unported_pdes_name_their_item(pde, item):
-    assert tgen.NOT_PORTED[pde] == item
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md section 1, item {item}"):
-        tgen.main([f"pde={pde}"], device="cpu")
+@pytest.mark.parametrize("pde", ["burgers", "darcy"])
+def test_generate_data_burgers_darcy_default_to_the_card(monkeypatch,
+                                                         tmp_path, pde):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgen.main([f"pde={pde}", f"out={tmp_path}"])
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("pde", ["ns", "active"])

@@ -35,6 +35,7 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.models",
     "resolution_pde_tpu_torch.models.layers",
     "resolution_pde_tpu_torch.models.ffno",
+    "resolution_pde_tpu_torch.models.fno",
     "resolution_pde_tpu_torch.models.s4",
     "resolution_pde_tpu_torch.models.registry",
     "resolution_pde_tpu_torch.deploy",
@@ -66,6 +67,8 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.cli.generate_data",
     "resolution_pde_tpu_torch.cli.sweep",
     "resolution_pde_tpu_torch.datagen",
+    "resolution_pde_tpu_torch.datagen.burgers",
+    "resolution_pde_tpu_torch.datagen.darcy",
     "resolution_pde_tpu_torch.datagen.graphs",
     "resolution_pde_tpu_torch.datagen.ks",
     "resolution_pde_tpu_torch.datagen.navier_stokes",

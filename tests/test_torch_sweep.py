@@ -126,8 +126,9 @@ def test_tables_and_merge_equal_jax(tmp_path, monkeypatch):
 def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     legs = [_tiny_leg(ks_dir),
-            ("fno1d_burger_naive", "1d",
-             ["model=fno_1d", "dataset=burger_naive"]),
+            ("cno2d_ns_resize", "2d",
+             ["model=cno_2d", "dataset=ns_naive",
+              "training.cno_resize_training=true"]),
             ("broken", "1d", ["model=ffno_1d", "dataset=does_not_exist"])]
     # a family name each run: a run directory is named by the second
     monkeypatch.setattr(sweep, "FAMILIES", {
@@ -144,20 +145,20 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     out = sweep.main(["family=tiny"], device="cpu")
     # rewritten after every leg, then once more
     assert writes == [1, 2, 3, 3]
-    assert out["fno1d_burger_naive"] is None and out["broken"] is None
+    assert out["cno2d_ns_resize"] is None and out["broken"] is None
     assert np.isfinite(out["ffno_ks"]["test_loss"])
     assert set(out["ffno_ks"]["super_resolution"]) == {32, 64}
     [run_dir] = _run_dirs(tmp_path, "tiny")
     rows = _csv(run_dir)
-    assert [r["run"] for r in rows] == ["ffno_ks", "fno1d_burger_naive",
+    assert [r["run"] for r in rows] == ["ffno_ks", "cno2d_ns_resize",
                                         "broken"]
     assert rows[0]["platform"] == "cpu" and rows[0]["epochs"] == "1"
     assert all(r["legs_green"] == "1/3" and r["rehearsal"] == "false"
                for r in rows)
-    assert "ROADMAP.md section 1, item 6" in rows[1]["error"]
+    assert "ROADMAP.md section 1, item 7" in rows[1]["error"]
     assert rows[2]["error"].startswith("FileNotFoundError")
     md = open(os.path.join(run_dir, "sweep.md")).read()
-    assert "legs_green=1/3" in md and "item 6" in md
+    assert "legs_green=1/3" in md and "item 7" in md
     marker = open(os.path.join(run_dir, ".incomplete")).read()
     assert "legs_green=1/3" in marker and "broken" in marker
     assert not os.path.exists(os.path.join(run_dir, ".ok"))
@@ -179,7 +180,7 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     [refresh] = _run_dirs(tmp_path, "subset")
     merged = sweep.main(["merge", f"out={tmp_path}/merged", run_dir,
                          refresh])
-    assert list(merged) == ["ffno_ks", "fno1d_burger_naive", "broken"]
+    assert list(merged) == ["ffno_ks", "cno2d_ns_resize", "broken"]
     assert merged["ffno_ks"]["test_rel_l2"] == _csv(refresh)[0][
         "test_rel_l2"]
     assert "legs_green=1/3" in open(f"{tmp_path}/merged/.incomplete").read()
@@ -198,10 +199,11 @@ def test_isolated_legs_and_exit_code(ks_dir, tmp_path, monkeypatch):
     assert _csv(_run_dirs(tmp_path, "tiny")[0])[1]["error"] == (
         "RuntimeError: isolated 1d run exited 1")
     # python -m ...cli.sweep exits 1 when a leg failed (here a leg whose
-    # factory is not ported, which fails before it touches the device)
+    # training mode is not ported, which fails before it touches the
+    # device)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(sys, "argv", ["sweep", "family=baseline",
-                                      "only=fno1d_burger_naive"])
+                                      "only=cno2d_ns_resize"])
     with pytest.raises(SystemExit) as exc:
         runpy.run_path(sweep.__file__, run_name="__main__")
     assert exc.value.code == 1
