@@ -205,7 +205,26 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      ffno1d_burger_naive_true_mres on FFNO1D's kernel route (dropout 0,
      ff_impl 'fused': K1f and K1b in f32, counted) and darcy/fno2d_darcy;
      each leg green with a finite test loss and sweep (and rollout), its
-     table written with platform cuda(...); the FNO legs launch no kernel.
+     table written with platform cuda(...); the FNO legs launch no kernel;
+ 15. CNO, UNet and the active-matter path (run_cno), each leg through
+     cli.sweep for 1 epoch in a working directory of its own, green with
+     a finite test loss and sweep (and rollout), launching no kernel:
+     ns_models/cno2d_ns_resize and cno2d_original_ns (cno_2d.yaml,
+     cno_2d_original.yaml: 4 levels, multiplier 32, trained at 128²) on
+     phase 13's NS, baseline/cno2d_ns_resize on it at 256² (resize
+     training), ks_models/cno_1d_ks_naive and unet_1d_ks_naive on phase
+     12's KS held as generate_data's files, ns_active_ladder/
+     ffno2d_ns_active_t2 on phase 13's NS split over four files in the
+     Well's layout (cli.generate_data.active_in_memory); the trained
+     128² CNO2d served through ServingEngine.from_checkpoint (a graph at
+     4 x 128², the replay equal to eager bit for bit, the median predict
+     both ways); CNO2d's Trainer step at 16 x 128² and 16 x 256² (median,
+     the device's busy time and idle share over 5 profiled steps, peak
+     memory); CNO2d's forward on the card against the CPU in eval and
+     train mode and the running statistics it leaves (relative L2 1e-4);
+     a checkpoint resume of CNO2d held to 1e-4 on the losses, not bit for
+     bit (torch's CUDA backward of the antialiased resize adds with
+     atomics), the restored state equal bit for bit.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -2311,7 +2330,7 @@ def run_ffno1d() -> dict:
     'fused'), graphs at 16 x FFNO1D_SERVE: replay against the same engine
     run eagerly (bit for bit), K1f executing 4 times a replay, the median
     predict graph and eager. Returns B's launches and the served
-    executions."""
+    executions, and the generated KS under "ks_arrays"."""
     import copy
 
     from resolution_pde_tpu_torch.configs import model_kwargs
@@ -2404,6 +2423,7 @@ def run_ffno1d() -> dict:
             median_ms_eager=f"{e1:.3f}")
     log("ffno1d", executions_K1f=launched["served"], counted=sorted(how),
         phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    launched["ks_arrays"] = arrays  # for phase 15's KS legs
     return launched
 
 
@@ -2796,14 +2816,15 @@ def _run_cli_in(tmp: str) -> dict:
 NS_GEN, NS_GEN_FRAMES, NS_VISC = 16, 26, "1e-03"
 
 
-def generate_ns_on_card(folder: str) -> str:
+def generate_ns_on_card(folder: str) -> tuple:
     """The port's generate_data pde=ns on the card: NS_GEN trajectories of
     NS_GEN_FRAMES snapshots at NS_RES², each finite with a spatial mean
     of zero (the initial fields and the forcing have none), timed; the
     solver's CUDA graph against its steps launched one by one (bit for
     bit) and against the CPU (64², 2 trajectories, 50 steps, relative L2
     1e-4), each from the same initial condition; the data written as the
-    .mat file the NS factories read without h5py. Returns its name."""
+    .mat file the NS factories read without h5py. Returns its name and
+    generate_ns_arrays' output."""
     from resolution_pde_tpu_torch.cli.generate_data import (
         generate_ns_arrays, write_ns)
     from resolution_pde_tpu_torch.datagen import (GaussianRF,
@@ -2871,16 +2892,16 @@ def generate_ns_on_card(folder: str) -> str:
     t0 = time.perf_counter()
     [path] = write_ns(folder, arrays, file_format="mat")
     log("ns_gen", wrote=path, seconds=f"{time.perf_counter() - t0:.2f}")
-    return os.path.basename(path)
+    return os.path.basename(path), arrays
 
 
-def run_ns_sweep() -> None:
+def run_ns_sweep() -> dict:
     """NS generated on the card (generate_ns_on_card), then cli.sweep
     family=ns_models only=ffno2d_ns training.epochs=1 on that .mat file, in
     a temporary working directory (_sweep_leg): ffno_2d.yaml and
     ns_naive.yaml as shipped (the 256² file strided to 128², 8 rollout
     steps), which launch no hand kernel; the sweep and rollout at
-    CLI_RESOLUTIONS."""
+    CLI_RESOLUTIONS. Returns generate_ns_arrays' output."""
     import contextlib
 
     cwd = os.getcwd()
@@ -2888,7 +2909,7 @@ def run_ns_sweep() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            fname = generate_ns_on_card(f"{tmp}/data")
+            fname, arrays = generate_ns_on_card(f"{tmp}/data")
             leg, launched, _ = _sweep_leg(
                 "ns_models", "ffno2d_ns",
                 [f"dataset.dataset_params.saved_folder={tmp}/data",
@@ -2903,6 +2924,7 @@ def run_ns_sweep() -> None:
     require(not any(launched),
             f"ns_sweep: the yaml config launched kernels {launched}")
     log("ns_sweep", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return arrays  # the generated NS, for phase 15
 
 
 # phase 14: Burgers and Darcy generated on the card (generate_data's
@@ -3160,6 +3182,273 @@ def run_burgers_darcy() -> dict:
     return {"fwd": ffno1d_k[0], "bwd": ffno1d_k[1]}
 
 
+# phase 15: CNO, UNet and the active-matter path through cli.sweep, 1 epoch
+# a leg: ns_models' cno2d_ns_resize and cno2d_original_ns (cno_2d.yaml and
+# cno_2d_original.yaml: 4 levels, multiplier 32, trained at 128²) on phase
+# 13's NS, the baseline's cno2d_ns_resize at 256², ks_models' cno_1d and
+# unet_1d legs on phase 12's KS, ns_active_ladder's ffno2d_ns_active_t2 on
+# phase 13's NS split over four files in the Well's layout; CNO2d's step,
+# its forward against the CPU, a resume held to a tolerance (its
+# antialiased resize's backward adds with atomics on the card) and serving
+CNO_BATCH, CNO_SERVE_BATCH = 16, 4
+CNO_RESUME_TOL = 1e-4
+
+
+def _leg_in_dir(root: str, family: str, leg: str, argv, context) -> tuple:
+    """_sweep_leg in a working directory of its own under ``root``, so
+    that two legs of one family each find their one run directory.
+    Returns _sweep_leg's record and launches, and the leg's checkpoint as
+    an absolute path."""
+    leg_dir = os.path.join(root, f"{family}__{leg}")
+    os.makedirs(leg_dir)
+    cwd = os.getcwd()
+    os.chdir(leg_dir)
+    try:
+        out, launched, _ = _sweep_leg(family, leg, argv, context)
+        ckpt = os.path.abspath(out["checkpoint"])
+    finally:
+        os.chdir(cwd)
+    return out, launched, ckpt
+
+
+def _cno2d(size: int):
+    """CNO2d at cno_2d.yaml's widths (4 levels, 4 residual blocks a level
+    and in the neck, multiplier 32) built for ``size``, its parameters
+    drawn from training.seed (0): (the config, the model)."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import parse_cli
+
+    cfg = parse_cli(["model=cno_2d", "dataset=ns_naive",
+                     f"dataset.cno_train_size={size}"])
+    return cfg, common.build_model(cfg)
+
+
+def cno2d_step(size: int) -> dict:
+    """CNO2d's Trainer step at CNO_BATCH x size² on random batches: the
+    median step, the device's busy time a step, its idle share and the six
+    kernels that take the most of it over 5 profiled steps, and the peak
+    memory of a step."""
+    from resolution_pde_tpu_torch.cli import common
+
+    cfg, model = _cno2d(size)
+    trainer = common.build_trainer(cfg, model, None, device="cuda")
+    state = trainer.init()
+    gen = torch.Generator().manual_seed(SEED + size)
+    batches = [(torch.randn(CNO_BATCH, 1, size, size, generator=gen),
+                torch.randn(CNO_BATCH, 1, size, size, generator=gen))
+               for _ in range(2)]
+    loader = [batches[i % 2] for i in range(12)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_step_ms(trainer, state, loader, steps=10, warm=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def five_steps():
+        for x, y in loader[:5]:
+            trainer.train_step(state, x, y)
+
+    _, prof = profiled(five_steps)
+    busy_ms, idle = _idle_share(prof)
+    # device time by kernel name, the largest six, ms a step
+    by_name = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            by_name[e.key] = t / 1e3 / 5
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    rec = dict(batch=f"{CNO_BATCH}x1x{size}x{size}",
+               median_step_ms=f"{step_ms:.3f}",
+               device_busy_ms_per_step=f"{busy_ms / 5:.3f}",
+               kernels_per_step=f"{len(_device_kernels(prof)) / 5:.1f}",
+               device_idle_share=f"{idle:.4f}",
+               peak_memory_gib=f"{peak:.2f}",
+               top_kernels_ms_per_step={k[:60]: f"{v:.3f}" for k, v in top})
+    log("cno_step", **rec)
+    return rec
+
+
+def cno2d_card_vs_cpu() -> None:
+    """CNO2d at cno_2d.yaml's widths built for 128², one set of weights
+    and BatchNorm statistics, on the card and on the CPU (f32,
+    TF32 off): the forward of a batch of 2 in eval and in train mode,
+    relative L2 1e-4, and the running statistics the train-mode forward
+    leaves, 1e-4."""
+    import copy
+
+    _, cpu = _cno2d(128)
+    with torch.no_grad():
+        for _, buf in cpu.named_buffers():
+            buf.add_(0.1 * torch.rand(buf.shape,
+                                      generator=torch.Generator()
+                                      .manual_seed(SEED + 1)))
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.randn(2, 1, 128, 128,
+                    generator=torch.Generator().manual_seed(SEED + 2))
+    errs = {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            cpu.train(mode == "train")
+            card.train(mode == "train")
+            errs[mode] = rel_l2(card(x.cuda()).cpu(), cpu(x))
+    stats = max(rel_l2(b_card.cpu(), b_cpu) for (_, b_card), (_, b_cpu)
+                in zip(card.named_buffers(), cpu.named_buffers()))
+    log("cno_card_vs_cpu", size="2x1x128x128", eval=f"{errs['eval']:.3e}",
+        train=f"{errs['train']:.3e}", running_stats=f"{stats:.3e}",
+        tol=1e-4)
+    require(max(errs.values()) <= 1e-4 and stats <= 1e-4,
+            f"CNO2d card vs CPU: forward {errs}, running stats {stats}")
+
+
+def cno2d_resume() -> None:
+    """CNO2d at 128² (cno_2d.yaml's widths, batch CNO_BATCH): 4 Trainer
+    steps, against 2 steps, a checkpoint, and 2 steps from it restored
+    into a fresh Trainer: the restored parameters and BatchNorm buffers
+    equal the saved ones bit for bit, the last two losses within
+    CNO_RESUME_TOL relative (the resize's backward adds with atomics, so
+    the card does not repeat CNO's steps bit for bit)."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.train import (restore_checkpoint,
+                                                save_checkpoint)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    batches = [(torch.randn(CNO_BATCH, 1, 128, 128, generator=gen),
+                torch.randn(CNO_BATCH, 1, 128, 128, generator=gen))
+               for _ in range(4)]
+
+    def trainer():
+        cfg, model = _cno2d(128)
+        t = common.build_trainer(cfg, model, None, device="cuda")
+        return t, t.init()
+
+    t, state = trainer()
+    full = [float(t.train_step(state, *b)[1]) for b in batches]
+    t, state = trainer()
+    for b in batches[:2]:
+        t.train_step(state, *b)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, state)
+        saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+        t2, state2 = trainer()
+        state2, _ = restore_checkpoint(tmp, state2)
+    require(all(torch.equal(v, saved[k])
+                for k, v in state2.model.state_dict().items()),
+            "CNO2d resume: the restored state differs from the saved one")
+    resumed = [float(t2.train_step(state2, *b)[1]) for b in batches[2:]]
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[2:]))
+    log("cno_resume", losses=[f"{v:.7f}" for v in full],
+        resumed=[f"{v:.7f}" for v in resumed], max_rel_diff=f"{err:.3e}",
+        tol=CNO_RESUME_TOL, bit_equal=resumed == full[2:])
+    require(err <= CNO_RESUME_TOL, f"CNO2d resume: losses {resumed} "
+            f"against {full[2:]}")
+
+
+def serve_cno2d(ckpt: str) -> None:
+    """The trained ns_models CNO2d (128²) from its checkpoint through
+    ServingEngine: a graph at CNO_SERVE_BATCH x 128², a request of
+    CNO_SERVE_BATCH - 1 (padded), the replay equal to the same engine run
+    eagerly bit for bit, the median predict graphed and eager."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+
+    _, model = _cno2d(128)
+    eng = ServingEngine.from_checkpoint(model, ckpt, device="cuda")
+    t0 = time.perf_counter()
+    eng.warmup(spatial_shapes=[(128, 128)], batch_sizes=[CNO_SERVE_BATCH])
+    capture_s = time.perf_counter() - t0
+    x = np.random.default_rng(SEED).standard_normal(
+        (CNO_SERVE_BATCH - 1, 1, 128, 128)).astype(np.float32)
+    got = eng.predict(x)
+    ref = eager(eng, lambda: eng.predict(x))
+    require(got.shape == x.shape and bool(np.isfinite(got).all()),
+            f"CNO2d served: {got.shape} or non-finite")
+    require(np.array_equal(got, ref),
+            "CNO2d served: the graph replay differs from eager")
+    g = median_ms(lambda: eng.predict(x))
+    e = eager(eng, lambda: median_ms(lambda: eng.predict(x)))
+    log("cno_serve", bucket=f"{CNO_SERVE_BATCH}x128x128", request=x.shape[0],
+        capture_s=f"{capture_s:.3f}", bit_equal=True,
+        median_ms_graph=f"{g:.3f}", median_ms_eager=f"{e:.3f}")
+
+
+def run_cno(ns_arrays: dict, ks_arrays: dict) -> None:
+    """Phase 15, through cli.sweep for 1 epoch a leg, each leg in a
+    working directory of its own: ns_models' cno2d_ns_resize and
+    cno2d_original_ns on phase 13's NS (.mat, the 256² file strided to
+    128²; use_resize sweep and 8-step rollout through the resize round
+    trip), the baseline's cno2d_ns_resize on it at 256² (resize training
+    at the file's own size), ks_models' cno_1d_ks_naive and
+    unet_1d_ks_naive on phase 12's KS (held as generate_data's files,
+    cli.generate_data.ks_in_memory; 512 points), and ns_active_ladder's
+    ffno2d_ns_active_t2 on phase 13's NS split over four files in the
+    Well's layout (cli.generate_data.active_in_memory; ffno_2d.yaml as
+    shipped). No leg launches a hand kernel. Then CNO2d's step at 128²
+    and 256² (cno2d_step), its forward on the card against the CPU
+    (cno2d_card_vs_cpu), a resume (cno2d_resume) and the trained 128²
+    leg served (serve_cno2d)."""
+    import contextlib
+
+    from resolution_pde_tpu_torch.cli.generate_data import (
+        active_in_memory, ks_in_memory, write_ns)
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        [ns_path] = write_ns(f"{tmp}/data/ns", ns_arrays, file_format="mat")
+        ns = [f"dataset.dataset_params.saved_folder={tmp}/data/ns",
+              f"dataset.dataset_params.filename={os.path.basename(ns_path)}"]
+        none = contextlib.nullcontext
+        try:
+            for family, leg in (("ns_models", "cno2d_ns_resize"),
+                                ("ns_models", "cno2d_original_ns"),
+                                ("baseline", "cno2d_ns_resize")):
+                legs[f"{family}/{leg}"] = _leg_in_dir(tmp, family, leg, ns,
+                                                      none())
+            ks_dir = f"{tmp}/data/ks"
+            for leg in ("cno_1d_ks_naive", "unet_1d_ks_naive"):
+                legs[f"ks_models/{leg}"] = _leg_in_dir(
+                    tmp, "ks_models", leg,
+                    [f"dataset.dataset_params.saved_folder={ks_dir}"],
+                    ks_in_memory(ks_dir, ks_arrays, KS_FRAMES))
+            well = f"{tmp}/data/well"
+            parts = np.array_split(ns_arrays["by_res"][NS_RES], 4)
+            legs["ns_active_ladder/ffno2d_ns_active_t2"] = _leg_in_dir(
+                tmp, "ns_active_ladder", "ffno2d_ns_active_t2",
+                [f"dataset.dataset_params.saved_folder={well}"],
+                active_in_memory(well, parts))
+        finally:
+            os.chdir(cwd)
+        want_sweep = {"ns_models/cno2d_ns_resize": CLI_RESOLUTIONS,
+                      "ns_models/cno2d_original_ns": CLI_RESOLUTIONS,
+                      "baseline/cno2d_ns_resize": CLI_RESOLUTIONS,
+                      "ks_models/cno_1d_ks_naive": SWEEP_RESOLUTIONS_1D[:5],
+                      "ks_models/unet_1d_ks_naive": SWEEP_RESOLUTIONS_1D[:5],
+                      "ns_active_ladder/ffno2d_ns_active_t2":
+                          CLI_RESOLUTIONS}
+        for name, (out, launched, _) in legs.items():
+            require(sorted(out["super_resolution"]) == want_sweep[name],
+                    f"{name}: sweep at {sorted(out['super_resolution'])}")
+            require(not any(launched), f"{name} launched kernels {launched}")
+        require(all(sorted(legs[n][0]["rollout"]) == want_sweep[n]
+                    for n in want_sweep if "active" not in n)
+                and not legs["ns_active_ladder/ffno2d_ns_active_t2"][0][
+                    "rollout"],
+                "phase 15 rollouts: " + str({n: sorted(r[0]["rollout"])
+                                             for n, r in legs.items()}))
+        log("cno", train_seconds={n: f"{r[0]['train_seconds']:.2f}"
+                                  for n, r in legs.items()},
+            test_loss={n: f"{r[0]['test_loss']:.6f}"
+                       for n, r in legs.items()},
+            params_m={n: f"{r[0]['n_params'] / 1e6:.2f}"
+                      for n, r in legs.items()})
+        serve_cno2d(legs["ns_models/cno2d_ns_resize"][2])
+    for size in (128, 256):
+        cno2d_step(size)
+    cno2d_card_vs_cpu()
+    cno2d_resume()
+    log("cno", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3198,8 +3487,9 @@ def main() -> int:
     check_fft_path(gen)
     cli = run_cli()
     ffno1d = run_ffno1d()
-    run_ns_sweep()
+    ns_arrays = run_ns_sweep()
     burgers = run_burgers_darcy()
+    run_cno(ns_arrays, ffno1d.pop("ks_arrays"))
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"

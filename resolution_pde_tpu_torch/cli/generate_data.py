@@ -35,8 +35,8 @@ samples are not the JAX package's. Writes, per pde:
            read.
 HDF5 files need h5py. The ``generate_*_arrays`` functions are the array
 parts, which return the data instead; ``ks_in_memory``,
-``burgers_in_memory`` and ``darcy_in_memory`` hold them under the paths
-the files would have (``data.io.files_in_memory``), so the factories and
+``burgers_in_memory``, ``darcy_in_memory`` and ``active_in_memory`` hold
+them under the paths the files would have (``data.io.files_in_memory``), so the factories and
 the command lines read them where h5py is absent. The solvers run on the
 card unless ``main`` is given ``device="cpu"``.
 """
@@ -402,32 +402,63 @@ def generate_ns(out, n, resolutions, n_snapshots, seed, viscosity=None,
     return arrays
 
 
-def generate_active(out, n, resolutions, n_snapshots, seed, viscosity=None,
-                    n_files=4, device="cuda"):
-    """The Well's active-matter layout for the ns_active_t* datasets
-    (active_matter_{i}.hdf5, t0_fields/concentration (b, t, h, w)), with
-    NS vorticity trajectories at the largest resolution standing in for
-    the concentration field, ``n`` split over ``n_files`` files: the
-    layout is exact, the physics a stand-in (the Well's data is not in
-    the repository)."""
-    from resolution_pde_tpu_torch.datagen.writers import write_well_file
-
+def generate_active_arrays(n, resolutions, n_snapshots, seed,
+                           viscosity=None, n_files=4,
+                           device="cuda") -> list:
+    """The Well's active-matter stand-in for the ns_active_t* datasets:
+    NS vorticity trajectories at the largest resolution in place of the
+    concentration field (the layout is exact, the physics a stand-in: the
+    Well's data is not in the repository), ``n`` split over ``n_files``
+    files, the first files one larger where it does not divide. Returns
+    one (size, n_snapshots, res, res) float32 array a file."""
     visc = float(viscosity) if viscosity else 1e-3
     gen = torch.Generator().manual_seed(int(seed))
     res = max(resolutions)
     per_file, rem = divmod(n, n_files)
     sizes = [per_file + (1 if i < rem else 0) for i in range(n_files)]
-    written = []
-    for i, size in enumerate(sizes):
+    arrays = []
+    for size in sizes:
         if size == 0:
             continue
         w0 = _grf_ics(gen, size, res, dim=2, alpha=2.5, tau=7.0,
                       device=device)
-        u, _ = _ns_trajectories(w0, res, visc, n_snapshots)
-        written.append(os.path.join(out, f"active_matter_{i}.hdf5"))
-        write_well_file(written[-1], {"concentration": u})
-    print(f"wrote {len(written)} active_matter_*.hdf5 files under {out}")
-    return written
+        arrays.append(_ns_trajectories(w0, res, visc, n_snapshots)[0])
+    return arrays
+
+
+def active_files(out, arrays: list) -> dict:
+    """The files ``generate_active`` writes, {active_matter_{i}.hdf5:
+    {"concentration": (b, t, h, w)}}."""
+    return {os.path.join(out, f"active_matter_{i}.hdf5"): {"concentration": u}
+            for i, u in enumerate(arrays)}
+
+
+def active_in_memory(out, arrays: list):
+    """A context within which the active-matter factories read
+    ``active_files`` from memory instead of from files (their glob
+    included)."""
+    from resolution_pde_tpu_torch.data.io import files_in_memory
+
+    return files_in_memory(active_files(out, arrays))
+
+
+def write_active(out, arrays: list) -> list:
+    """``active_files`` written in the Well's layout (h5py); returns the
+    paths."""
+    from resolution_pde_tpu_torch.datagen.writers import write_well_file
+
+    files = active_files(out, arrays)
+    for path, fields in files.items():
+        write_well_file(path, fields)
+    print(f"wrote {len(files)} active_matter_*.hdf5 files under {out}")
+    return list(files)
+
+
+def generate_active(out, n, resolutions, n_snapshots, seed, viscosity=None,
+                    n_files=4, device="cuda"):
+    arrays = generate_active_arrays(n, resolutions, n_snapshots, seed,
+                                    viscosity, n_files, device)
+    return write_active(out, arrays)
 
 
 def main(argv=None, device="cuda"):

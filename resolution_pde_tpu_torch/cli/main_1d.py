@@ -9,9 +9,11 @@ under ``runs/``, checkpoint under ``checkpoints/`` (both in the working
 directory) and returned dict, plus the seconds of each resolution's sweep
 and rollout (``eval_seconds``, ``rollout_seconds``). ``main`` runs on the
 card unless the caller passes ``device="cpu"``; a CUDA device without
-CUDA raises. Not ported: ``save_figures`` (utils/plotting, ROADMAP.md
-section 1, item 8) and ``training.cno_resize_training`` (CNO, item 7),
-which raise NotImplementedError.
+CUDA raises. ``training.cno_resize_training`` resizes every train, val
+and test batch on the device to ``dataset.cno_train_size`` (else
+``original_res``), CNO's fixed size (``train.cno_resize``). Not ported:
+``save_figures`` (utils/plotting, ROADMAP.md section 1, item 8), which
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,10 +43,6 @@ def _platform(device: torch.device) -> str:
 def main(argv=None, spatial_ndim: int = 1, device="cuda"):
     device = common.require_device(device, "main")
     cfg = parse_cli(argv if argv is not None else sys.argv[1:])
-    if cfg.training.get("cno_resize_training"):
-        raise NotImplementedError(
-            "training.cno_resize_training (CNO) is not ported: ROADMAP.md "
-            "section 1, item 7")
     save_figures = bool(cfg.get("save_figures",
                                 cfg.training.get("save_figures", False)))
     if save_figures:
@@ -63,6 +61,16 @@ def main(argv=None, spatial_ndim: int = 1, device="cuda"):
     train_loader, val_loader, test_loader = common.build_loaders(
         bundle, batch_size, cfg.dataset.get("train_mres", False),
         seed=cfg.training.get("seed", 0))
+    if cfg.training.get("cno_resize_training"):
+        # baseline config 4: every batch antialias-resized to the model's
+        # fixed training resolution, on the device
+        from resolution_pde_tpu_torch.train.cno_resize import ResizingLoader
+
+        size = (cfg.dataset.get("cno_train_size")
+                or cfg.dataset.get("original_res"))
+        train_loader, val_loader, test_loader = (
+            ResizingLoader(loader, size, spatial_ndim, device)
+            for loader in (train_loader, val_loader, test_loader))
 
     model = common.build_model(cfg)
     trainer = common.build_trainer(cfg, model, bundle["y_normalizer"],

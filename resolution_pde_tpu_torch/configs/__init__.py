@@ -10,7 +10,8 @@ files and set dotted keys.
 
 ``instantiate_model`` builds the port's model from ``models.registry``;
 ``instantiate_dataset`` calls the port's dataset factories, which so far
-are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers and Darcy ones.
+are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers, Darcy and
+active-matter ones.
 """
 
 from __future__ import annotations
@@ -175,7 +176,10 @@ def _dataset_factories() -> dict:
              "burger_resize_multires_markov_dataset",
              "burger_resize_true_multires_markov_dataset",
              "burger_window_dataset", "load_burger_data_from_mat",
-             "darcy_dataset", "load_darcy_data_from_mat", "load_darcy_data")
+             "darcy_dataset", "load_darcy_data_from_mat", "load_darcy_data",
+             "active_matter_markov_dataset",
+             "active_matter_all_markov_dataset",
+             "multi_file_active_matter_markov_dataset")
     return {name: getattr(f, name) for name in names}
 
 
@@ -183,9 +187,6 @@ def _dataset_factories() -> dict:
 # item (section 1) that ports them
 NOT_PORTED = {
     "ns_window_dataset": 5,
-    **dict.fromkeys(("active_matter_markov_dataset",
-                     "active_matter_all_markov_dataset",
-                     "multi_file_active_matter_markov_dataset"), 7),
     "point_cloud_markov_dataset": 9,
 }
 

@@ -12,8 +12,11 @@ factories: ``ks_markov_dataset`` (:152), ``ks_true_multires_markov_dataset``
 ``burger_resize_multires_markov_dataset`` (:1067),
 ``burger_resize_true_multires_markov_dataset`` (:1097),
 ``burger_window_dataset`` (:666) and ``load_burger_data_from_mat`` (:736);
-and the Darcy ones: ``darcy_dataset`` (:617), ``load_darcy_data_from_mat``
-(:758) and ``load_darcy_data`` (:774); with the helpers they call.
+the Darcy ones: ``darcy_dataset`` (:617), ``load_darcy_data_from_mat``
+(:758) and ``load_darcy_data`` (:774); and the active-matter ones:
+``active_matter_markov_dataset`` (:641), ``active_matter_all_markov_dataset``
+(:832) and ``multi_file_active_matter_markov_dataset`` (:1073); with the
+helpers they call.
 Each returns the positional tuple the command lines consume:
 
   'simple' / 'unit_gaussian':
@@ -909,3 +912,87 @@ def load_darcy_data(saved_folder="2D_DarcyFlow_beta0.01", ntrain=9000,
     test = ArrayDataset(x[ntrain:ntrain + ntest],
                         y[ntrain:ntrain + ntest]).encoded(xn, yn)
     return train, test, xn, yn
+
+
+# ---------------------------------------------------------------------------
+# Active matter (the Well's layout, multi-channel 2D)
+# ---------------------------------------------------------------------------
+
+def _active_matter_package(u, s, data_normalizer, normalization_type):
+    """(b, t, h, w, c) trajectories, already reduced -> the factory tuple:
+    FFT-resized to ``s`` (per channel), Markov pairs (N, c, h, w) split by
+    the seed-42 permutation, the test trajectories (n, t, c, h, w) as the
+    rollout set."""
+    if s is not None:
+        u = np.moveaxis(resize_trajectories(np.moveaxis(u, -1, 2), s,
+                                            spatial_ndim=2), 2, -1)
+    x, y = markov_pairs_2d(u)
+    train, val, test = _split_pairs(x, y, seed=42)
+    _, va_end = split_ratio_indices(u.shape[0])
+    rollout = TrajectoryDataset(np.ascontiguousarray(
+        np.moveaxis(u[va_end:], -1, 2)))
+    return _package(train, val, test, rollout, data_normalizer,
+                    normalization_type)
+
+
+def active_matter_markov_dataset(filename, saved_folder, data_normalizer=True,
+                                 normalization_type="simple",
+                                 fields=("concentration",),
+                                 reduced_batch=1, reduced_resolution=1,
+                                 reduced_resolution_t=1, num_samples_max=-1,
+                                 s=None):
+    """Multi-channel 2D active matter from one file of the Well
+    (active_matter_markov.py:11-164): the ``fields`` as channels,
+    strided, optionally FFT-resized to ``s``."""
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u = data_io.read_active_matter_h5(path, fields)  # (b, t, h, w, c)
+    u = reduce_trajectories(u, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=2)
+    return _active_matter_package(u, s, data_normalizer, normalization_type)
+
+
+def active_matter_all_markov_dataset(saved_folder, pattern="*.hdf5",
+                                     fields=("concentration",),
+                                     data_normalizer=True,
+                                     normalization_type="simple",
+                                     reduced_batch=1, reduced_resolution=1,
+                                     reduced_resolution_t=1,
+                                     num_samples_max=-1, s=None,
+                                     max_files=None):
+    """Every file of ``saved_folder`` matching ``pattern`` (sorted, the
+    first ``max_files``), concatenated over trajectories
+    (active_matter_all_markov.py:12-285); globbing goes through
+    ``data.io.glob_files``, so files held in memory match too."""
+    paths = data_io.glob_files(os.path.join(saved_folder, pattern))
+    if not paths:
+        raise FileNotFoundError(
+            f"no files matching {pattern!r} in {saved_folder}")
+    if max_files is not None:
+        paths = paths[:max_files]
+    u = np.concatenate([data_io.read_active_matter_h5(p, fields)
+                        for p in paths], axis=0)
+    u = reduce_trajectories(u, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=2)
+    return _active_matter_package(u, s, data_normalizer, normalization_type)
+
+
+def multi_file_active_matter_markov_dataset(file_pattern, saved_folder,
+                                            data_normalizer=True,
+                                            s=None, max_files=None,
+                                            normalization_type="minmax",
+                                            reduced_batch=1,
+                                            reduced_resolution=1,
+                                            reduced_resolution_t=1,
+                                            num_samples_max=-1,
+                                            fields=("concentration",)):
+    """The ns_active_t* datasets' factory (active_matter_all_markov.py:285):
+    ``active_matter_all_markov_dataset`` over ``file_pattern``, minmax
+    normalisation by default, the strides passed through."""
+    return active_matter_all_markov_dataset(
+        saved_folder, pattern=file_pattern, data_normalizer=data_normalizer,
+        normalization_type=normalization_type, s=s, max_files=max_files,
+        reduced_batch=reduced_batch, reduced_resolution=reduced_resolution,
+        reduced_resolution_t=reduced_resolution_t,
+        num_samples_max=num_samples_max, fields=fields)

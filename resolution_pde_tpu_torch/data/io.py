@@ -23,8 +23,8 @@ Counterpart of resolution_pde_tpu/data/io.py's ``read_ks_h5`` (with
 h5py is imported only to read an HDF5 file (.h5, or a MATLAB v7.3 .mat),
 so the module imports where h5py is absent; .mat files up to v7 go
 through scipy. ``files_in_memory`` holds arrays under paths that the KS,
-Burgers and Darcy readers (and ``glob_files``) then find in place of
-files."""
+Burgers, Darcy and active-matter readers (and ``glob_files``) then find in
+place of files."""
 
 from __future__ import annotations
 
@@ -74,13 +74,15 @@ _IN_MEMORY: dict = {}
 
 @contextlib.contextmanager
 def files_in_memory(files: dict):
-    """Within the block, the KS, Burgers and Darcy readers, ``file_exists``
-    and ``glob_files`` find each entry of ``files`` in place of a file at
-    its path: {path: u} for a KS file (the split's trajectories (b, t, s))
-    or a PDEBench Burgers file ('tensor' (n, t, x)), {path: {"a": (n, h, w),
-    "u": (n, h, w)}} for a Darcy file. The factories, and the command lines
-    through them, then run on data generated in the same process where no
-    HDF5 file can be written (the card's machine has no h5py)."""
+    """Within the block, the KS, Burgers, Darcy and active-matter readers,
+    ``file_exists`` and ``glob_files`` find each entry of ``files`` in
+    place of a file at its path: {path: u} for a KS file (the split's
+    trajectories (b, t, s)) or a PDEBench Burgers file ('tensor' (n, t,
+    x)), {path: {"a": (n, h, w), "u": (n, h, w)}} for a Darcy file,
+    {path: {field: (b, t, h, w)}} for a Well file. The factories, and the
+    command lines through them, then run on data generated in the same
+    process where no HDF5 file can be written (the card's machine has no
+    h5py)."""
     held = {os.path.abspath(p): u for p, u in files.items()}
     _IN_MEMORY.update(held)
     try:
@@ -217,13 +219,19 @@ def read_fno_darcy_mat(path: str) -> dict:
 def read_active_matter_h5(path: str, fields=("concentration",)) -> np.ndarray:
     """The Well's active-matter layout: the requested scalar fields of
     group 't0_fields' (or, without it, of the file's top level), each
-    (b, t, h, w), stacked as channels. Returns (b, t, h, w, c) float32."""
-    import h5py
+    (b, t, h, w), stacked as channels. Returns (b, t, h, w, c) float32. A
+    path held by ``files_in_memory`` reads its fields."""
+    held = _IN_MEMORY.get(os.path.abspath(path))
+    if held is not None:
+        chans = [np.asarray(held[name], dtype=np.float32) for name in fields
+                 if name in held]
+    else:
+        import h5py
 
-    with h5py.File(path, "r") as f:
-        grp = f["t0_fields"] if "t0_fields" in f else f
-        chans = [np.array(grp[name], dtype=np.float32) for name in fields
-                 if name in grp]
+        with h5py.File(path, "r") as f:
+            grp = f["t0_fields"] if "t0_fields" in f else f
+            chans = [np.array(grp[name], dtype=np.float32)
+                     for name in fields if name in grp]
     if not chans:
         raise KeyError(f"none of {fields} found in {path}")
     return np.stack(chans, axis=-1)

@@ -17,13 +17,17 @@ predicts the next frame, round-trips it through the normalizers and
 shifts the window; the decoded rollout is scored against frames
 [W, W + steps).
 
-The forward runs on the model's device under ``torch.inference_mode()``
-in eval mode; the per-step losses add up on the device and are fetched
-once per resolution. Not ported: ``mesh=``.
+Every function here runs the model in eval mode (``eval_mode``: the JAX
+package's ``deterministic=True``, so no dropout, and BatchNorm reads its
+running statistics and leaves them as they are) and gives the caller's
+mode back. The losses' forwards run on the model's device under
+``torch.inference_mode()``; the per-step losses add up on the device and
+are fetched once per resolution. Not ported: ``mesh=``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from typing import Callable, Dict, Optional
@@ -39,6 +43,18 @@ from resolution_pde_tpu_torch.evaluation.superres import (
 )
 from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.ops.normalizers import adapt_normalizer
+
+
+@contextlib.contextmanager
+def eval_mode(model):
+    """The model in eval mode within the block, its mode before restored
+    after it."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
 
 
 def _per_step_rel_l2(preds, gt, eps: float = 1e-8):
@@ -73,13 +89,14 @@ def perform_rollout(model, initial_condition, rollout_steps: int,
         return unwrap_output(model(state))
 
     state, preds = initial_condition, []
-    for _ in range(rollout_steps):
-        pred = apply_model(state)
-        if y_normalizer is not None and x_normalizer is not None:
-            state = x_normalizer.encode(y_normalizer.decode(pred))
-        else:
-            state = pred
-        preds.append(pred)
+    with eval_mode(model):
+        for _ in range(rollout_steps):
+            pred = apply_model(state)
+            if y_normalizer is not None and x_normalizer is not None:
+                state = x_normalizer.encode(y_normalizer.decode(pred))
+            else:
+                state = pred
+            preds.append(pred)
     return torch.stack(preds, dim=1)
 
 
@@ -116,7 +133,7 @@ def rollout_loss(model, trajectories, rollout_steps: int,
     y_normalizer = adapt_normalizer(on_device(y_normalizer, device), sp_shape)
 
     total, batches = None, 0
-    with torch.inference_mode():
+    with torch.inference_mode(), eval_mode(model):
         for i in range(0, n, batch_size):
             traj = torch.as_tensor(np.asarray(trajectories[i:i + batch_size]),
                                    device=device)
@@ -147,13 +164,14 @@ def perform_window_rollout(model, initial_window, rollout_steps: int,
     initial_window: NORMALIZED (B, W, X). Returns the NORMALIZED
     predictions (B, rollout_steps, 1, X)."""
     window, preds = initial_window, []
-    for _ in range(rollout_steps):
-        pred = unwrap_output(model(window))[:, -1:]  # (B, 1, X)
-        nxt = pred
-        if y_normalizer is not None and x_normalizer is not None:
-            nxt = x_normalizer.encode(y_normalizer.decode(pred))
-        window = torch.cat([window[:, 1:], nxt], dim=1)
-        preds.append(pred)
+    with eval_mode(model):
+        for _ in range(rollout_steps):
+            pred = unwrap_output(model(window))[:, -1:]  # (B, 1, X)
+            nxt = pred
+            if y_normalizer is not None and x_normalizer is not None:
+                nxt = x_normalizer.encode(y_normalizer.decode(pred))
+            window = torch.cat([window[:, 1:], nxt], dim=1)
+            preds.append(pred)
     return torch.stack(preds, dim=1)
 
 
@@ -185,7 +203,7 @@ def window_rollout_loss(model, trajectories, rollout_steps: int,
     y_normalizer = adapt_normalizer(on_device(y_normalizer, device), sp_shape)
 
     total, batches = None, 0
-    with torch.inference_mode():
+    with torch.inference_mode(), eval_mode(model):
         for i in range(0, n, batch_size):
             traj = torch.as_tensor(np.asarray(trajectories[i:i + batch_size]),
                                    device=device)
@@ -234,9 +252,7 @@ def evaluate_rollout_all_resolutions(
         test_resolutions = get_lower_resolutions(
             max_test_resolution or current_res)
     results: Dict[int, float] = {}
-    was_training = model.training
-    model.eval()
-    try:
+    with eval_mode(model):
         for res in test_resolutions:
             t0 = time.perf_counter()
             try:
@@ -263,6 +279,4 @@ def evaluate_rollout_all_resolutions(
                 results[res] = float("nan")
             if seconds_out is not None:
                 seconds_out[res] = time.perf_counter() - t0
-    finally:
-        model.train(was_training)
     return results

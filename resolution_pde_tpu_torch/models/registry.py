@@ -2,17 +2,20 @@
 paths to the port's modules.
 
 Counterpart of resolution_pde_tpu/models/registry.py; FNO1d, FNO2d,
-FFNO1D, FFNO2D and the 1D S4 family (S4Model, S4Block, S4D) are ported
-so far. A model of
-the JAX registry that is not raises a KeyError naming the ROADMAP item
-(section 1) that ports it.
+FFNO1D, FFNO2D, the 1D S4 family (S4Model, S4Block, S4D), UNet1d, UNet2d,
+CNO1d, CNO2d and CNO2dOriginal are ported so far. A model of the JAX
+registry that is not raises a KeyError naming the ROADMAP item (section
+1) that ports it.
 """
 
 from __future__ import annotations
 
+from resolution_pde_tpu_torch.models.cno import CNO1d, CNO2d
+from resolution_pde_tpu_torch.models.cno_original import CNO2dOriginal
 from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D
 from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d
 from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model
+from resolution_pde_tpu_torch.models.unet import UNet1d, UNet2d
 
 MODEL_REGISTRY = {
     "FNO1d": FNO1d,
@@ -28,6 +31,17 @@ MODEL_REGISTRY = {
     "S4Block": S4Block,
     "S4D": S4D,
     "models.s4d.S4D": S4D,
+    "UNet1d": UNet1d,
+    "models.unet.UNet1d": UNet1d,
+    "UNet2d": UNet2d,
+    "models.unet.UNet2d": UNet2d,
+    "CNO1d": CNO1d,
+    "models.CNO1d.CNO1d": CNO1d,
+    "CNO2d": CNO2d,
+    "models.CNO2d.CNO2d": CNO2d,
+    "CNO2dOriginal": CNO2dOriginal,
+    # the reference's cno_2d_original.yaml target
+    "CNO.CNO2d_original_version.CNOModule.CNO": CNO2dOriginal,
 }
 
 
@@ -43,8 +57,6 @@ NOT_PORTED = {
     **dict.fromkeys(("S4NDModel", "S4BaseModel", "S4SeqModel",
                      "OneToSeqModel", "S4BaseSeqModel", "S4DualSeqModel",
                      "SeqAdd", "ChainModel"), 5),
-    **dict.fromkeys(("UNet1d", "UNet2d", "CNO1d", "CNO2d", "CNO2dOriginal",
-                     "CNO"), 7),
     **dict.fromkeys(("MoEGPTNO", "GNOTOperator", "SwinOperator2d", "ScOT2d",
                      "pos", "ScOT"), 9),
 }

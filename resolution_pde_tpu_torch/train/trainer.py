@@ -9,6 +9,15 @@ train/training.py:19-147):
     batch that does not divide padded with zero-weight rows, each
     microbatch's loss and gradient weighted by its count of real rows, one
     optimizer step;
+  - BatchNorm models (CNO, UNet): each microbatch's forward runs in
+    train mode, so the running statistics (buffers, not parameters: no
+    weight decay, as flax's ``batch_stats``; the norms' weight and bias
+    are decayed, as flax's scale and bias) move once a microbatch, in the
+    microbatches' order, as JAX threads ``batch_stats`` through its scan;
+    the zero-weight rows padding a straggler batch enter that
+    microbatch's statistics in both. JAX's ``straggler="replicate"``
+    (placing an indivisible batch whole on every device of its mesh) is
+    the identity on one device, so there is nothing to port;
   - per epoch: the mean of the batch losses (one host sync per epoch), a
     validation pass with the same decode, the scheduler stepped once after
     the epoch (ReduceLROnPlateau sees the validation loss), then
@@ -203,7 +212,8 @@ class Trainer:
             b = x.shape[0]
             pad = (-b) % accum
             if pad:
-                # pad with copies of row 0 that weigh nothing
+                # pad with copies of row 0 that weigh nothing (they still
+                # enter a BatchNorm's statistics, as in JAX)
                 if weights is None:
                     weights = torch.ones(b, device=self.device)
                 x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])

@@ -39,12 +39,37 @@ The JAX ``S4Model`` tree
 maps to ``encoder``, ``norms.{i}``, ``s4_layers.{i}.layer.kernel.*``,
 ``s4_layers.{i}.layer.D``, ``s4_layers.{i}.output_linear`` and ``decoder``
 (``s4_model_state_dict``); the kernel parameters keep their JAX names and
-shapes. No JAX import is needed here.
+shapes.
+
+The BatchNorm models take the whole variables dict, ``params`` and
+``batch_stats``, and fill the buffers too (flax ``scale`` / ``bias`` ->
+``weight`` / ``bias``, ``mean`` / ``var`` -> ``running_mean`` /
+``running_var``); conv kernels (*k, in, out) become (out, in, *k). The
+JAX ``CNO1d`` / ``CNO2d`` tree ``{_CNO_0: {LiftProjectBlock_{0,1},
+CNOBlock_k, ResidualBlock_j}}`` names its blocks in forward order, so
+``CNOBlock_k`` interleaves (``cno1d_state_dict``, ``cno2d_state_dict``;
+the inverse of ``torch_import.import_cno``):
+
+    k < nl          -> encoder.k
+    k = nl + 2j     -> ED_expansion.{nl - j}
+    k = nl + 2j + 1 -> decoder.j
+    k = 3 nl        -> ED_expansion.0
+
+and ``ResidualBlock_j`` runs the levels' ResNets, ``n_res`` each, then the
+neck's. ``CNO2dOriginal`` (``_LiftProject_{0,1}``, ``_Block_k``,
+``_ResBlock_j``) maps the same way onto the port's names
+(``cno2d_original_state_dict``). The JAX ``UNet1d`` / ``UNet2d`` tree
+``{_UNet_0: {_DoubleConv_i, ConvTranspose_i, Conv_0}}`` maps to
+``encoder1-4``, ``bottleneck``, ``decoder4-1``, ``upconv4-1`` and ``conv``
+(``unet1d_state_dict``, ``unet2d_state_dict``), the transposed convs'
+taps flipped: flax's ConvTranspose correlates where torch's convolves. No
+JAX import is needed here.
 """
 
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -192,3 +217,161 @@ def s4_model_state_dict(params: dict) -> dict:
             sd[f"norms.{i}.weight"] = _t(p["scale"])
             sd[f"norms.{i}.bias"] = _t(p["bias"])
     return sd
+
+
+def _conv(p: dict, prefix: str) -> dict:
+    """flax Conv {kernel (*k, in, out)[, bias]} -> torch (out, in, *k)."""
+    k = np.asarray(p["kernel"], dtype=np.float32)
+    nd = k.ndim - 2
+    out = {f"{prefix}.weight": _t(k.transpose(nd + 1, nd, *range(nd)))}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+    return out
+
+
+def _norm(p: dict, stats: Optional[dict], prefix: str) -> dict:
+    """flax BatchNorm / GroupNorm (params, batch stats or None)."""
+    out = {f"{prefix}.weight": _t(p["scale"]),
+           f"{prefix}.bias": _t(p["bias"])}
+    if stats is not None:
+        out[f"{prefix}.running_mean"] = _t(stats["mean"])
+        out[f"{prefix}.running_var"] = _t(stats["var"])
+    return out
+
+
+def _split(variables: dict, top: Optional[str] = None) -> tuple:
+    """(params, batch_stats), under the model's inner scope ``top`` where
+    it has one; a bare params tree is taken as params with no stats."""
+    if "params" in variables:
+        params = variables["params"]
+        stats = variables.get("batch_stats", {})
+    else:
+        params, stats = variables, {}
+    if top is None:
+        return params, stats
+    return params[top], stats.get(top, {})
+
+
+def _conv_norm(p: dict, s: dict, prefix: str, convs: dict) -> dict:
+    """Convs ``{flax name: port name}`` and the BatchNorms beside them
+    (``BatchNorm_i`` -> ``batch_norm``, or ``batch_norm{i+1}`` where there
+    are two) of one block."""
+    sd = {}
+    for name, port in convs.items():
+        sd.update(_conv(p[name], f"{prefix}.{port}"))
+    norms = sorted(k for k in p if k.startswith("BatchNorm_"))
+    for k in norms:
+        i = _index(k, "BatchNorm")
+        port = "batch_norm" if len(norms) == 1 else f"batch_norm{i + 1}"
+        sd.update(_norm(p[k], s.get(k), f"{prefix}.{port}"))
+    return sd
+
+
+def _cno_block_names(params: dict, stem: str, res_stem: str,
+                     n_res: int) -> dict:
+    """{flax block name: port prefix} of a CNO tree (the module
+    docstring's interleave)."""
+    n_blocks = sum(1 for k in params if k.startswith(f"{stem}_"))
+    nl = (n_blocks - 1) // 3
+    names = {f"{stem}_{k}": f"encoder.{k}" for k in range(nl)}
+    for j in range(nl):
+        names[f"{stem}_{nl + 2 * j}"] = f"ED_expansion.{nl - j}"
+        names[f"{stem}_{nl + 2 * j + 1}"] = f"decoder.{j}"
+    names[f"{stem}_{3 * nl}"] = "ED_expansion.0"
+    n_resblocks = sum(1 for k in params if k.startswith(f"{res_stem}_"))
+    for j in range(n_resblocks):
+        names[f"{res_stem}_{j}"] = (
+            f"res_nets.{j // n_res}.res_nets.{j % n_res}"
+            if j < nl * n_res else f"res_net_neck.res_nets.{j - nl * n_res}")
+    return names
+
+
+def _cno_state_dict(variables: dict, n_res: int) -> dict:
+    params, stats = _split(variables, "_CNO_0")
+    sd = {}
+    for key, port in (("LiftProjectBlock_0", "lift"),
+                      ("LiftProjectBlock_1", "project")):
+        p = params[key]
+        sd.update(_conv(p["CNOBlock_0"]["Conv_0"],
+                        f"{port}.inter_CNOBlock.convolution"))
+        sd.update(_conv(p["Conv_0"], f"{port}.convolution"))
+    for key, port in _cno_block_names(params, "CNOBlock", "ResidualBlock",
+                                      n_res).items():
+        convs = ({"Conv_0": "convolution"} if key.startswith("CNOBlock")
+                 else {"Conv_0": "convolution1", "Conv_1": "convolution2"})
+        sd.update(_conv_norm(params[key], stats.get(key, {}), port, convs))
+    return sd
+
+
+def cno1d_state_dict(variables: dict, n_res: int) -> dict:
+    """JAX ``CNO1d`` variables ({'params', 'batch_stats'}; ``n_res``, the
+    config's N_res) -> the port's ``CNO1d`` state_dict."""
+    return _cno_state_dict(variables, n_res)
+
+
+def cno2d_state_dict(variables: dict, n_res: int) -> dict:
+    """JAX ``CNO2d`` variables -> the port's ``CNO2d`` state_dict."""
+    return _cno_state_dict(variables, n_res)
+
+
+def cno2d_original_state_dict(variables: dict, n_res: int) -> dict:
+    """JAX ``CNO2dOriginal`` variables ({'params', 'batch_stats'}, whose
+    top scope is the model's own) -> the port's state_dict."""
+    params, stats = _split(variables)
+    sd = {}
+    for key, port in (("_LiftProject_0", "lift"),
+                      ("_LiftProject_1", "project")):
+        sd.update(_conv_norm(params[key], {}, port,
+                             {"Conv_0": "convolution1",
+                              "Conv_1": "convolution2"}))
+    for key, port in _cno_block_names(params, "_Block", "_ResBlock",
+                                      n_res).items():
+        p, s = params[key], stats.get(key, {})
+        if key.startswith("_ResBlock"):
+            sd.update(_conv_norm(p["_Block_0"], s.get("_Block_0", {}),
+                                 f"{port}.block", {"Conv_0": "convolution"}))
+            p = {k: v for k, v in p.items() if k != "_Block_0"}
+        sd.update(_conv_norm(p, s, port, {"Conv_0": "convolution"}))
+    return sd
+
+
+_UNET_BLOCKS = [("encoder1", "enc1"), ("encoder2", "enc2"),
+                ("encoder3", "enc3"), ("encoder4", "enc4"),
+                ("bottleneck", "bottleneck"), ("decoder4", "dec4"),
+                ("decoder3", "dec3"), ("decoder2", "dec2"),
+                ("decoder1", "dec1")]
+
+
+def _unet_state_dict(variables: dict) -> dict:
+    params, stats = _split(variables, "_UNet_0")
+    sd = {}
+    for i, (name, short) in enumerate(_UNET_BLOCKS):
+        p = params[f"_DoubleConv_{i}"]
+        s = stats.get(f"_DoubleConv_{i}", {})
+        pre = f"{name}.{short}"
+        for j in (1, 2):
+            sd.update(_conv(p[f"Conv_{j - 1}"], f"{pre}conv{j}"))
+            norm = p.get(f"BatchNorm_{j - 1}", p.get(f"GroupNorm_{j - 1}"))
+            sd.update(_norm(norm, s.get(f"BatchNorm_{j - 1}"),
+                            f"{pre}norm{j}"))
+    for i, up in enumerate(("upconv4", "upconv3", "upconv2", "upconv1")):
+        p = params[f"ConvTranspose_{i}"]
+        k = np.asarray(p["kernel"], dtype=np.float32)
+        nd = k.ndim - 2
+        # (*k, in, out) flipped along every tap axis -> torch (in, out, *k)
+        flipped = np.flip(k, axis=tuple(range(nd)))
+        sd[f"{up}.weight"] = _t(flipped.transpose(nd, nd + 1, *range(nd)))
+        sd[f"{up}.bias"] = _t(p["bias"])
+    sd.update(_conv(params["Conv_0"], "conv"))
+    return sd
+
+
+def unet1d_state_dict(variables: dict) -> dict:
+    """JAX ``UNet1d`` variables ({'params', 'batch_stats'}; GroupNorm
+    models have no batch stats) -> the port's ``UNet1d`` state_dict."""
+    return _unet_state_dict(variables)
+
+
+def unet2d_state_dict(variables: dict) -> dict:
+    """JAX ``UNet2d`` variables -> the port's ``UNet2d`` state_dict."""
+    return _unet_state_dict(variables)

@@ -5,8 +5,10 @@ from data it generates itself.
     python3 scripts/torch_quality_rows.py leg=<name> [out=build/quality_rows]
 
 Legs (the JAX package's rows are in runs/sweeps/baseline_1787270482, for
-ffno2d_ns in runs/sweeps/ns_models_1787155138, for fno2d_darcy in
-runs/sweeps/darcy_1787187199):
+ffno2d_ns and cno2d_ns_resize in runs/sweeps/ns_models_1787155138, for
+fno2d_darcy in runs/sweeps/darcy_1787187199; cno2d_original_ns's, 0.0153,
+and the baseline's cno2d_ns_resize, test 0.0270, are in RESULTS.md's
+prose, :899 and :909-913):
   fno1d_burger_naive   baseline family: fno_1d.yaml on burger_naive.yaml
   ffno1d_ks_true_mres  baseline family: ffno_1d.yaml on
                        ks_naive_true_mres1.yaml
@@ -18,6 +20,15 @@ runs/sweeps/darcy_1787187199):
   fno2d_darcy          darcy family: fno_2d.yaml on darcy.yaml
   ffno2d_darcy         darcy family: ffno_2d.yaml on darcy.yaml (the JAX
                        run of this leg has no row)
+  cno2d_ns_resize      ns_models family: cno_2d.yaml on ns_naive.yaml,
+                       resize training at 128² (the 256² file strided by
+                       2), use_resize evaluation
+  cno2d_original_ns    ns_models family: cno_2d_original.yaml on
+                       ns_naive.yaml at 128², use_resize evaluation
+  cno2d_ns_resize_256  baseline family's cno2d_ns_resize: cno_2d.yaml on
+                       ns_naive.yaml with resize training at 256²; its
+                       table row is named after this leg, so that a merge
+                       keeps it beside the ns_models row of the same name
 
 The data are scripts/gen_baseline_data.sh's settings, and for Darcy
 cli/sweep.py's, generated by the port on the device (``device``, the card
@@ -57,7 +68,6 @@ import contextlib
 import csv
 import json
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -82,7 +92,14 @@ LEGS = {"fno1d_burger_naive": ("baseline", "burgers"),
         "ffno2d_ns": ("ns_models", "ns"),
         "ffno2d_ns_true_mres": ("baseline", "ns"),
         "fno2d_darcy": ("darcy", "darcy"),
-        "ffno2d_darcy": ("darcy", "darcy")}
+        "ffno2d_darcy": ("darcy", "darcy"),
+        "cno2d_ns_resize": ("ns_models", "ns"),
+        "cno2d_original_ns": ("ns_models", "ns"),
+        "cno2d_ns_resize_256": ("baseline", "ns")}
+# the family's name of a leg named otherwise here
+SWEEP_LEG = {"cno2d_ns_resize_256": "cno2d_ns_resize"}
+# the NS legs that read the true multi-resolution files
+NS_TRUE_MRES = ("ffno2d_ns_true_mres",)
 EPOCHS = 20
 
 
@@ -178,10 +195,10 @@ def generate(pde: str, opts: dict, data_dir: str) -> tuple:
     overrides = [f"dataset.dataset_params.filename={name}",
                  f"dataset.dataset_params.file_map={{{ns['res']}: {name}}}",
                  f"dataset.eval_filename={name}"]
-    if opts["leg"] == "ffno2d_ns":
-        overrides = overrides[:1]  # ns_naive.yaml reads one file
-    else:
+    if opts["leg"] in NS_TRUE_MRES:
         overrides = overrides[1:]
+    else:
+        overrides = overrides[:1]  # ns_naive.yaml reads one file
     return contextlib.nullcontext(), overrides, \
         f"NS {ns} max|w| {float(abs(u).max()):.3f} eager_seconds " \
         f"{eager_s:.2f}", seconds
@@ -217,6 +234,7 @@ def main(argv=None) -> int:
     opts = parse(list(argv if argv is not None else sys.argv[1:]))
     leg = opts["leg"]
     family, pde = LEGS[leg]
+    sweep_leg = SWEEP_LEG.get(leg, leg)
     rehearsal = bool(opts["n"] or opts["res"] or opts["epochs"] != EPOCHS
                      or opts["extras"])
     print(f"[quality] leg={leg} family={family} device={opts['device']} "
@@ -230,7 +248,7 @@ def main(argv=None) -> int:
             context, overrides, what, data_s = generate(
                 pde, opts, os.path.join(tmp, "data"))
             print(f"[quality] data: {what} seconds={data_s:.2f}", flush=True)
-            argv = ([f"family={family}", f"only={leg}",
+            argv = ([f"family={family}", f"only={sweep_leg}",
                      f"training.epochs={opts['epochs']}",
                      f"training.t_max={opts['epochs']}"]
                     + overrides + opts["extras"]
@@ -238,14 +256,20 @@ def main(argv=None) -> int:
             print(f"[quality] sweep {' '.join(argv)}", flush=True)
             t0 = time.perf_counter()
             with context:
-                out = sweep.main(argv, device=opts["device"])[leg]
+                out = sweep.main(argv, device=opts["device"])[sweep_leg]
             sweep_s = time.perf_counter() - t0
             [run_dir] = [os.path.join("runs", "sweeps", d)
                          for d in os.listdir(os.path.join("runs", "sweeps"))]
             os.makedirs(out_dir, exist_ok=True)
             for name in ("sweep.csv", "sweep.md"):
-                shutil.copy(os.path.join(run_dir, name), out_dir)
-            with open(os.path.join(run_dir, "sweep.csv"), newline="") as f:
+                with open(os.path.join(run_dir, name)) as f:
+                    text = f.read()
+                # the row under this script's leg name
+                text = text.replace(f"\n{sweep_leg},", f"\n{leg},").replace(
+                    f"\n| {sweep_leg} |", f"\n| {leg} |")
+                with open(os.path.join(out_dir, name), "w") as f:
+                    f.write(text)
+            with open(os.path.join(out_dir, "sweep.csv"), newline="") as f:
                 [row] = list(csv.DictReader(f))
         finally:
             os.chdir(cwd)

@@ -169,11 +169,27 @@ def test_main_defaults_to_the_card(data_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("save_figures=true", "item 8"),
-    ("training.cno_resize_training=true", "item 7")])
+    ("save_figures=true", "item 8")])
 def test_unported_options_raise(data_dir, override, item):
     with pytest.raises(NotImplementedError, match=item):
         main(_argv(data_dir, override), device="cpu")
+
+
+def test_cno_resize_training_runs(data_dir, tmp_path, monkeypatch):
+    """training.cno_resize_training (ported with CNO) on a
+    resolution-flexible model: the 64² batches resized to
+    dataset.cno_train_size=32 in the loop, the sweep round-tripping
+    through 32²; the FFT resize of the sweep at 64 then gives the 32²
+    numbers back."""
+    monkeypatch.delenv("SLURM_JOB_ID", raising=False)
+    with _cwd(tmp_path):
+        out = main(_argv(data_dir, "training.cno_resize_training=true",
+                         "dataset.cno_train_size=32", "training.epochs=1",
+                         "training.batch_size=8"), device="cpu")
+    assert np.isfinite(out["test_loss"])
+    assert sorted(out["super_resolution"]) == [32, 64]
+    assert all(np.isfinite(v) for v in out["super_resolution"].values())
+    assert sorted(out["rollout"]) == [32, 64]
 
 
 def test_eval_clis_repeat_main_2d(data_dir, tmp_path, monkeypatch):

@@ -1,12 +1,14 @@
 """The port's config loader (configs/) against the JAX package's: every
 model, dataset and training yaml file composes to an equal dict, override
 strings parse to the same values, ``instantiate_model`` builds FFNO2D with
-the kwargs the JAX loader gives its model, and an unported ``_target_``
-raises a KeyError that names its ROADMAP item.
+the kwargs the JAX loader gives its model, an unported ``_target_``
+raises a KeyError that names its ROADMAP item, and the active-matter
+factories build from arrays held in memory.
 """
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,12 +95,8 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("active_matter_markov_dataset", 7),
     ("dataloaders.ns_s4.ns_window_dataset", 5),
     ("ns_window_dataset", 5),
-    ("dataloaders.active_matter_all_markov."
-     "multi_file_active_matter_markov_dataset", 7),
-    ("dataloaders.active_matter_markov.active_matter_markov_dataset", 7),
     ("point_cloud_markov_dataset", 9),
 ])
 def test_unported_dataset_factory_raises(target, item):
@@ -106,6 +104,30 @@ def test_unported_dataset_factory_raises(target, item):
         tcfg.instantiate_dataset({"_target_": target})
     with pytest.raises(KeyError, match="unknown dataset factory"):
         tcfg.instantiate_dataset({"_target_": "no_such_dataset"})
+
+
+@pytest.mark.parametrize("target,kw", [
+    ("active_matter_markov_dataset", dict(filename="active_matter_0.hdf5")),
+    ("dataloaders.active_matter_all_markov."
+     "multi_file_active_matter_markov_dataset",
+     dict(file_pattern="active_matter_*.hdf5")),
+    ("dataloaders.active_matter_markov.active_matter_markov_dataset",
+     dict(filename="active_matter_1.hdf5")),
+])
+def test_active_matter_factory_builds(target, kw, tmp_path):
+    """The active-matter factories (ported with CNO) build from arrays
+    held as the Well's files (cli.generate_data.active_in_memory)."""
+    from resolution_pde_tpu_torch.cli.generate_data import active_in_memory
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((b, 4, 8, 8)).astype(np.float32)
+              for b in (5, 5)]
+    with active_in_memory(str(tmp_path), arrays):
+        out = tcfg.instantiate_dataset({"_target_": target,
+                                        "saved_folder": str(tmp_path), **kw})
+    train = out[0]
+    assert train.x.shape[1:] == (1, 8, 8) and len(train.x) > 0
+    assert np.isfinite(train.x).all()
 
 
 def test_every_jax_factory_is_ported_or_queued():

@@ -136,8 +136,9 @@ def test_port_init_is_seeded_and_registered():
     assert torch.allclose(g, torch.linalg.vector_norm(a.in_proj.weight_v,
                                                       dim=1, keepdim=True))
     assert get_model("models.ffno.FFNO2D") is FFNO2D
-    with pytest.raises(KeyError, match="item 7"):
-        get_model("CNO2d")
+    assert get_model("CNO2d").__name__ == "CNO2d"
+    with pytest.raises(KeyError, match="item 5"):
+        get_model("S4NDModel")
 
 
 def test_unknown_impls_raise():

@@ -2,7 +2,8 @@
 for leg; the tables (sweep.csv, sweep.md) and a merge of them written
 from the same rows, byte for byte with the same sha; a tiny family on the
 CPU (a tiny FFNO1D leg on KS files, a leg whose dataset factory is not
-ported, whose error names its ROADMAP item, and a broken leg) with the
+ported (ns_window_dataset), whose error names its ROADMAP item, and a
+broken leg) with the
 tables rewritten after every leg, the .incomplete and .ok markers,
 ``only=``, ``rehearsal=``, ``isolate=``, ``merge`` and the exit code;
 dotted overrides of the NS legs' file names resolving as in JAX; and the
@@ -126,9 +127,9 @@ def test_tables_and_merge_equal_jax(tmp_path, monkeypatch):
 def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     legs = [_tiny_leg(ks_dir),
-            ("cno2d_ns_resize", "2d",
-             ["model=cno_2d", "dataset=ns_naive",
-              "training.cno_resize_training=true"]),
+            ("ns_window", "2d",
+             ["model=ffno_2d", "dataset=ns_naive",
+              "dataset.dataset_params._target_=ns_window_dataset"]),
             ("broken", "1d", ["model=ffno_1d", "dataset=does_not_exist"])]
     # a family name each run: a run directory is named by the second
     monkeypatch.setattr(sweep, "FAMILIES", {
@@ -145,20 +146,19 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     out = sweep.main(["family=tiny"], device="cpu")
     # rewritten after every leg, then once more
     assert writes == [1, 2, 3, 3]
-    assert out["cno2d_ns_resize"] is None and out["broken"] is None
+    assert out["ns_window"] is None and out["broken"] is None
     assert np.isfinite(out["ffno_ks"]["test_loss"])
     assert set(out["ffno_ks"]["super_resolution"]) == {32, 64}
     [run_dir] = _run_dirs(tmp_path, "tiny")
     rows = _csv(run_dir)
-    assert [r["run"] for r in rows] == ["ffno_ks", "cno2d_ns_resize",
-                                        "broken"]
+    assert [r["run"] for r in rows] == ["ffno_ks", "ns_window", "broken"]
     assert rows[0]["platform"] == "cpu" and rows[0]["epochs"] == "1"
     assert all(r["legs_green"] == "1/3" and r["rehearsal"] == "false"
                for r in rows)
-    assert "ROADMAP.md section 1, item 7" in rows[1]["error"]
+    assert "ROADMAP.md section 1, item 5" in rows[1]["error"]
     assert rows[2]["error"].startswith("FileNotFoundError")
     md = open(os.path.join(run_dir, "sweep.md")).read()
-    assert "legs_green=1/3" in md and "item 7" in md
+    assert "legs_green=1/3" in md and "item 5" in md
     marker = open(os.path.join(run_dir, ".incomplete")).read()
     assert "legs_green=1/3" in marker and "broken" in marker
     assert not os.path.exists(os.path.join(run_dir, ".ok"))
@@ -180,7 +180,7 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     [refresh] = _run_dirs(tmp_path, "subset")
     merged = sweep.main(["merge", f"out={tmp_path}/merged", run_dir,
                          refresh])
-    assert list(merged) == ["ffno_ks", "cno2d_ns_resize", "broken"]
+    assert list(merged) == ["ffno_ks", "ns_window", "broken"]
     assert merged["ffno_ks"]["test_rel_l2"] == _csv(refresh)[0][
         "test_rel_l2"]
     assert "legs_green=1/3" in open(f"{tmp_path}/merged/.incomplete").read()
@@ -199,8 +199,7 @@ def test_isolated_legs_and_exit_code(ks_dir, tmp_path, monkeypatch):
     assert _csv(_run_dirs(tmp_path, "tiny")[0])[1]["error"] == (
         "RuntimeError: isolated 1d run exited 1")
     # python -m ...cli.sweep exits 1 when a leg failed (here a leg whose
-    # training mode is not ported, which fails before it touches the
-    # device)
+    # data file is absent, which fails before it touches the device)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(sys, "argv", ["sweep", "family=baseline",
                                       "only=cno2d_ns_resize"])
