@@ -224,7 +224,21 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      train mode and the running statistics it leaves (relative L2 1e-4);
      a checkpoint resume of CNO2d held to 1e-4 on the losses, not bit for
      bit (torch's CUDA backward of the antialiased resize adds with
-     atomics), the restored state equal bit for bit.
+     atomics), the restored state equal bit for bit;
+ 16. the transformer operators (run_transformers), launching no kernel:
+     ns_models/pos_ns (ScOT at the family's demo widths, 0.48 M
+     parameters, trained at 128²) through cli.sweep for 1 epoch on phase
+     13's NS, green with a finite test loss, sweep and rollout at 32-256;
+     main_2d model=mgpt dataset=ns_gnot for 1 epoch on it strided to 32²
+     (GNOTOperator on 1,024-node point clouds), a finite test loss and no
+     sweep or rollout (ns_gnot.yaml has neither); the trained pos_ns ScOT
+     served through ServingEngine.from_checkpoint (a graph at 4 x 128²,
+     the replay equal to eager bit for bit, the median predict both
+     ways); ScOT at pos.yaml's widths with one channel (101.3 M
+     parameters): its Trainer step at 8 x 128² (median, the device's busy
+     time and idle share over 3 profiled steps, peak memory) and its
+     forward on the card against the CPU at a time a sample (relative L2
+     1e-4).
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -3449,6 +3463,210 @@ def run_cno(ns_arrays: dict, ks_arrays: dict) -> None:
     log("cno", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+
+# phase 16: the transformer operators, which launch no hand kernel:
+# ns_models' pos_ns leg (ScOT at the family's demo widths, 0.48 M
+# parameters) through cli.sweep on phase 13's NS, main_2d model=mgpt
+# dataset=ns_gnot on it strided to 32² (1,024-node point clouds, as the JAX
+# demo), ScOT at pos.yaml's widths with one channel (101.3 M parameters):
+# its Trainer step at 8 x 128² and its forward against the CPU, and the
+# trained pos_ns ScOT served through graphs
+SCOT_BATCH, SCOT_RES, SCOT_SERVE_BATCH = 8, 128, 4
+GNOT_STRIDE = 8  # 256² -> 32²
+SCOT_CPU_TOL = 1e-4
+
+
+def _all_counts() -> tuple:
+    """Every kernel entry's launch counter: _counts' and the S4 kernels'."""
+    from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
+
+    return _counts() + (vandermonde.launches, cauchy.launches)
+
+
+def _scot(*overrides):
+    """ScOT2d from pos.yaml with one input and output channel and
+    ``overrides``, its parameters drawn from training.seed (0): (the
+    config, the model)."""
+    from resolution_pde_tpu_torch.cli import common
+    from resolution_pde_tpu_torch.configs import parse_cli
+
+    cfg = parse_cli(["model=pos", "dataset=ns_naive",
+                     "model.num_channels=1", "model.num_out_channels=1",
+                     *overrides])
+    return cfg, common.build_model(cfg)
+
+
+def scot_step() -> dict:
+    """ScOT at pos.yaml's widths: the Trainer step at SCOT_BATCH x
+    SCOT_RES² on random batches (median of 5 after 2 warm steps), the
+    device's busy time, idle share and kernels a step over 3 profiled
+    steps, the peak memory of a step."""
+    from resolution_pde_tpu_torch.cli import common
+
+    cfg, model = _scot()
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = common.build_trainer(cfg, model, None, device="cuda")
+    state = trainer.init()
+    gen = torch.Generator().manual_seed(SEED + 16)
+    batches = [tuple(torch.randn(SCOT_BATCH, 1, SCOT_RES, SCOT_RES,
+                                 generator=gen) for _ in range(2))
+               for _ in range(2)]
+    loader = [batches[i % 2] for i in range(7)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_step_ms(trainer, state, loader, steps=5, warm=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = []
+
+    def three_steps():
+        for x, y in loader[:3]:
+            losses.append(float(trainer.train_step(state, x, y)[1]))
+
+    _, prof = profiled(three_steps)
+    busy_ms, idle = _idle_share(prof)
+    require(all(math.isfinite(v) for v in losses),
+            f"ScOT step: losses {losses}")
+    rec = dict(params_m=f"{n_params / 1e6:.2f}",
+               batch=f"{SCOT_BATCH}x1x{SCOT_RES}x{SCOT_RES}",
+               median_step_ms=f"{step_ms:.3f}",
+               device_busy_ms_per_step=f"{busy_ms / 3:.3f}",
+               kernels_per_step=f"{len(_device_kernels(prof)) / 3:.1f}",
+               device_idle_share=f"{idle:.4f}",
+               peak_memory_gib=f"{peak:.2f}",
+               losses=[f"{v:.5f}" for v in losses])
+    log("scot_step", **rec)
+    require(round(n_params / 1e6, 1) == 101.3,
+            f"ScOT at pos.yaml's widths: {n_params} parameters")
+    return rec
+
+
+def scot_card_vs_cpu() -> None:
+    """ScOT at pos.yaml's widths, one set of weights on the card and on the
+    CPU (f32, TF32 off): the forward of a batch of 2 at SCOT_RES² with a
+    time a sample, relative L2 SCOT_CPU_TOL."""
+    import copy
+
+    _, cpu = _scot()
+    card = copy.deepcopy(cpu).cuda()
+    gen = torch.Generator().manual_seed(SEED + 17)
+    x = torch.randn(2, 1, SCOT_RES, SCOT_RES, generator=gen)
+    t = torch.tensor([0.5, 1.5])
+    with torch.no_grad():
+        want = cpu(x, t)["output"]
+        got = card(x.cuda(), t.cuda())["output"].cpu()
+    err = rel_l2(got, want)
+    log("scot_card_vs_cpu", size=f"2x1x{SCOT_RES}x{SCOT_RES}",
+        time=[0.5, 1.5], rel_l2=f"{err:.3e}", tol=SCOT_CPU_TOL)
+    require(err <= SCOT_CPU_TOL, f"ScOT card vs CPU: relative L2 {err}")
+
+
+def serve_scot(ckpt: str, overrides) -> None:
+    """The trained pos_ns ScOT from its checkpoint through ServingEngine: a
+    graph at SCOT_SERVE_BATCH x 128², a request of SCOT_SERVE_BATCH - 1
+    (padded), the replay equal to the same engine run eagerly bit for bit,
+    the median predict graphed and eager. The shift masks and position
+    tables are made in the eager run before the capture."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+
+    _, model = _scot(*overrides)
+    eng = ServingEngine.from_checkpoint(model, ckpt, device="cuda")
+    t0 = time.perf_counter()
+    eng.warmup(spatial_shapes=[(128, 128)], batch_sizes=[SCOT_SERVE_BATCH])
+    capture_s = time.perf_counter() - t0
+    x = np.random.default_rng(SEED).standard_normal(
+        (SCOT_SERVE_BATCH - 1, 1, 128, 128)).astype(np.float32)
+    got = eng.predict(x)
+    ref = eager(eng, lambda: eng.predict(x))
+    require(got.shape == x.shape and bool(np.isfinite(got).all()),
+            f"ScOT served: {got.shape} or non-finite")
+    require(np.array_equal(got, ref),
+            "ScOT served: the graph replay differs from eager")
+    g = median_ms(lambda: eng.predict(x))
+    e = eager(eng, lambda: median_ms(lambda: eng.predict(x)))
+    log("scot_serve", bucket=f"{SCOT_SERVE_BATCH}x128x128",
+        request=x.shape[0], capture_s=f"{capture_s:.3f}", bit_equal=True,
+        median_ms_graph=f"{g:.3f}", median_ms_eager=f"{e:.3f}")
+
+
+def gnot_run(root: str, ns: list) -> dict:
+    """main_2d model=mgpt dataset=ns_gnot training.epochs=1 in a working
+    directory of its own under ``root``, on phase 13's NS strided by
+    GNOT_STRIDE: mgpt.yaml as shipped (GNOTOperator, n_hidden 64, 2
+    layers); green with a finite test loss, no sweep and no rollout
+    (ns_gnot.yaml has neither), no kernel launched."""
+    from resolution_pde_tpu_torch.cli import main_2d
+
+    work = os.path.join(root, "mgpt__ns_gnot")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    before = _all_counts()
+    os.chdir(work)
+    try:
+        out = main_2d.main(["model=mgpt", "dataset=ns_gnot", *ns,
+                            "dataset.dataset_params.reduced_resolution="
+                            f"{GNOT_STRIDE}", "training.epochs=1"],
+                           device="cuda")
+    finally:
+        os.chdir(cwd)
+    launched = [a - b for a, b in zip(_all_counts(), before)]
+    hist = out["history"]
+    log("gnot", nodes=(NS_RES // GNOT_STRIDE) ** 2,
+        params_m=f"{out['n_params'] / 1e6:.2f}",
+        train_seconds=f"{out['train_seconds']:.2f}",
+        train_loss=f"{hist.train_loss[0]:.6f}",
+        val_loss=f"{hist.val_loss[0]:.6f}",
+        test_loss=f"{out['test_loss']:.6f}", launches=launched,
+        platform=out["provenance"]["platform"])
+    require(math.isfinite(out["test_loss"]) and not out["super_resolution"]
+            and not out["rollout"], f"GNOT run: {out['test_loss']}, sweep "
+            f"{out['super_resolution']}, rollout {out['rollout']}")
+    require(out["provenance"]["platform"].startswith("cuda("),
+            f"GNOT run on {out['provenance']['platform']}")
+    require(not any(launched), f"GNOT run launched kernels {launched}")
+    return out
+
+
+def run_transformers(ns_arrays: dict) -> None:
+    """Phase 16: ns_models' pos_ns leg through cli.sweep for 1 epoch on
+    phase 13's NS (.mat, the 256² file strided to 128²; the sweep and
+    8-step rollout at CLI_RESOLUTIONS, where ScOT's second stage clamps
+    its window at 32²), main_2d model=mgpt dataset=ns_gnot on it
+    (gnot_run), each in a working directory of its own and launching no
+    hand kernel; the trained pos_ns ScOT served (serve_scot); ScOT at
+    pos.yaml's widths, its step (scot_step) and its forward against the
+    CPU (scot_card_vs_cpu)."""
+    import contextlib
+
+    from resolution_pde_tpu_torch.cli import sweep
+    from resolution_pde_tpu_torch.cli.generate_data import write_ns
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        [ns_path] = write_ns(f"{tmp}/data/ns", ns_arrays, file_format="mat")
+        ns = [f"dataset.dataset_params.saved_folder={tmp}/data/ns",
+              f"dataset.dataset_params.filename={os.path.basename(ns_path)}"]
+        before = _all_counts()
+        out, _, ckpt = _leg_in_dir(tmp, "ns_models", "pos_ns", ns,
+                                   contextlib.nullcontext())
+        launched = [a - b for a, b in zip(_all_counts(), before)]
+        require(sorted(out["super_resolution"]) == CLI_RESOLUTIONS
+                and sorted(out["rollout"]) == CLI_RESOLUTIONS,
+                f"pos_ns: sweep {sorted(out['super_resolution'])}, rollout "
+                f"{sorted(out['rollout'])}")
+        require(not any(launched), f"pos_ns launched kernels {launched}")
+        log("pos_ns", params_m=f"{out['n_params'] / 1e6:.2f}",
+            train_seconds=f"{out['train_seconds']:.2f}",
+            test_loss=f"{out['test_loss']:.6f}",
+            super_resolution={r: f"{v:.6f}" for r, v in
+                              sorted(out["super_resolution"].items())},
+            rollout={r: f"{v:.6f}" for r, v in sorted(out["rollout"].items())})
+        gnot_run(tmp, ns)
+        [leg] = [a for n, _, a in sweep.FAMILIES["ns_models"] if n == "pos_ns"]
+        serve_scot(ckpt, [a for a in leg if a.startswith("model.")])
+    scot_step()
+    scot_card_vs_cpu()
+    log("transformers", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3490,6 +3708,7 @@ def main() -> int:
     ns_arrays = run_ns_sweep()
     burgers = run_burgers_darcy()
     run_cno(ns_arrays, ffno1d.pop("ks_arrays"))
+    run_transformers(ns_arrays)
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"

@@ -10,8 +10,8 @@ files and set dotted keys.
 
 ``instantiate_model`` builds the port's model from ``models.registry``;
 ``instantiate_dataset`` calls the port's dataset factories, which so far
-are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers, Darcy and
-active-matter ones.
+are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers, Darcy,
+active-matter and point-cloud (GNOT) ones.
 """
 
 from __future__ import annotations
@@ -179,7 +179,8 @@ def _dataset_factories() -> dict:
              "darcy_dataset", "load_darcy_data_from_mat", "load_darcy_data",
              "active_matter_markov_dataset",
              "active_matter_all_markov_dataset",
-             "multi_file_active_matter_markov_dataset")
+             "multi_file_active_matter_markov_dataset",
+             "point_cloud_markov_dataset")
     return {name: getattr(f, name) for name in names}
 
 
@@ -187,7 +188,6 @@ def _dataset_factories() -> dict:
 # item (section 1) that ports them
 NOT_PORTED = {
     "ns_window_dataset": 5,
-    "point_cloud_markov_dataset": 9,
 }
 
 # the reference's dotted paths (conf/dataset/*/*.yaml `_target_`) -> the

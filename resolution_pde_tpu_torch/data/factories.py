@@ -1,4 +1,5 @@
-"""Dataset factories of the Navier-Stokes, KS, Burgers and Darcy paths.
+"""Dataset factories of the Navier-Stokes, KS, Burgers, Darcy,
+active-matter and point-cloud paths.
 
 Counterpart of resolution_pde_tpu/data/factories.py's
 ``ns_markov_dataset`` (:458), ``ns_true_multires_markov_dataset`` (:485),
@@ -15,7 +16,8 @@ factories: ``ks_markov_dataset`` (:152), ``ks_true_multires_markov_dataset``
 the Darcy ones: ``darcy_dataset`` (:617), ``load_darcy_data_from_mat``
 (:758) and ``load_darcy_data`` (:774); and the active-matter ones:
 ``active_matter_markov_dataset`` (:641), ``active_matter_all_markov_dataset``
-(:832) and ``multi_file_active_matter_markov_dataset`` (:1073); with the
+(:832) and ``multi_file_active_matter_markov_dataset`` (:1073); and the
+GNOT point-cloud one, ``point_cloud_markov_dataset`` (:1105); with the
 helpers they call.
 Each returns the positional tuple the command lines consume:
 
@@ -996,3 +998,33 @@ def multi_file_active_matter_markov_dataset(file_pattern, saved_folder,
         reduced_batch=reduced_batch, reduced_resolution=reduced_resolution,
         reduced_resolution_t=reduced_resolution_t,
         num_samples_max=num_samples_max, fields=fields)
+
+
+def point_cloud_markov_dataset(filename, saved_folder, data_normalizer=True,
+                               normalization_type="simple",
+                               reduced_batch=1, reduced_resolution=1,
+                               reduced_resolution_t=1, num_samples_max=-1):
+    """The GNOT point-cloud dataset (the dgl-free realization of the
+    reference's dataloaders/dgl_data.py:33-147): NS frames become node
+    features on a normalized point cloud (``data.graph.
+    grid_to_point_cloud``); x rows are [features | positions], so that
+    GNOTOperator splits query, branch and gate inputs. The standard tuple
+    with x (N, h*w, 2 + 1), y (N, h*w, 1) and no rollout."""
+    from resolution_pde_tpu_torch.data.graph import grid_to_point_cloud
+
+    path = os.path.join(os.path.abspath(saved_folder), filename)
+    u = data_io.read_ns(path)[..., None]
+    u = reduce_trajectories(u, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=2)
+    u = u[..., 0]  # (n, t, h, w)
+    n, t, h, w = u.shape
+    feats, pos = grid_to_point_cloud(u.reshape(n * t, h, w))
+    feats = feats.reshape(n, t, h * w, 1)
+    x_feat = feats[:, :-1].reshape(-1, h * w, 1)
+    y = feats[:, 1:].reshape(-1, h * w, 1)
+    pos_b = np.broadcast_to(pos[None], (x_feat.shape[0],) + pos.shape)
+    x = np.concatenate([x_feat, pos_b], axis=-1).astype(np.float32)
+    train, val, test = _split_pairs(x, np.ascontiguousarray(y), seed=42)
+    return _package(train, val, test, None, data_normalizer,
+                    normalization_type)

@@ -74,12 +74,13 @@ _IN_MEMORY: dict = {}
 
 @contextlib.contextmanager
 def files_in_memory(files: dict):
-    """Within the block, the KS, Burgers, Darcy and active-matter readers,
-    ``file_exists`` and ``glob_files`` find each entry of ``files`` in
-    place of a file at its path: {path: u} for a KS file (the split's
-    trajectories (b, t, s)) or a PDEBench Burgers file ('tensor' (n, t,
-    x)), {path: {"a": (n, h, w), "u": (n, h, w)}} for a Darcy file,
-    {path: {field: (b, t, h, w)}} for a Well file. The factories, and the
+    """Within the block, the NS, KS, Burgers, Darcy and active-matter
+    readers, ``file_exists`` and ``glob_files`` find each entry of
+    ``files`` in place of a file at its path: {path: u} for an NS file
+    ((b, t, h, w) vorticity), a KS file (the split's trajectories (b, t,
+    s)) or a PDEBench Burgers file ('tensor' (n, t, x)), {path: {"a": (n,
+    h, w), "u": (n, h, w)}} for a Darcy file, {path: {field: (b, t, h,
+    w)}} for a Well file. The factories, and the
     command lines through them, then run on data generated in the same
     process where no HDF5 file can be written (the card's machine has no
     h5py)."""
@@ -170,7 +171,11 @@ def read_darcy_h5(path: str) -> dict:
 
 
 def read_ns(path: str) -> np.ndarray:
-    """Vorticity trajectories (b, t, h, w), float32."""
+    """Vorticity trajectories (b, t, h, w), float32. A path held by
+    ``files_in_memory`` reads its (b, t, h, w) array."""
+    held = _IN_MEMORY.get(os.path.abspath(path))
+    if held is not None:
+        return np.asarray(held, dtype=np.float32)
     if os.path.splitext(path)[1].lower() == ".mat":
         u = _load_mat(path, "u")
         return np.transpose(u, (0, 3, 1, 2)).astype(np.float32)

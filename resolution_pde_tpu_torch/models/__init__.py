@@ -6,6 +6,8 @@ from resolution_pde_tpu_torch.models.ffno import (FFNO1D, FFNO2D,
                                                   FSpectralConv1d,
                                                   FSpectralConv2d)
 from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d
+from resolution_pde_tpu_torch.models.mgpt import GNOTOperator, MoEGPTNO
+from resolution_pde_tpu_torch.models.poseidon import ScOT2d, SwinOperator2d
 from resolution_pde_tpu_torch.models.registry import get_model, unwrap_output
 from resolution_pde_tpu_torch.models.s4 import (DPLRKernelLayer, FFTConvLayer,
                                                 S4D, S4Block,
@@ -14,5 +16,6 @@ from resolution_pde_tpu_torch.models.unet import UNet1d, UNet2d
 
 __all__ = ["CNO1d", "CNO2d", "CNO2dOriginal", "DPLRKernelLayer", "FFNO1D",
            "FFNO2D", "FFTConvLayer", "FNO1d", "FNO2d", "FSpectralConv1d",
-           "FSpectralConv2d", "S4Block", "S4D", "S4DKernelLayer", "S4Model",
-           "UNet1d", "UNet2d", "get_model", "unwrap_output"]
+           "FSpectralConv2d", "GNOTOperator", "MoEGPTNO", "S4Block", "S4D",
+           "S4DKernelLayer", "S4Model", "ScOT2d", "SwinOperator2d", "UNet1d",
+           "UNet2d", "get_model", "unwrap_output"]

@@ -1,4 +1,5 @@
-"""flax's BatchNorm and flax's convolution initialiser, for CNO and UNet.
+"""flax's BatchNorm and flax's convolution and Dense initialisers, for
+CNO, UNet and the transformer operators.
 
 ``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` as the
 JAX package's CNO and UNet use it (models/cno.py:50-52, models/unet.py:
@@ -45,6 +46,17 @@ def conv(ndim: int, in_channels: int, out_channels: int, kernel_size: int,
     m = cls(in_channels, out_channels, kernel_size, padding=padding,
             bias=bias)
     lecun_normal_(m.weight, in_channels * kernel_size ** ndim, generator)
+    if bias:
+        nn.init.zeros_(m.bias)
+    return m
+
+
+def linear(in_features: int, out_features: int, bias: bool = True,
+           generator=None) -> nn.Linear:
+    """A Linear initialised as flax's ``nn.Dense``: lecun_normal kernel,
+    zero bias."""
+    m = nn.Linear(in_features, out_features, bias=bias)
+    lecun_normal_(m.weight, in_features, generator)
     if bias:
         nn.init.zeros_(m.bias)
     return m

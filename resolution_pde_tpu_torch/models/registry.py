@@ -3,9 +3,9 @@ paths to the port's modules.
 
 Counterpart of resolution_pde_tpu/models/registry.py; FNO1d, FNO2d,
 FFNO1D, FFNO2D, the 1D S4 family (S4Model, S4Block, S4D), UNet1d, UNet2d,
-CNO1d, CNO2d and CNO2dOriginal are ported so far. A model of the JAX
-registry that is not raises a KeyError naming the ROADMAP item (section
-1) that ports it.
+CNO1d, CNO2d, CNO2dOriginal, MoEGPTNO, GNOTOperator, SwinOperator2d and
+ScOT2d (``pos``) are ported so far. A model of the JAX registry that is
+not raises a KeyError naming the ROADMAP item (section 1) that ports it.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from resolution_pde_tpu_torch.models.cno import CNO1d, CNO2d
 from resolution_pde_tpu_torch.models.cno_original import CNO2dOriginal
 from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D
 from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d
+from resolution_pde_tpu_torch.models.mgpt import GNOTOperator, MoEGPTNO
+from resolution_pde_tpu_torch.models.poseidon import ScOT2d, SwinOperator2d
 from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model
 from resolution_pde_tpu_torch.models.unet import UNet1d, UNet2d
 
@@ -42,6 +44,14 @@ MODEL_REGISTRY = {
     "CNO2dOriginal": CNO2dOriginal,
     # the reference's cno_2d_original.yaml target
     "CNO.CNO2d_original_version.CNOModule.CNO": CNO2dOriginal,
+    "MoEGPTNO": MoEGPTNO,
+    "models.mgpt.MoEGPTNO": MoEGPTNO,
+    "GNOTOperator": GNOTOperator,
+    "SwinOperator2d": SwinOperator2d,
+    # 'pos' is the hierarchical ScOT (conf/model/pos)
+    "ScOT2d": ScOT2d,
+    "pos": ScOT2d,
+    "scOT.model.ScOT": ScOT2d,
 }
 
 
@@ -53,13 +63,9 @@ def unwrap_output(pred):
 
 # the JAX registry's models not ported yet (short names), by the ROADMAP
 # item (section 1) that ports them
-NOT_PORTED = {
-    **dict.fromkeys(("S4NDModel", "S4BaseModel", "S4SeqModel",
-                     "OneToSeqModel", "S4BaseSeqModel", "S4DualSeqModel",
-                     "SeqAdd", "ChainModel"), 5),
-    **dict.fromkeys(("MoEGPTNO", "GNOTOperator", "SwinOperator2d", "ScOT2d",
-                     "pos", "ScOT"), 9),
-}
+NOT_PORTED = dict.fromkeys(
+    ("S4NDModel", "S4BaseModel", "S4SeqModel", "OneToSeqModel",
+     "S4BaseSeqModel", "S4DualSeqModel", "SeqAdd", "ChainModel"), 5)
 
 
 def get_model(name: str):

@@ -62,8 +62,16 @@ neck's. ``CNO2dOriginal`` (``_LiftProject_{0,1}``, ``_Block_k``,
 ``{_UNet_0: {_DoubleConv_i, ConvTranspose_i, Conv_0}}`` maps to
 ``encoder1-4``, ``bottleneck``, ``decoder4-1``, ``upconv4-1`` and ``conv``
 (``unet1d_state_dict``, ``unet2d_state_dict``), the transposed convs'
-taps flipped: flax's ConvTranspose correlates where torch's convolves. No
-JAX import is needed here.
+taps flipped: flax's ConvTranspose correlates where torch's convolves.
+
+The transformer operators: ``mgpt_state_dict`` (``MoEGPTNO``, both
+expert layouts) and ``gnot_state_dict`` (``GNOTOperator``), by the gate's
+and the bare LayerNorms' creation order; ``swin_operator2d_state_dict``
+(its de-embedding a ConvTranspose, flipped likewise);
+``scot2d_state_dict``, whose JAX modules are named
+(``enc{l}_block{j}``, ``skip{l}_res{r}``, ``merge{l}`` ...), and the
+block-level maps it uses (``swinv2_block_state_dict``,
+``convnext_block_state_dict``). No JAX import is needed here.
 """
 
 from __future__ import annotations
@@ -229,8 +237,21 @@ def _conv(p: dict, prefix: str) -> dict:
     return out
 
 
+def _conv_transpose(p: dict, prefix: str) -> dict:
+    """flax ConvTranspose {kernel (*k, in, out), bias} -> torch
+    ConvTranspose (in, out, *k): flax correlates where torch convolves,
+    so the taps are flipped along every spatial axis."""
+    k = np.asarray(p["kernel"], dtype=np.float32)
+    nd = k.ndim - 2
+    flipped = np.flip(k, axis=tuple(range(nd)))
+    return {f"{prefix}.weight": _t(flipped.transpose(nd, nd + 1,
+                                                     *range(nd))),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
 def _norm(p: dict, stats: Optional[dict], prefix: str) -> dict:
-    """flax BatchNorm / GroupNorm (params, batch stats or None)."""
+    """flax BatchNorm / GroupNorm / LayerNorm (params, batch stats or
+    None)."""
     out = {f"{prefix}.weight": _t(p["scale"]),
            f"{prefix}.bias": _t(p["bias"])}
     if stats is not None:
@@ -355,13 +376,7 @@ def _unet_state_dict(variables: dict) -> dict:
             sd.update(_norm(norm, s.get(f"BatchNorm_{j - 1}"),
                             f"{pre}norm{j}"))
     for i, up in enumerate(("upconv4", "upconv3", "upconv2", "upconv1")):
-        p = params[f"ConvTranspose_{i}"]
-        k = np.asarray(p["kernel"], dtype=np.float32)
-        nd = k.ndim - 2
-        # (*k, in, out) flipped along every tap axis -> torch (in, out, *k)
-        flipped = np.flip(k, axis=tuple(range(nd)))
-        sd[f"{up}.weight"] = _t(flipped.transpose(nd, nd + 1, *range(nd)))
-        sd[f"{up}.bias"] = _t(p["bias"])
+        sd.update(_conv_transpose(params[f"ConvTranspose_{i}"], up))
     sd.update(_conv(params["Conv_0"], "conv"))
     return sd
 
@@ -375,3 +390,172 @@ def unet1d_state_dict(variables: dict) -> dict:
 def unet2d_state_dict(variables: dict) -> dict:
     """JAX ``UNet2d`` variables -> the port's ``UNet2d`` state_dict."""
     return _unet_state_dict(variables)
+
+
+def _mlp(p: dict, prefix: str) -> dict:
+    sd = {}
+    for j in range(len(p)):
+        sd.update(_dense(p[f"Dense_{j}"], f"{prefix}.layers.{j}"))
+    return sd
+
+
+# MoECrossAttentionBlock's bare LayerNorms in creation order
+_MOE_NORMS = ("norm_x", "norm_y", "norm_moe1", "norm_self", "norm_moe2")
+
+
+def _moe_block(p: dict, prefix: str) -> dict:
+    sd = {}
+    for j in range(3):
+        sd.update(_dense(p[f"Dense_{j}"], f"{prefix}.gate{j}"))
+    for j, name in enumerate(_MOE_NORMS):
+        sd.update(_norm(p[f"LayerNorm_{j}"], None, f"{prefix}.{name}"))
+    for attn in ("crossattn", "selfattn"):
+        for name in ("query", "key", "value", "proj"):
+            sd.update(_dense(p[attn][name], f"{prefix}.{attn}.{name}"))
+    for moe in ("moe1", "moe2"):
+        if f"{moe}_stacked" in p:
+            for name, v in p[f"{moe}_stacked"].items():
+                sd[f"{prefix}.{moe}.{name}"] = _t(v)
+            continue
+        i = 0
+        while f"{moe}_{i}" in p:
+            e = p[f"{moe}_{i}"]
+            sd.update(_dense(e["Dense_0"], f"{prefix}.{moe}.{i}.fc1"))
+            sd.update(_dense(e["Dense_1"], f"{prefix}.{moe}.{i}.fc2"))
+            i += 1
+    return sd
+
+
+def mgpt_state_dict(params: dict, prefix: str = "") -> dict:
+    """JAX ``MoEGPTNO`` params -> the port's ``MoEGPTNO`` state_dict,
+    either expert layout: ``moe{1,2}_{i}`` (``'loop'``) -> ``moe{1,2}.{i}
+    .fc1`` / ``.fc2``, ``moe{1,2}_stacked`` {w1 (m, c, i), b1, w2, b2}
+    (``'stacked'``) -> ``moe{1,2}.w1`` ... as they are; the gate's
+    ``Dense_{0,1,2}`` -> ``gate{0,1,2}``, ``LayerNorm_{0-4}`` -> ``norm_x``,
+    ``norm_y``, ``norm_moe1``, ``norm_self``, ``norm_moe2``."""
+    params = params.get("params", params)
+    sd = {}
+    for name in ("trunk_mlp", "branch_mlp", "out_mlp"):
+        sd.update(_mlp(params[name], f"{prefix}{name}"))
+    i = 0
+    while f"block_{i}" in params:
+        sd.update(_moe_block(params[f"block_{i}"], f"{prefix}blocks.{i}"))
+        i += 1
+    return sd
+
+
+def gnot_state_dict(params: dict) -> dict:
+    """JAX ``GNOTOperator`` params ({MoEGPTNO_0: ...}) -> the port's
+    ``GNOTOperator`` state_dict (``net.*``)."""
+    params = params.get("params", params)
+    return mgpt_state_dict(params["MoEGPTNO_0"], prefix="net.")
+
+
+def swin_operator2d_state_dict(params: dict) -> dict:
+    """JAX ``SwinOperator2d`` params -> the port's state_dict: ``Conv_0``
+    -> ``patch_embed``; the time MLP's outer ``Dense_0`` -> ``time_mlp1``
+    and inner ``Dense_1`` -> ``time_mlp0`` (flax names the outer Dense
+    first: it is built before its argument); ``_SwinBlock_i`` {Dense_0
+    (the time scale), LayerNorm_{0,1}, _WindowAttention_0 {Dense_0 (qkv),
+    rel_bias, Dense_1 (proj)}, Dense_{1,2}} -> ``blocks.i.time_scale``,
+    ``norm1`` / ``norm2``, ``attn.qkv`` / ``rel_bias`` / ``proj``, ``fc1``
+    / ``fc2``; ``ConvTranspose_0`` -> ``de_embed`` (flipped taps);
+    ``Conv_1`` -> ``head``."""
+    params = params.get("params", params)
+    sd = {}
+    sd.update(_conv(params["Conv_0"], "patch_embed"))
+    sd.update(_dense(params["Dense_1"], "time_mlp0"))
+    sd.update(_dense(params["Dense_0"], "time_mlp1"))
+    i = 0
+    while f"_SwinBlock_{i}" in params:
+        p, pre = params[f"_SwinBlock_{i}"], f"blocks.{i}"
+        sd.update(_dense(p["Dense_0"], f"{pre}.time_scale"))
+        sd.update(_norm(p["LayerNorm_0"], None, f"{pre}.norm1"))
+        sd.update(_norm(p["LayerNorm_1"], None, f"{pre}.norm2"))
+        a = p["_WindowAttention_0"]
+        sd.update(_dense(a["Dense_0"], f"{pre}.attn.qkv"))
+        sd[f"{pre}.attn.rel_bias"] = _t(a["rel_bias"])
+        sd.update(_dense(a["Dense_1"], f"{pre}.attn.proj"))
+        sd.update(_dense(p["Dense_1"], f"{pre}.fc1"))
+        sd.update(_dense(p["Dense_2"], f"{pre}.fc2"))
+        i += 1
+    sd.update(_conv_transpose(params["ConvTranspose_0"], "de_embed"))
+    sd.update(_conv(params["Conv_1"], "head"))
+    return sd
+
+
+def _cond_layer_norm(p: dict, prefix: str) -> dict:
+    """CondLayerNorm {LayerNorm_0[, alpha, beta]} -> ``norm``[, ``alpha``,
+    ``beta``]."""
+    sd = _norm(p["LayerNorm_0"], None, f"{prefix}.norm")
+    for name in ("alpha", "beta"):
+        if name in p:
+            sd.update(_dense(p[name], f"{prefix}.{name}"))
+    return sd
+
+
+def swinv2_attention_state_dict(p: dict, prefix: str) -> dict:
+    """Swinv2WindowAttention {query, key, value, logit_scale, cpb_mlp0,
+    cpb_mlp1, proj}: the same names."""
+    sd = {f"{prefix}.logit_scale": _t(p["logit_scale"])}
+    for name in ("query", "key", "value", "cpb_mlp0", "cpb_mlp1", "proj"):
+        sd.update(_dense(p[name], f"{prefix}.{name}"))
+    return sd
+
+
+def swinv2_block_state_dict(p: dict, prefix: str = "") -> dict:
+    """Swinv2Block {attention, layernorm_before, intermediate, output,
+    layernorm_after}: the same names."""
+    pre = f"{prefix}." if prefix else ""
+    sd = swinv2_attention_state_dict(p["attention"], f"{pre}attention")
+    for name in ("layernorm_before", "layernorm_after"):
+        sd.update(_cond_layer_norm(p[name], f"{pre}{name}"))
+    for name in ("intermediate", "output"):
+        sd.update(_dense(p[name], f"{pre}{name}"))
+    return sd
+
+
+def convnext_block_state_dict(p: dict, prefix: str = "") -> dict:
+    """ConvNeXtBlock {dwconv (7, 7, 1, C), norm, pwconv1, pwconv2,
+    gamma}: the depthwise kernel -> (C, 1, 7, 7)."""
+    pre = f"{prefix}." if prefix else ""
+    sd = _conv(p["dwconv"], f"{pre}dwconv")
+    sd.update(_cond_layer_norm(p["norm"], f"{pre}norm"))
+    sd.update(_dense(p["pwconv1"], f"{pre}pwconv1"))
+    sd.update(_dense(p["pwconv2"], f"{pre}pwconv2"))
+    sd[f"{pre}gamma"] = _t(p["gamma"])
+    return sd
+
+
+def scot2d_state_dict(params: dict) -> dict:
+    """JAX ``ScOT2d`` params -> the port's ``ScOT2d`` state_dict:
+    ``enc{l}_block{j}`` -> ``encoder.l.j``, ``dec{l}_block{j}`` ->
+    ``decoder.l.j``, ``merge{l}`` / ``expand{l}`` / ``fuse{l}`` ->
+    ``merge.l`` / ``expand.l`` / ``fuse.l``, ``skip{l}_res{r}`` ->
+    ``skip.l.r``; ``patch_embed``, ``patch_norm``, ``final_expand``,
+    ``final_norm`` and ``head`` keep their names."""
+    params = params.get("params", params)
+    sd = {}
+    sd.update(_conv(params["patch_embed"], "patch_embed"))
+    sd.update(_norm(params["patch_norm"], None, "patch_norm"))
+    for name, p in params.items():
+        m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
+        if m:
+            stack = "encoder" if m[1] == "enc" else "decoder"
+            sd.update(swinv2_block_state_dict(p, f"{stack}.{m[2]}.{m[3]}"))
+            continue
+        m = re.fullmatch(r"skip(\d+)_res(\d+)", name)
+        if m:
+            sd.update(convnext_block_state_dict(p, f"skip.{m[1]}.{m[2]}"))
+            continue
+        m = re.fullmatch(r"(merge|expand|fuse)(\d+)", name)
+        if m and m[1] == "fuse":
+            sd.update(_dense(p, f"fuse.{m[2]}"))
+        elif m:
+            lin = "reduction" if m[1] == "merge" else "expansion"
+            sd.update(_dense(p[lin], f"{m[1]}.{m[2]}.{lin}"))
+            sd.update(_norm(p["norm"], None, f"{m[1]}.{m[2]}.norm"))
+    sd.update(_dense(params["final_expand"], "final_expand"))
+    sd.update(_norm(params["final_norm"], None, "final_norm"))
+    sd.update(_conv(params["head"], "head"))
+    return sd

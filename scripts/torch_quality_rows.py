@@ -29,6 +29,14 @@ prose, :899 and :909-913):
                        ns_naive.yaml with resize training at 256²; its
                        table row is named after this leg, so that a merge
                        keeps it beside the ns_models row of the same name
+  pos_ns               ns_models family: pos.yaml (ScOT) at the family's
+                       demo widths on ns_naive.yaml, trained at 128²
+  gnot_ns_demo         scripts/integration_demo_gnot.py's steps (its JAX
+                       row, test rel-L2 0.029, is in RESULTS.md:602-609):
+                       mgpt.yaml (GNOTOperator, n_hidden 64, 2 layers) on
+                       ns_gnot.yaml's point clouds of NS at 32² (1,024
+                       nodes), the Trainer at lr 1e-3 (constant) for 15
+                       epochs of batch 8, then the test split's rel-L2
 
 The data are scripts/gen_baseline_data.sh's settings, and for Darcy
 cli/sweep.py's, generated by the port on the device (``device``, the card
@@ -41,7 +49,10 @@ unless "cpu"):
       (generate_ns_arrays), written as data/ns/ns_256_1e-03.mat (scipy:
       the card's machine has no h5py);
   Darcy: n 256, resolution 128, beta 0.01, seed 0 (generate_darcy_arrays;
-      the CG iterations and largest residual of each batch are printed).
+      the CG iterations and largest residual of each batch are printed);
+  GNOT: the demo's NS, n 24 at 32², viscosity 1e-3, T 1.0, dt 5e-4, 10
+      recorded steps, seed 0 (datagen.generate_ns_dataset), held in memory
+      under ns_gnot.yaml's file name (data.io.files_in_memory).
 The NS data are solved a second time without the CUDA graph (timed; the
 two must be equal bit for bit). The KS, Burgers and Darcy factories read
 HDF5 files, so those legs read the arrays held in memory under the paths
@@ -57,9 +68,10 @@ super-resolution and rollout rel-L2 at every resolution, train seconds)
 and, last, the row as JSON; copies sweep.csv and sweep.md to
 ``out``/quality_<leg>/.
 
-Smaller runs, for a rehearsal on the CPU: ``n=``, ``res=`` (NS, Darcy),
-``epochs=`` and any other ``key=value`` (passed to every leg as a config
-override) change the run and stamp its table rehearsal=true.
+Smaller runs, for a rehearsal on the CPU: ``n=``, ``res=`` (NS, Darcy,
+GNOT), ``epochs=`` and any other ``key=value`` (passed to every leg as a
+config override; to the GNOT leg's model) change the run and stamp its
+table rehearsal=true.
 """
 
 from __future__ import annotations
@@ -85,6 +97,10 @@ BURGERS = dict(n=512, resolutions=[1024], n_snapshots=51, viscosity=0.001,
                seed=12)
 NS = dict(n=128, res=256, n_snapshots=26, viscosity="1e-03", seed=13)
 DARCY = dict(n=256, res=128, seed=0)
+# scripts/integration_demo_gnot.py's data and training
+GNOT = dict(n=24, res=32, record_steps=10, viscosity=1e-3, T=1.0,
+            delta_t=5e-4, seed=0, epochs=15, batch_size=8,
+            learning_rate=1e-3, n_hidden=64, n_layers=2)
 # leg -> (family, pde)
 LEGS = {"fno1d_burger_naive": ("baseline", "burgers"),
         "ffno1d_ks_true_mres": ("baseline", "ks"),
@@ -95,7 +111,9 @@ LEGS = {"fno1d_burger_naive": ("baseline", "burgers"),
         "ffno2d_darcy": ("darcy", "darcy"),
         "cno2d_ns_resize": ("ns_models", "ns"),
         "cno2d_original_ns": ("ns_models", "ns"),
-        "cno2d_ns_resize_256": ("baseline", "ns")}
+        "cno2d_ns_resize_256": ("baseline", "ns"),
+        "pos_ns": ("ns_models", "ns"),
+        "gnot_ns_demo": ("gnot", "gnot")}
 # the family's name of a leg named otherwise here
 SWEEP_LEG = {"cno2d_ns_resize_256": "cno2d_ns_resize"}
 # the NS legs that read the true multi-resolution files
@@ -115,7 +133,7 @@ def card() -> str:
 
 def parse(argv) -> dict:
     opts = {"leg": None, "out": "build/quality_rows", "device": "cuda",
-            "n": None, "res": None, "epochs": EPOCHS, "extras": []}
+            "n": None, "res": None, "epochs": None, "extras": []}
     for a in argv:
         k, sep, v = a.partition("=")
         if not sep:
@@ -128,6 +146,10 @@ def parse(argv) -> dict:
             opts["extras"].append(a)
     if opts["leg"] not in LEGS:
         raise SystemExit(f"leg= one of {sorted(LEGS)}")
+    default = GNOT["epochs"] if opts["leg"] == "gnot_ns_demo" else EPOCHS
+    opts["rehearsal"] = bool(opts["n"] or opts["res"] or opts["extras"]
+                             or opts["epochs"] not in (None, default))
+    opts["epochs"] = opts["epochs"] or default
     return opts
 
 
@@ -228,6 +250,85 @@ def eager_ns(ns: dict, u, device) -> float:
     return seconds
 
 
+def gnot_demo(opts: dict, out_dir: str) -> tuple:
+    """scripts/integration_demo_gnot.py's steps on the port: NS generated
+    on the device, held as ns_gnot.yaml's file; the point-cloud factory;
+    GNOTOperator from mgpt.yaml (n_hidden, n_layers as the demo's); the
+    Trainer at a constant lr for GNOT['epochs'] epochs of shuffled
+    batches; the test split's rel-L2. Writes the row's sweep.csv and
+    sweep.md to ``out_dir``. Returns (the row, its seconds)."""
+    from resolution_pde_tpu_torch.cli import sweep
+    from resolution_pde_tpu_torch.cli.main_1d import _platform
+    from resolution_pde_tpu_torch.configs import (instantiate_dataset,
+                                                  instantiate_model,
+                                                  load_config)
+    from resolution_pde_tpu_torch.data.io import files_in_memory
+    from resolution_pde_tpu_torch.data.loader import Loader
+    from resolution_pde_tpu_torch.datagen import generate_ns_dataset
+    from resolution_pde_tpu_torch.train import Trainer
+
+    g = dict(GNOT, n=opts["n"] or GNOT["n"], res=opts["res"] or GNOT["res"])
+    device = opts["device"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, u, _ = generate_ns_dataset(
+        torch.Generator().manual_seed(g["seed"]), g["n"], s=g["res"],
+        viscosity=g["viscosity"], T=g["T"], delta_t=g["delta_t"],
+        record_steps=g["record_steps"], batch_size=g["n"], device=device)
+    data_s = time.perf_counter() - t0
+    u = np.ascontiguousarray(np.moveaxis(u, -1, 1))  # (n, t, s, s)
+    if not bool(np.isfinite(u).all()):
+        raise RuntimeError("generated NS: non-finite")
+    ns = {k: g[k] for k in ("n", "res", "record_steps", "viscosity", "T",
+                            "delta_t", "seed")}
+    print(f"[quality] data: NS {ns} u {u.shape} max|w| "
+          f"{float(abs(u).max()):.3f} seconds={data_s:.2f}", flush=True)
+
+    cfg = load_config(model="mgpt", dataset="ns_gnot",
+                      overrides=[f"model.n_hidden={g['n_hidden']}",
+                                 f"model.n_layers={g['n_layers']}"]
+                      + opts["extras"])
+    fname = f"ns_{g['res']}_demo.h5"
+    folder = os.path.abspath("data/ns")
+    with files_in_memory({os.path.join(folder, fname): u}):
+        data = instantiate_dataset(cfg.dataset.dataset_params,
+                                   filename=fname, saved_folder=folder)
+    train, test, y_norm = data[0], data[2], data[5]
+    print(f"[quality] point cloud: x {train.x.shape} (features|positions), "
+          f"y {train.y.shape}", flush=True)
+    model = instantiate_model(cfg.model)
+    trainer = Trainer(model, learning_rate=g["learning_rate"],
+                      y_normalizer=y_norm, use_normalizer=False,
+                      device=device)
+    state = trainer.init()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    loader = Loader(train, g["batch_size"], shuffle=True, seed=0)
+    losses = []
+    t0 = time.perf_counter()
+    for epoch in range(opts["epochs"]):
+        e0 = time.perf_counter()
+        state, loss = trainer.train_epoch(state, loader)
+        losses.append(float(loss))
+        print(f"[quality] epoch {epoch + 1} train_loss={losses[-1]:.6f} "
+              f"seconds={time.perf_counter() - e0:.2f}", flush=True)
+    train_s = time.perf_counter() - t0
+    test_loss = trainer.evaluate(state, Loader(test, g["batch_size"],
+                                               shuffle=False))
+    out = {"test_loss": float(test_loss), "n_params": n_params,
+           "train_seconds": train_s,
+           "provenance": {"platform": _platform(torch.device(device)),
+                          "epochs": opts["epochs"], "dataset": fname}}
+    os.makedirs(out_dir, exist_ok=True)
+    sweep._write_tables(out_dir, "gnot_ns_demo",
+                        [("gnot_ns_demo", out, None)],
+                        rehearsal=opts["rehearsal"])
+    with open(os.path.join(out_dir, "sweep.csv"), newline="") as f:
+        [row] = list(csv.DictReader(f))
+    return row, {"data_seconds": data_s, "train_seconds": train_s,
+                 "train_first": losses[0], "train_last": losses[-1]}
+
+
 def main(argv=None) -> int:
     from resolution_pde_tpu_torch.cli import sweep
 
@@ -235,12 +336,22 @@ def main(argv=None) -> int:
     leg = opts["leg"]
     family, pde = LEGS[leg]
     sweep_leg = SWEEP_LEG.get(leg, leg)
-    rehearsal = bool(opts["n"] or opts["res"] or opts["epochs"] != EPOCHS
-                     or opts["extras"])
+    rehearsal = opts["rehearsal"]
     print(f"[quality] leg={leg} family={family} device={opts['device']} "
           f"rehearsal={str(rehearsal).lower()}", flush=True)
     print(card(), flush=True)
     out_dir = os.path.abspath(os.path.join(opts["out"], f"quality_{leg}"))
+    if pde == "gnot":
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                row, seconds = gnot_demo(opts, out_dir)
+            finally:
+                os.chdir(cwd)
+        print(json.dumps({"leg": leg, **seconds, "card": card(), **row}),
+              flush=True)
+        return 0
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)

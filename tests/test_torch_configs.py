@@ -97,7 +97,6 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
 @pytest.mark.parametrize("target,item", [
     ("dataloaders.ns_s4.ns_window_dataset", 5),
     ("ns_window_dataset", 5),
-    ("point_cloud_markov_dataset", 9),
 ])
 def test_unported_dataset_factory_raises(target, item):
     with pytest.raises(KeyError, match=f"ROADMAP.md section 1, item {item}"):
@@ -128,6 +127,31 @@ def test_active_matter_factory_builds(target, kw, tmp_path):
     train = out[0]
     assert train.x.shape[1:] == (1, 8, 8) and len(train.x) > 0
     assert np.isfinite(train.x).all()
+
+
+@pytest.mark.parametrize("target", [
+    "point_cloud_markov_dataset", "dataloaders.dgl_data.FNODataset"])
+def test_point_cloud_factory_builds_from_arrays_in_memory(target, tmp_path):
+    """The GNOT point-cloud factory (ported with the transformer
+    operators) builds from NS arrays held as a file
+    (data.io.files_in_memory): [features | positions] node rows."""
+    from resolution_pde_tpu_torch.data.io import files_in_memory
+
+    u = np.random.default_rng(0).standard_normal((5, 4, 8, 8)).astype(
+        np.float32)
+    path = str(tmp_path / "ns_64_demo.h5")
+    with files_in_memory({path: u}):
+        out = tcfg.instantiate_dataset({"_target_": target,
+                                        "filename": "ns_64_demo.h5",
+                                        "saved_folder": str(tmp_path),
+                                        "data_normalizer": False})
+    train, rollout = out[0], out[3]
+    assert train.x.shape[1:] == (64, 3) and train.y.shape[1:] == (64, 1)
+    assert len(out[0]) + len(out[1]) + len(out[2]) == 5 * 3
+    assert rollout is None and np.isfinite(train.x).all()
+    # unencoded: the positions span the unit square
+    np.testing.assert_array_equal(train.x[0, :, 1:].min(0), [0, 0])
+    np.testing.assert_array_equal(train.x[0, :, 1:].max(0), [1, 1])
 
 
 def test_every_jax_factory_is_ported_or_queued():
