@@ -99,8 +99,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   9. K4, the S4D Vandermonde reduction, and K5, the four Cauchy sums of
      the S4 DPLR kernel, against their plain versions through both of
      each kernel's entries (the fused one the model runs, which forms the
-     operands in the launch, and the plane one) at the S4 serving shapes
-     and at a small ragged shape, timed in CUDA graphs; K4 at a slow
+     operands in the launch, and the plane one) at the S4 serving shapes,
+     at S4ND's (phase 17: 64 features, L = 64, 128, 256) and at a small
+     ragged shape, timed in CUDA graphs; K4 at a slow
      decay (Re A = -1e-4, dt = 0.1), no farther from a float64
      evaluation than its plain version;
  10. the S4 serving slice: S4Model at the width of configs/model/s4_1d.yaml
@@ -238,7 +239,26 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      parameters): its Trainer step at 8 x 128² (median, the device's busy
      time and idle share over 3 profiled steps, peak memory) and its
      forward on the card against the CPU at a time a sample (relative L2
-     1e-4).
+     1e-4);
+ 17. S4ND and the S4 base/sequence family (run_s4nd): main_2d
+     model=s4_2d dataset=ns_naive model.d_input=1 model.d_output=1 at
+     s4_2d.yaml's widths (d_model 64, 4 layers, d_state 64, dropout 0.2,
+     diag, the 'jnp' route) on phase 13's NS strided to 128², 1 epoch,
+     the losses, test loss, sweep and 16-step rollout at 32-256² each
+     finite, no kernel launched; the trained S4ND served through
+     ServingEngine.from_checkpoint into S4NDModel(kernel_impl='pallas')
+     (K4) and a dplr S4NDModel at the same widths (K5), one graph a
+     bucket at 8 x {64², 128², 256²}, a request a bucket counted by its
+     kernel's executions in the replays (a layer and axis each), held
+     against the 'jnp' route and the CPU (1e-4) and against eager, the
+     median predict graphed and eager, the device time of a 256² predict
+     by kernel; S4ND's Trainer step at 8 x 128² (median, busy time, idle
+     share, kernels a step, the largest kernels, peak memory) and its
+     forward against the CPU (1e-4); S4BaseSeqModel and S4DualSeqModel
+     at their default widths in both modes, the convolution against the
+     recurrence stepped over 16 steps on the card (rtol 2e-3, atol 2e-4,
+     JAX's) and both against the CPU (1e-4). check_fft_path holds the
+     port's irfftn at S4ND's padded shape there too.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -252,8 +272,9 @@ products the kernels do); the K2 and K3 entries also give the H pass's
 w128_*; the f32 K1f and K1b entries also give FFNO1D's chain as
 ffno1d_* (time, plain time, bound, error) and its launches on phase 12's
 paths as ffno1d_launches (run B, and for K1f the served executions) and
-on phase 14's Burgers leg as burgers_launches, which ``launches``
-includes, as it sums every path's; a kernel on a
+on phase 14's Burgers leg as burgers_launches, the K4 and K5 entries
+their executions in phase 17's S4ND replays as s4nd_launches, which
+``launches`` includes, as it sums every path's; a kernel on a
 serving path says in launches_counted_as that its
 launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
@@ -1135,14 +1156,21 @@ def _device_kernels(prof) -> list:
             and not e.name.startswith(("Memcpy", "Memset"))]
 
 
-def graph_executions(fn, per_call: dict, calls: int, what: str) -> tuple:
+def graph_executions(fn, per_call: dict, calls: int, what: str,
+                     exact: bool = True) -> tuple:
     """Serve ``calls`` requests (``fn()``) through an engine's CUDA graphs
     under torch.profiler and count each kernel's executions inside the
     replays by its symbol name (``SYMBOLS``): each must be ``per_call[k]``
     a request. The kernels' Python counters count host launches, which a
     replay makes none of. Should the profiler record no kernel inside a
     replay, the executions are counted as the launches a capture records
-    times the replays, and the log says so. Returns (result, {kernel:
+    times the replays, and the log says so. With ``exact`` False the
+    profiler need only see each kernel of ``per_call`` at least once and
+    no more than its count, and the executions are the launches at
+    capture times the replays: inside S4ND's replays the profiler drops
+    some of K4's records (6 or 7 of a replay's 8 on the card, varying
+    between readings of one graph), while warm_graphs has counted the
+    launches each capture records. Returns (result, {kernel:
     executions}, how they were counted)."""
     out, prof = profiled(fn)
     names = _device_kernels(prof)
@@ -1155,8 +1183,18 @@ def graph_executions(fn, per_call: dict, calls: int, what: str) -> tuple:
     else:
         how = "torch.profiler, by symbol name"
         got = {k: sum(SYMBOLS[k] in n for n in names) for k in per_call}
-        require(got == want, f"{what}: kernels executed in the graph "
-                f"replays {got}, expected {want}")
+        if not exact and got != want:
+            how = ("launches at capture x replays, each kernel seen in the "
+                   "replays by torch.profiler")
+            log("graphs", what=what, executions=want, profiler_saw=got,
+                counted=how)
+            require(all((0 < got[k] <= v) if v else got[k] == 0
+                        for k, v in want.items()),
+                    f"{what}: kernels seen in the graph replays {got}, "
+                    f"expected each of {want} at least once")
+        else:
+            require(got == want, f"{what}: kernels executed in the graph "
+                    f"replays {got}, expected {want}")
     REPLAYS_COUNTED_BY.add(how)
     return out, want, how
 
@@ -1596,8 +1634,13 @@ def _log_uniform_dt(h, gen):
     return u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)
 
 
+def _within(got, ref, rtol, atol) -> float:
+    """The largest |got - ref| over atol + rtol |ref| (at most 1 passes)."""
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
 def _close(got, ref, rtol, atol) -> bool:
-    return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+    return _within(got, ref, rtol, atol) <= 1.0
 
 
 def check_s4_kernels(gen) -> tuple:
@@ -1606,9 +1649,10 @@ def check_s4_kernels(gen) -> tuple:
     inputs, the operands formed in the launch) and the plane one (f32
     planes in, and for K5 the four sums out), on the operands the S4
     layers give them: the slice's shapes (2 kernel channels x 64 features
-    = 128 rows; K4 N/2 = 32, K5 N = 64; L = 512) and a ragged 18 rows x N
-    8 x L 40 (and K5 at 3 channels, 27 rows, whose rows no pair of
-    channels shares); and K4 at a slow decay (Re A = -1e-4, dt = 0.1, L = 512),
+    = 128 rows; K4 N/2 = 32, K5 N = 64; L = 512), S4ND's (one channel x
+    64 features at L = 64, 128 and 256) and a ragged 18 rows x N 8 x L 40
+    (and K5 at 3 channels, 27 rows, whose rows no pair of channels
+    shares); and K4 at a slow decay (Re A = -1e-4, dt = 0.1, L = 512),
     where each entry must be no farther from a float64 evaluation than its
     plain version. Times are device times in CUDA graphs (eager calls of a
     few microseconds leave the device idle between them)."""
@@ -1777,6 +1821,11 @@ def check_s4_kernels(gen) -> tuple:
     k5(2, 9, 8, 40, "ragged")
     # an odd number of channels: a block a row, no pair of channels
     k5(3, 9, 8, 40, "ragged_3ch")
+    # S4ND's per-axis kernels (phase 17): one channel of s4_2d.yaml's 64
+    # features at each axis length it serves
+    for L in S4ND_SERVE:
+        k4(1, S4ND_WIDTH, S4_STATE // 2, L, f"s4nd_{L}")
+        k5(1, S4ND_WIDTH, S4_STATE, L, f"s4nd_{L}")
     return k4_out, k5_out
 
 
@@ -2498,11 +2547,13 @@ def check_fft_path(gen) -> None:
     is not real), each within 1e-4; the port's irfft against the CPU over
     24 to 32,768 rows at n = 128 with complex DC and Nyquist bins (within
     1e-4) beside torch.fft.irfft's own reading on the card (logged: cuFFT
-    reads those bins' imaginary parts at some shapes, the CPU does not)."""
+    reads those bins' imaginary parts at some shapes, the CPU does not);
+    the port's irfftn at S4ND's padded shape likewise, beside
+    torch.fft.irfftn's own reading."""
     from resolution_pde_tpu_torch.ops.resize import fft_resize_2d
     from resolution_pde_tpu_torch.ops.spectral import (
         factorized_spectral_conv_1d, factorized_spectral_conv_2d, irfft,
-        spectral_conv_1d, spectral_conv_2d)
+        irfftn, spectral_conv_1d, spectral_conv_2d)
 
     for n in (128, 256):
         x = randn((2, n, n, WIDTH), gen, device="cpu")
@@ -2570,6 +2621,21 @@ def check_fft_path(gen) -> None:
         {r: f"{v:.3e}" for r, v in raw.items()},
         port_irfft_card_vs_cpu={r: f"{v:.3e}" for r, v in port.items()})
     require(max(port.values()) <= 1e-4, f"ops.spectral.irfft: {port}")
+    # S4ND's inverse: a spectrum of its padded shape at the 128² train
+    # (batch 8, d_model 64, 2 x 128 by 2 x 128), every bin complex as the
+    # product of the input's and the kernels' spectra leaves them
+    shape = (S4ND_BATCH, S4ND_WIDTH, 2 * S4ND_RES, S4ND_RES + 1)
+    z = torch.complex(randn(shape, gen, device="cpu"),
+                      randn(shape, gen, device="cpu"))
+    s = (2 * S4ND_RES, 2 * S4ND_RES)
+    want = irfftn(z, s)
+    raw = rel_l2(torch.fft.irfftn(z.cuda(), s=s).cpu(), want)
+    port = rel_l2(irfftn(z.cuda(), s).cpu(), want)
+    log("fft_path", irfftn="x".join(map(str, shape)), s=s,
+        torch_irfftn_card_vs_cpu=f"{raw:.3e}",
+        port_irfftn_card_vs_cpu=f"{port:.3e}", tol=1e-4)
+    require(port <= 1e-4, f"ops.spectral.irfftn on the card vs the CPU: "
+            f"{port}")
 
 
 def _idle_share(prof) -> tuple:
@@ -2594,6 +2660,18 @@ def _idle_share(prof) -> tuple:
             cur_e = max(cur_e, t)
     busy += cur_e - cur_s
     return busy / 1e3, 1.0 - busy / (end - start)
+
+
+def _top_kernels(prof, steps: int) -> dict:
+    """The profile's six largest kernels by device time, ms a step."""
+    by_name = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            by_name[e.key[:60]] = t / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {k: f"{v:.3f}" for k, v in top}
 
 
 def _cli_parts(argv, ckpt):
@@ -3263,21 +3341,13 @@ def cno2d_step(size: int) -> dict:
 
     _, prof = profiled(five_steps)
     busy_ms, idle = _idle_share(prof)
-    # device time by kernel name, the largest six, ms a step
-    by_name = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-        if t > 0:
-            by_name[e.key] = t / 1e3 / 5
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     rec = dict(batch=f"{CNO_BATCH}x1x{size}x{size}",
                median_step_ms=f"{step_ms:.3f}",
                device_busy_ms_per_step=f"{busy_ms / 5:.3f}",
                kernels_per_step=f"{len(_device_kernels(prof)) / 5:.1f}",
                device_idle_share=f"{idle:.4f}",
                peak_memory_gib=f"{peak:.2f}",
-               top_kernels_ms_per_step={k[:60]: f"{v:.3f}" for k, v in top})
+               top_kernels_ms_per_step=_top_kernels(prof, 5))
     log("cno_step", **rec)
     return rec
 
@@ -3667,6 +3737,312 @@ def run_transformers(ns_arrays: dict) -> None:
     scot_card_vs_cpu()
     log("transformers", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
 
+# phase 17: S4ND and the S4 base/sequence family. main_2d model=s4_2d
+# (s4_2d.yaml's widths: d_model 64, 4 layers, d_state 64, dropout 0.2,
+# mode diag, the 'jnp' route) on phase 13's NS strided to 128², 1 epoch;
+# its Trainer step at 8 x 128²; the trained S4ND served through graphs on
+# K4 and a dplr S4ND at the same widths on K5, buckets 8 x {64, 128,
+# 256}²; S4BaseSeqModel and S4DualSeqModel at their default widths, the
+# convolution against the recurrence
+S4ND_ARGV = ["model=s4_2d", "dataset=ns_naive", "model.d_input=1",
+             "model.d_output=1", "dataset.dataset_params.reduced_resolution=2"]
+S4ND_BATCH, S4ND_RES, S4ND_SERVE = 8, 128, (64, 128, 256)
+S4ND_WIDTH = 64  # s4_2d.yaml's d_model; its layers' d_state is S4_STATE
+S4ND_TOL = 1e-4
+# the sequence models' default widths (models/s4_base.py) on B x T x S x V
+SEQ_SHAPE, SEQ_RTOL, SEQ_ATOL = (2, 16, 32, 1), 2e-3, 2e-4
+
+
+def _s4nd(*overrides, **kw):
+    """S4NDModel from s4_2d.yaml with one input and output channel and
+    ``overrides`` (the yaml's d_input 15 is the reference's unused width),
+    its parameters drawn from training.seed (0), built with the keyword
+    arguments ``kw`` (kernel_impl, mode): (the config, the model)."""
+    from resolution_pde_tpu_torch.configs import instantiate_model, parse_cli
+
+    cfg = parse_cli(S4ND_ARGV + list(overrides))
+    return cfg, instantiate_model(cfg.model, seed=cfg.training.seed, **kw)
+
+
+def s4nd_cli(root: str, ns: list) -> str:
+    """main_2d model=s4_2d dataset=ns_naive (S4ND_ARGV) training.epochs=1
+    in a working directory of its own under ``root``: trained at 128²,
+    the sweep and 16-step rollout at CLI_RESOLUTIONS, each finite, no
+    kernel launched (the 'jnp' route). Returns the checkpoint's path."""
+    from resolution_pde_tpu_torch.cli import main_2d
+
+    work = os.path.join(root, "s4_2d__ns_naive")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    before = _all_counts()
+    os.chdir(work)
+    try:
+        out = main_2d.main(S4ND_ARGV + ns + ["training.epochs=1"],
+                           device="cuda")
+        ckpt = os.path.abspath(out["checkpoint"])
+    finally:
+        os.chdir(cwd)
+    launched = [a - b for a, b in zip(_all_counts(), before)]
+    hist = out["history"]
+    log("s4nd_cli", params_m=f"{out['n_params'] / 1e6:.4f}",
+        train_seconds=f"{out['train_seconds']:.2f}",
+        train_loss=[f"{v:.6f}" for v in hist.train_loss],
+        val_loss=[f"{v:.6f}" for v in hist.val_loss],
+        test_loss=f"{out['test_loss']:.6f}",
+        super_resolution={r: f"{v:.6f}" for r, v in
+                          sorted(out["super_resolution"].items())},
+        rollout={r: f"{v:.6f}" for r, v in sorted(out["rollout"].items())},
+        launches=launched, platform=out["provenance"]["platform"])
+    values = (list(hist.train_loss) + list(hist.val_loss) + [out["test_loss"]]
+              + list(out["super_resolution"].values())
+              + list(out["rollout"].values()))
+    require(all(math.isfinite(v) for v in values),
+            f"s4_2d run: non-finite losses {values}")
+    require(sorted(out["super_resolution"]) == CLI_RESOLUTIONS
+            and sorted(out["rollout"]) == CLI_RESOLUTIONS,
+            f"s4_2d run: sweep {sorted(out['super_resolution'])}, rollout "
+            f"{sorted(out['rollout'])}")
+    require(out["provenance"]["platform"].startswith("cuda("),
+            f"s4_2d run on {out['provenance']['platform']}")
+    require(not any(launched), f"s4_2d ('jnp') launched kernels {launched}")
+    return ckpt
+
+
+def s4nd_step() -> dict:
+    """S4ND at s4_2d.yaml's widths on the 'jnp' route: the Trainer step at
+    S4ND_BATCH x S4ND_RES² on random batches (median of 10 after 2 warm
+    steps), the device's busy time, idle share and kernels a step over 3
+    profiled steps, the peak memory of a step; then its forward in eval
+    mode on the card against the CPU on the same weights (2 x 128²)."""
+    import copy
+
+    from resolution_pde_tpu_torch.cli import common
+
+    cfg, model = _s4nd()
+    cpu = copy.deepcopy(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = common.build_trainer(cfg, model, None, device="cuda")
+    state = trainer.init()
+    gen = torch.Generator().manual_seed(SEED + 17)
+    batches = [tuple(torch.randn(S4ND_BATCH, 1, S4ND_RES, S4ND_RES,
+                                 generator=gen) for _ in range(2))
+               for _ in range(2)]
+    loader = [batches[i % 2] for i in range(12)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_step_ms(trainer, state, loader, steps=10, warm=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = []
+
+    def three_steps():
+        for x, y in loader[:3]:
+            losses.append(float(trainer.train_step(state, x, y)[1]))
+
+    _, prof = profiled(three_steps)
+    busy_ms, idle = _idle_share(prof)
+    require(all(math.isfinite(v) for v in losses),
+            f"S4ND step: losses {losses}")
+    rec = dict(params_m=f"{n_params / 1e6:.4f}",
+               batch=f"{S4ND_BATCH}x1x{S4ND_RES}x{S4ND_RES}",
+               median_step_ms=f"{step_ms:.3f}",
+               device_busy_ms_per_step=f"{busy_ms / 3:.3f}",
+               kernels_per_step=f"{len(_device_kernels(prof)) / 3:.1f}",
+               device_idle_share=f"{idle:.4f}",
+               peak_memory_gib=f"{peak:.2f}",
+               top_kernels_ms_per_step=_top_kernels(prof, 3),
+               losses=[f"{v:.5f}" for v in losses])
+    log("s4nd_step", **rec)
+
+    card = copy.deepcopy(cpu).cuda().eval()
+    cpu.eval()
+    x = torch.randn(2, 1, S4ND_RES, S4ND_RES, generator=gen)
+    with torch.no_grad():
+        err = rel_l2(card(x.cuda()).cpu(), cpu(x))
+    log("s4nd_card_vs_cpu", size=f"2x1x{S4ND_RES}x{S4ND_RES}",
+        rel_l2=f"{err:.3e}", tol=S4ND_TOL)
+    require(err <= S4ND_TOL, f"S4ND card vs CPU: relative L2 {err}")
+    return rec
+
+
+def serve_s4nd(ckpt: str) -> dict:
+    """The trained S4ND restored into S4NDModel(kernel_impl='pallas') by
+    ServingEngine.from_checkpoint (diag: K4), and a dplr S4NDModel at the
+    same widths from the seed (K5), each one CUDA graph per bucket
+    (S4ND_BATCH x S4ND_SERVE², capture seconds, peak memory): a request a
+    bucket counted by its kernel's executions in the replays (one a layer
+    and axis), held against the 'jnp' route on the card and against the
+    CPU (S4ND_TOL), the replay against eager, and the median predict per
+    bucket graphed and eager. Returns the executions of K4 and K5."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+    from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
+
+    def counters():
+        return {"K4": vandermonde.launches, "K5": cauchy.launches}
+
+    executed = {"K4": 0, "K5": 0}
+    rng = np.random.default_rng(SEED + 17)
+    for mode, name in (("diag", "K4"), ("dplr", "K5")):
+        cfg, model = _s4nd(f"model.mode={mode}", kernel_impl="pallas")
+        if mode == "diag":
+            eng = ServingEngine.from_checkpoint(model, ckpt, device="cuda")
+        else:
+            eng = ServingEngine(model, device="cuda")
+        state = {k: v.detach().cpu()
+                 for k, v in eng.model.state_dict().items()}
+        per_layer = 2 * cfg.model.n_layers             # a kernel an axis
+        per_call = {name: per_layer, ({"K4", "K5"} - {name}).pop(): 0}
+        warm_graphs(eng, [((r, r), S4ND_BATCH) for r in S4ND_SERVE],
+                    counters, per_call, f"s4nd_{mode}")
+        _, jnp_model = _s4nd(f"model.mode={mode}", kernel_impl="jnp")
+        jnp_model.load_state_dict(state)
+        jnp_model.cuda().eval()
+        _, cpu_model = _s4nd(f"model.mode={mode}", kernel_impl="jnp")
+        cpu_model.load_state_dict(state)
+        cpu_model.eval()
+        reqs = {r: rng.standard_normal((S4ND_BATCH - 3 if r == 256
+                                        else S4ND_BATCH, 1, r, r)).astype(
+                                            np.float32)
+                for r in S4ND_SERVE}
+
+        # the main path: every count from here comes from requests
+        cauchy.launches = vandermonde.launches = 0
+        outs, how = {}, set()
+        for r, x in reqs.items():
+            outs[r], ex, h = graph_executions(
+                lambda x=x: eng.predict(x), per_call, 1,
+                f"s4nd_{mode} predict of {x.shape[0]} at {r}^2", exact=False)
+            executed[name] += ex[name]
+            how.add(h)
+        require(counters() == {"K4": 0, "K5": 0},
+                f"s4nd_{mode}: serving through graphs launched "
+                f"{counters()} from the host")
+        for r, x in reqs.items():
+            got = outs[r]
+            require(got.shape == x.shape and bool(np.isfinite(got).all()),
+                    f"s4nd_{mode} at {r}^2: {got.shape} or non-finite")
+            with torch.no_grad():
+                ref = jnp_model(torch.from_numpy(x).cuda()).cpu()
+                ref_cpu = cpu_model(torch.from_numpy(x))
+            e = eager(eng, lambda x=x: eng.predict(x))
+            err_jnp = rel_l2(torch.from_numpy(got), ref)
+            err_cpu = rel_l2(torch.from_numpy(got), ref_cpu)
+            log("s4nd_serve", mode=mode, bucket=f"{S4ND_BATCH}x{r}^2",
+                request=x.shape[0], vs_jnp_route_rel_l2=f"{err_jnp:.3e}",
+                vs_cpu_rel_l2=f"{err_cpu:.3e}", tol=S4ND_TOL,
+                graph_vs_eager_max_abs=f"{np.abs(got - e).max():.3e}")
+            require(err_jnp <= S4ND_TOL and err_cpu <= S4ND_TOL,
+                    f"s4nd_{mode} at {r}^2: vs jnp {err_jnp}, vs CPU "
+                    f"{err_cpu}")
+            require(rel_l2(torch.from_numpy(got), torch.from_numpy(e))
+                    <= 1e-6, f"s4nd_{mode} at {r}^2: graph vs eager")
+        log("s4nd_serve", mode=mode, **{f"executions_{name}": executed[name]},
+            counted=sorted(how))
+        # median predict latency per bucket, graph and eager, in turns
+        for r in S4ND_SERVE:
+            x = rng.standard_normal((S4ND_BATCH, 1, r, r)).astype(np.float32)
+            g1 = median_ms(lambda: eng.predict(x))
+            e1 = eager(eng, lambda: median_ms(lambda: eng.predict(x)))
+            g2 = median_ms(lambda: eng.predict(x))
+            log("latency", model=f"s4nd_{mode}", bucket=f"{S4ND_BATCH}x{r}^2",
+                graph_median_ms=f"{g1:.3f}/{g2:.3f}",
+                eager_median_ms=f"{e1:.3f}")
+        # where a graphed predict's device time goes, at the largest bucket
+        _, prof = profiled(lambda: eng.predict(x))
+        busy_ms, idle = _idle_share(prof)
+        log("s4nd_serve", mode=mode, profiled=f"a predict at {r}^2",
+            device_busy_ms=f"{busy_ms:.3f}", device_idle_share=f"{idle:.4f}",
+            top_kernels_ms=_top_kernels(prof, 1))
+        del eng, jnp_model
+    return executed
+
+
+def s4_seq_models() -> None:
+    """S4BaseSeqModel and S4DualSeqModel at their default widths (d_model
+    128, 4 layers), both modes, on SEQ_SHAPE: the convolutional forward on
+    the card against the recurrence (s4seq_recurrent_fns /
+    s4dualseq_recurrent_fns) stepped over T on the card, at JAX's rtol
+    2e-3 / atol 2e-4; the card's forward and recurrence against the CPU's
+    (1e-4 relative L2), the DPLR recurrence's discretization (a complex
+    inverse and matrix power) on each."""
+    from resolution_pde_tpu_torch.models import s4_base
+
+    b, t, s_pts, v = SEQ_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 18)
+    x = torch.randn(SEQ_SHAPE, generator=gen)
+    grid = torch.linspace(0, 1, s_pts)[None, :, None].expand(b, s_pts, 1)
+
+    def recur(model, xs, g):
+        if isinstance(model, s4_base.S4DualSeqModel):
+            init_state, step = s4_base.s4dualseq_recurrent_fns(model, model,
+                                                               L_train=t)
+            state, ys = init_state(b * s_pts), []
+            for k in range(t):
+                y, state = step(state, xs[:, k], g)
+                ys.append(y)
+            return torch.stack(ys, dim=1)
+        init_state, step = s4_base.s4seq_recurrent_fns(
+            model, model.d_model, model.n_layers, model.mode, L_train=t)
+        xf = xs.movedim(1, 2).reshape(b * s_pts, t, v)
+        gf = g.reshape(b * s_pts, -1)
+        state, ys = init_state(b * s_pts), []
+        for k in range(t):
+            y, state = step(state, xf[:, k], gf)
+            ys.append(y)
+        return torch.stack(ys, dim=1).reshape(b, s_pts, t, -1).movedim(1, 2)
+
+    for cls in (s4_base.S4BaseSeqModel, s4_base.S4DualSeqModel):
+        for mode in ("diag", "dplr"):
+            cpu = cls(d_input=v, mode=mode,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+            card = cls(d_input=v, mode=mode).eval()
+            card.load_state_dict(cpu.state_dict())
+            card.cuda()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                conv = card(x.cuda(), grid.cuda())
+                rec = recur(card, x.cuda(), grid.cuda())
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                conv_cpu, rec_cpu = cpu(x, grid), recur(cpu, x, grid)
+            n_params = sum(p.numel() for p in card.parameters())
+            worst = _within(rec.cpu(), conv.cpu(), SEQ_RTOL, SEQ_ATOL)
+            err_conv = rel_l2(conv.cpu(), conv_cpu)
+            err_rec = rel_l2(rec.cpu(), rec_cpu)
+            log("s4_seq", model=cls.__name__, mode=mode,
+                shape="x".join(map(str, SEQ_SHAPE)),
+                params_m=f"{n_params / 1e6:.4f}",
+                recurrence_vs_conv_worst=f"{worst:.3f}",
+                rtol=SEQ_RTOL, atol=SEQ_ATOL,
+                conv_card_vs_cpu=f"{err_conv:.3e}",
+                recurrence_card_vs_cpu=f"{err_rec:.3e}", tol=S4ND_TOL,
+                card_seconds=f"{seconds:.2f}")
+            require(worst <= 1.0, f"{cls.__name__} {mode}: the recurrence "
+                    f"departs from the convolution ({worst})")
+            require(err_conv <= S4ND_TOL and err_rec <= S4ND_TOL,
+                    f"{cls.__name__} {mode}: card vs CPU conv {err_conv}, "
+                    f"recurrence {err_rec}")
+
+
+def run_s4nd(ns_arrays: dict) -> dict:
+    """Phase 17: main_2d model=s4_2d on phase 13's NS (s4nd_cli), the
+    trained S4ND and a dplr one served through graphs on K4 and K5
+    (serve_s4nd), S4ND's step and its forward against the CPU (s4nd_step),
+    and the S4 sequence models' convolution against their recurrence
+    (s4_seq_models). Returns the K4 and K5 executions of the serving."""
+    from resolution_pde_tpu_torch.cli.generate_data import write_ns
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        [ns_path] = write_ns(f"{tmp}/data/ns", ns_arrays, file_format="mat")
+        ns = [f"dataset.dataset_params.saved_folder={tmp}/data/ns",
+              f"dataset.dataset_params.filename={os.path.basename(ns_path)}"]
+        ckpt = s4nd_cli(tmp, ns)
+        executed = serve_s4nd(ckpt)
+    s4nd_step()
+    s4_seq_models()
+    log("s4nd", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return executed
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3709,6 +4085,7 @@ def main() -> int:
     burgers = run_burgers_darcy()
     run_cno(ns_arrays, ffno1d.pop("ks_arrays"))
     run_transformers(ns_arrays)
+    s4nd = run_s4nd(ns_arrays)
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -3753,11 +4130,13 @@ def main() -> int:
         dict(name="s4d_vandermonde", route="cuda",
              source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
              replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",
-             launches=s4_served["diag"] + s4_trained["diag"], **k4),
+             launches=s4_served["diag"] + s4_trained["diag"] + s4nd["K4"],
+             s4nd_launches=s4nd["K4"], **k4),
         dict(name="cauchy", route="cuda",
              source="resolution_pde_tpu_torch/csrc/cauchy.cu",
              replaces="resolution_pde_tpu/ops/pallas/cauchy.py:52",
-             launches=s4_served["dplr"] + s4_trained["dplr"], **k5),
+             launches=s4_served["dplr"] + s4_trained["dplr"] + s4nd["K5"],
+             s4nd_launches=s4nd["K5"], **k5),
     ]
     # the serving paths' counts are executions inside CUDA graph replays
     counted = ("host launches (the wrappers' counters) on the training and "

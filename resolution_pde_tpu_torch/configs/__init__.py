@@ -9,9 +9,9 @@ such as ``model=ffno_2d dataset=ns_naive training.epochs=50`` pick group
 files and set dotted keys.
 
 ``instantiate_model`` builds the port's model from ``models.registry``;
-``instantiate_dataset`` calls the port's dataset factories, which so far
-are the Navier-Stokes, Kuramoto-Sivashinsky, Burgers, Darcy,
-active-matter and point-cloud (GNOT) ones.
+``instantiate_dataset`` calls the port's dataset factories: every one of
+the JAX package's (Navier-Stokes, its sliding windows included,
+Kuramoto-Sivashinsky, Burgers, Darcy, active-matter and point-cloud).
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ def _dataset_factories() -> dict:
              "burger_multires_markov_dataset",
              "burger_resize_multires_markov_dataset",
              "burger_resize_true_multires_markov_dataset",
-             "burger_window_dataset", "load_burger_data_from_mat",
+             "burger_window_dataset", "ns_window_dataset",
+             "load_burger_data_from_mat",
              "darcy_dataset", "load_darcy_data_from_mat", "load_darcy_data",
              "active_matter_markov_dataset",
              "active_matter_all_markov_dataset",
@@ -185,10 +186,8 @@ def _dataset_factories() -> dict:
 
 
 # the JAX package's factories that the port has not yet, by the ROADMAP
-# item (section 1) that ports them
-NOT_PORTED = {
-    "ns_window_dataset": 5,
-}
+# item (section 1) that ports them: none since item 5
+NOT_PORTED: dict = {}
 
 # the reference's dotted paths (conf/dataset/*/*.yaml `_target_`) -> the
 # factory names (resolution_pde_tpu/configs/__init__.py:157-242)

@@ -13,6 +13,7 @@ factories: ``ks_markov_dataset`` (:152), ``ks_true_multires_markov_dataset``
 ``burger_resize_multires_markov_dataset`` (:1067),
 ``burger_resize_true_multires_markov_dataset`` (:1097),
 ``burger_window_dataset`` (:666) and ``load_burger_data_from_mat`` (:736);
+the NS sliding windows, ``ns_window_dataset`` (:684);
 the Darcy ones: ``darcy_dataset`` (:617), ``load_darcy_data_from_mat``
 (:758) and ``load_darcy_data`` (:774); and the active-matter ones:
 ``active_matter_markov_dataset`` (:641), ``active_matter_all_markov_dataset``
@@ -830,6 +831,35 @@ def burger_window_dataset(filename, saved_folder, window_size=10,
                             num_samples_max=num_samples_max, spatial_ndim=1)
     train, val, test = _split_pairs(*sliding_windows(u, window_size),
                                     seed=42)
+    return _package(train, val, test, _rollout_of(u), data_normalizer,
+                    "simple")
+
+
+def ns_window_dataset(filename, saved_folder, window_size=10,
+                      data_normalizer=True, reduced_batch=1,
+                      reduced_resolution=1, reduced_resolution_t=1,
+                      num_samples_max=-1):
+    """2D sliding windows of NS vorticity for the S4-style models
+    (dataloaders/ns_s4.py:11-196): x (N, window_size, h, w), y (N, h, w),
+    the windows ordered by start frame and trajectory, split by the
+    seed-42 permutation, SimpleNormalizers. Reads ``.mat`` or ``.h5``
+    through ``data.io.read_ns``."""
+    u = data_io.read_ns(os.path.join(saved_folder, filename))[..., None]
+    u = reduce_trajectories(u, reduced_batch, reduced_resolution,
+                            reduced_resolution_t,
+                            num_samples_max=num_samples_max, spatial_ndim=2)
+    u = u[..., 0]                                      # (b, t, h, w)
+    b, t, h, w = u.shape
+    starts = np.arange(t - window_size)
+    # window i of trajectory j at row i * b + j
+    idx = starts[:, None] + np.arange(window_size)[None, :]
+    xs = np.ascontiguousarray(
+        np.moveaxis(u[:, idx], 0, 1).reshape(-1, window_size, h, w),
+        dtype=np.float32)
+    ys = np.ascontiguousarray(
+        np.moveaxis(u[:, starts + window_size], 0, 1).reshape(-1, h, w),
+        dtype=np.float32)
+    train, val, test = _split_pairs(xs, ys, seed=42)
     return _package(train, val, test, _rollout_of(u), data_normalizer,
                     "simple")
 

@@ -1,11 +1,11 @@
 """Model registry: short names and the reference's ``_target_`` dotted
 paths to the port's modules.
 
-Counterpart of resolution_pde_tpu/models/registry.py; FNO1d, FNO2d,
-FFNO1D, FFNO2D, the 1D S4 family (S4Model, S4Block, S4D), UNet1d, UNet2d,
-CNO1d, CNO2d, CNO2dOriginal, MoEGPTNO, GNOTOperator, SwinOperator2d and
-ScOT2d (``pos``) are ported so far. A model of the JAX registry that is
-not raises a KeyError naming the ROADMAP item (section 1) that ports it.
+Counterpart of resolution_pde_tpu/models/registry.py: every model of the
+JAX registry, under the same short names and dotted paths, and
+``register`` to add one (a decorator or a direct call). A model of the JAX
+registry that is not ported raises a KeyError naming the ROADMAP item
+(section 1) that ports it (``NOT_PORTED``, empty since item 5).
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D
 from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d
 from resolution_pde_tpu_torch.models.mgpt import GNOTOperator, MoEGPTNO
 from resolution_pde_tpu_torch.models.poseidon import ScOT2d, SwinOperator2d
-from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model
+from resolution_pde_tpu_torch.models.s4 import S4D, S4Block, S4Model, S4NDModel
+from resolution_pde_tpu_torch.models.s4_base import (ChainModel, OneToSeqModel,
+                                                     S4BaseModel,
+                                                     S4BaseSeqModel,
+                                                     S4DualSeqModel,
+                                                     S4SeqModel, SeqAdd)
 from resolution_pde_tpu_torch.models.unet import UNet1d, UNet2d
 
 MODEL_REGISTRY = {
@@ -33,6 +38,22 @@ MODEL_REGISTRY = {
     "S4Block": S4Block,
     "S4D": S4D,
     "models.s4d.S4D": S4D,
+    "S4NDModel": S4NDModel,
+    "models.s4_2d.S4NDModel": S4NDModel,
+    "S4BaseModel": S4BaseModel,
+    "models.s4_model.S4BaseModel": S4BaseModel,
+    "S4SeqModel": S4SeqModel,
+    "models.s4seq_model.S4SeqModel": S4SeqModel,
+    "OneToSeqModel": OneToSeqModel,
+    "models.s4seq_model.OneToSeqModel": OneToSeqModel,
+    "S4BaseSeqModel": S4BaseSeqModel,
+    "models.s4seq_model.S4BaseSeqModel": S4BaseSeqModel,
+    "S4DualSeqModel": S4DualSeqModel,
+    "models.s4seq_model.S4DualSeqModel": S4DualSeqModel,
+    "SeqAdd": SeqAdd,
+    "models.s4seq_model.SeqAdd": SeqAdd,
+    "ChainModel": ChainModel,
+    "models.s4seq_model.ChainModel": ChainModel,
     "UNet1d": UNet1d,
     "models.unet.UNet1d": UNet1d,
     "UNet2d": UNet2d,
@@ -62,10 +83,19 @@ def unwrap_output(pred):
 
 
 # the JAX registry's models not ported yet (short names), by the ROADMAP
-# item (section 1) that ports them
-NOT_PORTED = dict.fromkeys(
-    ("S4NDModel", "S4BaseModel", "S4SeqModel", "OneToSeqModel",
-     "S4BaseSeqModel", "S4DualSeqModel", "SeqAdd", "ChainModel"), 5)
+# item (section 1) that ports them: none since item 5
+NOT_PORTED: dict = {}
+
+
+def register(name: str, cls=None):
+    """Register a model class under ``name``: ``register(name, cls)``, or
+    ``@register(name)`` on the class. Returns the class."""
+
+    def wrap(c):
+        MODEL_REGISTRY[name] = c
+        return c
+
+    return wrap(cls) if cls is not None else wrap
 
 
 def get_model(name: str):

@@ -1,7 +1,8 @@
 """S4 family: the S4D (diagonal) and S4 (DPLR) kernel layers, FFTConv,
-S4Block, S4D and the 1D PDE wrapper S4Model.
+S4Block, S4D, the 1D PDE wrapper S4Model, the N-d S4ND layer and the 2D
+PDE wrapper S4NDModel, and the recurrent step functions.
 
-Counterpart of resolution_pde_tpu/models/s4.py:59-611. Parameters keep the
+Counterpart of resolution_pde_tpu/models/s4.py. Parameters keep the
 JAX package's names, shapes and parameterization (the full-N DPLR
 spectrum; C stored as (..., 2) real/imaginary pairs); module names follow
 the reference PyTorch state_dict (``encoder``, ``decoder``,
@@ -22,10 +23,18 @@ layers carry the field, as in JAX; the port's S4Model also forwards it to
 its blocks, so the kernels are reachable from the shipped model (the JAX
 S4Model builds its blocks with the default 'jnp').
 
+S4NDModel takes the field too and forwards it to its layers' kernels
+through ``kernel_args`` (the JAX S4NDModel, with no such field, runs
+'jnp'), which is how the S4ND path reaches the kernels.
+
 Initializers draw from the JAX module's distributions, from an explicit
 ``torch.Generator``: the numbers differ from JAX's, so the tests carry
-JAX weights over with ``utils.jax_bridge``. Not ported yet: S4NDLayer,
-S4NDModel and the recurrent step functions.
+JAX weights over with ``utils.jax_bridge``.
+
+``s4d_recurrent_step_fn`` and ``dplr_recurrent_step_fn`` build a kernel
+layer's recurrent form, ``(init_state, step)``: plain functions on
+tensors that a Python loop or a CUDA graph drives, equal to the
+convolution up to roundoff.
 """
 
 from __future__ import annotations
@@ -40,9 +49,10 @@ from torch import nn
 
 from resolution_pde_tpu_torch.models.layers import Dropout, gelu
 from resolution_pde_tpu_torch.ops import ssm as ssm_ops
-from resolution_pde_tpu_torch.ops.grids import concat_grid_1d
+from resolution_pde_tpu_torch.ops.grids import concat_grid_1d, concat_grid_2d
 from resolution_pde_tpu_torch.ops.kernels.cauchy import dplr_kernel_pallas
 from resolution_pde_tpu_torch.ops.kernels.vandermonde import s4d_kernel_pallas
+from resolution_pde_tpu_torch.ops.spectral import irfftn
 
 ACTIVATIONS_S4 = {
     "gelu": gelu,
@@ -505,3 +515,266 @@ class S4Model(nn.Module):
             z = self.norms[i](x) if self.prenorm else x
             x = self.dropouts[i](block(z)) + x
         return self.decoder(x).transpose(-1, -2)
+
+
+class S4NDLayer(nn.Module):
+    """N-d S4ND layer (models/s4nd.py:1815-2100): one SSM kernel per spatial
+    axis, combined as an outer product in frequency space, then an N-d FFT
+    convolution. Channels-last: x (B, *spatial, d_model) -> the same shape.
+
+    The spatial rank is the input's. Torch parameters exist before the
+    first call, so the layer holds ``ndim`` kernels (default 2) and an
+    input of another rank raises. 2D kernels are named ``kernel_x`` (axis
+    0) and ``kernel_y`` (axis 1), other ranks ``kernel_ax{i}``, as in JAX.
+    mode: 'diag' (S4D kernels) or 'dplr'/'nplr' (full S4 kernels).
+    kernel_args: the kernel layers' options, passed to them as they are
+    (``kernel_impl='pallas'`` reaches the hand kernels this way).
+    bidirectional: a two-sided kernel per axis (two kernel channels).
+    linear: conv + D skip only (the reference's default); otherwise
+    dropout, GELU and a GLU (``output_linear``, Dense 2 d_model) follow.
+    D is drawn as a standard normal."""
+
+    def __init__(self, d_model: int, d_state: int = 64,
+                 bidirectional: bool = False, dropout: float = 0.0,
+                 mode: str = "diag", linear: bool = False,
+                 kernel_args: Optional[dict] = None, ndim: int = 2, *,
+                 generator=None):
+        super().__init__()
+        if ndim < 1:
+            raise ValueError(f"S4NDLayer needs at least one spatial axis, "
+                             f"got ndim={ndim}")
+        g = generator
+        self.d_model, self.ndim = d_model, ndim
+        self.bidirectional, self.linear = bidirectional, linear
+        kc = 2 if bidirectional else 1
+        kernel_cls = (DPLRKernelLayer if mode in ("dplr", "nplr")
+                      else S4DKernelLayer)
+        self.kernel_names = (["kernel_x", "kernel_y"] if ndim == 2
+                             else [f"kernel_ax{i}" for i in range(ndim)])
+        for name in self.kernel_names:
+            self.add_module(name, kernel_cls(d_model, d_state, channels=kc,
+                                             generator=g,
+                                             **(kernel_args or {})))
+        self.D = nn.Parameter(torch.randn((d_model,), generator=g))
+        if not linear:
+            self.dropout = Dropout(dropout)
+            self.output_linear = dense(d_model, 2 * d_model, g)
+
+    def _two_sided(self, k, L: int):
+        if not self.bidirectional:
+            return k[0]                                   # (C, L)
+        return F.pad(k[0], (0, L)) + F.pad(torch.flip(k[1], (-1,)), (L, 0))
+
+    def forward(self, x):
+        spatial = tuple(x.shape[1:-1])
+        ndim, c = len(spatial), x.shape[-1]
+        if ndim != self.ndim:
+            raise ValueError(
+                f"S4NDLayer with ndim={self.ndim} got a (B, *spatial, C) "
+                f"input of {ndim} spatial axes, shape {tuple(x.shape)}")
+        ns = [2 * L for L in spatial]
+        dims = tuple(range(2, 2 + ndim))
+        xt = x.movedim(-1, 1)                             # (B, C, *spatial)
+        xf = torch.fft.rfftn(xt, s=ns, dim=dims)
+        # the kernels' spectra as an outer product: the full FFT on every
+        # axis but the last, the real FFT on the last (as rfftn)
+        kf = None
+        for i, (name, L) in enumerate(zip(self.kernel_names, spatial)):
+            k = self._two_sided(getattr(self, name)(L), L)
+            fft = torch.fft.rfft if i == ndim - 1 else torch.fft.fft
+            kfi = fft(k, n=ns[i], dim=-1)
+            shape = [c] + [1] * ndim
+            shape[1 + i] = kfi.shape[-1]
+            kfi = kfi.reshape(shape)
+            kf = kfi if kf is None else kf * kfi
+        # the product's DC and Nyquist bins along the last axis are complex:
+        # irfftn reads them as real, as numpy and JAX do
+        y = irfftn(xf * kf[None], ns, dim=dims)
+        y = y[(Ellipsis,) + tuple(slice(0, L) for L in spatial)]
+        y = y + xt * self.D.reshape((1, c) + (1,) * ndim)
+        y = y.movedim(1, -1)
+        if self.linear:
+            return y
+        y = self.output_linear(gelu(self.dropout(y)))
+        return y[..., :self.d_model] * torch.sigmoid(y[..., self.d_model:])
+
+
+class S4ND2dLayer(S4NDLayer):
+    """The 2D S4NDLayer (the name of JAX's, kept for configs)."""
+
+
+class S4NDModel(nn.Module):
+    """2D S4ND PDE model (models/s4_2d.py:8-160): (B, d_input, H, W) ->
+    (B, d_output, H, W). The grid concat adds 2 channels and a Dense
+    (``encoder``) lifts to d_model; each layer is an S4ND2dLayer
+    (``s4_layers.{i}``) with dropout and a residual, post-normed by a
+    LayerNorm (``norms.{i}``, flax's eps 1e-6), or pre-normed with
+    prenorm True; a Dense (``decoder``) projects.
+
+    Input width: JAX infers the encoder's from the input and never reads
+    d_input (the shipped yaml's d_input 15 is unused); the port sizes it
+    from d_input + 2, as its S4Model does from d_input + 1, and raises a
+    ValueError naming both numbers when the input has another channel
+    count. kernel_impl is forwarded to the layers' kernels ('pallas': the
+    hand kernels, forward-only; the same function as 'jnp'). Parameters
+    are drawn from ``generator`` on the CPU, then moved to ``device``."""
+
+    def __init__(self, d_input: int = 1, d_output: int = 1,
+                 d_model: int = 256, n_layers: int = 4, dropout: float = 0.2,
+                 bidirectional: bool = False, prenorm: bool = False,
+                 mode: str = "diag", s4nd_linear: bool = False,
+                 kernel_impl: str = "jnp", *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _check_impl(kernel_impl)
+        g = generator
+        self.d_input, self.prenorm = d_input, prenorm
+        self.encoder = dense(d_input + 2, d_model, g)
+        self.s4_layers = nn.ModuleList([
+            S4ND2dLayer(d_model, bidirectional=bidirectional,
+                        dropout=dropout, mode=mode, linear=s4nd_linear,
+                        kernel_args=dict(kernel_impl=kernel_impl),
+                        generator=g)
+            for _ in range(n_layers)])
+        self.dropouts = nn.ModuleList([Dropout(dropout)
+                                       for _ in range(n_layers)])
+        self.norms = nn.ModuleList([nn.LayerNorm(d_model, eps=1e-6)
+                                    for _ in range(n_layers)])
+        self.decoder = dense(d_model, d_output, g)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x):
+        if x.shape[1] != self.d_input:
+            raise ValueError(
+                f"S4NDModel(d_input={self.d_input}) got {x.shape[1]} input "
+                f"channels: its encoder reads d_input + 2 = "
+                f"{self.d_input + 2} (the input and the 2 grid channels)")
+        x = self.encoder(concat_grid_2d(x.movedim(1, -1), 0.0, 1.0))
+        for layer, drop, norm in zip(self.s4_layers, self.dropouts,
+                                     self.norms):
+            z = norm(x) if self.prenorm else x
+            x = drop(layer(z)) + x
+            if not self.prenorm:
+                x = norm(x)
+        return self.decoder(x).movedim(-1, 1)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent step functions (models/s4.py:744-874)
+# ---------------------------------------------------------------------------
+
+def _kernel_params(kernel) -> dict:
+    """A kernel layer's parameters by their JAX names: the module's
+    state_dict (detached), or a state_dict as it is."""
+    return kernel.state_dict() if isinstance(kernel, nn.Module) else kernel
+
+
+def _resolve_dt(kernel_params, dt_transform: str, dt_fast: bool):
+    """The stored dt parameter as positive timesteps, as the kernel layers
+    resolve it: (H,), or (H, n) per state (dt_tie False)."""
+    log_dt = kernel_params["log_dt"]
+    inv_dt = torch.sinh(log_dt) if dt_fast else log_dt
+    return ssm_ops.param_transform(inv_dt, dt_transform)
+
+
+def s4d_recurrent_step_fn(kernel, L_unused=None, disc: str = "zoh", *,
+                          dt_transform: str = "exp", dt_fast: bool = False,
+                          real_transform: str = "exp",
+                          imag_transform: str = "none",
+                          is_real: bool = False, bandlimit=None):
+    """The recurrent form of an ``S4DKernelLayer`` (the module, or its
+    state_dict), its channel 0 (models/s4.py:1787-1807 _setup_step/step).
+
+    disc: 'zoh' | 'bilinear' ('dss' has no recurrent form). The keyword
+    options must be the layer's; dt_tie False is read from the stored dt's
+    shape, n_ssm ties from A's. Returns (init_state(batch) -> (batch, H,
+    N/2) complex64 zeros on the parameters' device, step(state, u (B, H))
+    -> (state, y (B, H))), y = 2 Re sum_n C x."""
+    p = _kernel_params(kernel)
+    dt = _resolve_dt(p, dt_transform, dt_fast)
+    a_real = -ssm_ops.param_transform(p["log_A_real"], real_transform)
+    c = p["C"][0]
+    if is_real:
+        A = torch.complex(a_real, torch.zeros_like(a_real))
+        C = torch.complex(c, torch.zeros_like(c))
+    else:
+        a_imag = p["A_imag"]
+        im = (a_imag if imag_transform == "none"
+              else -ssm_ops.param_transform(a_imag, imag_transform))
+        A = torch.complex(a_real, im)
+        C = torch.view_as_complex(c.contiguous())
+    if A.shape[0] != C.shape[0]:  # n_ssm-tied copies, tiled
+        A = A.tile(C.shape[0] // A.shape[0], 1)
+    dt_cols = dt[:, None] if dt.ndim == 1 else dt
+    if bandlimit is not None:
+        freqs = dt_cols * A.imag.abs() / (2.0 * math.pi)
+        C = C * (freqs < bandlimit * 0.5).to(C.real.dtype)
+    if disc == "zoh":
+        Ab, dB = ssm_ops.discretize_diag_zoh(A, None, dt=dt_cols)
+    elif disc == "bilinear":
+        Ab, dB = ssm_ops.discretize_diag_bilinear(A, None, dt=dt_cols)
+    else:
+        raise ValueError(f"no recurrent form for disc={disc!r} (the "
+                         "reference has zoh and bilinear, "
+                         "models/s4.py:1196-1206)")
+    h, n_half = A.shape
+
+    def init_state(batch: int):
+        return torch.zeros((batch, h, n_half), dtype=torch.complex64,
+                           device=A.device)
+
+    def step(state, u):
+        """state (B, H, N/2); u (B, H) -> (new_state, y (B, H))."""
+        new_state = Ab * state + dB * u[..., None]
+        return new_state, 2.0 * (C * new_state).sum(-1).real
+
+    return init_state, step
+
+
+def dplr_recurrent_step_fn(kernel, L: int, *, dt_transform: str = "exp",
+                           dt_fast: bool = False,
+                           real_transform: str = "exp", bandlimit=None):
+    """The recurrent form of a ``DPLRKernelLayer`` (the module, or its
+    state_dict), its channel 0 (models/s4.py:1190-1218, 1787-1807). L is
+    the kernel length the layer was trained at (the stepping C inverts
+    I - Abar^L, ``ops.ssm.discretize_dplr``). The keyword options must be
+    the layer's; dt_tie False ((H, N/2) per conjugate pair) is read from
+    the stored dt's shape and repeated over both halves, as the
+    convolution does. Returns (init_state(batch) -> (batch, H, N) complex
+    zeros, step(state, u (B, H)) -> (state, y (B, H))), y = Re(C^* x)."""
+    p = _kernel_params(kernel)
+    dt = _resolve_dt(p, dt_transform, dt_fast)            # (H,) | (H, N/2)
+    Lam = torch.complex(
+        -ssm_ops.param_transform(p["Lambda_log_neg_re"], real_transform),
+        p["Lambda_im"])                                   # (S, N)
+    P = torch.view_as_complex(p["P_vec"].contiguous())    # (S,N) | (R,S,N)
+    B = torch.view_as_complex(p["B_vec"].contiguous())
+    C_t = torch.view_as_complex(p["C"][0].contiguous())   # (H, N)
+    if Lam.shape[0] != C_t.shape[0]:  # n_ssm-tied copies, tiled
+        rep = C_t.shape[0] // Lam.shape[0]
+        Lam, B = Lam.tile(rep, 1), B.tile(rep, 1)
+        P = P.tile(rep, 1) if P.ndim == 2 else P.tile(1, rep, 1)
+    if dt.ndim == 2:
+        dt = torch.cat([dt, dt], dim=-1)                  # (H, N)
+    dt_b = dt[:, None] if dt.ndim == 1 else dt
+    if bandlimit is not None:
+        # masks the trained C~ before the stepping C is recovered
+        freqs = dt_b * Lam.imag.abs() / (2.0 * math.pi)
+        C_t = C_t * (freqs < bandlimit * 0.5).to(C_t.real.dtype)
+    if P.ndim == 3:
+        P = P.movedim(0, 1)                               # (H, R, N)
+    Ab, Bb, C = ssm_ops.discretize_dplr(Lam, P, B, C_t, None, L, dt=dt_b)
+    h, n = Lam.shape
+    C_conj = torch.conj_physical(C)
+
+    def init_state(batch: int):
+        return torch.zeros((batch, h, n), dtype=Ab.dtype, device=Ab.device)
+
+    def step(state, u):
+        """state (B, H, N); u (B, H) -> (new_state, y (B, H))."""
+        new_state = (torch.einsum("hij,bhj->bhi", Ab, state)
+                     + Bb * u[..., None])
+        return new_state, (C_conj * new_state).sum(-1).real
+
+    return init_state, step

@@ -7,9 +7,9 @@ Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` paths
 the truncated-DFT factors ``_dft_matrices`` the kernels use, and the
 f32-exact fused path ``factorized_spectral_conv_2d_pallas``. Each axis uses
 ``m = min(n_modes, n // 2 + 1)`` modes with the weight sliced to match, so
-one weight set serves every resolution. ``irfft`` and ``irfft2`` are the
-inverse real transforms of the port's ``torch.fft`` paths: they read the
-DC and Nyquist bins as real on the card too.
+one weight set serves every resolution. ``irfft``, ``irfft2`` and
+``irfftn`` are the inverse real transforms of the port's ``torch.fft``
+paths: they read the DC and Nyquist bins as real on the card too.
 """
 
 from __future__ import annotations
@@ -51,11 +51,24 @@ def irfft(x, n: int, dim: int = -1, norm: str = "backward"):
     return torch.fft.irfft(x, n=n, dim=dim, norm=norm)
 
 
+def irfftn(x, s, dim=None, norm: str = "backward"):
+    """``torch.fft.irfftn`` as numpy computes it: the full inverse FFT along
+    every axis of ``dim`` but the last (by default the last ``len(s)``
+    axes), then ``irfft`` along the last, so the last axis's DC and Nyquist
+    bins are read as real even where a product of spectra left them
+    complex."""
+    dims = tuple(range(-len(s), 0)) if dim is None else tuple(dim)
+    if len(dims) != len(s):
+        raise ValueError(f"irfftn: {len(s)} sizes for {len(dims)} axes")
+    if len(dims) > 1:
+        x = torch.fft.ifftn(x, s=s[:-1], dim=dims[:-1], norm=norm)
+    return irfft(x, s[-1], dim=dims[-1], norm=norm)
+
+
 def irfft2(x, s, norm: str = "backward"):
-    """``torch.fft.irfft2`` over the last two axes as numpy computes it: the
-    inverse FFT along the first, then ``irfft`` along the last."""
-    return irfft(torch.fft.ifft(x, n=s[0], dim=-2, norm=norm), s[1], dim=-1,
-                 norm=norm)
+    """``torch.fft.irfft2`` over the last two axes as numpy computes it
+    (``irfftn`` over two axes)."""
+    return irfftn(x, s, norm=norm)
 
 
 def _complex(weight):

@@ -5,8 +5,8 @@ Counterpart of resolution_pde_tpu/ops/ssm.py (the ``jnp`` route of the S4
 layers), in torch complex64. The JAX module imports JAX, so the port keeps
 its own copy; the numpy initializers are the same code. Where the JAX
 functions work per feature and the layers ``vmap`` them, these take the
-feature (and channel) axes as leading batch dimensions that broadcast.
-The recurrent-mode discretizations (``discretize_*``) are not ported yet.
+feature (and channel) axes as leading batch dimensions that broadcast,
+the recurrent-mode discretizations (``discretize_*``) included.
 """
 
 from __future__ import annotations
@@ -402,6 +402,64 @@ def dplr_kernel(Lambda, P, B, C_tilde, log_dt, L: int, dt=None):
         kf = r[..., 0, 0, :] - torch.einsum("...rl,...lr->...l",
                                             r[..., 0, 1:, :], sol)
     return torch.fft.ifft(c * kf, n=L, dim=-1).real
+
+
+# ---------------------------------------------------------------------------
+# Discretization for recurrent stepping (complex64)
+# ---------------------------------------------------------------------------
+
+def discretize_dplr(Lambda, P, B, C_tilde, log_dt, L: int, dt=None):
+    """Discrete (Abar, Bbar, C) of the DPLR SSM for recurrent stepping
+    (models/s4.py:1190-1218 _setup_step, the bilinear transform):
+    Abar = (2/dt - A)^{-1} (2/dt + A), Bbar = 2 (2/dt - A)^{-1} B, and the
+    stepping C recovered from the trained C~ = (I - Abar^L)^* C, with
+    A = diag(Lambda) - sum_r P_r P_r^*.
+
+    Lambda, B, C_tilde: (..., N) complex; P: (..., N) for rank 1 or
+    (..., R, N); log_dt, or dt=: a scalar, (..., 1) for one step per
+    feature, or (..., N) per state (a diagonal timestep in the bilinear
+    transform). Leading dimensions broadcast. Dense complex solves and
+    ``matrix_power(Abar, L)`` in the inputs' precision, as the JAX package
+    takes them, so roundoff grows with L; (2/dt - A) is solved for where
+    JAX inverts it, which rounds less. Returns (Abar (..., N, N), Bbar
+    (..., N), C (..., N)) complex; the output of a step is Re(C^* x)."""
+    step = torch.exp(log_dt) if dt is None else dt
+    if P.ndim == Lambda.ndim:
+        P = P.unsqueeze(-2)                           # (..., 1, N)
+    n = Lambda.shape[-1]
+    A = (torch.diag_embed(Lambda)
+         - torch.einsum("...rm,...rn->...mn", P, torch.conj_physical(P)))
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    two_dt = torch.as_tensor(2.0 / step, device=A.device)
+    D = torch.diag_embed(torch.broadcast_to(two_dt, Lambda.shape).to(A.dtype))
+    rhs = torch.cat([D + A, 2.0 * B[..., None]], dim=-1)  # (..., N, N+1)
+    sol = torch.linalg.solve(D - A, rhs)
+    Ab, Bb = sol[..., :n], sol[..., n]
+    AbL = torch.linalg.matrix_power(Ab, L)
+    C = torch.linalg.solve(torch.conj_physical(eye - AbL).mT,
+                           C_tilde[..., None])[..., 0]
+    return Ab, Bb, C
+
+
+def discretize_diag_zoh(A, log_dt, dt=None):
+    """ZOH discretization of a diagonal SSM: Abar = e^{dt A} and the input
+    weight dB = (e^{dt A} - 1)/A (the weights of ``s4d_kernel_zoh``, so
+    stepping x_k = Abar x_{k-1} + dB u_k, y_k = 2 Re sum C x_k equals the
+    convolution). log_dt, or dt=, broadcastable against A (a column per
+    feature, or one per state). Returns (Abar, dB)."""
+    dt = torch.exp(log_dt) if dt is None else dt
+    dtA = A * dt
+    Ab = cexp(dtA)
+    return Ab, (Ab - 1.0) / A
+
+
+def discretize_diag_bilinear(A, log_dt, dt=None):
+    """Bilinear discretization of a diagonal SSM (models/s4.py:1203-1205):
+    Abar = (1 + dtA/2)/(1 - dtA/2), dB = dt/(1 - dtA/2), the weights of
+    ``s4d_kernel_bilinear``. Arguments as ``discretize_diag_zoh``."""
+    dt = torch.exp(log_dt) if dt is None else dt
+    dtA = A * dt
+    return (1.0 + dtA / 2.0) / (1.0 - dtA / 2.0), dt / (1.0 - dtA / 2.0)
 
 
 def fft_causal_conv(x, k):

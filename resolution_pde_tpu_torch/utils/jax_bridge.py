@@ -39,7 +39,12 @@ The JAX ``S4Model`` tree
 maps to ``encoder``, ``norms.{i}``, ``s4_layers.{i}.layer.kernel.*``,
 ``s4_layers.{i}.layer.D``, ``s4_layers.{i}.output_linear`` and ``decoder``
 (``s4_model_state_dict``); the kernel parameters keep their JAX names and
-shapes.
+shapes. ``S4NDModel`` (``{Dense_0, S4ND2dLayer_i: {kernel_x, kernel_y,
+D, Dense_0}, LayerNorm_i, Dense_1}``) maps the same way, each layer's
+kernels under their own names (``s4nd_model_state_dict``,
+``s4nd_layer_state_dict``), and the base and sequence models of
+``models.s4_base`` through ``s4_base_state_dict``, which reads the layout
+off the port's module of the same configuration.
 
 The BatchNorm models take the whole variables dict, ``params`` and
 ``batch_stats``, and fill the buffers too (flax ``scale`` / ``bias`` ->
@@ -224,6 +229,113 @@ def s4_model_state_dict(params: dict) -> dict:
             i = _index(key, "LayerNorm")
             sd[f"norms.{i}.weight"] = _t(p["scale"])
             sd[f"norms.{i}.bias"] = _t(p["bias"])
+    return sd
+
+
+def s4nd_layer_state_dict(p: dict, prefix: str = "") -> dict:
+    """JAX ``S4NDLayer`` / ``S4ND2dLayer`` params -> the port's, under
+    ``prefix``: the per-axis kernels (``kernel_x``, ``kernel_y`` or
+    ``kernel_ax{i}``) under their names, ``D``, and the GLU's Dense_0 ->
+    ``output_linear``."""
+    pre = f"{prefix}." if prefix else ""
+    sd = {f"{pre}D": _t(p["D"])}
+    for name, kernel in p.items():
+        if name.startswith("kernel_"):
+            sd.update({f"{pre}{name}.{k}": _t(v) for k, v in kernel.items()})
+    if "Dense_0" in p:
+        sd.update(_dense(p["Dense_0"], f"{pre}output_linear"))
+    return sd
+
+
+def s4nd_model_state_dict(params: dict) -> dict:
+    """JAX ``S4NDModel`` params -> the port's state_dict: Dense_0 ->
+    ``encoder``, S4ND2dLayer_i -> ``s4_layers.{i}``, LayerNorm_i ->
+    ``norms.{i}`` (one a layer, pre- or post-norm), Dense_1 ->
+    ``decoder``."""
+    params = params.get("params", params)
+    sd = {}
+    sd.update(_dense(params["Dense_0"], "encoder"))
+    sd.update(_dense(params["Dense_1"], "decoder"))
+    for key, p in params.items():
+        if key.startswith("S4ND2dLayer_"):
+            i = _index(key, "S4ND2dLayer")
+            sd.update(s4nd_layer_state_dict(p, f"s4_layers.{i}"))
+        elif key.startswith("LayerNorm_"):
+            i = _index(key, "LayerNorm")
+            sd[f"norms.{i}.weight"] = _t(p["scale"])
+            sd[f"norms.{i}.bias"] = _t(p["bias"])
+    return sd
+
+
+def _s4_base_model(p: dict, model, pre: str) -> dict:
+    """``S4BaseModel``: its LayerNorms are numbered in creation order, which
+    the port model's flags give (a layer's norm, then its ffn's)."""
+    n = len(model.s4_layers)
+    sd = _dense(p["Dense_0"], f"{pre}encoder")
+    ln, ff = 0, 0
+
+    def norm(name):
+        nonlocal ln
+        q = p[f"LayerNorm_{ln}"]
+        ln += 1
+        return {f"{pre}{name}.weight": _t(q["scale"]),
+                f"{pre}{name}.bias": _t(q["bias"])}
+
+    for i in range(n):
+        if model.prenorm and model.layer_norm[i]:
+            sd.update(norm(f"norms.{i}"))
+        sd.update(s4_block_state_dict(p[f"S4Block_{i}"],
+                                      f"{pre}s4_layers.{i}"))
+        res = p.get(f"_Residual_{i}", {})
+        if "Dense_0" in res:
+            sd.update(_dense(res["Dense_0"], f"{pre}residuals.{i}.dense"))
+        if not model.prenorm and model.layer_norm[i]:
+            sd.update(norm(f"norms.{i}"))
+        if model.with_ffn[i]:
+            if model.prenorm:
+                sd.update(norm(f"ffn_norms.{i}"))
+            sd.update(_feedforward(p[f"FeedForward_{ff}"],
+                                   f"{pre}ffns.{i}"))
+            ff += 1
+            if not model.prenorm:
+                sd.update(norm(f"ffn_norms.{i}"))
+    if hasattr(model, "decoder_hidden"):
+        sd.update(_dense(p["Dense_1"], f"{pre}decoder_hidden"))
+        sd.update(_dense(p["Dense_2"], f"{pre}decoder"))
+    else:
+        sd.update(_dense(p["Dense_1"], f"{pre}decoder"))
+    return sd
+
+
+def s4_base_state_dict(params: dict, model, prefix: str = "") -> dict:
+    """JAX params of an S4 base or sequence model (``models.s4_base``) ->
+    the state_dict of ``model``, the port's module of the same
+    configuration, whose type and flags give the layout: S4BaseModel
+    (above), OneToSeqModel (S4BaseModel_0 -> ``inner``), the sequence
+    models (Dense_0 -> ``encoder``, S4Block_i -> ``s4_layers.{i}``,
+    Dense_1 -> ``decoder``), SeqAdd (``model1``, ``model2``) and
+    ChainModel (``model``)."""
+    from resolution_pde_tpu_torch.models import s4_base
+
+    p = params.get("params", params)
+    pre = f"{prefix}." if prefix else ""
+    if isinstance(model, s4_base.S4BaseModel):
+        return _s4_base_model(p, model, pre)
+    if isinstance(model, s4_base.OneToSeqModel):
+        return _s4_base_model(p["S4BaseModel_0"], model.inner,
+                              f"{pre}inner.")
+    if isinstance(model, s4_base.SeqAdd):
+        return {**s4_base_state_dict(p["model1"], model.model1,
+                                     f"{pre}model1"),
+                **s4_base_state_dict(p["model2"], model.model2,
+                                     f"{pre}model2")}
+    if isinstance(model, s4_base.ChainModel):
+        return s4_base_state_dict(p["model"], model.model, f"{pre}model")
+    sd = _dense(p["Dense_0"], f"{pre}encoder")
+    sd.update(_dense(p["Dense_1"], f"{pre}decoder"))
+    for i in range(len(model.s4_layers)):
+        sd.update(s4_block_state_dict(p[f"S4Block_{i}"],
+                                      f"{pre}s4_layers.{i}"))
     return sd
 
 

@@ -36,7 +36,11 @@ prose, :899 and :909-913):
                        mgpt.yaml (GNOTOperator, n_hidden 64, 2 layers) on
                        ns_gnot.yaml's point clouds of NS at 32² (1,024
                        nodes), the Trainer at lr 1e-3 (constant) for 15
-                       epochs of batch 8, then the test split's rel-L2
+                       epochs of batch 8, then the test split's rel-L2;
+                       seed=<k> draws the model's weights, the dropout
+                       and the batches' order from training seed k (0
+                       by default; the data stay the demo's), its row
+                       named gnot_ns_demo_seed<k>
 
 The data are scripts/gen_baseline_data.sh's settings, and for Darcy
 cli/sweep.py's, generated by the port on the device (``device``, the card
@@ -133,19 +137,23 @@ def card() -> str:
 
 def parse(argv) -> dict:
     opts = {"leg": None, "out": "build/quality_rows", "device": "cuda",
-            "n": None, "res": None, "epochs": None, "extras": []}
+            "n": None, "res": None, "epochs": None, "seed": 0,
+            "extras": []}
     for a in argv:
         k, sep, v = a.partition("=")
         if not sep:
             raise SystemExit(f"expected key=value, got {a!r}")
         if k in ("leg", "out", "device"):
             opts[k] = v
-        elif k in ("n", "res", "epochs"):
+        elif k in ("n", "res", "epochs", "seed"):
             opts[k] = int(v)
         else:
             opts["extras"].append(a)
     if opts["leg"] not in LEGS:
         raise SystemExit(f"leg= one of {sorted(LEGS)}")
+    if opts["seed"] and opts["leg"] != "gnot_ns_demo":
+        raise SystemExit("seed= is the GNOT leg's; a sweep leg takes "
+                         "training.seed=")
     default = GNOT["epochs"] if opts["leg"] == "gnot_ns_demo" else EPOCHS
     opts["rehearsal"] = bool(opts["n"] or opts["res"] or opts["extras"]
                              or opts["epochs"] not in (None, default))
@@ -250,6 +258,14 @@ def eager_ns(ns: dict, u, device) -> float:
     return seconds
 
 
+def row_name(opts: dict) -> str:
+    """The leg's row name: the GNOT leg at a training seed other than 0
+    gets its own row (gnot_ns_demo_seed<k>), so a merge keeps it beside
+    seed 0's."""
+    return (f"{opts['leg']}_seed{opts['seed']}" if opts["seed"]
+            else opts["leg"])
+
+
 def gnot_demo(opts: dict, out_dir: str) -> tuple:
     """scripts/integration_demo_gnot.py's steps on the port: NS generated
     on the device, held as ns_gnot.yaml's file; the point-cloud factory;
@@ -297,13 +313,14 @@ def gnot_demo(opts: dict, out_dir: str) -> tuple:
     train, test, y_norm = data[0], data[2], data[5]
     print(f"[quality] point cloud: x {train.x.shape} (features|positions), "
           f"y {train.y.shape}", flush=True)
-    model = instantiate_model(cfg.model)
+    seed = opts["seed"]
+    model = instantiate_model(cfg.model, seed=seed)
     trainer = Trainer(model, learning_rate=g["learning_rate"],
                       y_normalizer=y_norm, use_normalizer=False,
-                      device=device)
+                      seed=seed, device=device)
     state = trainer.init()
     n_params = sum(p.numel() for p in state.model.parameters())
-    loader = Loader(train, g["batch_size"], shuffle=True, seed=0)
+    loader = Loader(train, g["batch_size"], shuffle=True, seed=seed)
     losses = []
     t0 = time.perf_counter()
     for epoch in range(opts["epochs"]):
@@ -321,7 +338,7 @@ def gnot_demo(opts: dict, out_dir: str) -> tuple:
                           "epochs": opts["epochs"], "dataset": fname}}
     os.makedirs(out_dir, exist_ok=True)
     sweep._write_tables(out_dir, "gnot_ns_demo",
-                        [("gnot_ns_demo", out, None)],
+                        [(row_name(opts), out, None)],
                         rehearsal=opts["rehearsal"])
     with open(os.path.join(out_dir, "sweep.csv"), newline="") as f:
         [row] = list(csv.DictReader(f))
@@ -340,7 +357,8 @@ def main(argv=None) -> int:
     print(f"[quality] leg={leg} family={family} device={opts['device']} "
           f"rehearsal={str(rehearsal).lower()}", flush=True)
     print(card(), flush=True)
-    out_dir = os.path.abspath(os.path.join(opts["out"], f"quality_{leg}"))
+    out_dir = os.path.abspath(os.path.join(opts["out"],
+                                           f"quality_{row_name(opts)}"))
     if pde == "gnot":
         cwd = os.getcwd()
         with tempfile.TemporaryDirectory() as tmp:
@@ -349,8 +367,8 @@ def main(argv=None) -> int:
                 row, seconds = gnot_demo(opts, out_dir)
             finally:
                 os.chdir(cwd)
-        print(json.dumps({"leg": leg, **seconds, "card": card(), **row}),
-              flush=True)
+        print(json.dumps({"leg": row_name(opts), **seconds, "card": card(),
+                          **row}), flush=True)
         return 0
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,9 +1,9 @@
 """The port's config loader (configs/) against the JAX package's: every
 model, dataset and training yaml file composes to an equal dict, override
 strings parse to the same values, ``instantiate_model`` builds FFNO2D with
-the kwargs the JAX loader gives its model, an unported ``_target_``
-raises a KeyError that names its ROADMAP item, and the active-matter
-factories build from arrays held in memory.
+the kwargs the JAX loader gives its model, ns_window_dataset builds from
+both of its targets and an unknown one raises a KeyError, and the
+active-matter factories build from arrays held in memory.
 """
 
 import os
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+h5py = pytest.importorskip("h5py")
 
 from resolution_pde_tpu import configs as jcfg  # noqa: E402
 from resolution_pde_tpu_torch import configs as tcfg  # noqa: E402
@@ -94,13 +95,23 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
     assert not all(torch.equal(sa[k], sc[k]) for k in sa)
 
 
-@pytest.mark.parametrize("target,item", [
+@pytest.mark.parametrize("target,window", [
     ("dataloaders.ns_s4.ns_window_dataset", 5),
     ("ns_window_dataset", 5),
 ])
-def test_unported_dataset_factory_raises(target, item):
-    with pytest.raises(KeyError, match=f"ROADMAP.md section 1, item {item}"):
-        tcfg.instantiate_dataset({"_target_": target})
+def test_unported_dataset_factory_raises(target, window, tmp_path):
+    """ns_window_dataset, refused until ROADMAP item 5 ported it, builds
+    from both of its targets; an unknown factory still raises."""
+    u = np.random.default_rng(0).standard_normal((10, 8, 6, 6))
+    with h5py.File(tmp_path / "ns.h5", "w") as f:
+        f.create_dataset("u", data=u.astype(np.float32))
+    out = tcfg.instantiate_dataset({
+        "_target_": target, "filename": "ns.h5",
+        "saved_folder": str(tmp_path), "window_size": window})
+    n_windows = 10 * (8 - window)
+    assert sum(len(out[i].x) for i in range(3)) == n_windows
+    assert out[0].x.shape[1:] == (window, 6, 6)
+    assert out[0].y.shape[1:] == (6, 6)
     with pytest.raises(KeyError, match="unknown dataset factory"):
         tcfg.instantiate_dataset({"_target_": "no_such_dataset"})
 

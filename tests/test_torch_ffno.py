@@ -137,8 +137,9 @@ def test_port_init_is_seeded_and_registered():
                                                       dim=1, keepdim=True))
     assert get_model("models.ffno.FFNO2D") is FFNO2D
     assert get_model("CNO2d").__name__ == "CNO2d"
-    with pytest.raises(KeyError, match="item 5"):
-        get_model("S4NDModel")
+    # ROADMAP item 5's S4NDModel, refused until it was ported
+    assert get_model("S4NDModel") is get_model("models.s4_2d.S4NDModel")
+    assert get_model("S4NDModel").__name__ == "S4NDModel"
 
 
 def test_unknown_impls_raise():

@@ -1,9 +1,8 @@
 """The port's sweep runner against the JAX package's: the families leg
 for leg; the tables (sweep.csv, sweep.md) and a merge of them written
 from the same rows, byte for byte with the same sha; a tiny family on the
-CPU (a tiny FFNO1D leg on KS files, a leg whose dataset factory is not
-ported (ns_window_dataset), whose error names its ROADMAP item, and a
-broken leg) with the
+CPU (a tiny FFNO1D leg on KS files, a leg whose model is unknown, whose
+KeyError the table records, and a broken leg) with the
 tables rewritten after every leg, the .incomplete and .ok markers,
 ``only=``, ``rehearsal=``, ``isolate=``, ``merge`` and the exit code;
 dotted overrides of the NS legs' file names resolving as in JAX; and the
@@ -126,10 +125,9 @@ def test_tables_and_merge_equal_jax(tmp_path, monkeypatch):
 
 def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    name, ndim, argv = _tiny_leg(ks_dir, "unknown_model")
     legs = [_tiny_leg(ks_dir),
-            ("ns_window", "2d",
-             ["model=ffno_2d", "dataset=ns_naive",
-              "dataset.dataset_params._target_=ns_window_dataset"]),
+            (name, ndim, argv + ["model._target_=models.nope.NoSuchModel"]),
             ("broken", "1d", ["model=ffno_1d", "dataset=does_not_exist"])]
     # a family name each run: a run directory is named by the second
     monkeypatch.setattr(sweep, "FAMILIES", {
@@ -146,19 +144,20 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     out = sweep.main(["family=tiny"], device="cpu")
     # rewritten after every leg, then once more
     assert writes == [1, 2, 3, 3]
-    assert out["ns_window"] is None and out["broken"] is None
+    assert out["unknown_model"] is None and out["broken"] is None
     assert np.isfinite(out["ffno_ks"]["test_loss"])
     assert set(out["ffno_ks"]["super_resolution"]) == {32, 64}
     [run_dir] = _run_dirs(tmp_path, "tiny")
     rows = _csv(run_dir)
-    assert [r["run"] for r in rows] == ["ffno_ks", "ns_window", "broken"]
+    assert [r["run"] for r in rows] == ["ffno_ks", "unknown_model", "broken"]
     assert rows[0]["platform"] == "cpu" and rows[0]["epochs"] == "1"
     assert all(r["legs_green"] == "1/3" and r["rehearsal"] == "false"
                for r in rows)
-    assert "ROADMAP.md section 1, item 5" in rows[1]["error"]
+    assert rows[1]["error"].startswith(
+        "KeyError: \"unknown model 'models.nope.NoSuchModel'")
     assert rows[2]["error"].startswith("FileNotFoundError")
     md = open(os.path.join(run_dir, "sweep.md")).read()
-    assert "legs_green=1/3" in md and "item 5" in md
+    assert "legs_green=1/3" in md and "NoSuchModel" in md
     marker = open(os.path.join(run_dir, ".incomplete")).read()
     assert "legs_green=1/3" in marker and "broken" in marker
     assert not os.path.exists(os.path.join(run_dir, ".ok"))
@@ -180,7 +179,7 @@ def test_tiny_family_on_the_cpu(ks_dir, tmp_path, monkeypatch):
     [refresh] = _run_dirs(tmp_path, "subset")
     merged = sweep.main(["merge", f"out={tmp_path}/merged", run_dir,
                          refresh])
-    assert list(merged) == ["ffno_ks", "ns_window", "broken"]
+    assert list(merged) == ["ffno_ks", "unknown_model", "broken"]
     assert merged["ffno_ks"]["test_rel_l2"] == _csv(refresh)[0][
         "test_rel_l2"]
     assert "legs_green=1/3" in open(f"{tmp_path}/merged/.incomplete").read()
