@@ -250,8 +250,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      (K4) and a dplr S4NDModel at the same widths (K5), one graph a
      bucket at 8 x {64², 128², 256²}, a request a bucket counted by its
      kernel's executions in the replays (a layer and axis each), held
-     against the 'jnp' route and the CPU (1e-4) and against eager, the
-     median predict graphed and eager, the device time of a 256² predict
+     against the 'jnp' route and the CPU (1e-4) and against eager, then
+     each kernel layer's log_dt shifted in place in turn and the replay
+     held against the 'jnp' route with the same shift (every kernel node
+     runs in every replay), the median predict graphed and eager, the device time of a 256² predict
      by kernel; S4ND's Trainer step at 8 x 128² (median, busy time, idle
      share, kernels a step, the largest kernels, peak memory) and its
      forward against the CPU (1e-4); S4BaseSeqModel and S4DualSeqModel
@@ -1133,8 +1135,6 @@ def build_model(device, compute_dtype, spectral_impl, gen=None,
 SYMBOLS = {"K1f": "fused_ff_fwd", "K2": "staged_forward_kernel",
            "K3": "spectral_pass_kernel", "K4": "vandermonde_kernel",
            "K5": "cauchy_kernel"}
-# how the executions inside graph replays were counted in this run
-REPLAYS_COUNTED_BY: set = set()
 
 
 def profiled(fn):
@@ -1156,47 +1156,45 @@ def _device_kernels(prof) -> list:
             and not e.name.startswith(("Memcpy", "Memset"))]
 
 
-def graph_executions(fn, per_call: dict, calls: int, what: str,
-                     exact: bool = True) -> tuple:
+# graph_executions' profile: idle host time on each side of the work, and
+# the spin kernels (torch.cuda._sleep, which no graph runs) launched
+# before it to take the profile's first device records
+PROFILE_MARGIN_S, PROFILE_PRIMER = 0.05, 256
+
+
+def graph_executions(fn, per_call: dict, calls: int, what: str) -> tuple:
     """Serve ``calls`` requests (``fn()``) through an engine's CUDA graphs
     under torch.profiler and count each kernel's executions inside the
     replays by its symbol name (``SYMBOLS``): each must be ``per_call[k]``
     a request. The kernels' Python counters count host launches, which a
-    replay makes none of. Should the profiler record no kernel inside a
-    replay, the executions are counted as the launches a capture records
-    times the replays, and the log says so. With ``exact`` False the
-    profiler need only see each kernel of ``per_call`` at least once and
-    no more than its count, and the executions are the launches at
-    capture times the replays: inside S4ND's replays the profiler drops
-    some of K4's records (6 or 7 of a replay's 8 on the card, varying
-    between readings of one graph), while warm_graphs has counted the
-    launches each capture records. Returns (result, {kernel:
-    executions}, how they were counted)."""
-    out, prof = profiled(fn)
+    replay makes none of. Late in a long process the profiler can lose
+    the first device records of a profile, whatever kernels they are
+    (kineto counts them out of range); so the profile opens with
+    PROFILE_MARGIN_S of idle time and PROFILE_PRIMER spin kernels,
+    synchronized, before the work, and closes with the margin again. The
+    log gives how many of the spin kernels' records arrived. Returns
+    (result, {kernel: executions})."""
+    def primed():
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(PROFILE_PRIMER):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        return out
+
+    out, prof = profiled(primed)
     names = _device_kernels(prof)
+    spins = sum("spin_kernel" in n for n in names)
+    got = {k: sum(SYMBOLS[k] in n for n in names) for k in per_call}
     want = {k: v * calls for k, v in per_call.items()}
-    if not names:
-        how = "launches at capture x replays"
-        log("graphs", what=what, executions=want,
-            counted=how + " (the profiler recorded no kernel inside a "
-                          "replay)")
-    else:
-        how = "torch.profiler, by symbol name"
-        got = {k: sum(SYMBOLS[k] in n for n in names) for k in per_call}
-        if not exact and got != want:
-            how = ("launches at capture x replays, each kernel seen in the "
-                   "replays by torch.profiler")
-            log("graphs", what=what, executions=want, profiler_saw=got,
-                counted=how)
-            require(all((0 < got[k] <= v) if v else got[k] == 0
-                        for k, v in want.items()),
-                    f"{what}: kernels seen in the graph replays {got}, "
-                    f"expected each of {want} at least once")
-        else:
-            require(got == want, f"{what}: kernels executed in the graph "
-                    f"replays {got}, expected {want}")
-    REPLAYS_COUNTED_BY.add(how)
-    return out, want, how
+    log("graphs", what=what, executions=got, kernels=len(names) - spins,
+        spin_records=f"{spins}/{PROFILE_PRIMER}")
+    require(got == want, f"{what}: kernels executed in the graph replays "
+            f"{got}, expected {want}")
+    return out, got
 
 
 def eager(eng, fn):
@@ -1292,11 +1290,10 @@ def run_slice(gen) -> dict:
     fused_ff.launches = spectral_mix.launches = 0
     spectral_mix.wide_launches = spectral_mix.k3_launches = 0
     launched = {"bf16": [0, 0], "f32": [0, 0]}
-    outs, how = {}, set()
+    outs = {}
 
     def serve(key, fn, per_call, calls, what):
-        out, ex, h = graph_executions(fn, per_call, calls, what)
-        how.add(h)
+        out, ex = graph_executions(fn, per_call, calls, what)
         spec = "K2" if key == "bf16" else "K3"
         launched[key] = [launched[key][0] + ex["K1f"],
                          launched[key][1] + ex[spec]]
@@ -1316,7 +1313,7 @@ def run_slice(gen) -> dict:
             f"serving through graphs launched kernels from the host: "
             f"{counters()}")
     log("slice", executions_bf16=launched["bf16"],
-        executions_f32=launched["f32"], counted=sorted(how))
+        executions_f32=launched["f32"])
     require(y32.shape == x32.shape and np.isfinite(y32).all(),
             f"f32 predict at {RES}^2: shape {y32.shape} or non-finite")
     for res, x in reqs.items():
@@ -1571,7 +1568,7 @@ def run_wide() -> dict:
 
     # the predict replays its bucket's graph: its kernels are counted by
     # their executions in the replay
-    y, served, _ = graph_executions(lambda: eng.predict(x),
+    y, served = graph_executions(lambda: eng.predict(x),
                                     {"K1f": LAYERS, "K2": 2 * LAYERS}, 1,
                                     f"width {WIDE} predict")
     require(y.shape == x.shape and np.isfinite(y).all(),
@@ -1875,14 +1872,13 @@ def run_s4_slice() -> dict:
 
         # the main path: every count from here comes from requests
         cauchy.launches = vandermonde.launches = 0
-        executed, how = 0, set()
+        executed = 0
 
         def predict(x, what, calls=1):
             nonlocal executed
-            out, ex, h = graph_executions(lambda: eng.predict(x), per_call,
+            out, ex = graph_executions(lambda: eng.predict(x), per_call,
                                           calls, f"{mode} {what}")
             executed += ex[name]
-            how.add(h)
             require(out.shape == (x.shape[0], 1, x.shape[2])
                     and np.isfinite(out).all(),
                     f"{mode} {what}: shape {out.shape} or non-finite")
@@ -1895,8 +1891,7 @@ def run_s4_slice() -> dict:
                 f"{mode}: serving through graphs launched {counters()} "
                 "from the host")
         launched[mode] = executed
-        log("s4", mode=mode, **{f"executions_{name}": executed},
-            counted=sorted(how))
+        log("s4", mode=mode, **{f"executions_{name}": executed})
 
         # graph against eager on the same engine, bit for bit
         for n, x in reqs.items():
@@ -2150,14 +2145,13 @@ def run_s4_train() -> dict:
             requests = {n: builder(n).x[:S4_BATCH] for n in S4_LENGTHS}
             # the main path: every count from here comes from requests
             cauchy.launches = vandermonde.launches = 0
-            executed, how = 0, set()
+            executed = 0
             outs = {}
             for n, x in requests.items():
-                outs[n], ex, h = graph_executions(
+                outs[n], ex = graph_executions(
                     lambda x=x: eng.predict(x), per_call, 1,
                     f"s4_{mode} served checkpoint at L {n}")
                 executed += ex[kname]
-                how.add(h)
             require(counters() == {"K4": 0, "K5": 0},
                     f"{mode}: the served checkpoint launched {counters()} "
                     "from the host")
@@ -2178,8 +2172,7 @@ def run_s4_train() -> dict:
                         <= 1e-6, f"{mode}: graph replay vs eager at L {n}")
                 require(err <= 1e-4, f"{mode}: served checkpoint vs the jnp "
                         f"route at L {n}: {err}")
-            log("s4_train", mode=mode, **{f"executions_{kname}": executed},
-                counted=sorted(how))
+            log("s4_train", mode=mode, **{f"executions_{kname}": executed})
     log("s4_train", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
     return launched
 
@@ -2461,13 +2454,12 @@ def run_ffno1d() -> dict:
         raw_test[:, :-1, ::KS_RES // n].reshape(-1, 1, n)[:S4_BATCH])
         for n in FFNO1D_SERVE}
     fused_ff.launches = fused_ff.bwd_launches = 0
-    outs, how = {}, set()
+    outs = {}
     for n, x in requests.items():
-        outs[n], ex, h = graph_executions(
+        outs[n], ex = graph_executions(
             lambda x=x: eng.predict(x), per_call, 1,
             f"ffno1d served checkpoint at {S4_BATCH} x {n}")
         launched["served"] += ex["K1f"]
-        how.add(h)
     require(counters() == {"K1f": 0, "K1b": 0},
             f"ffno1d: the served checkpoint launched {counters()} from the "
             "host")
@@ -2484,7 +2476,7 @@ def run_ffno1d() -> dict:
         log("ffno1d", served=f"{S4_BATCH}x{n}", bit_equal=True,
             median_ms_graph=f"{g1:.3f}/{g2:.3f}",
             median_ms_eager=f"{e1:.3f}")
-    log("ffno1d", executions_K1f=launched["served"], counted=sorted(how),
+    log("ffno1d", executions_K1f=launched["served"],
         phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
     launched["ks_arrays"] = arrays  # for phase 15's KS legs
     return launched
@@ -3864,6 +3856,47 @@ def s4nd_step() -> dict:
     return rec
 
 
+def replays_run_kernels(eng, jnp_model, reqs: dict, outs: dict,
+                        mode: str) -> None:
+    """Each kernel node of each bucket's graph runs in every replay: one
+    kernel layer's log_dt at a time is shifted by 0.5 in place (the
+    graph reads it by address) in the served model and in ``jnp_model``,
+    and the replay is held against the 'jnp' route with the same shift
+    (S4ND_TOL). A node that did not run would leave the kernel of an
+    earlier replay in its buffer, and the output where it was: each shift
+    must move it by ten times the tolerance. With every log_dt restored,
+    a replay gives ``outs`` again, bit for bit."""
+    shift = 0.5
+    served = dict(eng.model.named_parameters())
+    ref = dict(jnp_model.named_parameters())
+    names = sorted(n for n in served if n.endswith(".log_dt"))
+    require(len(names) == 2 * len(jnp_model.s4_layers),
+            f"s4nd_{mode}: kernel layers {names}")
+    for r, x in reqs.items():
+        worst, least = 0.0, math.inf
+        for n in names:
+            saved = served[n].detach().clone()
+            with torch.no_grad():
+                served[n].add_(shift)
+                ref[n].add_(shift)
+                got = torch.from_numpy(eng.predict(x))
+                want = jnp_model(torch.from_numpy(x).cuda()).cpu()
+                served[n].copy_(saved)
+                ref[n].copy_(saved)
+            err = rel_l2(got, want)
+            moved = rel_l2(got, torch.from_numpy(outs[r]))
+            worst, least = max(worst, err), min(least, moved)
+            require(err <= S4ND_TOL and moved >= 10 * S4ND_TOL,
+                    f"s4nd_{mode} at {r}^2, {n} + {shift}: vs jnp {err}, "
+                    f"moved {moved}")
+        require(np.array_equal(eng.predict(x), outs[r]),
+                f"s4nd_{mode} at {r}^2: log_dt restored, replay differs")
+        log("s4nd_replay_runs_kernels", mode=mode, bucket=f"{r}^2",
+            shifted=f"each of {len(names)} log_dt by {shift}",
+            worst_vs_jnp_rel_l2=f"{worst:.3e}",
+            least_moved_rel_l2=f"{least:.3e}", tol=S4ND_TOL)
+
+
 def serve_s4nd(ckpt: str) -> dict:
     """The trained S4ND restored into S4NDModel(kernel_impl='pallas') by
     ServingEngine.from_checkpoint (diag: K4), and a dplr S4NDModel at the
@@ -3871,7 +3904,8 @@ def serve_s4nd(ckpt: str) -> dict:
     (S4ND_BATCH x S4ND_SERVE², capture seconds, peak memory): a request a
     bucket counted by its kernel's executions in the replays (one a layer
     and axis), held against the 'jnp' route on the card and against the
-    CPU (S4ND_TOL), the replay against eager, and the median predict per
+    CPU (S4ND_TOL), the replay against eager, every kernel node shown to
+    run in every replay (replays_run_kernels), and the median predict per
     bucket graphed and eager. Returns the executions of K4 and K5."""
     from resolution_pde_tpu_torch.deploy import ServingEngine
     from resolution_pde_tpu_torch.ops.kernels import cauchy, vandermonde
@@ -3906,13 +3940,12 @@ def serve_s4nd(ckpt: str) -> dict:
 
         # the main path: every count from here comes from requests
         cauchy.launches = vandermonde.launches = 0
-        outs, how = {}, set()
+        outs = {}
         for r, x in reqs.items():
-            outs[r], ex, h = graph_executions(
+            outs[r], ex = graph_executions(
                 lambda x=x: eng.predict(x), per_call, 1,
-                f"s4nd_{mode} predict of {x.shape[0]} at {r}^2", exact=False)
+                f"s4nd_{mode} predict of {x.shape[0]} at {r}^2")
             executed[name] += ex[name]
-            how.add(h)
         require(counters() == {"K4": 0, "K5": 0},
                 f"s4nd_{mode}: serving through graphs launched "
                 f"{counters()} from the host")
@@ -3935,8 +3968,8 @@ def serve_s4nd(ckpt: str) -> dict:
                     f"{err_cpu}")
             require(rel_l2(torch.from_numpy(got), torch.from_numpy(e))
                     <= 1e-6, f"s4nd_{mode} at {r}^2: graph vs eager")
-        log("s4nd_serve", mode=mode, **{f"executions_{name}": executed[name]},
-            counted=sorted(how))
+        replays_run_kernels(eng, jnp_model, reqs, outs, mode)
+        log("s4nd_serve", mode=mode, **{f"executions_{name}": executed[name]})
         # median predict latency per bucket, graph and eager, in turns
         for r in S4ND_SERVE:
             x = rng.standard_normal((S4ND_BATCH, 1, r, r)).astype(np.float32)
@@ -4141,8 +4174,7 @@ def main() -> int:
     # the serving paths' counts are executions inside CUDA graph replays
     counted = ("host launches (the wrappers' counters) on the training and "
                "command-line paths; executions inside the serving paths' "
-               "CUDA graph replays, counted by "
-               + " and ".join(sorted(REPLAYS_COUNTED_BY)))
+               "CUDA graph replays, counted by torch.profiler by symbol name")
     for k in kernels:
         if k["name"] in ("fused_ff_fwd_bf16", "fused_ff_fwd_f32",
                          "spectral_pass_bf16", "spectral_pass_f32",

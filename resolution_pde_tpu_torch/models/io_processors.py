@@ -93,8 +93,7 @@ class BatchSpaceConv(nn.Module):
     """A spatial convolution (SAME padding, flax's conv init) over each
     frame, then the batch-space reshape (custom_layer.py:
     388-409): (B, T, S..., H) -> ((B S...), T, d_model). Torch needs the
-    input features (``in_features``), which flax infers; ``make`` keeps the
-    JAX factory's signature."""
+    input features (``in_features``), which flax infers."""
 
     def __init__(self, in_features: int, d_model: int = 128,
                  kernel_size: int = 3, dim: int = 1, *, generator=None):
@@ -105,12 +104,6 @@ class BatchSpaceConv(nn.Module):
         lecun_normal_(self.conv.weight, in_features * kernel_size ** dim,
                       generator)
         nn.init.zeros_(self.conv.bias)
-
-    @classmethod
-    def make(cls, d_model: int = 128, kernel_size: int = 3, dim: int = 1,
-             *, in_features: int, generator=None) -> "BatchSpaceConv":
-        return cls(in_features, d_model, kernel_size, dim,
-                   generator=generator)
 
     def forward(self, x):
         b, t = x.shape[:2]

@@ -100,18 +100,21 @@ def test_instantiate_model_passes_the_jax_kwargs(extra):
     ("ns_window_dataset", 5),
 ])
 def test_unported_dataset_factory_raises(target, window, tmp_path):
-    """ns_window_dataset, refused until ROADMAP item 5 ported it, builds
-    from both of its targets; an unknown factory still raises."""
-    u = np.random.default_rng(0).standard_normal((10, 8, 6, 6))
+    """ns_window_dataset builds from both of its targets (the name is kept
+    from when the factory was refused), at an explicit window and at the
+    factory's default of 10, JAX's; an unknown factory still raises."""
+    u = np.random.default_rng(0).standard_normal((10, 12, 6, 6))
     with h5py.File(tmp_path / "ns.h5", "w") as f:
         f.create_dataset("u", data=u.astype(np.float32))
-    out = tcfg.instantiate_dataset({
-        "_target_": target, "filename": "ns.h5",
-        "saved_folder": str(tmp_path), "window_size": window})
-    n_windows = 10 * (8 - window)
-    assert sum(len(out[i].x) for i in range(3)) == n_windows
-    assert out[0].x.shape[1:] == (window, 6, 6)
-    assert out[0].y.shape[1:] == (6, 6)
+    for size in (window, None):
+        kw = {} if size is None else {"window_size": size}
+        out = tcfg.instantiate_dataset({
+            "_target_": target, "filename": "ns.h5",
+            "saved_folder": str(tmp_path), **kw})
+        size = size or 10
+        assert sum(len(out[i].x) for i in range(3)) == 10 * (12 - size)
+        assert out[0].x.shape[1:] == (size, 6, 6)
+        assert out[0].y.shape[1:] == (6, 6)
     with pytest.raises(KeyError, match="unknown dataset factory"):
         tcfg.instantiate_dataset({"_target_": "no_such_dataset"})
 

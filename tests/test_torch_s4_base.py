@@ -114,8 +114,7 @@ def test_batch_space_conv_matches_jax(dim, kernel_size):
                                   dim=dim)
     p = jm.init(jax.random.key(0), jnp.asarray(x))["params"]
     want = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
-    m = iop.BatchSpaceConv.make(d_model=5, kernel_size=kernel_size, dim=dim,
-                                in_features=4)
+    m = iop.BatchSpaceConv(4, 5, kernel_size, dim)
     m.load_state_dict(jax_bridge._conv(p["Conv_0"], "conv"))
     got = _np(m(torch.from_numpy(x)))
     assert got.shape == want.shape == (2 * 6 ** dim, 3, 5)
