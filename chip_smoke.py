@@ -136,7 +136,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      the flagship's
      command line: main_2d's main(argv) with its override
      strings, as a user runs it, in a temporary working directory, on a
-     synthetic vorticity file (32 x 20 frames at 256², from SEED; .h5
+     synthetic vorticity file (16 x 20 frames at 256², from SEED; 16
+     trajectories keep the whole script under 600 s; .h5
      where h5py is installed, else .mat): run A, the yaml configs as
      shipped (width 64, 4 layers, 64 modes, dropout 0.1, torch.fft, the
      dense FeedForward, f32, batch 16), 2 epochs, launching no kernel; run
@@ -260,7 +261,27 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      at their default widths in both modes, the convolution against the
      recurrence stepped over 16 steps on the card (rtol 2e-3, atol 2e-4,
      JAX's) and both against the CPU (1e-4). check_fft_path holds the
-     port's irfftn at S4ND's padded shape there too.
+     port's irfftn at S4ND's padded shape there too;
+ 18. the parallel package (run_parallel): a) in this process a world-1
+     NCCL group, the flagship Trainer(mesh=make_mesh(),
+     param_specs=fsdp_specs(...)) at bench.py's width on the bf16 kernel
+     route at 8 x 256², 3 steps, its losses and parameters bit-equal to
+     the same seed's Trainer without a mesh, K1f, K1b, K2 and the K2
+     adjoint launched as often, the median step with and without the
+     mesh; b) two processes sharing the card in a gloo group, the same
+     model on the f32-exact route (K1f, K1b f32, K3 and its adjoint)
+     through the same Trainer (at "data" 2 fsdp_specs shard every weight
+     of 16,384 elements or more, through torch's fully_shard: its
+     gathers and reduce-scatters run through gloo too), 2 ranks x 4
+     samples against 1 process x 8 for 3 steps: losses within
+     1e-5 relative, every parameter within 1e-4 (relative L2), each rank's
+     K1f, K1b and K3 launches >= 1, the median step of both; c)
+     torchrun --standalone --nproc_per_node=1 -m
+     resolution_pde_tpu_torch.cli.main_2d on phase 13's generated NS
+     (ns_naive.yaml's stride to 128²) with KERNEL_ROUTE for 1 epoch:
+     exit code 0, its test loss and sweep (read from its runs/ tables) within 1e-5 of the
+     in-process main_2d of the same argv, and the sweep written by
+     utils.plotting.save_results_csv read back equal.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -276,7 +297,8 @@ ffno1d_* (time, plain time, bound, error) and its launches on phase 12's
 paths as ffno1d_launches (run B, and for K1f the served executions) and
 on phase 14's Burgers leg as burgers_launches, the K4 and K5 entries
 their executions in phase 17's S4ND replays as s4nd_launches, which
-``launches`` includes, as it sums every path's; a kernel on a
+``launches`` includes, as it sums every path's (phase 18's mesh runs
+too, as parallel_launches); a kernel on a
 serving path says in launches_counted_as that its
 launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
@@ -2493,7 +2515,8 @@ KERNEL_ROUTE = ["model.dropout=0", "model.compute_dtype=bfloat16",
                 "model.approx_gelu=true"]
 
 
-def write_vorticity(folder: str) -> str:
+def write_vorticity(folder: str, n_traj: int = NS_TRAJ,
+                    frames: int = NS_FRAMES, res: int = NS_RES) -> str:
     """A synthetic stand-in for the NS vorticity file, not NS physics:
     smooth random fields (Fourier modes |k| <= NS_MODES, from SEED)
     advected by one constant velocity and diffused, evolved exactly in
@@ -2504,17 +2527,17 @@ def write_vorticity(folder: str) -> str:
     import importlib.util
 
     rng = np.random.default_rng(SEED)
-    n = NS_RES
+    n = res
     ky = np.fft.fftfreq(n, 1.0 / n)[:, None]
     kx = np.fft.rfftfreq(n, 1.0 / n)[None, :]
     keep = (ky ** 2 + kx ** 2) <= NS_MODES ** 2
-    coef = (rng.standard_normal((NS_TRAJ, n, n // 2 + 1))
-            + 1j * rng.standard_normal((NS_TRAJ, n, n // 2 + 1))) * keep
+    coef = (rng.standard_normal((n_traj, n, n // 2 + 1))
+            + 1j * rng.standard_normal((n_traj, n, n // 2 + 1))) * keep
     # 1.5 and -0.75 grid cells a frame; mode NS_MODES decays by e^-0.1
     step = np.exp(-2j * np.pi * (1.5 * kx - 0.75 * ky) / n
                   - 0.1 * (kx ** 2 + ky ** 2) / NS_MODES ** 2)
-    u = np.empty((NS_TRAJ, NS_FRAMES, n, n), np.float32)
-    for t in range(NS_FRAMES):
+    u = np.empty((n_traj, frames, n, n), np.float32)
+    for t in range(frames):
         u[:, t] = np.fft.irfft2(coef * step ** t, s=(n, n))
     u /= u[:, 0].std()
     if importlib.util.find_spec("h5py") is not None:
@@ -4075,11 +4098,300 @@ def run_s4nd(ns_arrays: dict) -> dict:
     s4_seq_models()
     log("s4nd", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
     return executed
+# phase 18: the parallel package on the card. a) a world-1 NCCL group in
+# this process, the flagship trainer through make_mesh and fsdp_specs,
+# bit-equal to the trainer without a mesh; b) two processes sharing the
+# card in a gloo group (NCCL refuses two ranks on one device), the
+# f32-exact route, 2 x 4 samples against 1 x 8; c) main_2d under torchrun
+PAR_STEPS, PAR_TIMED = 3, 5
+PAR_RANK_S = 240  # a gloo rank's limit, start-up and build included
+
+
+def _zero_counts() -> None:
+    from resolution_pde_tpu_torch.ops.kernels import fused_ff, spectral_mix
+
+    fused_ff.launches = fused_ff.bwd_launches = 0
+    spectral_mix.launches = spectral_mix.adjoint_launches = 0
+    spectral_mix.wide_launches = 0
+
+
+def _par_trainer(init, compute_dtype, spectral_impl, mesh=None):
+    """The flagship at bench.py's width from ``init``; with a mesh, its
+    Trainer takes fsdp_specs over it."""
+    from resolution_pde_tpu_torch.parallel import fsdp_specs
+    from resolution_pde_tpu_torch.train import Trainer
+
+    model = build_model("cuda", compute_dtype, spectral_impl)
+    model.load_state_dict(init)
+    specs = fsdp_specs(model, mesh) if mesh is not None else None
+    trainer = Trainer(model, learning_rate=1e-3, device="cuda", mesh=mesh,
+                      param_specs=specs)
+    return trainer, trainer.init()
+
+
+def _par_steps(trainer, state, x, y) -> dict:
+    """PAR_STEPS steps (their losses, launches and the parameters after
+    them), then PAR_TIMED more, timed."""
+    from resolution_pde_tpu_torch.parallel.shard import full_state_dict
+
+    _zero_counts()
+    losses = []
+    for _ in range(PAR_STEPS):
+        state, loss = trainer.train_step(state, x, y)
+        losses.append(float(loss))
+    launches = _counts()
+    # whole parameters (under FSDP a collective: every rank gathers)
+    params = {k: v.detach().clone()
+              for k, v in full_state_dict(state.model).items()}
+    times = []
+    for _ in range(PAR_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = trainer.train_step(state, x, y)
+        float(loss)
+        times.append((time.perf_counter() - t) * 1e3)
+    return dict(losses=losses, launches=launches, params=params,
+                median_ms=statistics.median(times))
+
+
+def _parallel_rank(rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 18 b (``chip_smoke.py --parallel-rank R W DIR``):
+    the card shared with the other rank through a gloo group."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from resolution_pde_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    print(f"rank {rank}: group up in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    job = torch.load(f"{tmp}/job.pt", weights_only=False)
+    trainer, state = _par_trainer(job["init"], None, "pallas",
+                                  mesh=make_mesh(device_type="cuda"))
+    out = _par_steps(trainer, state, job["x"], job["y"])
+    print(f"rank {rank}: steps done, losses {out['losses']}", flush=True)
+    out["params"] = ({k: v.cpu() for k, v in out["params"].items()}
+                     if rank == 0 else None)
+    torch.save(out, f"{tmp}/out{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _worst_rel(got: dict, want: dict) -> float:
+    return max(rel_l2(got[k].float().cpu(), want[k].float().cpu())
+               for k in want)
+
+
+def _read_table(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def _part_a(init, x, y, tmp) -> list:
+    """World 1 on NCCL against the trainer without a mesh; returns the
+    mesh run's launches (K1f, K1b, K2, K2 adjoint)."""
+    import torch.distributed as dist
+    from resolution_pde_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    plain = _par_steps(*_par_trainer(init, torch.bfloat16, "pallas2"), x, y)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh()
+        meshed = _par_steps(*_par_trainer(init, torch.bfloat16, "pallas2",
+                                          mesh=mesh), x, y)
+    finally:
+        dist.destroy_process_group()
+    same = (meshed["losses"] == plain["losses"]
+            and all(torch.equal(meshed["params"][k], v)
+                    for k, v in plain["params"].items()))
+    log("parallel", part="a", group="nccl world 1",
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+        losses=meshed["losses"], plain_losses=plain["losses"],
+        bit_equal=same, launches=meshed["launches"],
+        plain_launches=plain["launches"],
+        median_step_ms=f"{meshed['median_ms']:.3f}",
+        plain_median_step_ms=f"{plain['median_ms']:.3f}")
+    require(same, "world-1 NCCL trainer differs from the trainer without "
+            "a mesh")
+    require(meshed["launches"] == plain["launches"]
+            and min(meshed["launches"]) >= 1,
+            f"launches with the mesh {meshed['launches']}, without "
+            f"{plain['launches']}")
+    return list(meshed["launches"])
+
+
+def _wait_all(procs, logs, what: str) -> None:
+    """Wait for ``procs`` (PAR_RANK_S at most, then kill them); require
+    exit code 0 of each, with the tail of its log file otherwise."""
+    deadline = time.perf_counter() + PAR_RANK_S
+    while (any(p.poll() is None for p in procs)
+           and time.perf_counter() < deadline):
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for i, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            text = f.read()
+        require(p.returncode == 0, f"{what} {i} exited {p.returncode} "
+                f"(killed after {PAR_RANK_S} s if negative): "
+                f"{text[-4000:]}")
+
+
+def _spawn(cmd, log_path: str, **kw):
+    with open(log_path, "w") as f:
+        return subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                **kw)
+
+
+def _start_ranks(init, x, y, tmp) -> list:
+    """Part b's two gloo ranks (``chip_smoke.py --parallel-rank``), started
+    on the job written here; returns the processes."""
+    torch.save({"init": init, "x": x, "y": y}, f"{tmp}/job.pt")
+    # gloo over the loopback device: the machine has no other network
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get(
+        "GLOO_SOCKET_IFNAME", "lo"))
+    return [_spawn([sys.executable, os.path.abspath(__file__),
+                    "--parallel-rank", str(r), "2", tmp],
+                   f"{tmp}/rank{r}.log", env=env) for r in range(2)]
+
+
+def _part_b(procs, one, tmp, t0) -> list:
+    """The two gloo ranks sharing the card, the f32-exact route, against
+    one process (``one``); returns the ranks' summed launches (K1f, K1b,
+    K3, K3 adjoint)."""
+    _wait_all(procs, [f"{tmp}/rank{r}.log" for r in range(2)], "gloo rank")
+    ranks = [torch.load(f"{tmp}/out{r}.pt", weights_only=False)
+             for r in range(2)]
+    loss_err = max(abs(a - b) / abs(b) for rk in ranks
+                   for a, b in zip(rk["losses"], one["losses"]))
+    param_err = _worst_rel(ranks[0]["params"], one["params"])
+    log("parallel", part="b", group="gloo, 2 processes on one card",
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        losses=ranks[0]["losses"], one_process_losses=one["losses"],
+        loss_rel_err=f"{loss_err:.3e}", tol=1e-5,
+        param_rel_l2_worst=f"{param_err:.3e}", param_tol=1e-4,
+        launches=[rk["launches"] for rk in ranks],
+        median_step_ms=[f"{rk['median_ms']:.3f}" for rk in ranks],
+        one_process_median_step_ms=f"{one['median_ms']:.3f}")
+    require(loss_err <= 1e-5, f"gloo losses off by {loss_err}")
+    require(param_err <= 1e-4, f"gloo parameters off by {param_err}")
+    for r, rk in enumerate(ranks):
+        require(min(rk["launches"]) >= 1, f"gloo rank {r} launches (K1f, "
+                f"K1b, K3, K3 adjoint) {rk['launches']}")
+    return [sum(c) for c in zip(*(rk["launches"] for rk in ranks))]
+
+
+def _part_c(tmp, want, t_in, run, t0) -> None:
+    """torchrun's main_2d (started at ``t0``) read back from its tables
+    against the same argv's run in this process (``want``, ``t_in`` s)."""
+    from resolution_pde_tpu_torch.utils.plotting import save_results_csv
+
+    _wait_all([run], [f"{tmp}/torchrun.log"], "torchrun main_2d")
+    (table_dir,) = os.listdir(f"{tmp}/torchrun/runs/ns_ffno_2d")
+    tables = f"{tmp}/torchrun/runs/ns_ffno_2d/{table_dir}"
+    metrics = _read_table(f"{tables}/metrics.csv")
+    col = metrics[0].index("test_loss")
+    got_test = float(next(r[col] for r in metrics[1:] if r[col]))
+    got_sweep = {int(r[0]): float(r[1]) for r in
+                 _read_table(f"{tables}/super_resolution.csv")[1:]}
+    test_err = abs(got_test - want["test_loss"]) / want["test_loss"]
+    sweep_err = max(abs(got_sweep[r] - v) / v
+                    for r, v in want["super_resolution"].items())
+    save_results_csv(want["super_resolution"], f"{tmp}/sr.csv",
+                     columns=("resolution", "rel_l2"))
+    back = {int(r[0]): float(r[1]) for r in _read_table(f"{tmp}/sr.csv")[1:]}
+    log("parallel", part="c",
+        torchrun_seconds=f"{time.perf_counter() - t0:.2f}",
+        in_process_seconds=f"{t_in:.2f}", test_loss=f"{got_test:.8f}",
+        in_process_test_loss=f"{want['test_loss']:.8f}",
+        test_rel_err=f"{test_err:.3e}", sweep_rel_err=f"{sweep_err:.3e}",
+        tol=1e-5,
+        save_results_csv_read_back_equal=back == want["super_resolution"])
+    require(sorted(got_sweep) == sorted(want["super_resolution"]),
+            f"torchrun sweep {got_sweep}")
+    require(test_err <= 1e-5 and sweep_err <= 1e-5,
+            f"torchrun main_2d off by {test_err}, sweep {sweep_err}")
+    require(back == want["super_resolution"],
+            f"save_results_csv read back {back}")
+
+
+def run_parallel(ns_arrays: dict) -> dict:
+    """Phase 18 (see the module docstring); returns the mesh runs'
+    launches by kernel and precision. torchrun and the two gloo ranks
+    start first, and while they import torch on the host (10-20 s
+    before their first kernel) this process runs part a, part b's
+    one-process reference and part c's in-process main_2d."""
+    from resolution_pde_tpu_torch.cli.generate_data import write_ns
+    from resolution_pde_tpu_torch.cli.main_2d import main as main_2d
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32)
+    y = np.roll(x, 7, axis=-1)
+    init = build_model("cpu", None, "pallas",
+                       torch.Generator().manual_seed(SEED + 18)).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        [ns_path] = write_ns(f"{tmp}/data", ns_arrays, file_format="mat")
+        argv = (["model=ffno_2d", "dataset=ns_naive",
+                 f"dataset.dataset_params.saved_folder={tmp}/data",
+                 "dataset.dataset_params.filename="
+                 f"{os.path.basename(ns_path)}", "training.epochs=1"]
+                + KERNEL_ROUTE)
+        for d in ("inproc", "torchrun"):
+            os.makedirs(f"{tmp}/{d}")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        run = _spawn([sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node=1", "-m",
+                      "resolution_pde_tpu_torch.cli.main_2d", *argv],
+                     f"{tmp}/torchrun.log", cwd=f"{tmp}/torchrun", env=env)
+        procs = []
+        try:
+            procs = _start_ranks(init, x, y, tmp)
+            launched = {"bf16": _part_a(init, x, y, tmp)}
+            one = _par_steps(*_par_trainer(init, None, "pallas"), x, y)
+            here = os.getcwd()
+            os.chdir(f"{tmp}/inproc")
+            try:
+                t_in = time.perf_counter()
+                want = main_2d(argv)
+                t_in = time.perf_counter() - t_in
+            finally:
+                os.chdir(here)
+            launched["f32"] = _part_b(procs, one, tmp, t0)
+            _part_c(tmp, want, t_in, run, t0)
+        finally:
+            for p in procs + [run]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    log("parallel", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launched
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return _parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4])
     # the plain versions' f32 products must be IEEE f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4119,6 +4431,7 @@ def main() -> int:
     run_cno(ns_arrays, ffno1d.pop("ks_arrays"))
     run_transformers(ns_arrays)
     s4nd = run_s4nd(ns_arrays)
+    par = run_parallel(ns_arrays)
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -4131,35 +4444,43 @@ def main() -> int:
         dict(name="fused_ff_fwd_bf16", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["bf16"][0] + trained["bf16"][0] + wide["fwd"]
-             + cli["fwd"], **k1),
+             + cli["fwd"] + par["bf16"][0],
+             parallel_launches=par["bf16"][0], **k1),
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["f32"][0] + trained["f32"][0] + ffno1d["fwd"]
-             + ffno1d["served"] + burgers["fwd"],
+             + ffno1d["served"] + burgers["fwd"] + par["f32"][0],
+             parallel_launches=par["f32"][0],
              ffno1d_launches=ffno1d["fwd"] + ffno1d["served"],
              burgers_launches=burgers["fwd"], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"], **k1b),
+             launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"]
+             + par["bf16"][1], parallel_launches=par["bf16"][1], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
-             launches=trained["f32"][1] + ffno1d["bwd"] + burgers["bwd"],
+             launches=trained["f32"][1] + ffno1d["bwd"] + burgers["bwd"]
+             + par["f32"][1], parallel_launches=par["f32"][1],
              ffno1d_launches=ffno1d["bwd"], burgers_launches=burgers["bwd"],
              **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
              launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"]
-             + cli["k2"], **k2, **w128(k2wide)),
+             + cli["k2"] + par["bf16"][2], parallel_launches=par["bf16"][2],
+             **k2, **w128(k2wide)),
         dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
-             launches=served["f32"][1] + trained["f32"][2], **k3),
+             launches=served["f32"][1] + trained["f32"][2] + par["f32"][2],
+             parallel_launches=par["f32"][2], **k3),
         dict(name="spectral_adjoint_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
-             launches=trained["bf16"][3] + wide["adj"] + cli["adj"],
+             launches=trained["bf16"][3] + wide["adj"] + cli["adj"]
+             + par["bf16"][3], parallel_launches=par["bf16"][3],
              **adj16, **w128(adjwide)),
         dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
-             launches=trained["f32"][3], **adj32),
+             launches=trained["f32"][3] + par["f32"][3],
+             parallel_launches=par["f32"][3], **adj32),
         dict(name="s4d_vandermonde", route="cuda",
              source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
              replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",

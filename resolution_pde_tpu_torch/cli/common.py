@@ -101,7 +101,8 @@ def build_model(cfg: Config):
                              **extra)
 
 
-def build_trainer(cfg: Config, model, y_normalizer, device="cuda") -> Trainer:
+def build_trainer(cfg: Config, model, y_normalizer, device="cuda",
+                  mesh=None) -> Trainer:
     tr = cfg.training
     is_s4 = "s4" in cfg.model.get("_target_", "").lower()
     return Trainer(
@@ -114,6 +115,7 @@ def build_trainer(cfg: Config, model, y_normalizer, device="cuda") -> Trainer:
         seed=tr.get("seed", 0),
         accum_steps=tr.get("accum_steps", 1),
         device=device,
+        mesh=mesh,
     )
 
 

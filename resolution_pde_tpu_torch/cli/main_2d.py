@@ -6,9 +6,12 @@
 Counterpart of resolution_pde_tpu/cli/main_2d.py: main_1d with
 ``spatial_ndim=2``, the StepLR schedule (main_2d.py:173-174), and
 ``ffno_2d`` on ``ns_naive`` unless the arguments pick others. It runs on
-one card (``device``, the card unless the caller passes "cpu"), so the
-batch is the config's: the JAX driver multiplies it by its mesh's data
-extent.
+``device`` (the card unless the caller passes "cpu"); under ``torchrun``
+it trains data-parallel over every rank and multiplies the batch by the
+data extent, as JAX's main_1d does with its mesh:
+
+    torchrun --standalone --nproc_per_node=1 \
+        -m resolution_pde_tpu_torch.cli.main_2d model=ffno_2d ...
 """
 
 from __future__ import annotations

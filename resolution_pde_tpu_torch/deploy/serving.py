@@ -23,7 +23,8 @@ Counterpart of resolution_pde_tpu/deploy/serving.py ``ServingEngine``:
 
 The kernels' launch counters (``ops/kernels/*.launches``) count launches
 from the host, so a graph's kernels count once, at capture, and not at
-each replay.
+each replay. Not ported: the JAX engine's ``mesh=`` (inputs sharded over
+its data axes), which needs collectives around the graph replays.
 """
 
 from __future__ import annotations

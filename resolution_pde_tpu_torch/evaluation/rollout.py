@@ -22,7 +22,11 @@ package's ``deterministic=True``, so no dropout, and BatchNorm reads its
 running statistics and leaves them as they are) and gives the caller's
 mode back. The losses' forwards run on the model's device under
 ``torch.inference_mode()``; the per-step losses add up on the device and
-are fetched once per resolution. Not ported: ``mesh=``.
+are fetched once per resolution. ``mesh=`` (parallel/mesh.py) shards
+each trajectory batch over "data", an indivisible one padded with
+zero-weight rows; each rank sums its real rows' per-step losses over the
+batch's size and the sums add up over the ranks once per resolution, so
+the per-step batch means are the global ones.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ from resolution_pde_tpu_torch.evaluation.superres import (
 )
 from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.ops.normalizers import adapt_normalizer
+from resolution_pde_tpu_torch.parallel.mesh import (data_group,
+                                                    local_weights,
+                                                    shard_batch)
 
 
 @contextlib.contextmanager
@@ -57,15 +64,36 @@ def eval_mode(model):
         model.train(was_training)
 
 
-def _per_step_rel_l2(preds, gt, eps: float = 1e-8):
+def _per_step_rel_l2(preds, gt, eps: float = 1e-8, rows=None):
     """(steps,) per-step batch-mean relative L2 of (B, steps, *spatial)
-    predictions and targets, each (sample, step) flattened, in f32."""
-    b, s = preds.shape[0], preds.shape[1]
-    p = preds.reshape(b, s, -1).float()
-    g = gt.reshape(b, s, -1).float()
+    predictions and targets, each (sample, step) flattened, in f32. rows:
+    the sum over the B samples divided by ``rows`` instead (a rank's share
+    of a sharded batch of ``rows`` samples)."""
+    p = preds.flatten(2).float()
+    g = gt.flatten(2).float()
     diff = torch.linalg.vector_norm(p - g, dim=-1)
     tgt = torch.linalg.vector_norm(g, dim=-1)
+    if rows is not None:
+        return (diff / (tgt + eps)).sum(dim=0) / rows
     return (diff / (tgt + eps)).mean(dim=0)
+
+
+def _rank_rows(trajectories, i, batch_size, mesh):
+    """Batch i's trajectories for this rank, its count of real rows and
+    the batch's size (the rank's rows are the batch without a mesh)."""
+    traj = trajectories[i:i + batch_size]
+    rows = real = len(traj)
+    if mesh is not None:
+        (traj,), pw = shard_batch((traj,), mesh)
+        real = len(traj) if pw is None else int(local_weights(pw, mesh).sum())
+    return traj, real, rows
+
+
+def _add_over_ranks(total, mesh):
+    group = data_group(mesh)
+    if group is not None and total is not None:
+        torch.distributed.all_reduce(total, group=group)
+    return total
 
 
 def perform_rollout(model, initial_condition, rollout_steps: int,
@@ -105,9 +133,9 @@ def rollout_loss(model, trajectories, rollout_steps: int,
                  batch_size: int = 16,
                  per_step_losses: Optional[list] = None,
                  resize_to: Optional[int] = None,
-                 spatial_ndim: int = 1) -> float:
+                 spatial_ndim: int = 1, mesh=None) -> float:
     """Mean over steps of the per-step batch-mean relative L2
-    (autoregressive_step.py:190-197).
+    (autoregressive_step.py:190-197); mesh: see the module docstring.
 
     trajectories: raw (N, T, *spatial) ground truth (a channel axis is
     added), or (N, T, C, *spatial). per_step_losses: an optional list,
@@ -135,8 +163,8 @@ def rollout_loss(model, trajectories, rollout_steps: int,
     total, batches = None, 0
     with torch.inference_mode(), eval_mode(model):
         for i in range(0, n, batch_size):
-            traj = torch.as_tensor(np.asarray(trajectories[i:i + batch_size]),
-                                   device=device)
+            traj, real, rows = _rank_rows(trajectories, i, batch_size, mesh)
+            traj = torch.as_tensor(np.asarray(traj), device=device)
             ic = traj[:, 0] if has_channel else traj[:, 0][:, None]
             if x_normalizer is not None:
                 ic = x_normalizer.encode(ic)
@@ -145,10 +173,12 @@ def rollout_loss(model, trajectories, rollout_steps: int,
             if y_normalizer is not None:
                 preds = y_normalizer.decode(preds)
             gt = traj[:, 1:steps + 1]
-            losses = _per_step_rel_l2(preds if has_channel else preds[:, :, 0],
-                                      gt)
+            preds = preds if has_channel else preds[:, :, 0]
+            losses = (_per_step_rel_l2(preds, gt) if mesh is None else
+                      _per_step_rel_l2(preds[:real], gt[:real], rows=rows))
             total = losses if total is None else total + losses
             batches += 1
+        total = _add_over_ranks(total, mesh)
     per_step = total.cpu().numpy() / max(batches, 1)  # one host fetch
     if per_step_losses is not None:
         per_step_losses[:] = per_step.tolist()
@@ -178,11 +208,12 @@ def perform_window_rollout(model, initial_window, rollout_steps: int,
 def window_rollout_loss(model, trajectories, rollout_steps: int,
                         window_size: int, x_normalizer=None,
                         y_normalizer=None, batch_size: int = 16,
-                        per_step_losses: Optional[list] = None) -> float:
+                        per_step_losses: Optional[list] = None,
+                        mesh=None) -> float:
     """Mean over steps of the per-step batch-mean relative L2 for window
     models: seed with the first ``window_size`` frames of the raw
     trajectories (N, T, X), score the decoded rollout against frames
-    [W, W + steps)."""
+    [W, W + steps). mesh: see the module docstring."""
     n, t = trajectories.shape[0], trajectories.shape[1]
     steps = min(rollout_steps, t - window_size)
     if steps <= 0:
@@ -205,8 +236,8 @@ def window_rollout_loss(model, trajectories, rollout_steps: int,
     total, batches = None, 0
     with torch.inference_mode(), eval_mode(model):
         for i in range(0, n, batch_size):
-            traj = torch.as_tensor(np.asarray(trajectories[i:i + batch_size]),
-                                   device=device)
+            traj, real, rows = _rank_rows(trajectories, i, batch_size, mesh)
+            traj = torch.as_tensor(np.asarray(traj), device=device)
             win = traj[:, :window_size]
             if x_normalizer is not None:
                 win = x_normalizer.encode(win)
@@ -215,9 +246,12 @@ def window_rollout_loss(model, trajectories, rollout_steps: int,
             if y_normalizer is not None:
                 preds = y_normalizer.decode(preds)
             gt = traj[:, window_size:window_size + steps]
-            losses = _per_step_rel_l2(preds[:, :, 0], gt)
+            losses = (_per_step_rel_l2(preds[:, :, 0], gt) if mesh is None
+                      else _per_step_rel_l2(preds[:real, :, 0], gt[:real],
+                                            rows=rows))
             total = losses if total is None else total + losses
             batches += 1
+        total = _add_over_ranks(total, mesh)
     per_step = total.cpu().numpy() / max(batches, 1)  # one host fetch
     if per_step_losses is not None:
         per_step_losses[:] = per_step.tolist()
@@ -240,6 +274,7 @@ def evaluate_rollout_all_resolutions(
     resize_to_train: bool = False,
     spatial_ndim: int = 1,
     seconds_out: Optional[Dict[int, float]] = None,
+    mesh=None,
 ) -> Dict[int, float]:
     """Rollout loss at every resolution; ``rollout_builder(res)`` returns
     the raw trajectories (N, T, *spatial) at that resolution (or an object
@@ -247,7 +282,8 @@ def evaluate_rollout_all_resolutions(
     {res: per-step losses} and {res: wall seconds}. resize_to_train: a
     fixed-size (CNO) model round-trips each step through ``current_res``.
     window_size > 1 selects the sliding-window rollout (S4-style models),
-    on raw trajectories (N, T, X)."""
+    on raw trajectories (N, T, X). mesh: shard each batch over "data"
+    (module docstring)."""
     if test_resolutions is None:
         test_resolutions = get_lower_resolutions(
             max_test_resolution or current_res)
@@ -262,14 +298,15 @@ def evaluate_rollout_all_resolutions(
                 if window_size > 1:
                     results[res] = window_rollout_loss(
                         model, u, rollout_steps, window_size, x_normalizer,
-                        y_normalizer, batch_size, per_step_losses=per_step)
+                        y_normalizer, batch_size, per_step_losses=per_step,
+                        mesh=mesh)
                 else:
                     results[res] = rollout_loss(
                         model, u, rollout_steps, x_normalizer, y_normalizer,
                         batch_size, per_step_losses=per_step,
                         resize_to=(current_res if resize_to_train
                                    and res != current_res else None),
-                        spatial_ndim=spatial_ndim)
+                        spatial_ndim=spatial_ndim, mesh=mesh)
                 if per_step_out is not None:
                     per_step_out[res] = per_step
             except Exception as e:  # a failed resolution is recorded as NaN

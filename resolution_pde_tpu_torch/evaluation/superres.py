@@ -13,8 +13,12 @@ train resolution and the prediction back.
 The model is a torch module; the forward runs on its device under
 ``torch.inference_mode()`` in eval mode (no dropout, the JAX package's
 ``deterministic=True``), the batch losses add up on the device and are
-fetched once per resolution. The JAX package's ``mesh=`` (sharded eval
-batches) is not ported.
+fetched once per resolution. ``mesh=`` (parallel/mesh.py) shards each
+eval batch over "data" (an indivisible one padded with zero-weight rows):
+each rank sums its rows' relative L2 over the batch's size, and the sums
+are added over the ranks once per resolution, so the batch mean is the
+global one; the frequency sums add up over the ranks' real rows, and the
+plotted examples are the global batch's first rows.
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.ops.losses import relative_l2
 from resolution_pde_tpu_torch.ops.normalizers import adapt_normalizer
 from resolution_pde_tpu_torch.ops.resize import fft_resize_1d, fft_resize_2d
+from resolution_pde_tpu_torch.parallel.collectives import gather_tensor
+from resolution_pde_tpu_torch.parallel.mesh import (data_group,
+                                                    local_weights,
+                                                    shard_batch)
 
 
 def get_lower_resolutions(base_resolution: int, min_resolution: int = 32):
@@ -88,6 +96,7 @@ def evaluate_all_resolutions(
     analyze_frequencies: bool = False,
     strict: bool = False,
     n_plot_examples: int = 0,
+    mesh=None,
 ) -> dict:
     """Evaluate at every resolution of the ladder.
 
@@ -96,6 +105,7 @@ def evaluate_all_resolutions(
              'plot_data': {res: {inputs, predictions, targets}},
              'seconds': {res: wall seconds, the dataset build included}};
     plot_data holds the first n_plot_examples samples per resolution.
+    mesh: shard each batch over its "data" axis (module docstring).
     """
     if test_resolutions is None:
         test_resolutions = get_lower_resolutions(
@@ -112,6 +122,7 @@ def evaluate_all_resolutions(
         pred = forward(_resize_spatial(bx, current_res, spatial_ndim))
         return _resize_spatial(pred, bx.shape[-1], spatial_ndim)
 
+    group = data_group(mesh)
     results: Dict[int, float] = {}
     frequency_data, plot_data, seconds = {}, {}, {}
     was_training = model.training
@@ -128,29 +139,47 @@ def evaluate_all_resolutions(
                 err_acc = mag_acc = None
                 with torch.inference_mode():
                     for i in range(0, len(ds), batch_size):
-                        bx = torch.as_tensor(ds.x[i:i + batch_size],
-                                             device=device)
-                        by = torch.as_tensor(ds.y[i:i + batch_size],
-                                             device=device)
+                        bx, by = ds.x[i:i + batch_size], ds.y[i:i + batch_size]
+                        rows = real = len(bx)
+                        if mesh is not None:
+                            (bx, by), pw = shard_batch((bx, by), mesh)
+                            real = (len(bx) if pw is None else
+                                    int(local_weights(pw, mesh).sum()))
+                        bx = torch.as_tensor(bx, device=device)
+                        by = torch.as_tensor(by, device=device)
                         pred = fn(bx)
-                        loss = relative_l2(pred, by)
+                        if mesh is None:
+                            loss = relative_l2(pred, by)
+                        else:
+                            loss = relative_l2(pred[:real], by[:real],
+                                               reduction="sum") / rows
                         total = loss if total is None else total + loss
                         n += 1
                         if n_plot_examples > 0 and target_res not in plot_data:
-                            k = min(n_plot_examples, bx.shape[0])
-                            plot_data[target_res] = {
-                                "inputs": bx[:k].cpu().numpy(),
-                                "predictions": pred[:k].float().cpu().numpy(),
-                                "targets": by[:k].cpu().numpy()}
+                            shown = (bx, pred.float(), by)
+                            if group is not None:
+                                shown = [gather_tensor(t, group)[:rows]
+                                         for t in shown]
+                            k = min(n_plot_examples, rows)
+                            plot_data[target_res] = dict(zip(
+                                ("inputs", "predictions", "targets"),
+                                (t[:k].cpu().numpy() for t in shown)))
                         if analyze_frequencies:
                             sums = (spectrum_sums_1d if spatial_ndim == 1
-                                    else spectrum_sums_2d)(pred.float(), by)
+                                    else spectrum_sums_2d)(pred[:real].float(),
+                                                           by[:real])
                             spatial_shape = by.shape[by.ndim - spatial_ndim:]
                             if err_acc is None:
                                 err_acc, mag_acc = sums
                             else:
                                 err_acc = err_acc + sums[0]
                                 mag_acc = mag_acc + sums[1]
+                    if group is not None and total is not None:
+                        # the ranks' shares, added once per resolution
+                        parts = [total] + ([err_acc, mag_acc]
+                                           if err_acc is not None else [])
+                        for t in parts:
+                            torch.distributed.all_reduce(t, group=group)
                 # one host fetch per resolution
                 results[target_res] = (float(total) if total is not None
                                        else 0.0) / max(n, 1)

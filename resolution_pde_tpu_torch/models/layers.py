@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from resolution_pde_tpu_torch.ops.kernels.fused_ff import fused_feedforward
+from resolution_pde_tpu_torch.parallel.collectives import (
+    copy_to_group, gather_from_group, reduce_from_group)
 
 
 def torch_kernel_init(shape, generator=None) -> torch.Tensor:
@@ -166,6 +168,11 @@ class FeedForward(nn.Module):
     instead. Otherwise the dense path runs, adding the bias in the compute
     dtype and the residual outside. The paths round at different points,
     as in the JAX package.
+
+    Tensor parallelism (``enable_tensor_parallel``, parallel/tp.py) runs
+    the dense path on this rank's slices: layer 0 column-parallel, layer 1
+    row-parallel with one all-reduce of its partial products (in f32,
+    before the rounding to the compute dtype and the bias).
     """
 
     def __init__(self, dim: int, factor: int = 4, n_layers: int = 2,
@@ -194,13 +201,72 @@ class FeedForward(nn.Module):
                 mods.append(nn.LayerNorm(out_dim, eps=1e-5))
             layers.append(nn.Sequential(*mods))
         self.layers = nn.ModuleList(layers)
+        self.tp_group = None
 
     @property
     def fused(self) -> bool:
         return self.ff_impl != "dense" and self.dropout == 0.0
 
+    def enable_tensor_parallel(self, group, dims: dict) -> None:
+        """Run on the slices of a "model" group (parallel/shard.py calls
+        this before slicing). dims: {parameter name: sharded dimension};
+        only layer 0's weight (dim 0) and bias (dim 0) and layer 1's
+        weight (dim 1) may be sharded, as ``ffno_tp_specs`` does."""
+        if self.fused:
+            raise ValueError(
+                f"FeedForward(ff_impl={self.ff_impl!r}) cannot run tensor "
+                "parallel: a chain whose hidden features are sharded over "
+                "'model' is not one fused-kernel launch; build the model "
+                "with ff_impl='dense' for a 'model' extent above 1")
+        allowed = {("0", "weight"): 0, ("0", "bias"): 0, ("1", "weight"): 1}
+        got = {}
+        for name, dim in dims.items():
+            j, _, leaf = name.split("layers.")[-1].split(".")
+            if allowed.get((j, leaf)) != dim:
+                raise ValueError(
+                    f"{name}: tensor parallelism shards layer 0 by output "
+                    "rows and layer 1 by input columns only")
+            got[(j, leaf)] = dim
+        if ("0", "weight") not in got or (len(self.layers) > 1
+                                          and ("1", "weight") not in got):
+            raise ValueError("tensor parallelism shards layer 0's weight "
+                             "and layer 1's together")
+        if self.layers[0][0].bias is not None and ("0", "bias") not in got:
+            raise ValueError("a column-parallel layer 0 shards its bias")
+        self.tp_group = group
+
+    def _layer(self, j: int, x):
+        """Layer j after its linear: dropout, then GELU or the LayerNorm."""
+        seq = self.layers[j]
+        x = seq[1](x)
+        if j < len(self.layers) - 1:
+            return seq[2](x)
+        if self.layer_norm:
+            return seq[3](x.float()).to(x.dtype)
+        return x
+
+    def _tp_forward(self, x):
+        group = self.tp_group
+        x = self.layers[0][0](copy_to_group(x, group))
+        if len(self.layers) == 1:
+            return self._layer(0, gather_from_group(x, group, -1))
+        x = self._layer(0, x)
+        lin = self.layers[1][0]
+        cd = lin.dtype or x.dtype
+        part = x.to(cd).float() @ lin.weight.to(cd).float().t()
+        y = reduce_from_group(part, group).to(cd)
+        if lin.bias is not None:
+            y = y + lin.bias.to(cd)
+        x = self._layer(1, y)
+        for j in range(2, len(self.layers)):
+            x = self._layer(j, self.layers[j][0](x))
+        return x
+
     def forward(self, x, residual=None):
         """x: (..., dim). residual: optional tensor added to the output."""
+        if self.tp_group is not None:
+            x = self._tp_forward(x)
+            return residual + x if residual is not None else x
         if self.fused:
             cd = self.dtype if self.dtype is not None else x.dtype
             kernels = [seq[0].weight.t() for seq in self.layers]
@@ -214,11 +280,6 @@ class FeedForward(nn.Module):
                                      approx_gelu=self.approx_gelu,
                                      compute_dtype=cd,
                                      save_acts=self.ff_impl == "fused_saved")
-        n = len(self.layers)
         for j, seq in enumerate(self.layers):
-            x = seq[1](seq[0](x))  # linear, dropout
-            if j < n - 1:
-                x = seq[2](x)      # GELU
-            elif self.layer_norm:
-                x = seq[3](x.float()).to(x.dtype)
+            x = self._layer(j, seq[0](x))
         return residual + x if residual is not None else x

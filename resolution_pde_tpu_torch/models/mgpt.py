@@ -32,6 +32,8 @@ from torch import nn
 
 from resolution_pde_tpu_torch.models.layers import ACTIVATIONS
 from resolution_pde_tpu_torch.models.norms import lecun_normal_, linear
+from resolution_pde_tpu_torch.parallel.collectives import (copy_to_group,
+                                                            reduce_from_group)
 
 # flax's nn.LayerNorm() default epsilon
 FLAX_LN_EPS = 1e-6
@@ -98,6 +100,30 @@ class _StackedExpertMLP(nn.Module):
         self.w2 = nn.Parameter(lecun_normal_(torch.empty(m, i, n_embd), i,
                                              generator))
         self.b2 = nn.Parameter(torch.zeros(m, n_embd))
+        self.ep_group = None
+
+    def enable_expert_parallel(self, group, dims: dict) -> None:
+        """Hold this rank's experts of an "expert" group (parallel/shard.py
+        calls this before slicing): every expert tensor sharded on its
+        expert dimension 0."""
+        leaves = {name.rsplit(".", 1)[-1]: d for name, d in dims.items()}
+        if leaves != {"w1": 0, "b1": 0, "w2": 0, "b2": 0}:
+            raise ValueError("expert parallelism shards w1, b1, w2 and b2 "
+                             f"together on dimension 0, got {dims}")
+        self.ep_group = group
+
+    def combine(self, z, gate):
+        """sum_m gate[..., m] * expert_m(z): (B, T, C). Under expert
+        parallelism this rank's experts' share, summed over the group."""
+        group = self.ep_group
+        if group is None:
+            return torch.einsum("mbtc,btm->btc", self(z), gate)
+        m = self.w1.shape[0]
+        r = torch.distributed.get_rank(group)
+        z = copy_to_group(z, group)
+        gate = copy_to_group(gate, group)[..., r * m:(r + 1) * m]
+        return reduce_from_group(
+            torch.einsum("mbtc,btm->btc", self(z), gate), group)
 
     def forward(self, z):
         h = torch.einsum("btc,mci->mbti", z, self.w1) + self.b1[:, None, None]
@@ -142,7 +168,7 @@ class MoECrossAttentionBlock(nn.Module):
 
     def _moe(self, experts, z, gate):
         if self.expert_impl == "stacked":
-            return torch.einsum("mbtc,btm->btc", experts(z), gate)
+            return experts.combine(z, gate)
         stacked = torch.stack([e(z) for e in experts], dim=-1)  # (B,T,C,m)
         return torch.sum(gate[:, :, None, :] * stacked, dim=-1)
 

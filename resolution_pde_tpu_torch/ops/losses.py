@@ -18,8 +18,8 @@ def relative_l2(pred, target, reduction: str | None = "mean",
     whatever the inputs' dtype. reduction: 'mean', 'sum', or None/'none'
     for the per-sample vector. weights: optional (B,) per-sample weights;
     with 'mean' the result is sum(w * rel) / max(sum(w), 1)."""
-    pred = pred.reshape(pred.shape[0], -1).float()
-    target = target.reshape(target.shape[0], -1).float()
+    pred = pred.flatten(1).float()
+    target = target.flatten(1).float()
     rel = (torch.linalg.vector_norm(pred - target, dim=1)
            / (torch.linalg.vector_norm(target, dim=1) + eps))
     if weights is not None:

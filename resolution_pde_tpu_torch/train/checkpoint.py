@@ -7,6 +7,12 @@ a free-form ``extra`` payload such as ``ReduceLROnPlateau.state_dict()``)
 and ``manifest.json``, the named structure of the parameters, which makes a
 restore into a mismatched model fail loudly.
 
+A sharded model (parallel/shard.py) saves its full state: every rank
+calls ``save_checkpoint`` (the shards and their moments are gathered, a
+collective), and only rank 0 writes. A restore reads the full state on
+every rank and slices each rank's shards from it, so a checkpoint moves
+between layouts and world sizes.
+
 ``block=False`` saves asynchronously, as the JAX package's Orbax saver
 does: the state is copied to host memory on the caller's thread (the next
 optimizer step updates the live tensors in place, so the copy shares no
@@ -26,6 +32,11 @@ from typing import Optional
 
 import torch
 
+from resolution_pde_tpu_torch.parallel.mesh import is_lead
+from resolution_pde_tpu_torch.parallel.shard import (
+    full_optimizer_state_dict, full_shapes, full_state_dict,
+    load_full_optimizer_state_dict, load_full_state_dict)
+
 # bump when the checkpoint payload layout changes
 CHECKPOINT_FORMAT_VERSION = 1
 _PAYLOAD = "state.pt"
@@ -33,8 +44,8 @@ _MANIFEST = "manifest.json"
 
 
 def _manifest(model) -> list:
-    """[name, shape] of every entry of the model's state_dict."""
-    return [[k, list(v.shape)] for k, v in model.state_dict().items()]
+    """[name, full shape] of every entry of the model's state_dict."""
+    return [[k, shape] for k, shape in full_shapes(model).items()]
 
 
 # one writer for every asynchronous save, so saves land in the order they
@@ -102,11 +113,10 @@ def save_checkpoint(path: str, state, history: Optional[dict] = None,
     late asynchronous write cannot land over it."""
     global _WRITER
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
     payload = {
         "format_version": CHECKPOINT_FORMAT_VERSION,
-        "params": state.model.state_dict(),
-        "opt_state": state.optimizer.state_dict(),
+        "params": full_state_dict(state.model),
+        "opt_state": full_optimizer_state_dict(state.model, state.optimizer),
         "step": int(state.step),
         "dropout_generator": state.dropout_generator.get_state(),
     }
@@ -117,6 +127,9 @@ def save_checkpoint(path: str, state, history: Optional[dict] = None,
         payload["extra"] = extra
     manifest = {"format_version": CHECKPOINT_FORMAT_VERSION,
                 "params": _manifest(state.model)}
+    if not is_lead():
+        return
+    os.makedirs(path, exist_ok=True)
     if block:
         wait_for_checkpoints()
         _write(path, payload, manifest)
@@ -158,8 +171,9 @@ def restore_checkpoint(path: str, state, with_extra: bool = False):
                 f"(checkpoint format v{manifest.get('format_version')})")
     payload = torch.load(os.path.join(path, _PAYLOAD), map_location="cpu",
                          weights_only=True)
-    state.model.load_state_dict(payload["params"])
-    state.optimizer.load_state_dict(payload["opt_state"])
+    load_full_state_dict(state.model, payload["params"])
+    load_full_optimizer_state_dict(state.model, state.optimizer,
+                                   payload["opt_state"])
     state.step = int(payload["step"])
     state.dropout_generator.set_state(payload["dropout_generator"])
     if with_extra:

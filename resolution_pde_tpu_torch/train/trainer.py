@@ -15,9 +15,7 @@ train/training.py:19-147):
     are decayed, as flax's scale and bias) move once a microbatch, in the
     microbatches' order, as JAX threads ``batch_stats`` through its scan;
     the zero-weight rows padding a straggler batch enter that
-    microbatch's statistics in both. JAX's ``straggler="replicate"``
-    (placing an indivisible batch whole on every device of its mesh) is
-    the identity on one device, so there is nothing to port;
+    microbatch's statistics in both;
   - per epoch: the mean of the batch losses (one host sync per epoch), a
     validation pass with the same decode, the scheduler stepped once after
     the epoch (ReduceLROnPlateau sees the validation loss), then
@@ -41,9 +39,29 @@ the checkpoint saves. Batches are staged in pinned host memory and copied
 with ``non_blocking``, one batch ahead of the step that uses them.
 
 ``profile_step`` traces steps with ``torch.profiler`` where JAX uses
-``jax.profiler``. Not ported (JAX-only or later slices): ``mesh`` and
-``param_specs`` (data and tensor parallelism) and ``auto_layout`` (an XLA
-layout tool).
+``jax.profiler``.
+
+``mesh`` (a DeviceMesh of parallel/mesh.py; inside an initialized process
+group ``None`` means ``make_mesh()``, every rank on "data", the JAX
+Trainer's default) runs each step on this rank's rows of the global batch
+(``shard_batch``; models with BatchNorm take ``straggler="replicate"``).
+There is one step: without a mesh (or at a data extent of 1) the rows
+are the batch, the share is the batch's loss, and the collectives are
+left out.
+JAX's loss over a padded batch is sum(w rel) / sum(w) over the global
+batch, so each rank divides its own sum(w rel) by the global sum(w) (or
+its batch mean by the data extent), and the gradients are then SUMMED over
+"data", not averaged: DDP's averaging would weigh a straggler batch's
+ranks alike. The loss returned is the global one; BatchNorm takes the
+global batch's statistics (``models.norms.sync_batch_stats``), and a
+``grad_clip`` the global norm over the shards. ``param_specs`` ({name:
+spec}: ``fsdp_specs``, ``ffno_tp_specs``, ``moe_ep_specs``,
+``merge_specs``) shards the model before the optimizer is built
+(parallel/shard.py; FSDP through torch's ``fully_shard``), so the
+optimizer holds the shards and their moments.
+Dropout draws each rank's rows' masks from the one seeded generator, so
+multi-rank runs match the single process at dropout 0. Not ported:
+``auto_layout`` (an XLA layout tool).
 """
 
 from __future__ import annotations
@@ -54,12 +72,22 @@ from dataclasses import dataclass, field
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from resolution_pde_tpu_torch.models.layers import Dropout
+from resolution_pde_tpu_torch.models.norms import BatchNorm, sync_batch_stats
 from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.models.s4 import SSM_PARAM_NAMES
 from resolution_pde_tpu_torch.ops.losses import relative_l2
+from resolution_pde_tpu_torch.parallel.mesh import (data_axis_size,
+                                                    data_group,
+                                                    local_weights,
+                                                    make_mesh, shard_batch)
+from resolution_pde_tpu_torch.parallel.shard import (grad_sq_norm, local_part,
+                                                     reduce_gradients,
+                                                     shard_module,
+                                                     split_dtensors)
 from resolution_pde_tpu_torch.train.schedules import ReduceLROnPlateau
 
 
@@ -101,11 +129,13 @@ class Trainer:
                  weight_decay: float = 1e-4, use_normalizer: bool = False,
                  y_normalizer=None, grad_clip: Optional[float] = None,
                  ssm_lr: Optional[float] = None, seed: int = 0,
-                 accum_steps: int = 1, device="cuda"):
+                 accum_steps: int = 1, device="cuda", mesh=None,
+                 param_specs: Optional[dict] = None):
         """ssm_lr: the S4 family's state-space parameters
         (``SSM_PARAM_NAMES``) train at min(ssm_lr, learning_rate), with no
         weight decay, and anneal in proportion with the main rate (JAX
-        Trainer, the reference's ``_optim`` attributes)."""
+        Trainer, the reference's ``_optim`` attributes). mesh and
+        param_specs: see the module docstring."""
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         device = torch.device(device)
@@ -124,6 +154,16 @@ class Trainer:
         self.accum_steps = int(accum_steps)
         self.ssm_ratio = (min(ssm_lr, learning_rate) / learning_rate
                           if ssm_lr is not None else 1.0)
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = make_mesh(device_type=device.type)
+        self.mesh = mesh
+        if param_specs is not None:
+            if mesh is None:
+                raise ValueError("param_specs need a mesh")
+            shard_module(self.model, mesh, param_specs)
+        self._batch_stats = any(isinstance(m, BatchNorm)
+                                for m in self.model.modules())
+        self._data_group = data_group(mesh)
 
     # -- state ----------------------------------------------------------
     def init(self) -> TrainState:
@@ -134,11 +174,13 @@ class Trainer:
         decayed = [p for p in self.model.parameters()
                    if id(p) not in ssm_ids]
         ssm = [p for p in self.model.parameters() if id(p) in ssm_ids]
-        groups = [g for g in (
-            dict(params=decayed, weight_decay=self.weight_decay),
-            dict(params=ssm, weight_decay=0.0,
-                 lr=self.ssm_ratio * self.learning_rate))
-            if g["params"]]
+        # an empty group is left out; FSDP's DTensor parameters are a
+        # group of their own
+        groups = ([dict(params=part, weight_decay=self.weight_decay)
+                   for part in split_dtensors(decayed)]
+                  + [dict(params=part, weight_decay=0.0,
+                          lr=self.ssm_ratio * self.learning_rate)
+                     for part in split_dtensors(ssm)])
         opt = torch.optim.AdamW(groups, lr=self.learning_rate,
                                 betas=(0.9, 0.999), eps=1e-8)
         gen = torch.Generator(device=self.device)
@@ -183,63 +225,101 @@ class Trainer:
             y = y_normalizer.decode(y)
         return pred, y
 
-    def _loss(self, model, x, y, weights, y_normalizer):
-        pred = unwrap_output(model(x))
-        pred, target = self._decode_for_loss(pred, y, y_normalizer)
-        return relative_l2(pred, target, weights=weights)
-
     def _clip_grads(self, params) -> None:
         """optax.clip_by_global_norm: g -> g / ||g|| * c when ||g|| >= c,
-        decided on the device (no host sync)."""
-        grads = [p.grad for p in params if p.grad is not None]
-        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+        decided on the device (no host sync); ||g|| over the shards of a
+        sharded model."""
+        params = list(params)
+        norm = torch.sqrt(grad_sq_norm(params, self.mesh))
         c = self.grad_clip
-        for g in grads:
-            g.copy_(torch.where(norm < c, g, g / norm * c))
+        for p in params:
+            if p.grad is not None:
+                g = local_part(p.grad)
+                g.copy_(torch.where(norm < c, g, g / norm * c))
+
+    def _stage(self, x, y, weights=None, straggler=None) -> tuple:
+        """This rank's rows of the global batch on the device, with what
+        its loss share divides by: (x, y, w, total, copies). w: the rows'
+        weights (None: unweighted); total: the global sum of weights
+        (None: unweighted); copies: the data extent where every rank holds
+        the whole batch (straggler "replicate"), else 1. Without a mesh,
+        the batch itself."""
+        if straggler is None:
+            straggler = "replicate" if self._batch_stats else "pad"
+        n = data_axis_size(self.mesh)
+        b = x.shape[0]
+        replicated = n > 1 and b % n != 0 and straggler == "replicate"
+        batch = (x, y) if weights is None else (x, y, weights)
+        local, pad_w = shard_batch(batch, self.mesh, straggler)
+        w = local[2] if weights is not None else None
+        total = None
+        if weights is not None:
+            total = float(torch.as_tensor(weights).float().sum())
+        if pad_w is not None:
+            pm = local_weights(pad_w, self.mesh)
+            w = pm if w is None else torch.as_tensor(w) * torch.as_tensor(pm)
+            total = float(b) if total is None else total
+        x, y = self._to_device(local[0]), self._to_device(local[1])
+        if w is not None:
+            w = self._to_device(w).float()
+        return x, y, w, total, (n if replicated else 1)
+
+    def _loss(self, model, x, y, w, total, copies, y_normalizer):
+        """This rank's share of the global batch's mean relative L2, from
+        its rows (x, y) (``_stage``'s w, total and copies); without a
+        mesh, the batch's mean."""
+        pred = unwrap_output(model(x))
+        pred, target = self._decode_for_loss(pred, y, y_normalizer)
+        if w is None:
+            return relative_l2(pred, target) / data_axis_size(self.mesh)
+        return (relative_l2(pred, target, reduction="sum", weights=w)
+                / (max(total, 1.0) * copies))
 
     def train_step(self, state: TrainState, x, y, weights=None) -> tuple:
         """One optimizer step on the batch (x, y); weights: optional (B,)
         per-sample loss weights. Returns (state, loss) with the loss a
-        0-dim tensor on the device."""
+        0-dim tensor on the device. Under a mesh every rank passes the
+        same global batch and takes its rows."""
+        return self._step(state, *self._stage(x, y, weights))
+
+    def _step(self, state, x, y, w, total, copies) -> tuple:
+        """The step on ``_stage``'s output. accum_steps > 1: the rows in
+        that many microbatches (padded with zero-weight copies of row 0,
+        which still enter a BatchNorm's statistics, as in JAX), each
+        microbatch's loss its weighted share of the whole."""
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        x, y = self._to_device(x), self._to_device(y)
-        if weights is not None:
-            weights = self._to_device(weights).float()
+        n = data_axis_size(self.mesh)
+        sync = self._data_group if copies == 1 and n > 1 else None
         accum = self.accum_steps
-        if accum > 1:
-            b = x.shape[0]
-            pad = (-b) % accum
-            if pad:
-                # pad with copies of row 0 that weigh nothing (they still
-                # enter a BatchNorm's statistics, as in JAX)
-                if weights is None:
-                    weights = torch.ones(b, device=self.device)
-                x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
-                y = torch.cat([y, y[:1].expand(pad, *y.shape[1:])])
-                weights = torch.cat([weights,
-                                     torch.zeros(pad, device=self.device)])
-                b += pad
-            mb = b // accum
-            wm = (weights.reshape(accum, mb) if weights is not None
-                  else torch.ones((accum, mb), device=self.device))
-            denom = torch.clamp(wm.sum(), min=1.0)
-            loss = torch.zeros((), device=self.device)
-            for i in range(accum):
-                part = slice(i * mb, (i + 1) * mb)
-                li = self._loss(model, x[part], y[part], wm[i],
-                                self.y_normalizer)
-                # each microbatch weighs its count of real rows, so a
-                # padded batch reproduces the weighted mean of accum = 1
-                wsum = wm[i].sum()
-                (li * (wsum / denom)).backward()
-                loss = loss + li.detach() * wsum
-            loss = loss / denom
-        else:
-            loss = self._loss(model, x, y, weights, self.y_normalizer)
-            loss.backward()
-            loss = loss.detach()
+        with sync_batch_stats(model, sync):
+            if accum == 1:
+                loss = self._loss(model, x, y, w, total, copies,
+                                  self.y_normalizer)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                rows = x.shape[0]
+                if w is None:
+                    w = torch.ones(rows, device=x.device)
+                    total = float(rows * n // copies)
+                pad = (-rows) % accum
+                if pad:
+                    x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+                    y = torch.cat([y, y[:1].expand(pad, *y.shape[1:])])
+                    w = torch.cat([w, torch.zeros(pad, device=w.device)])
+                mb = (rows + pad) // accum
+                loss = torch.zeros((), device=x.device)
+                for i in range(accum):
+                    part = slice(i * mb, (i + 1) * mb)
+                    li = self._loss(model, x[part], y[part], w[part],
+                                    total, copies, self.y_normalizer)
+                    li.backward()
+                    loss = loss + li.detach()
+        reduce_gradients(model.parameters(), self.mesh)
+        if self._data_group is not None:
+            dist.all_reduce(loss, group=self._data_group)
         if self.grad_clip:
             self._clip_grads(model.parameters())
         opt.step()
@@ -252,8 +332,11 @@ class Trainer:
         if y_normalizer == "trainer":
             y_normalizer = self.y_normalizer
         state.model.eval()
-        x, y = self._to_device(x), self._to_device(y)
-        return self._loss(state.model, x, y, None, y_normalizer)
+        share = self._loss(state.model, *self._stage(x, y, None, "pad"),
+                           y_normalizer)
+        if self._data_group is not None:
+            dist.all_reduce(share, group=self._data_group)
+        return share
 
     def profile_step(self, state: TrainState, x, y, trace_dir: str,
                      n_steps: int = 5) -> tuple:
@@ -276,12 +359,13 @@ class Trainer:
         return state, trace_dir
 
     # -- loops ----------------------------------------------------------
-    def _prefetch(self, loader: Iterable):
+    def _prefetch(self, loader: Iterable, straggler=None):
         """Start each batch's host-to-device copy before the step on the
-        batch ahead of it runs, so copy and step overlap."""
+        batch ahead of it runs, so copy and step overlap; each batch is
+        this rank's rows with their loss normalisation (``_stage``)."""
         pending = None
         for batch in loader:
-            nxt = tuple(self._to_device(a) for a in batch)
+            nxt = self._stage(*batch[:3], straggler=straggler)
             if pending is not None:
                 yield pending
             pending = nxt
@@ -292,22 +376,30 @@ class Trainer:
         """One pass over ``loader`` (an iterable of (x, y) batches).
         Returns (state, mean batch loss as a float)."""
         losses = []
-        for x, y in self._prefetch(loader):
-            state, loss = self.train_step(state, x, y)
+        for staged in self._prefetch(loader):
+            state, loss = self._step(state, *staged)
             losses.append(loss)
         # one host sync per epoch, not per batch
         total = float(torch.stack(losses).sum()) if losses else 0.0
         return state, total / max(len(losses), 1)
 
+    @torch.no_grad()
     def evaluate(self, state: TrainState, loader: Iterable,
                  y_normalizer="trainer") -> float:
         """Average per-batch mean relative L2 (reference evaluate(),
         train/training.py:105-146)."""
-        losses = [self.eval_step(state, x, y, y_normalizer)
-                  for x, y in self._prefetch(loader)]
+        if y_normalizer == "trainer":
+            y_normalizer = self.y_normalizer
+        state.model.eval()
+        losses = [self._loss(state.model, *staged, y_normalizer)
+                  for staged in self._prefetch(loader, "pad")]
         if not losses:
             return 0.0
-        return float(torch.stack(losses).sum()) / len(losses)
+        # the ranks' shares add up once, after the last batch
+        total = torch.stack(losses).sum()
+        if self._data_group is not None:
+            dist.all_reduce(total, group=self._data_group)
+        return float(total) / len(losses)
 
     def fit(self, state: TrainState,
             train_loader_fn: Callable[[], Iterable] | Iterable,

@@ -74,6 +74,16 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.datagen.navier_stokes",
     "resolution_pde_tpu_torch.datagen.random_fields",
     "resolution_pde_tpu_torch.datagen.writers",
+    "resolution_pde_tpu_torch.parallel",
+    "resolution_pde_tpu_torch.parallel.collectives",
+    "resolution_pde_tpu_torch.parallel.mesh",
+    "resolution_pde_tpu_torch.parallel.shard",
+    "resolution_pde_tpu_torch.parallel.fsdp",
+    "resolution_pde_tpu_torch.parallel.tp",
+    "resolution_pde_tpu_torch.parallel.ep",
+    "resolution_pde_tpu_torch.parallel.pipeline",
+    "resolution_pde_tpu_torch.utils.plotting",
+    "resolution_pde_tpu_torch.utils.torch_import",
 ]
 CFG = dict(in_channels=1, out_channels=1, width=4, n_layers=2, n_modes=4,
            factor=2, n_ff_layers=2, layer_norm=True)
@@ -88,6 +98,20 @@ def test_port_never_imports_jax():
             "             or m.startswith(('jax.', 'jaxlib', 'flax',\n"
             "                              'resolution_pde_tpu.')))\n"
             "assert not bad, bad\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_port_imports_without_matplotlib():
+    """The card's machine has no matplotlib: every module imports without
+    it (utils.plotting imports it when a figure is drawn)."""
+    code = ("import importlib, sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            f"for name in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
