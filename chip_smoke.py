@@ -282,6 +282,29 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      exit code 0, its test loss and sweep (read from its runs/ tables) within 1e-5 of the
      in-process main_2d of the same argv, and the sweep written by
      utils.plotting.save_results_csv read back equal.
+ 19. the last parallel slice (run_parallel, _phase19_rank), in phase 18
+     b's two gloo ranks after their FSDP run: a) the flagship on
+     {"spatial": 2} (each rank 4 x 128 x 256 rows of a 4 x 256² batch,
+     the W pass on its slab, the H pass on pencils through an all-to-all
+     staged through host memory), f32-exact (K1f, K1b f32, K3 and its
+     adjoint), 3 steps against one process on the same batch: losses
+     within 1e-5 relative, every parameter within 1e-4 (relative L2),
+     each rank's peak device memory (in all, and above what was allocated
+     before the run) below 0.8x one process's, the median step and the
+     all-to-all's share of it; a') the same on the bf16 pallas2 route
+     (K1f, K1b, K2 staged and its adjoint), its losses within 3e-2 of a's;
+     b) make_multislice_mesh(2, {"data": 1}) ("dcn" 2), f32-exact, 2 x 4
+     samples against phase 18 b's one process x 8 (its gates); c)
+     ServingEngine(mesh={"data": 2}), the flagship in bf16 on pallas2
+     served through graphs at 8 x 256² (4 rows a rank, gathered after the
+     replay): a predict and a 2-step forecast within 1e-6 (relative L2) of
+     one process's engine, the median predict on each rank; d)
+     pipeline_apply over {"stage": 2}, two FSpectralConv2d layers (the
+     residual inside the fused FeedForward, the 'pallas' route), 4
+     microbatches of 2 x 64² at width 64: the output and the gradients of
+     x and of the stacked weights within 1e-5 (relative L2) of the layers
+     applied in sequence in one process. Every kernel of each part
+     launched on both ranks; phase 19 at most 60 s in the ranks.
 The line before the last is the kernels' JSON record (ten entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
@@ -298,7 +321,8 @@ paths as ffno1d_launches (run B, and for K1f the served executions) and
 on phase 14's Burgers leg as burgers_launches, the K4 and K5 entries
 their executions in phase 17's S4ND replays as s4nd_launches, which
 ``launches`` includes, as it sums every path's (phase 18's mesh runs
-too, as parallel_launches); a kernel on a
+too, as parallel_launches, and phase 19's, both ranks', as
+phase19_launches); a kernel on a
 serving path says in launches_counted_as that its
 launches there are executions inside CUDA graph replays; the last line is
 {"ok": true, "device": {...}}. Needs
@@ -4104,7 +4128,7 @@ def run_s4nd(ns_arrays: dict) -> dict:
 # card in a gloo group (NCCL refuses two ranks on one device), the
 # f32-exact route, 2 x 4 samples against 1 x 8; c) main_2d under torchrun
 PAR_STEPS, PAR_TIMED = 3, 5
-PAR_RANK_S = 240  # a gloo rank's limit, start-up and build included
+PAR_RANK_S = 300  # a gloo rank's limit: start-up, build, phases 18 b and 19
 
 
 def _zero_counts() -> None:
@@ -4178,6 +4202,8 @@ def _parallel_rank(rank: int, world: int, tmp: str) -> int:
     out["params"] = ({k: v.cpu() for k, v in out["params"].items()}
                      if rank == 0 else None)
     torch.save(out, f"{tmp}/out{rank}.pt")
+    del trainer, state, out
+    _phase19_rank(rank, tmp, job)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -4329,12 +4355,293 @@ def _part_c(tmp, want, t_in, run, t0) -> None:
             f"save_results_csv read back {back}")
 
 
-def run_parallel(ns_arrays: dict) -> dict:
-    """Phase 18 (see the module docstring); returns the mesh runs'
-    launches by kernel and precision. torchrun and the two gloo ranks
-    start first, and while they import torch on the host (10-20 s
-    before their first kernel) this process runs part a, part b's
-    one-process reference and part c's in-process main_2d."""
+# phase 19: the last parallel slice, inside phase 18 b's two gloo ranks
+# after their FSDP run (no new process start-up): a) the flagship on
+# {"spatial": 2} (H sharded, the H pass on pencils) on the f32-exact route
+# at 4 x 256², a') the same on the bf16 pallas2 route, b) "dcn" 2 through
+# make_multislice_mesh, c) ServingEngine(mesh=) over "data" 2, d)
+# pipeline_apply's backward over {"stage": 2}; this process computes the
+# one-process references meanwhile
+P19_ROWS, P19_TIMED, P19_S = 4, 3, 60.0
+# d): two FFNO2D layers at width 64, 4 microbatches of 2 x 64²
+P19_PP_BATCH, P19_PP_RES, P19_PP_MICRO = 8, 64, 4
+
+
+def _p19_steps(trainer, x, y, timed: int = 0) -> dict:
+    """PAR_STEPS steps from a fresh optimizer: their losses, launches,
+    whole parameters (on the host) and the run's peak memory (device
+    memory allocated, in all and above what was allocated before); then
+    ``timed`` more, timed, and two with each all-to-all timed between
+    synchronisations for its share of the step."""
+    import gc
+
+    from resolution_pde_tpu_torch.parallel import spatial
+    from resolution_pde_tpu_torch.parallel.shard import full_state_dict
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    state = trainer.init()
+    losses = []
+    for _ in range(PAR_STEPS):
+        state, loss = trainer.train_step(state, x, y)
+        losses.append(float(loss))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = {k: v.detach().float().cpu()
+              for k, v in full_state_dict(state.model).items()}
+    out = dict(losses=losses, launches=launches, params=params,
+               peak_bytes=peak, run_peak_bytes=peak - base)
+    if not timed:
+        return out
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = trainer.train_step(state, x, y)
+        float(loss)
+        times.append((time.perf_counter() - t) * 1e3)
+    out["median_ms"] = statistics.median(times)
+    plain, spent = spatial._all_to_all, [0.0]
+
+    def timed_all_to_all(chunks, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = plain(chunks, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return got
+    spatial._all_to_all = timed_all_to_all
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            state, loss = trainer.train_step(state, x, y)
+        float(loss)
+        out["all_to_all_share"] = spent[0] / (time.perf_counter() - t)
+    finally:
+        spatial._all_to_all = plain
+    return out
+
+
+def _p19_trainer(init, compute_dtype, spectral_impl, mesh=None):
+    from resolution_pde_tpu_torch.train import Trainer
+
+    model = build_model("cuda", compute_dtype, spectral_impl)
+    model.load_state_dict(init)
+    return Trainer(model, learning_rate=1e-3, device="cuda", mesh=mesh)
+
+
+def _p19_engine(init, mesh=None):
+    """The flagship in bf16 on pallas2 behind a ServingEngine, its 8 x 256²
+    predict and 2-step forecast captured."""
+    from resolution_pde_tpu_torch.deploy import ServingEngine
+
+    model = build_model("cuda", torch.bfloat16, "pallas2")
+    model.load_state_dict(init)
+    eng = ServingEngine(model, device="cuda", mesh=mesh)
+    eng.warmup(spatial_shapes=[(RES, RES)], batch_sizes=[BATCH],
+               rollout_steps=[2])
+    return eng
+
+
+def _p19_serve(eng, x) -> dict:
+    """A predict, a 2-step forecast and the median of 10 predicts."""
+    return dict(predict=torch.as_tensor(eng.predict(x)),
+                forecast=torch.as_tensor(eng.forecast(x, 2)),
+                median_ms=median_ms(lambda: eng.predict(x)))
+
+
+def _p19_pipeline(mesh) -> dict:
+    """d): two FSpectralConv2d layers (residual inside the fused
+    FeedForward, f32-exact 'pallas' route), one a stage, through
+    pipeline_apply and its backward, against the layers applied in
+    sequence in this process: the output's and the gradients' relative
+    errors, and the launches of the pipelined run."""
+    from resolution_pde_tpu_torch.models.ffno import FSpectralConv2d
+    from resolution_pde_tpu_torch.parallel import (pipeline_apply,
+                                                   stack_stage_params)
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    layers = [FSpectralConv2d(WIDTH, MODES, FACTOR, ff_weight_norm=True,
+                              n_ff_layers=FF_LAYERS, layer_norm=True,
+                              dropout=0.0, spectral_impl="pallas",
+                              approx_gelu=True, ff_impl="fused",
+                              generator=gen).cuda() for _ in range(2)]
+    shape = (P19_PP_BATCH, P19_PP_RES, P19_PP_RES, WIDTH)
+    x, r = randn(shape, gen), randn(shape, gen)
+    per_stage = [{k: v.detach() for k, v in layer.named_parameters()}
+                 for layer in layers]
+
+    def stage(p, h):
+        return torch.func.functional_call(layers[0], p, (h,),
+                                          {"residual": h})
+
+    def run(pipelined):
+        leaves = {k: v.clone().requires_grad_() for k, v in
+                  stack_stage_params(per_stage).items()}
+        xg = x.clone().requires_grad_()
+        if pipelined:
+            out = pipeline_apply(stage, leaves, xg, mesh,
+                                 n_microbatches=P19_PP_MICRO)
+        else:
+            out = xg
+            for i in range(2):
+                out = stage({k: v[i] for k, v in leaves.items()}, out)
+        (out * r).sum().backward()
+        return out.detach(), xg.grad, {k: v.grad for k, v in leaves.items()}
+
+    _zero_counts()
+    out, dx, dw = run(True)
+    torch.cuda.synchronize()
+    launches = _counts()
+    ref, ref_dx, ref_dw = run(False)
+    return dict(launches=launches, out_err=rel_l2(out, ref),
+                dx_err=rel_l2(dx, ref_dx),
+                dw_err=max(rel_l2(dw[k], ref_dw[k]) for k in ref_dw))
+
+
+def _phase19_rank(rank: int, tmp: str, job: dict) -> None:
+    """Phase 19 in a gloo rank (see the comment above); writes
+    ``p19_<rank>.pt``."""
+    from resolution_pde_tpu_torch.parallel import (make_mesh,
+                                                   make_multislice_mesh)
+
+    t0 = time.perf_counter()
+    x4, y4 = job["x"][:P19_ROWS], job["y"][:P19_ROWS]
+    spatial2 = make_mesh({"spatial": 2}, device_type="cuda")
+    out = {"a": _p19_steps(_p19_trainer(job["init"], None, "pallas",
+                                        spatial2), x4, y4, P19_TIMED)}
+    out["a_bf16"] = _p19_steps(_p19_trainer(job["init"], torch.bfloat16,
+                                            "pallas2", spatial2),
+                               x4, y4, P19_TIMED)
+    dcn2 = make_multislice_mesh(2, {"data": 1}, device_type="cuda")
+    out["b"] = _p19_steps(_p19_trainer(job["init"], None, "pallas", dcn2),
+                          job["x"], job["y"])
+    out["b"]["mesh"] = dict(zip(dcn2.mesh_dim_names, dcn2.mesh.shape))
+    _zero_counts()
+    eng = _p19_engine(job["init"], make_mesh({"data": 2},
+                                             device_type="cuda"))
+    out["c"] = _p19_serve(eng, job["x"])
+    out["c"]["launches"] = _counts()
+    del eng
+    out["d"] = _p19_pipeline(make_mesh({"stage": 2}, device_type="cuda"))
+    out["seconds"] = time.perf_counter() - t0
+    for part in ("a", "a_bf16", "b"):
+        if rank:  # rank 0's parameters stand for both; the losses are each
+            out[part].pop("params")
+    torch.save(out, f"{tmp}/p19_{rank}.pt")
+    print(f"rank {rank}: phase 19 done in {out['seconds']:.2f} s",
+          flush=True)
+
+
+def _phase19_refs(init, x, y) -> dict:
+    """The one-process references of phase 19 a, a' and c (b's is phase
+    18 b's), run in this process while the ranks run."""
+    t0 = time.perf_counter()
+    x4, y4 = x[:P19_ROWS], y[:P19_ROWS]
+    refs = {"a": _p19_steps(_p19_trainer(init, None, "pallas"), x4, y4,
+                            P19_TIMED),
+            "a_bf16": _p19_steps(_p19_trainer(init, torch.bfloat16,
+                                              "pallas2"), x4, y4, P19_TIMED)}
+    refs["c"] = _p19_serve(_p19_engine(init), x)
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def _part_19(refs, one, tmp, t_script) -> dict:
+    """Phase 19's gates on the ranks' results against ``refs`` and phase
+    18 b's one process (``one``); returns the ranks' summed launches by
+    precision: f32 (a, b, d: K1f, K1b, K3, K3 adjoint) and bf16 (a', c:
+    K1f, K1b, K2, K2 adjoint)."""
+    ranks = [torch.load(f"{tmp}/p19_{r}.pt", weights_only=False)
+             for r in range(2)]
+
+    def loss_err(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    gib = 2.0 ** 30
+    a, a16 = refs["a"], refs["a_bf16"]
+    for part, want, tol in (("a", a, 1e-5), ("b", one, 1e-5)):
+        errs = [loss_err(rk[part]["losses"], want["losses"]) for rk in ranks]
+        perr = _worst_rel(ranks[0][part]["params"], want["params"])
+        log("phase19", part=part, mesh=ranks[0]["b"]["mesh"] if part == "b"
+            else {"spatial": 2}, losses=ranks[0][part]["losses"],
+            one_process_losses=want["losses"],
+            loss_rel_err=[f"{e:.3e}" for e in errs], tol=tol,
+            param_rel_l2_worst=f"{perr:.3e}", param_tol=1e-4,
+            launches=[rk[part]["launches"] for rk in ranks])
+        require(max(errs) <= tol, f"phase 19 {part}: losses off by {errs}")
+        require(perr <= 1e-4, f"phase 19 {part}: parameters off by {perr}")
+    for part, want in (("a", a), ("a_bf16", a16)):
+        got = [rk[part] for rk in ranks]
+        log("phase19", part=part, what="step",
+            median_step_ms=[f"{g['median_ms']:.3f}" for g in got],
+            one_process_median_step_ms=f"{want['median_ms']:.3f}",
+            all_to_all_share=[f"{g['all_to_all_share']:.3f}" for g in got],
+            peak_gib=[f"{g['peak_bytes'] / gib:.3f}" for g in got],
+            run_peak_gib=[f"{g['run_peak_bytes'] / gib:.3f}" for g in got],
+            one_process_peak_gib=f"{want['peak_bytes'] / gib:.3f}",
+            one_process_run_peak_gib=f"{want['run_peak_bytes'] / gib:.3f}")
+    for r, rk in enumerate(ranks):
+        for key in ("peak_bytes", "run_peak_bytes"):
+            ratio = rk["a"][key] / a[key]
+            require(ratio < 0.8, f"phase 19 a: rank {r}'s {key} "
+                    f"{rk['a'][key]} is {ratio:.3f} of one process's")
+    errs16 = [loss_err(rk["a_bf16"]["losses"], rk["a"]["losses"])
+              for rk in ranks]
+    log("phase19", part="a_bf16", losses=ranks[0]["a_bf16"]["losses"],
+        f32_losses=ranks[0]["a"]["losses"],
+        rel_err_vs_f32=[f"{e:.3e}" for e in errs16], tol=3e-2,
+        one_process_losses=a16["losses"],
+        launches=[rk["a_bf16"]["launches"] for rk in ranks])
+    require(max(errs16) <= 3e-2, f"phase 19 a': bf16 off f32 by {errs16}")
+    c_err = [max(rel_l2(rk["c"][k], refs["c"][k].cpu())
+                 for k in ("predict", "forecast")) for rk in ranks]
+    log("phase19", part="c", mesh={"data": 2}, bucket=f"{BATCH}x{RES}^2",
+        rel_l2_vs_one_engine=[f"{e:.3e}" for e in c_err], tol=1e-6,
+        median_predict_ms=[f"{rk['c']['median_ms']:.3f}" for rk in ranks],
+        one_engine_median_predict_ms=f"{refs['c']['median_ms']:.3f}",
+        launches=[rk["c"]["launches"] for rk in ranks])
+    require(max(c_err) <= 1e-6, f"phase 19 c: served off by {c_err}")
+    d = [rk["d"] for rk in ranks]
+    log("phase19", part="d", mesh={"stage": 2},
+        microbatches=f"{P19_PP_MICRO} x {P19_PP_BATCH // P19_PP_MICRO}x"
+        f"{P19_PP_RES}^2x{WIDTH}",
+        out_rel_err=[f"{g['out_err']:.3e}" for g in d],
+        dx_rel_err=[f"{g['dx_err']:.3e}" for g in d],
+        dw_rel_err=[f"{g['dw_err']:.3e}" for g in d], tol=1e-5,
+        launches=[g["launches"] for g in d])
+    require(max(max(g["out_err"], g["dx_err"], g["dw_err"]) for g in d)
+            <= 1e-5, f"phase 19 d: pipeline off the sequence: {d}")
+    for r, rk in enumerate(ranks):
+        for part in ("a", "a_bf16", "b", "c", "d"):
+            got = rk[part]["launches"]
+            # serving runs no backward: K1f and the pass only
+            need = got[0::2] if part == "c" else got
+            require(min(need) >= 1, f"phase 19 {part}: rank {r} launches "
+                    f"(K1f, K1b, pass, adjoint) {got}")
+    seconds = [rk["seconds"] for rk in ranks]
+    log("phase19", ranks_seconds=[f"{t:.2f}" for t in seconds],
+        references_seconds=f"{refs['seconds']:.2f}", limit_s=P19_S,
+        script_seconds_so_far=f"{time.perf_counter() - t_script:.2f}")
+    require(max(seconds) <= P19_S, f"phase 19 took {seconds} s")
+
+    def total(parts):
+        return [sum(rk[p]["launches"][i] for rk in ranks for p in parts)
+                for i in range(4)]
+    return {"f32": total(("a", "b", "d")), "bf16": total(("a_bf16", "c"))}
+
+
+def run_parallel(ns_arrays: dict, t_script: float) -> tuple:
+    """Phases 18 and 19 (see the module docstring); returns the mesh
+    runs' launches by kernel and precision, phase 18's and phase 19's.
+    torchrun and the two gloo ranks start first, and while they import
+    torch on the host (10-20 s before their first kernel) and run, this
+    process runs part a, part b's one-process reference, part c's
+    in-process main_2d and phase 19's references."""
     from resolution_pde_tpu_torch.cli.generate_data import write_ns
     from resolution_pde_tpu_torch.cli.main_2d import main as main_2d
 
@@ -4374,7 +4681,9 @@ def run_parallel(ns_arrays: dict) -> dict:
                 t_in = time.perf_counter() - t_in
             finally:
                 os.chdir(here)
+            refs = _phase19_refs(init, x, y)
             launched["f32"] = _part_b(procs, one, tmp, t0)
+            p19 = _part_19(refs, one, tmp, t_script)
             _part_c(tmp, want, t_in, run, t0)
         finally:
             for p in procs + [run]:
@@ -4382,7 +4691,7 @@ def run_parallel(ns_arrays: dict) -> dict:
                     p.kill()
                     p.wait()
     log("parallel", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return launched
+    return launched, p19
 
 
 def main() -> int:
@@ -4407,7 +4716,7 @@ def main() -> int:
 
     from resolution_pde_tpu_torch.ops.kernels import _build
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     _build.library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}")
 
@@ -4431,7 +4740,7 @@ def main() -> int:
     run_cno(ns_arrays, ffno1d.pop("ks_arrays"))
     run_transformers(ns_arrays)
     s4nd = run_s4nd(ns_arrays)
-    par = run_parallel(ns_arrays)
+    par, p19 = run_parallel(ns_arrays, t_script)
 
     sm_src = "resolution_pde_tpu_torch/csrc/spectral_mix.cu"
     staged_src = "resolution_pde_tpu_torch/csrc/spectral_staged.cu"
@@ -4444,43 +4753,53 @@ def main() -> int:
         dict(name="fused_ff_fwd_bf16", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["bf16"][0] + trained["bf16"][0] + wide["fwd"]
-             + cli["fwd"] + par["bf16"][0],
-             parallel_launches=par["bf16"][0], **k1),
+             + cli["fwd"] + par["bf16"][0] + p19["bf16"][0],
+             parallel_launches=par["bf16"][0],
+             phase19_launches=p19["bf16"][0], **k1),
         dict(name="fused_ff_fwd_f32", route="cuda", source=fwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:84",
              launches=served["f32"][0] + trained["f32"][0] + ffno1d["fwd"]
-             + ffno1d["served"] + burgers["fwd"] + par["f32"][0],
-             parallel_launches=par["f32"][0],
+             + ffno1d["served"] + burgers["fwd"] + par["f32"][0]
+             + p19["f32"][0], parallel_launches=par["f32"][0],
+             phase19_launches=p19["f32"][0],
              ffno1d_launches=ffno1d["fwd"] + ffno1d["served"],
              burgers_launches=burgers["fwd"], **k1f32),
         dict(name="fused_ff_bwd_bf16", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["bf16"][1] + wide["bwd"] + cli["bwd"]
-             + par["bf16"][1], parallel_launches=par["bf16"][1], **k1b),
+             + par["bf16"][1] + p19["bf16"][1],
+             parallel_launches=par["bf16"][1],
+             phase19_launches=p19["bf16"][1], **k1b),
         dict(name="fused_ff_bwd_f32", route="cuda", source=bwd_src,
              replaces="resolution_pde_tpu/ops/pallas/fused_ff.py:178",
              launches=trained["f32"][1] + ffno1d["bwd"] + burgers["bwd"]
-             + par["f32"][1], parallel_launches=par["f32"][1],
+             + par["f32"][1] + p19["f32"][1],
+             parallel_launches=par["f32"][1],
+             phase19_launches=p19["f32"][1],
              ffno1d_launches=ffno1d["bwd"], burgers_launches=burgers["bwd"],
              **k1b32),
         dict(name="spectral_pass_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:79",
              launches=served["bf16"][1] + trained["bf16"][2] + wide["k2"]
-             + cli["k2"] + par["bf16"][2], parallel_launches=par["bf16"][2],
-             **k2, **w128(k2wide)),
+             + cli["k2"] + par["bf16"][2] + p19["bf16"][2],
+             parallel_launches=par["bf16"][2],
+             phase19_launches=p19["bf16"][2], **k2, **w128(k2wide)),
         dict(name="spectral_pass_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:82",
-             launches=served["f32"][1] + trained["f32"][2] + par["f32"][2],
-             parallel_launches=par["f32"][2], **k3),
+             launches=served["f32"][1] + trained["f32"][2] + par["f32"][2]
+             + p19["f32"][2], parallel_launches=par["f32"][2],
+             phase19_launches=p19["f32"][2], **k3),
         dict(name="spectral_adjoint_bf16", route="cuda", source=staged_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix2.py:149",
              launches=trained["bf16"][3] + wide["adj"] + cli["adj"]
-             + par["bf16"][3], parallel_launches=par["bf16"][3],
-             **adj16, **w128(adjwide)),
+             + par["bf16"][3] + p19["bf16"][3],
+             parallel_launches=par["bf16"][3],
+             phase19_launches=p19["bf16"][3], **adj16, **w128(adjwide)),
         dict(name="spectral_adjoint_f32", route="cuda", source=sm_src,
              replaces="resolution_pde_tpu/ops/pallas/spectral_mix.py:158",
-             launches=trained["f32"][3] + par["f32"][3],
-             parallel_launches=par["f32"][3], **adj32),
+             launches=trained["f32"][3] + par["f32"][3] + p19["f32"][3],
+             parallel_launches=par["f32"][3],
+             phase19_launches=p19["f32"][3], **adj32),
         dict(name="s4d_vandermonde", route="cuda",
              source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
              replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",

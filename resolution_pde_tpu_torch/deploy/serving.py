@@ -21,10 +21,19 @@ Counterpart of resolution_pde_tpu/deploy/serving.py ``ServingEngine``:
   does, and on the card its whole loop is one graph, as JAX's forecast is
   one ``lax.scan`` program.
 
+- **Mesh** (``mesh=``, a DeviceMesh of parallel/mesh.py): the
+  parameters are whole on every rank, and a bucket's rows are split over
+  the data axes ("dcn" x "data", extent n): each rank captures (or runs)
+  its bucket / n rows, and after the replay the outputs are gathered over
+  the data group, outside the graph (gloo's collectives cannot be
+  captured), so every rank returns the whole output; ``forecast`` runs
+  its whole rollout per rank and gathers once. A bucket must be a
+  multiple of n. Every rank of the data group serves each request (the
+  gather is a collective).
+
 The kernels' launch counters (``ops/kernels/*.launches``) count launches
 from the host, so a graph's kernels count once, at capture, and not at
-each replay. Not ported: the JAX engine's ``mesh=`` (inputs sharded over
-its data axes), which needs collectives around the graph replays.
+each replay.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ import torch
 
 from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.ops.kernels._cost import count_operations
+from resolution_pde_tpu_torch.parallel.collectives import gather_tensor
+from resolution_pde_tpu_torch.parallel.mesh import (data_axis_size,
+                                                    data_group, data_rank)
 
 
 def _as_shape_tuple(spatial) -> tuple:
@@ -69,11 +81,13 @@ class ServingEngine:
         instead of warming one inside the serving path.
     device: where the model runs, the card unless the caller asks for
         the CPU; a CUDA device raises when CUDA is not available.
+    mesh: optional DeviceMesh; each bucket's rows split over its data
+        axes (see the module docstring).
     """
 
     def __init__(self, model, *, x_normalizer=None, y_normalizer=None,
                  compute_dtype=None, strict_buckets: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"ServingEngine(device={str(device)!r}): CUDA "
@@ -86,6 +100,10 @@ class ServingEngine:
                              if y_normalizer is not None else None)
         self.compute_dtype = compute_dtype
         self.strict_buckets = strict_buckets
+        self.mesh = mesh
+        self._n = data_axis_size(mesh)
+        self._group = data_group(mesh) if self._n > 1 else None
+        self._rank = data_rank(mesh)
         # (kind, spatial, in_channels, batch[, steps]) of every warmed
         # bucket -> its _BucketGraph on the card, None on the CPU
         self._programs: dict = {}
@@ -146,10 +164,14 @@ class ServingEngine:
             out = fn(x)
         return _BucketGraph(graph, x, out)
 
+    def _shape(self, key) -> tuple:
+        """The input shape this rank runs for bucket ``key``: its rows."""
+        return (key[3] // self._n, key[2]) + key[1]
+
     def _warm(self, key) -> None:
         if key in self._programs:
             return
-        shape = (key[3], key[2]) + key[1]
+        shape = self._shape(key)
         if self.device.type == "cuda":
             self._programs[key] = self._capture(self._fn(key), shape)
         else:
@@ -160,7 +182,11 @@ class ServingEngine:
                        rollout_steps: Iterable[int] = ()) -> None:
         """Warm the predict (and optional forecast) bucket of one (spatial
         shape, batch): on the card, capture each into a CUDA graph; on the
-        CPU, run it once on zeros."""
+        CPU, run it once on zeros. Under a mesh the batch must be a
+        multiple of the data extent, and each rank warms its rows."""
+        if batch_size % self._n:
+            raise ValueError(f"bucket of {batch_size} rows does not divide "
+                             f"over the data extent {self._n}")
         spatial = _as_shape_tuple(spatial)
         self._warm(("predict", spatial, in_channels, batch_size))
         for steps in rollout_steps:
@@ -211,14 +237,22 @@ class ServingEngine:
 
     def _run(self, key, x: np.ndarray) -> torch.Tensor:
         """The bucket ``key`` on x padded to it: the graph's output buffer
-        (valid until its next replay), or the eager result."""
+        (valid until its next replay), or the eager result; under a mesh,
+        this rank's rows run and the outputs are gathered (a new
+        tensor)."""
         xb = self._pad(x, key[3])
+        per = key[3] // self._n
+        xb = xb[self._rank * per:(self._rank + 1) * per]
         if self._use_graphs:
             bg = self._programs[key]
             bg.x.copy_(xb)
             bg.graph.replay()
-            return bg.out
-        return self._fn(key)(xb.to(self.device))
+            out = bg.out
+        else:
+            out = self._fn(key)(xb.to(self.device))
+        if self._group is not None:
+            out = gather_tensor(out, self._group, 0)
+        return out
 
     def _key(self, kind: str, x: np.ndarray, extra=()) -> tuple:
         """The bucket a request runs on, warmed on a miss."""
@@ -226,9 +260,9 @@ class ServingEngine:
         bucket = self._bucket_for(kind, spatial, c, b, extra)
         if bucket is None:
             self._on_bucket_miss(kind, spatial, c, b)
-            self.compile_bucket(spatial, b, in_channels=c,
+            bucket = -(-b // self._n) * self._n  # a multiple of the extent
+            self.compile_bucket(spatial, bucket, in_channels=c,
                                 rollout_steps=extra)
-            bucket = b
         return (kind, spatial, c, bucket) + tuple(extra)
 
     # -- serving ----------------------------------------------------------
@@ -239,7 +273,7 @@ class ServingEngine:
         overwritten by its next replay); slice to the request's batch."""
         x = np.asarray(x, np.float32)
         out = self._run(self._key("predict", x), x)
-        return out.clone() if self._use_graphs else out
+        return out.clone() if self._use_graphs and self._n == 1 else out
 
     def predict(self, x) -> np.ndarray:
         """x: raw (B, C, *spatial) float32. Returns the decoded predictions
@@ -267,7 +301,8 @@ class ServingEngine:
         operators: its matrix products and convolutions; it counts no
         FFT), plus each hand kernel's own operation count for the shapes
         it was launched with (``ops/kernels/_cost.py``), which
-        FlopCounterMode cannot see. On the CPU the kernels' plain versions
+        FlopCounterMode cannot see; under a mesh, this rank's rows of
+        each bucket. On the CPU the kernels' plain versions
         run and FlopCounterMode counts their products instead. No count of
         bytes covers a whole bucket, so "bytes accessed" is left out: an
         absent entry is a backend limitation, as in the JAX package."""
@@ -275,7 +310,7 @@ class ServingEngine:
 
         out = {}
         for key in self.buckets():
-            x = torch.zeros((key[3], key[2]) + key[1], device=self.device)
+            x = torch.zeros(self._shape(key), device=self.device)
             counter = FlopCounterMode(display=False)
             with count_operations() as tally, counter:
                 self._fn(key)(x)

@@ -23,7 +23,8 @@ running statistics and leaves them as they are) and gives the caller's
 mode back. The losses' forwards run on the model's device under
 ``torch.inference_mode()``; the per-step losses add up on the device and
 are fetched once per resolution. ``mesh=`` (parallel/mesh.py) shards
-each trajectory batch over "data", an indivisible one padded with
+each trajectory batch over the data axes ("dcn" x "data"), the whole
+grid on every "spatial" rank, an indivisible one padded with
 zero-weight rows; each rank sums its real rows' per-step losses over the
 batch's size and the sums add up over the ranks once per resolution, so
 the per-step batch means are the global ones.
@@ -282,8 +283,8 @@ def evaluate_rollout_all_resolutions(
     {res: per-step losses} and {res: wall seconds}. resize_to_train: a
     fixed-size (CNO) model round-trips each step through ``current_res``.
     window_size > 1 selects the sliding-window rollout (S4-style models),
-    on raw trajectories (N, T, X). mesh: shard each batch over "data"
-    (module docstring)."""
+    on raw trajectories (N, T, X). mesh: shard each batch over the data
+    axes (module docstring)."""
     if test_resolutions is None:
         test_resolutions = get_lower_resolutions(
             max_test_resolution or current_res)

@@ -14,7 +14,8 @@ The model is a torch module; the forward runs on its device under
 ``torch.inference_mode()`` in eval mode (no dropout, the JAX package's
 ``deterministic=True``), the batch losses add up on the device and are
 fetched once per resolution. ``mesh=`` (parallel/mesh.py) shards each
-eval batch over "data" (an indivisible one padded with zero-weight rows):
+eval batch over the data axes ("dcn" x "data"; the whole grid on every
+"spatial" rank; an indivisible one padded with zero-weight rows):
 each rank sums its rows' relative L2 over the batch's size, and the sums
 are added over the ranks once per resolution, so the batch mean is the
 global one; the frequency sums add up over the ranks' real rows, and the
@@ -105,7 +106,7 @@ def evaluate_all_resolutions(
              'plot_data': {res: {inputs, predictions, targets}},
              'seconds': {res: wall seconds, the dataset build included}};
     plot_data holds the first n_plot_examples samples per resolution.
-    mesh: shard each batch over its "data" axis (module docstring).
+    mesh: shard each batch over its data axes (module docstring).
     """
     if test_resolutions is None:
         test_resolutions = get_lower_resolutions(

@@ -12,6 +12,9 @@ FFNO2D's ``spectral_impl`` selects its spectral pass:
   - 'pallas2': the spectral kernels in ``compute_dtype`` (bf16: the staged
     route).
 The names are the JAX package's, so one config selects the counterpart.
+FFNO2D runs on the slabs of a grid sharded over "spatial" inside
+``parallel.spatial.sharded`` (``spatial_sharding``), each route with its
+H pass on pencils.
 """
 
 from __future__ import annotations
@@ -27,10 +30,13 @@ from resolution_pde_tpu_torch.models.layers import (ACTIVATIONS, Dropout,
                                                     xavier_normal_init)
 from resolution_pde_tpu_torch.ops.grids import concat_grid_1d, concat_grid_2d
 from resolution_pde_tpu_torch.ops.kernels.spectral_mix import (
-    factorized_spectral_conv_2d_pallas2)
+    factorized_spectral_conv_2d_pallas2,
+    factorized_spectral_conv_2d_pallas2_slabs)
 from resolution_pde_tpu_torch.ops.spectral import (
     factorized_spectral_conv_1d, factorized_spectral_conv_2d,
-    factorized_spectral_conv_2d_pallas, truncate_modes_1d)
+    factorized_spectral_conv_2d_pallas, factorized_spectral_conv_2d_slabs,
+    truncate_modes_1d)
+from resolution_pde_tpu_torch.parallel import spatial
 
 SPECTRAL_IMPLS = ("fft", "pallas", "pallas2")
 MODES_1D = ("full", "low-pass", "no-fourier")
@@ -156,7 +162,15 @@ class FSpectralConv2d(nn.Module):
         if self.mode == "full":
             wy, wx = self.fourier_weight
             dt = x.dtype
-            if self.spectral_impl == "pallas2":
+            shard = spatial.active()
+            if self.spectral_impl in ("pallas", "pallas2") and shard:
+                pallas2 = self.spectral_impl == "pallas2"
+                cd = self.compute_dtype if pallas2 else torch.float32
+                xin = x if pallas2 and cd is not None else x.float()
+                x = factorized_spectral_conv_2d_pallas2_slabs(
+                    xin, wy, wx, self.n_modes, shard,
+                    compute_dtype=cd).to(dt)
+            elif self.spectral_impl == "pallas2":
                 xin = x if self.compute_dtype is not None else x.float()
                 x = factorized_spectral_conv_2d_pallas2(
                     xin, wy, wx, self.n_modes,
@@ -164,6 +178,9 @@ class FSpectralConv2d(nn.Module):
             elif self.spectral_impl == "pallas":
                 x = factorized_spectral_conv_2d_pallas(
                     x.float(), wy, wx, self.n_modes).to(dt)
+            elif shard:
+                x = factorized_spectral_conv_2d_slabs(
+                    x.float(), wy, wx, self.n_modes, shard).to(dt)
             else:
                 x = factorized_spectral_conv_2d(
                     x.float(), wy, wx, self.n_modes).to(dt)
@@ -206,6 +223,8 @@ class FFNO2D(nn.Module):
     drawn from ``generator`` on the CPU and then moved to ``device``.
     ``remat`` recomputes each Fourier layer's activations in the backward
     instead of keeping them (the JAX package's ``nn.remat`` per layer)."""
+
+    spatial_sharding = True  # runs on the slabs of parallel/spatial.py
 
     def __init__(self, in_channels: int, out_channels: int, width: int = 64,
                  n_layers: int = 4, n_modes: int = 16, factor: int = 4,

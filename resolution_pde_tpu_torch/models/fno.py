@@ -12,7 +12,10 @@ spectral weights are real with a trailing (re, im) axis, each component
 drawn U(0, 1 / (C_in C_out)) as the reference's ``scale * torch.rand``.
 The spectral convs run through torch.fft in f32: no hand kernel (the JAX
 package's is an einsum too). Parameters are drawn from ``generator`` on
-the CPU and then moved to ``device``.
+the CPU and then moved to ``device``. FNO2d runs on the slabs of a grid
+sharded over "spatial" inside ``parallel.spatial.sharded``
+(``spatial_sharding``; its H transform a partial DFT over each rank's
+rows).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from resolution_pde_tpu_torch.models.layers import (ACTIVATIONS,
                                                     TorchLinear)
 from resolution_pde_tpu_torch.ops.grids import concat_grid_1d, concat_grid_2d
 from resolution_pde_tpu_torch.ops.spectral import (spectral_conv_1d,
-                                                   spectral_conv_2d)
+                                                   spectral_conv_2d,
+                                                   spectral_conv_2d_slabs)
+from resolution_pde_tpu_torch.parallel import spatial
 
 
 def _fno_weight(shape, generator=None) -> nn.Parameter:
@@ -60,9 +65,13 @@ class SpectralConv2dLayer(nn.Module):
         self.weights2 = _fno_weight(shape, generator)
 
     def forward(self, x):
-        """x: (B, H, W, C_in) -> (B, H, W, C_out)."""
-        out = spectral_conv_2d(x.permute(0, 3, 1, 2), self.weights1,
-                               self.weights2, self.modes1, self.modes2)
+        """x: (B, H, W, C_in) -> (B, H, W, C_out); a slab of a grid sharded
+        over "spatial" inside ``parallel.spatial.sharded``."""
+        shard = spatial.active()
+        args = (x.permute(0, 3, 1, 2), self.weights1, self.weights2,
+                self.modes1, self.modes2)
+        out = (spectral_conv_2d_slabs(*args, shard) if shard
+               else spectral_conv_2d(*args))
         return out.permute(0, 2, 3, 1)
 
 
@@ -129,6 +138,8 @@ class FNO1d(nn.Module):
 class FNO2d(nn.Module):
     """2D FNO. Input (B, C_in, H, W) -> (B, C_out, H, W); the grid channels
     are linspace(0, 1) per axis."""
+
+    spatial_sharding = True  # runs on the slabs of parallel/spatial.py
 
     def __init__(self, in_channels: int, out_channels: int, modes1: int,
                  modes2: int, width: int, n_blocks: int = 4,

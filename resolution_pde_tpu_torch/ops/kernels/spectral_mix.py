@@ -37,7 +37,11 @@ transposed (``adjoint_blocks``), launched through the same kernels
 (``spectral_axis_adjoint``); the packed weight's gradient is two DFT
 products and a batched contraction, left to torch matmuls as the JAX
 package leaves it to XLA. ``SpectralConv2d`` wires both into one
-``torch.autograd.Function`` around the two-axis conv.
+``torch.autograd.Function`` around the two-axis conv; ``SpectralAxis`` is
+one axis pass and its backward, from which
+``factorized_spectral_conv_2d_pallas2_slabs`` builds the conv on the
+slabs of a grid sharded over "spatial" (the W pass on the slab, the H
+pass on pencils, parallel/spatial.py).
 
 ``spectral_axis_pass`` and ``spectral_axis_adjoint`` run the plain version
 for a tensor on the CPU and launch a kernel for a CUDA tensor; they never
@@ -55,6 +59,7 @@ import torch
 
 from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 from resolution_pde_tpu_torch.ops.spectral import _dft_matrices
+from resolution_pde_tpu_torch.parallel import spatial
 
 # kernel launches in this process (the plain versions never count)
 launches = 0          # forward passes
@@ -599,6 +604,57 @@ class SpectralConv2d(torch.autograd.Function):
             dwx = _blocks_grad(spectral_weight_grad(x, g, f2, i2, 1, cd))
             dwx = dwx.to(wab_x.dtype)
         return None, dx, dwy, dwx
+
+
+class SpectralAxis(torch.autograd.Function):
+    """One axis pass (``opts`` = (fft_norm, compute_dtype, axis)) and its
+    backward: the adjoint for x and the blocks' gradient from x and g,
+    through the same kernels as ``SpectralConv2d``."""
+
+    @staticmethod
+    def forward(ctx, opts, x, wab):
+        norm, cd, axis = opts
+        ctx.opts = opts
+        ctx.save_for_backward(x, wab)
+        return spectral_axis_pass(x, wab, axis, norm, cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        norm, cd, axis = ctx.opts
+        x, wab = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dx = spectral_axis_adjoint(g, wab, axis, norm, cd)
+        if ctx.needs_input_grad[2]:
+            f2, i2 = packed_factors(x.shape[axis], wab.shape[0], norm,
+                                    x.device)
+            dw = _blocks_grad(spectral_weight_grad(x, g, f2, i2, axis, cd))
+            dw = dw.to(wab.dtype)
+        return None, dx, dw
+
+
+def factorized_spectral_conv_2d_pallas2_slabs(x, weight_y, weight_x,
+                                              n_modes: int, shard,
+                                              fft_norm: str = "ortho",
+                                              compute_dtype=torch.bfloat16):
+    """``factorized_spectral_conv_2d_pallas2`` on this rank's slab x (B,
+    H/S, W, C) of a grid sharded over "spatial" (``shard``, a
+    ``parallel.spatial.Shard``): the W pass on the slab, the H pass on
+    the pencils (B, H, W/S, C) of an all-to-all, through the same launch
+    as in one process, and back, added to the W pass's output (a separate
+    add: the H pass cannot accumulate into the W pass's output across the
+    all-to-all). The backward keeps x's pencils; each weight's gradient is
+    this rank's partial sum (the trainer sums it over "spatial")."""
+    _, hs, w, _ = x.shape
+    h = hs * shard.size
+    cd = compute_dtype if compute_dtype is not None else x.dtype
+    wab_y = mix_blocks(weight_y, min(n_modes, w // 2 + 1)).float()
+    wab_x = mix_blocks(weight_x, min(n_modes, h // 2 + 1)).float()
+    out = SpectralAxis.apply((fft_norm, cd, 2), x, wab_y)
+    pencil = spatial.slab_to_pencil(x, shard.group)
+    along_h = SpectralAxis.apply((fft_norm, cd, 1), pencil, wab_x)
+    return out + spatial.pencil_to_slab(along_h, shard.group)
 
 
 def factorized_spectral_conv_2d_pallas2(x, weight_y, weight_x, n_modes: int,

@@ -5,7 +5,10 @@ Counterpart of resolution_pde_tpu/ops/spectral.py: the ``torch.fft`` paths
 ``factorized_spectral_conv_1d`` of FFNO1D, and
 ``factorized_spectral_conv_2d``, the plain reference of the whole pass),
 the truncated-DFT factors ``_dft_matrices`` the kernels use, and the
-f32-exact fused path ``factorized_spectral_conv_2d_pallas``. Each axis uses
+f32-exact fused path ``factorized_spectral_conv_2d_pallas``.
+``factorized_spectral_conv_2d_slabs`` and ``spectral_conv_2d_slabs`` are
+the FFNO and FNO convs on the slabs of a grid whose H axis is sharded over
+"spatial" (parallel/spatial.py). Each axis uses
 ``m = min(n_modes, n // 2 + 1)`` modes with the weight sliced to match, so
 one weight set serves every resolution. ``irfft``, ``irfft2`` and
 ``irfftn`` are the inverse real transforms of the port's ``torch.fft``
@@ -18,6 +21,8 @@ import functools
 
 import numpy as np
 import torch
+
+from resolution_pde_tpu_torch.parallel import spatial
 
 
 def _axis_pass_fft(xc, weight, n_modes: int, dim: int, fft_norm: str):
@@ -115,6 +120,48 @@ def spectral_conv_2d(x, weights1, weights2, modes1: int, modes2: int):
     return irfft2(torch.cat([lo, mid, hi], dim=2), s=(h, w))
 
 
+@functools.lru_cache(maxsize=64)
+def _partial_dft(h: int, modes1: int, start: int, stop: int):
+    """FNO2d's H transform at rows [start, stop) of h: (rows, 2 modes1)
+    forward factors e^{-2 pi i k r / h} and (2 modes1, rows) inverse ones
+    e^{2 pi i k r / h} / h, k the kept frequencies (the first and the last
+    modes1), as complex64 numpy arrays computed in float64."""
+    k = np.concatenate([np.arange(modes1), np.arange(h - modes1, h)])
+    r = np.arange(start, stop)
+    ang = 2.0 * np.pi * ((r[:, None] * k[None, :]) % h) / h
+    return (np.exp(-1j * ang).astype(np.complex64),
+            (np.exp(1j * ang.T) / h).astype(np.complex64))
+
+
+def spectral_conv_2d_slabs(x, weights1, weights2, modes1: int, modes2: int,
+                           shard):
+    """``spectral_conv_2d`` on this rank's slab x (B, C_in, H/S, W) of a
+    grid sharded over "spatial" (``shard``): the rfft along W on the slab,
+    the kept H frequencies as a partial DFT over the rank's rows summed
+    over "spatial" (a sum whose backward sums again: each rank evaluates
+    the inverse at its own rows), the mix, the inverse along H at the
+    rank's rows, then ``irfft`` along W. Returns (B, C_out, H/S, W)."""
+    hs, w = x.shape[-2], x.shape[-1]
+    h = hs * shard.size
+    n_freq = w // 2 + 1
+    if 2 * modes1 > h or modes2 > n_freq:
+        raise ValueError(f"modes ({modes1},{modes2}) exceed spectrum "
+                         f"({h // 2},{n_freq})")
+    rows = shard.rows(h)
+    fwd, inv = (torch.as_tensor(a, device=x.device)
+                for a in _partial_dft(h, modes1, rows.start, rows.stop))
+    x_ft = torch.fft.rfft(x)[..., :modes2]               # (B, C, H/S, m2)
+    z = torch.einsum("bchy,hk->bcky", x_ft, fwd)          # (B, C, 2m1, m2)
+    z = torch.view_as_complex(spatial.all_reduce_sum(
+        torch.view_as_real(z), shard.group))
+    sub = "bixy,ioxy->boxy"
+    spec = torch.cat([torch.einsum(sub, z[:, :, :modes1], _complex(weights1)),
+                      torch.einsum(sub, z[:, :, modes1:], _complex(weights2))],
+                     dim=2)
+    out = torch.einsum("boky,kh->bohy", spec, inv)       # (B, O, H/S, m2)
+    return irfft(out, n=w, dim=-1)
+
+
 def factorized_spectral_conv_1d(x, weight, n_modes: int,
                                 fft_norm: str = "ortho"):
     """x: (B, X, C) real; weight: (C, C, n_modes, 2). Returns (B, X, C):
@@ -147,6 +194,20 @@ def factorized_spectral_conv_2d(x, weight_y, weight_x, n_modes: int,
     xc = x.permute(0, 3, 1, 2)  # (B, C, H, W)
     yy = _axis_pass_fft(xc, weight_y, n_modes, 3, fft_norm)
     xx = _axis_pass_fft(xc, weight_x, n_modes, 2, fft_norm)
+    return (xx + yy).permute(0, 2, 3, 1)
+
+
+def factorized_spectral_conv_2d_slabs(x, weight_y, weight_x, n_modes: int,
+                                     shard, fft_norm: str = "ortho"):
+    """``factorized_spectral_conv_2d`` on this rank's slab x (B, H/S, W, C)
+    of a grid sharded over "spatial" (``shard``): the W pass on the slab,
+    the H pass on the pencils (B, C, H, W/S) of an all-to-all and back."""
+    xc = x.permute(0, 3, 1, 2)  # (B, C, H/S, W)
+    yy = _axis_pass_fft(xc, weight_y, n_modes, 3, fft_norm)
+    pencil = spatial.slab_to_pencil(xc, shard.group, h_dim=2, w_dim=3)
+    xx = spatial.pencil_to_slab(
+        _axis_pass_fft(pencil, weight_x, n_modes, 2, fft_norm), shard.group,
+        h_dim=2, w_dim=3)
     return (xx + yy).permute(0, 2, 3, 1)
 
 

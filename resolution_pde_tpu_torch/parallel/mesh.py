@@ -4,19 +4,25 @@ Counterpart of resolution_pde_tpu/parallel/mesh.py. The JAX package runs
 one process over a device mesh and GSPMD places the collectives; the port
 runs one process per rank of a ``torch.distributed`` group, with a
 ``DeviceMesh`` whose named axes are JAX's:
-  - "data":   data parallelism: each rank takes its rows of every batch;
-  - "model":  tensor parallelism of the FFNO FeedForward (parallel/tp.py);
-  - "expert": expert parallelism of the stacked MoE experts
-              (parallel/ep.py);
-  - "stage":  the GPipe schedule (parallel/pipeline.py).
+  - "dcn":     data parallelism across slices (``make_multislice_mesh``:
+               the leading axis); with "data", the data axes;
+  - "data":    data parallelism: each rank takes its rows of every batch;
+  - "spatial": the grid's H axis of FFNO2D and FNO2d sharded in a train
+               step (parallel/spatial.py);
+  - "model":   tensor parallelism of the FFNO FeedForward (parallel/tp.py);
+  - "expert":  expert parallelism of the stacked MoE experts
+               (parallel/ep.py);
+  - "stage":   the GPipe schedule (parallel/pipeline.py).
 Every rank iterates the same global batches (the loaders' order is a
 function of seed and epoch) and ``shard_batch`` keeps its own rows, so
-which samples meet in a batch is the single process's.
+which samples meet in a batch is the single process's. The rows go over
+"dcn" and "data" jointly, "dcn"-major, as JAX's ``batch_sharding`` places
+them. JAX's ``replicated_sharding`` has no counterpart: the port's
+parameters are whole on every rank (but for the shards of
+parallel/shard.py).
 
 ``init_from_env`` starts the group under ``torchrun`` (``WORLD_SIZE`` in
-the environment): NCCL for the card, gloo for the CPU. Not ported: the
-"spatial" axis (``batch_sharding(spatial_axis=)``, a distributed FFT) and
-the multislice "dcn" axis (``make_multislice_mesh``).
+the environment): NCCL for the card, gloo for the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +37,41 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
+DATA_AXES = ("dcn", "data")
+
+
+def _resolve(axes: Mapping[str, int], n: int, what: str) -> list:
+    """The sizes of ``axes`` over n ranks, one -1 inferred."""
+    names = list(axes.keys())
+    sizes = [int(s) for s in axes.values()]
+    unknown = [i for i, s in enumerate(sizes) if s == -1]
+    if len(unknown) > 1:
+        raise ValueError("at most one axis may be -1")
+    if unknown:
+        known = math.prod(s for s in sizes if s != -1) or 1
+        if n % known:
+            raise ValueError(f"{n} {what} not divisible by {known}")
+        sizes[unknown[0]] = n // known
+    if math.prod(sizes) != n:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} != {n} {what}")
+    return sizes
+
+
+def _world() -> int:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_mesh needs an initialized process group: "
+            "torch.distributed.init_process_group, or torchrun "
+            "(parallel.init_from_env)")
+    return dist.get_world_size()
+
+
+def _device_type(device_type: str | None) -> str:
+    if device_type is None:
+        return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return device_type
+
+
 def make_mesh(axes: Mapping[str, int] | None = None,
               device_type: str | None = None) -> DeviceMesh:
     """A DeviceMesh over every rank of the initialized default group.
@@ -41,30 +82,33 @@ def make_mesh(axes: Mapping[str, int] | None = None,
     ranks' models' device type, which FSDP keeps its shards on; by
     default "cuda" under NCCL, else "cpu" (gloo, whose collectives also
     take CUDA tensors: ranks on the card under gloo pass "cuda")."""
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError(
-            "make_mesh needs an initialized process group: "
-            "torch.distributed.init_process_group, or torchrun "
-            "(parallel.init_from_env)")
-    n = dist.get_world_size()
+    n = _world()
     if axes is None:
         axes = {"data": n}
-    names = list(axes.keys())
-    sizes = [int(s) for s in axes.values()]
-    unknown = [i for i, s in enumerate(sizes) if s == -1]
-    if len(unknown) > 1:
-        raise ValueError("at most one axis may be -1")
-    if unknown:
-        known = math.prod(s for s in sizes if s != -1) or 1
-        if n % known:
-            raise ValueError(f"{n} ranks not divisible by {known}")
-        sizes[unknown[0]] = n // known
-    if math.prod(sizes) != n:
-        raise ValueError(f"mesh {dict(zip(names, sizes))} != {n} ranks")
-    if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(sizes),
-                            mesh_dim_names=tuple(names))
+    sizes = _resolve(axes, n, "ranks")
+    return init_device_mesh(_device_type(device_type), tuple(sizes),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_multislice_mesh(n_slices: int, axes: Mapping[str, int] | None = None,
+                         device_type: str | None = None) -> DeviceMesh:
+    """A mesh with a leading "dcn" axis of ``n_slices`` (data parallelism
+    across slices) and then the per-slice ``axes`` (default: every rank of
+    a slice on "data"), as JAX's ``make_multislice_mesh``: the world size
+    must divide into the slices, one per-slice size may be -1, and the
+    per-slice sizes must multiply to the ranks of a slice. A rank's slice
+    is its rank // (ranks a slice)."""
+    n = _world()
+    if n % n_slices:
+        raise ValueError(f"{n} ranks not divisible by {n_slices} slices")
+    per_slice = n // n_slices
+    inner = dict(axes) if axes else {"data": per_slice}
+    if "dcn" in inner:
+        raise ValueError("the per-slice axes may not name 'dcn'")
+    sizes = _resolve(inner, per_slice, "ranks a slice")
+    return init_device_mesh(_device_type(device_type),
+                            (n_slices, *sizes),
+                            mesh_dim_names=("dcn", *inner))
 
 
 def axis_size(mesh: DeviceMesh | None, axis: str) -> int:
@@ -81,17 +125,46 @@ def axis_rank(mesh: DeviceMesh | None, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
-def data_group(mesh: DeviceMesh | None):
-    """The "data" axis' process group (None without a mesh or the
-    axis)."""
-    if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
+def axes_group(mesh: DeviceMesh | None, axes):
+    """The process group over the mesh's ``axes`` jointly (the ranks that
+    share every other coordinate), ordered as the axes are, the first
+    major; None without a mesh or any of the axes. Axes of extent 1 drop
+    out, so one axis of extent above 1 is that axis' own group. Groups
+    over two or more axes are made once a mesh (every rank makes each
+    one, in one order: call this on every rank)."""
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    present = [a for a in axes if a in names]
+    if not present:
         return None
-    return mesh.get_group("data")
+    wide = [a for a in present if axis_size(mesh, a) > 1] or present[:1]
+    if len(wide) == 1:
+        return mesh.get_group(wide[0])
+    groups = mesh.__dict__.setdefault("_rpde_axes_groups", {})
+    key = tuple(wide)
+    if key not in groups:
+        dims = [names.index(a) for a in wide]
+        rest = [d for d in range(len(names)) if d not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.mesh.shape[d] for d in dims))
+        groups[key], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return groups[key]
+
+
+def data_group(mesh: DeviceMesh | None):
+    """The process group of the data axes, "dcn" and "data" (None without
+    a mesh or either axis)."""
+    return axes_group(mesh, DATA_AXES)
 
 
 def data_axis_size(mesh: DeviceMesh | None) -> int:
-    """The data-parallel extent (the "data" axis)."""
-    return axis_size(mesh, "data")
+    """The data-parallel extent ("dcn" x "data")."""
+    return axis_size(mesh, "dcn") * axis_size(mesh, "data")
+
+
+def data_rank(mesh: DeviceMesh | None) -> int:
+    """This rank's coordinate over the data axes, "dcn"-major."""
+    return axis_rank(mesh, "dcn") * axis_size(mesh, "data") \
+        + axis_rank(mesh, "data")
 
 
 def _rows(x, sel):
@@ -116,16 +189,37 @@ def _first_leaf(batch):
     return batch
 
 
-def shard_batch(batch, mesh: DeviceMesh, straggler: str = "pad"):
+def _spatial_rows(x, dim: int, mesh: DeviceMesh):
+    n, r = axis_size(mesh, "spatial"), axis_rank(mesh, "spatial")
+    h = x.shape[dim]
+    if h % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"divide over spatial={n}")
+    k = h // n
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, r * k, k)
+    idx = [slice(None)] * np.ndim(x)
+    idx[dim] = slice(r * k, (r + 1) * k)
+    return np.asarray(x)[tuple(idx)]
+
+
+def shard_batch(batch, mesh: DeviceMesh, straggler: str = "pad",
+                spatial_axis: int | None = None):
     """This rank's rows of a global batch: a (nest of tuples, lists and
     dicts of) (B, ...) arrays or tensors, the same on every rank.
 
-    Returns (local_batch, weights). A batch whose size the data extent n
+    Returns (local_batch, weights). The rows go over the data axes ("dcn"
+    x "data", extent n, "dcn"-major: ``data_rank``). A batch whose size n
     does not divide is PADDED (repeating row 0) to the next multiple B_p,
     rank r keeping rows [r B_p/n, (r+1) B_p/n), and ``weights`` is the
     global (B_p,) 0/1 mask of real rows for the loss (float32, numpy or a
     tensor as the batch is); it is None for a batch n divides. A data
-    extent of 1 (or no mesh) leaves the batch as it is.
+    extent of 1 (or no mesh) leaves the rows as they are.
+
+    spatial_axis: with a "spatial" extent S > 1, every leaf also keeps
+    the rank's rows [s H/S, (s+1) H/S) of that dimension (H its size, s
+    the rank's "spatial" coordinate; JAX's ``batch_sharding(spatial_axis=
+    )``); an H that S does not divide raises a ValueError.
 
     straggler="replicate" instead gives an indivisible batch whole to every
     rank (weights None): exact for models whose TRAINING forward couples
@@ -134,6 +228,8 @@ def shard_batch(batch, mesh: DeviceMesh, straggler: str = "pad"):
     if straggler not in ("pad", "replicate"):
         raise ValueError(f"straggler must be 'pad' or 'replicate', "
                          f"got {straggler!r}")
+    if spatial_axis is not None and axis_size(mesh, "spatial") > 1:
+        batch = _map(lambda x: _spatial_rows(x, spatial_axis, mesh), batch)
     n = data_axis_size(mesh)
     if n == 1:
         return batch, None
@@ -143,7 +239,7 @@ def shard_batch(batch, mesh: DeviceMesh, straggler: str = "pad"):
     if pad and straggler == "replicate":
         return batch, None
     per = (b + pad) // n
-    r = axis_rank(mesh, "data")
+    r = data_rank(mesh)
     sel = np.arange(r * per, (r + 1) * per)
     sel[sel >= b] = 0  # the padding repeats row 0
     local = _map(lambda x: _rows(x, sel), batch)
@@ -159,7 +255,7 @@ def shard_batch(batch, mesh: DeviceMesh, straggler: str = "pad"):
 def local_weights(weights, mesh: DeviceMesh):
     """This rank's rows of the global (B_p,) weights of ``shard_batch``."""
     per = weights.shape[0] // data_axis_size(mesh)
-    r = axis_rank(mesh, "data")
+    r = data_rank(mesh)
     return weights[r * per:(r + 1) * per]
 
 

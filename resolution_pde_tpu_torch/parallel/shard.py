@@ -35,7 +35,8 @@ from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor, Shard
 
 from resolution_pde_tpu_torch.parallel.collectives import gather_tensor
-from resolution_pde_tpu_torch.parallel.mesh import axis_rank, axis_size
+from resolution_pde_tpu_torch.parallel.mesh import (axes_group, axis_rank,
+                                                    axis_size)
 
 _PLAN = "_parallel_plan"
 _AXIS = "_shard_axis"  # on a sharded parameter: its mesh axis
@@ -214,24 +215,35 @@ def local_part(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+# the axes a parameter's gradient is summed over where it is not sharded
+# on them: the data axes and the grid's "spatial" axis
+REPLICA_AXES = ("dcn", "data", "spatial")
+
+
 def reduce_gradients(params, mesh) -> None:
-    """Sum the gradients over the "data" axis: every parameter but the
-    FSDP shards, whose gradients FSDP already reduce-scattered. One flat
-    buffer per dtype and device; parameters without a gradient are left
-    out (the same on every rank). A no-op without a mesh or its "data"
-    axis."""
-    if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
+    """Sum each parameter's gradient over every axis of ``REPLICA_AXES``
+    (of extent above 1) that it is not sharded on: the whole parameters
+    over all of them, a tensor- or expert-parallel shard too, an FSDP
+    shard (sharded on "data", reduce-scattered there by FSDP) over "dcn"
+    and "spatial". One flat buffer per set of axes, dtype and device;
+    parameters without a gradient are left out (the same on every rank).
+    A no-op without a mesh or such an axis."""
+    if mesh is None:
         return
-    group = mesh.get_group("data")
-    by_axis = _params_by_axis(params)
-    grads = [p.grad for axis, ps in by_axis.items() if axis != "data"
-             for p in ps if p.grad is not None]
     buckets = {}
-    for g in grads:
-        buckets.setdefault((g.dtype, g.device), []).append(g)
-    for gs in buckets.values():
+    for p in params:
+        if p.grad is None:
+            continue
+        own = getattr(p, _AXIS, None)
+        axes = tuple(a for a in REPLICA_AXES
+                     if a != own and axis_size(mesh, a) > 1)
+        if axes:
+            g = local_part(p.grad)
+            buckets.setdefault((axes, g.dtype, g.device), []).append(g)
+    for (axes, _, _), gs in buckets.items():
         flat = torch.cat([g.reshape(-1) for g in gs])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                        group=axes_group(mesh, axes))
         off = 0
         for g in gs:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -241,7 +253,9 @@ def reduce_gradients(params, mesh) -> None:
 def grad_sq_norm(params, mesh) -> torch.Tensor:
     """The squared global norm of the (reduced) gradients: the whole
     parameters' squares, plus each sharded axis' shards' squares summed
-    over that axis (no collective without a sharded parameter)."""
+    over that axis (no collective without a sharded parameter). After
+    ``reduce_gradients`` every replica of a parameter holds its whole
+    gradient, so a replicated parameter counts once."""
     by_axis = _params_by_axis(params)
 
     def sq(ps):

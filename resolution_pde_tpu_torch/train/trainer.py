@@ -44,7 +44,15 @@ with ``non_blocking``, one batch ahead of the step that uses them.
 ``mesh`` (a DeviceMesh of parallel/mesh.py; inside an initialized process
 group ``None`` means ``make_mesh()``, every rank on "data", the JAX
 Trainer's default) runs each step on this rank's rows of the global batch
-(``shard_batch``; models with BatchNorm take ``straggler="replicate"``).
+over the data axes, "dcn" x "data" (``shard_batch``; models with
+BatchNorm take ``straggler="replicate"``). With a "spatial" extent S >
+1 a train step also shards the grid's H axis of x and y over it (JAX's
+``batch_sharding(mesh, 4, spatial_axis=2)``) and runs the model on the
+slabs inside ``parallel.spatial.sharded`` (FFNO2D and FNO2d: a model
+without ``spatial_sharding`` raises a ValueError here), a y-normalizer
+with per-location statistics taking the rank's rows; every spatial rank
+computes the same loss, and the gradients are summed over "spatial" too.
+Evaluation keeps the whole grid on every rank.
 There is one step: without a mesh (or at a data extent of 1) the rows
 are the batch, the share is the batch's loss, and the collectives are
 left out.
@@ -80,7 +88,9 @@ from resolution_pde_tpu_torch.models.norms import BatchNorm, sync_batch_stats
 from resolution_pde_tpu_torch.models.registry import unwrap_output
 from resolution_pde_tpu_torch.models.s4 import SSM_PARAM_NAMES
 from resolution_pde_tpu_torch.ops.losses import relative_l2
-from resolution_pde_tpu_torch.parallel.mesh import (data_axis_size,
+from resolution_pde_tpu_torch.parallel import spatial
+from resolution_pde_tpu_torch.parallel.mesh import (axis_size,
+                                                    data_axis_size,
                                                     data_group,
                                                     local_weights,
                                                     make_mesh, shard_batch)
@@ -157,6 +167,12 @@ class Trainer:
         if mesh is None and dist.is_available() and dist.is_initialized():
             mesh = make_mesh(device_type=device.type)
         self.mesh = mesh
+        if (axis_size(mesh, "spatial") > 1
+                and not getattr(model, "spatial_sharding", False)):
+            raise ValueError(
+                f"{type(model).__name__} does not run with the grid sharded "
+                "over 'spatial' (FFNO2D and FNO2d do): use a mesh with a "
+                "'spatial' extent of 1")
         if param_specs is not None:
             if mesh is None:
                 raise ValueError("param_specs need a mesh")
@@ -237,23 +253,25 @@ class Trainer:
                 g = local_part(p.grad)
                 g.copy_(torch.where(norm < c, g, g / norm * c))
 
-    def _stage(self, x, y, weights=None, straggler=None) -> tuple:
+    def _stage(self, x, y, weights=None, straggler=None,
+               train=False) -> tuple:
         """This rank's rows of the global batch on the device, with what
         its loss share divides by: (x, y, w, total, copies). w: the rows'
         weights (None: unweighted); total: the global sum of weights
         (None: unweighted); copies: the data extent where every rank holds
         the whole batch (straggler "replicate"), else 1. Without a mesh,
-        the batch itself."""
+        the batch itself. ``train``: with a "spatial" extent above 1, x
+        and y are the rank's slabs (their axis 2 sharded)."""
         if straggler is None:
             straggler = "replicate" if self._batch_stats else "pad"
         n = data_axis_size(self.mesh)
         b = x.shape[0]
         replicated = n > 1 and b % n != 0 and straggler == "replicate"
-        batch = (x, y) if weights is None else (x, y, weights)
-        local, pad_w = shard_batch(batch, self.mesh, straggler)
-        w = local[2] if weights is not None else None
-        total = None
+        local, pad_w = shard_batch((x, y), self.mesh, straggler,
+                                   spatial_axis=2 if train else None)
+        w = total = None
         if weights is not None:
+            (w,), _ = shard_batch((weights,), self.mesh, straggler)
             total = float(torch.as_tensor(weights).float().sum())
         if pad_w is not None:
             pm = local_weights(pad_w, self.mesh)
@@ -280,7 +298,7 @@ class Trainer:
         per-sample loss weights. Returns (state, loss) with the loss a
         0-dim tensor on the device. Under a mesh every rank passes the
         same global batch and takes its rows."""
-        return self._step(state, *self._stage(x, y, weights))
+        return self._step(state, *self._stage(x, y, weights, train=True))
 
     def _step(self, state, x, y, w, total, copies) -> tuple:
         """The step on ``_stage``'s output. accum_steps > 1: the rows in
@@ -293,10 +311,12 @@ class Trainer:
         n = data_axis_size(self.mesh)
         sync = self._data_group if copies == 1 and n > 1 else None
         accum = self.accum_steps
-        with sync_batch_stats(model, sync):
+        with sync_batch_stats(model, sync), \
+                spatial.sharded(self.mesh) as shard:
+            y_normalizer = self._local_normalizer(shard, y.shape[2:])
             if accum == 1:
                 loss = self._loss(model, x, y, w, total, copies,
-                                  self.y_normalizer)
+                                  y_normalizer)
                 loss.backward()
                 loss = loss.detach()
             else:
@@ -314,7 +334,7 @@ class Trainer:
                 for i in range(accum):
                     part = slice(i * mb, (i + 1) * mb)
                     li = self._loss(model, x[part], y[part], w[part],
-                                    total, copies, self.y_normalizer)
+                                    total, copies, y_normalizer)
                     li.backward()
                     loss = loss + li.detach()
         reduce_gradients(model.parameters(), self.mesh)
@@ -325,6 +345,18 @@ class Trainer:
         opt.step()
         state.step += 1
         return state, loss
+
+    def _local_normalizer(self, shard, slab):
+        """The y-normalizer for a step's targets: as it is, or inside a
+        sharded step, its per-location statistics cut to the rank's rows
+        of the whole grid (H = the slab's rows x S)."""
+        yn = self.y_normalizer
+        if shard is None or yn is None or not hasattr(yn, "mean"):
+            return yn
+        h = slab[0] * shard.size
+        return type(yn)(spatial.rows_of(yn.mean, h, shard),
+                        spatial.rows_of(yn.std, h, shard), yn.eps,
+                        device=yn.mean.device)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, x, y,
@@ -359,13 +391,13 @@ class Trainer:
         return state, trace_dir
 
     # -- loops ----------------------------------------------------------
-    def _prefetch(self, loader: Iterable, straggler=None):
+    def _prefetch(self, loader: Iterable, straggler=None, train=False):
         """Start each batch's host-to-device copy before the step on the
         batch ahead of it runs, so copy and step overlap; each batch is
         this rank's rows with their loss normalisation (``_stage``)."""
         pending = None
         for batch in loader:
-            nxt = self._stage(*batch[:3], straggler=straggler)
+            nxt = self._stage(*batch[:3], straggler=straggler, train=train)
             if pending is not None:
                 yield pending
             pending = nxt
@@ -376,7 +408,7 @@ class Trainer:
         """One pass over ``loader`` (an iterable of (x, y) batches).
         Returns (state, mean batch loss as a float)."""
         losses = []
-        for staged in self._prefetch(loader):
+        for staged in self._prefetch(loader, train=True):
             state, loss = self._step(state, *staged)
             losses.append(loss)
         # one host sync per epoch, not per batch

@@ -82,6 +82,7 @@ SLICE_MODULES = [
     "resolution_pde_tpu_torch.parallel.tp",
     "resolution_pde_tpu_torch.parallel.ep",
     "resolution_pde_tpu_torch.parallel.pipeline",
+    "resolution_pde_tpu_torch.parallel.spatial",
     "resolution_pde_tpu_torch.utils.plotting",
     "resolution_pde_tpu_torch.utils.torch_import",
 ]

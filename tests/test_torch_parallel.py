@@ -15,8 +15,15 @@ its sharded trainers (tests/test_fsdp.py): losses and parameters 2e-5 /
 JAX's tests/test_spatial_sharding.py's (loss 1e-5, parameters 1e-4 /
 1e-6, running statistics 1e-5 / 1e-6); BatchNorm's train-mode output and
 statistics against JAX's float64 forward at tests/test_torch_cno.py's
-1e-4 and 1e-5. A second group of 2 ranks runs main_2d against JAX's
-main_2d on its 8 virtual devices, the same global batch of 8.
+1e-4 and 1e-5. The "spatial" axis (grid rows sharded): FFNO2D on each
+route and FNO2d against JAX's unsharded forward at 1e-4 / 1e-5 and
+jax.grad at 1e-3 / 1e-5 (JAX's tests/test_spatial_sharding.py), against
+the port's single process at 1e-5 (relative L2 of each gradient); its
+train steps and the multislice ones against JAX on the same mesh at
+1e-4. The sharded serving engine against one engine and the pipeline's
+gradients against JAX's at 1e-6 and 1e-5. A second group of 2 ranks runs
+main_2d against JAX's main_2d on its 8 virtual devices, the same global
+batch of 8.
 """
 
 import contextlib
@@ -31,19 +38,35 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
+
 from resolution_pde_tpu.models import FFNO2D as JaxFFNO2D  # noqa: E402
+from resolution_pde_tpu.models import FNO1d as JaxFNO1d  # noqa: E402
+from resolution_pde_tpu.models import FNO2d as JaxFNO2d  # noqa: E402
 from resolution_pde_tpu.models.cno import CNO2d as JaxCNO2d  # noqa: E402
 from resolution_pde_tpu.models.mgpt import MoEGPTNO as JaxMoEGPTNO  # noqa: E402
+from resolution_pde_tpu.ops.losses import (  # noqa: E402
+    relative_l2 as jax_relative_l2)
 from resolution_pde_tpu.parallel import (  # noqa: E402
     ffno_tp_specs as jax_tp_specs, fsdp_specs as jax_fsdp_specs,
     make_mesh as jax_make_mesh, merge_specs as jax_merge_specs,
     moe_ep_specs as jax_ep_specs, shard_batch as jax_shard_batch,
     shard_train_state as jax_shard_train_state, specs_to_shardings)
+from resolution_pde_tpu.parallel.mesh import (  # noqa: E402
+    batch_sharding as jax_batch_sharding,
+    make_multislice_mesh as jax_make_multislice_mesh)
+from resolution_pde_tpu.parallel.pipeline import (  # noqa: E402
+    pipeline_apply as jax_pipeline_apply)
 from resolution_pde_tpu.train import Trainer as JaxTrainer  # noqa: E402
 from resolution_pde_tpu_torch.models.cno import CNO2d  # noqa: E402
 from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D  # noqa: E402
+from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d  # noqa: E402
+from resolution_pde_tpu_torch.ops.grids import concat_grid_2d  # noqa: E402
+from resolution_pde_tpu_torch.ops.losses import relative_l2  # noqa: E402
+from resolution_pde_tpu_torch.ops.normalizers import (  # noqa: E402
+    UnitGaussianNormalizer)
 from resolution_pde_tpu_torch.parallel import (  # noqa: E402
-    make_mesh, shard_batch)
+    make_mesh, make_multislice_mesh, shard_batch, spatial)
 from resolution_pde_tpu_torch.train import Trainer  # noqa: E402
 from resolution_pde_tpu_torch.utils import jax_bridge  # noqa: E402
 
@@ -53,7 +76,8 @@ import torch_parallel_worker as W  # noqa: E402
 
 WORLD = 4
 CASES = ["mesh", "shard_batch", "straggler", "accum", "dp", "bn", "fsdp",
-         "tp", "tp_fsdp", "clip", "fused_conflict", "ep", "pp"]
+         "tp", "tp_fsdp", "clip", "fused_conflict", "ep", "pp", "spatial",
+         "spatial_train", "multislice", "serve"]
 CLIP = 0.05
 
 
@@ -101,7 +125,10 @@ def _single(cls, kw, sd, x, y, steps, **trainer_kw):
 
 
 def _jax_steps(model, params, x, y, mesh, specs=None, steps=3,
-               grad_clip=None):
+               grad_clip=None, place=None, bridge=None):
+    """JAX's Trainer from ``params`` on ``mesh``: its losses and
+    parameters (as the port's state_dict, through ``bridge``). place:
+    x -> the sharded array (default: JAX's shard_batch)."""
     # fresh arrays: the train step donates its state
     params = jax.tree_util.tree_map(jnp.asarray, params)
     tr = JaxTrainer(model, learning_rate=1e-3, mesh=mesh,
@@ -116,10 +143,15 @@ def _jax_steps(model, params, x, y, mesh, specs=None, steps=3,
                                       tr.optimizer)
     losses = []
     for _ in range(steps):
-        (xs, ys), w = jax_shard_batch((jnp.asarray(x), jnp.asarray(y)), mesh)
+        if place is None:
+            (xs, ys), w = jax_shard_batch((jnp.asarray(x), jnp.asarray(y)),
+                                          mesh)
+        else:
+            xs, ys, w = place(x), place(y), None
         state, loss = tr._train_step(state, xs, ys, None, w)
         losses.append(float(loss))
-    return losses, _sd(jax.device_get(state.params))
+    params = jax.device_get(state.params)
+    return losses, (_sd(params) if bridge is None else bridge(params))
 
 
 def _fsdp(params, mesh):
@@ -190,6 +222,21 @@ def inputs():
                  for _ in range(4)]
     ffno1d = FFNO1D(**W.FFNO1D_SMALL,
                     generator=torch.Generator().manual_seed(5))
+    x_pp = torch.randn(8, 16, generator=gen)
+    r_pp = torch.randn(8, 16, generator=gen)
+    # the "spatial" axis: JAX's tests/test_spatial_sharding.py models
+    xs = rng.standard_normal((4, 1, 16, 16)).astype(np.float32)
+    ys = np.roll(xs, 2, axis=-1)
+    jsp, psp = _jax_ffno(W.SPATIAL_FFNO, xs, 6)
+    jfno = JaxFNO2d(**W.FNO2D_SMALL)
+    pfno = jax.device_get(jax.jit(jfno.init)(jax.random.key(7),
+                                             jnp.asarray(xs[:2])))["params"]
+    x_f1 = rng.standard_normal((8, 1, 32)).astype(np.float32)
+    y_f1 = np.roll(x_f1, 4, axis=-1)
+    jf1 = JaxFNO1d(**W.FNO1D_SMALL)
+    pf1 = jax.device_get(jax.jit(jf1.init)(jax.random.key(8),
+                                           jnp.asarray(x_f1[:2])))["params"]
+    xq = rng.standard_normal((8, 1, 16, 16)).astype(np.float32)
     return {
         "cases": CASES,
         "clip": CLIP,
@@ -198,9 +245,15 @@ def inputs():
         "ffno2d_fsdp": (x2, y2, _sd(jp_f)),
         "cno2d": (xc, yc, jax_bridge.cno2d_state_dict(vcno, n_res=1)),
         "mgpt": ((g, u, pos), jax_bridge.mgpt_state_dict(pmg)),
-        "pp": (per_stage, torch.randn(8, 16, generator=gen)),
+        "pp": (per_stage, x_pp, r_pp),
+        "spatial": (xs, ys, {"ffno2d": _sd(psp),
+                             "fno2d": jax_bridge.fno2d_state_dict(pfno)}),
+        "fno1d": (x_f1, y_f1, jax_bridge.fno1d_state_dict(pf1)),
+        "serve": (xq, _sd(jp)),
         "jax": {"ffno2d": (jm, jp), "ffno2d_fsdp": (jm_f, jp_f),
-                "cno2d": (jcno, vcno), "mgpt": (jmg, pmg)},
+                "cno2d": (jcno, vcno), "mgpt": (jmg, pmg),
+                "spatial_ffno2d": (jsp, psp), "fno2d": (jfno, pfno),
+                "fno1d": (jf1, pf1)},
     }
 
 
@@ -466,11 +519,25 @@ def test_expert_parallel_forward_matches_jax(ranks, inputs):
                                    atol=2e-6)
 
 
+def _pipeline_grads_in_sequence(per_stage, x, r):
+    """Gradients of sum(out r) through the stages applied in sequence:
+    x's and the stacked leaves'."""
+    leaves = {k: torch.stack([p[k] for p in per_stage]).requires_grad_()
+              for k in per_stage[0]}
+    xg = x.clone().requires_grad_()
+    y = xg
+    for i in range(len(per_stage)):
+        y = W._mlp_stage({k: v[i] for k, v in leaves.items()}, y)
+    (y * r).sum().backward()
+    return {"x": xg.grad, **{k: v.grad for k, v in leaves.items()}}
+
+
 def test_pipeline_matches_the_stages_in_sequence(ranks, inputs):
-    per_stage, x = inputs["pp"]
+    per_stage, x, r_pp = inputs["pp"]
     want = x
     for p in per_stage:
         want = W._mlp_stage(p, want)
+    grads = _pipeline_grads_in_sequence(per_stage, x, r_pp)
     for r in range(WORLD):
         out = _case(ranks, "pp", r)
         for m in (4, 8):
@@ -478,7 +545,184 @@ def test_pipeline_matches_the_stages_in_sequence(ranks, inputs):
                                        rtol=1e-6, atol=1e-6)
         assert "leading dims {3} != mesh axis stage=4" in out["leading"]
         assert "batch 6 not divisible by 4 microbatches" in out["indivisible"]
-        assert out["grad"].startswith("NotImplementedError")
+        _close(out["grad"], grads, 1e-6, 1e-6)
+
+
+def _jax_mlp_stage(p, x):
+    return x + jnp.tanh(x @ p["w"] + p["b"])
+
+
+def test_pipeline_gradients_match_jax(ranks, inputs):
+    """jax.grad through JAX's pipeline_apply on {"stage": 4}: x's and the
+    stacked leaves' gradients, 1e-5, on every rank."""
+    per_stage, x, r_pp = inputs["pp"]
+    mesh = jax_make_mesh({"stage": WORLD}, devices=jax.devices()[:WORLD])
+    stacked = {k: jnp.asarray(np.stack([p[k].numpy() for p in per_stage]))
+               for k in per_stage[0]}
+
+    def loss(leaves, xx):
+        return jnp.sum(jax_pipeline_apply(_jax_mlp_stage, leaves, xx, mesh)
+                       * jnp.asarray(r_pp.numpy()))
+    gl, gx = jax.grad(loss, argnums=(0, 1))(stacked, jnp.asarray(x.numpy()))
+    want = {"x": np.asarray(gx), **{k: np.asarray(v) for k, v in gl.items()}}
+    for r in range(WORLD):
+        _close(_case(ranks, "pp", r)["grad"], want, 1e-5, 1e-5)
+
+
+# -- the "spatial" axis ---------------------------------------------------
+@pytest.fixture(scope="module")
+def spatial_refs(inputs):
+    """{model: (JAX's unsharded forward, its jax.grad as the port's
+    state_dict)} and {route: the port's single-process gradients} of the
+    batch's mean relative L2."""
+    x, y, sds = inputs["spatial"]
+    jax_refs = {}
+    for name, bridge in (("spatial_ffno2d", _sd),
+                         ("fno2d", jax_bridge.fno2d_state_dict)):
+        model, params = inputs["jax"][name]
+
+        def loss(p, model=model):
+            out = model.apply({"params": p}, jnp.asarray(x))
+            return jax_relative_l2(out, jnp.asarray(y)), out
+        (_, out), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+        jax_refs[name] = (np.asarray(out), bridge(jax.device_get(g)))
+    one = {}
+    for impl in (*W.SPECTRAL_IMPLS, "fno2d"):
+        model = (W._model(FNO2d, W.FNO2D_SMALL, sds["fno2d"])
+                 if impl == "fno2d" else
+                 W._model(FFNO2D, dict(W.SPATIAL_FFNO, spectral_impl=impl),
+                          sds["ffno2d"]))
+        relative_l2(model(torch.as_tensor(x)), torch.as_tensor(y)).backward()
+        one[impl] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    return jax_refs, one
+
+
+@pytest.mark.parametrize("impl", [*W.SPECTRAL_IMPLS, "fno2d"])
+@pytest.mark.parametrize("mesh_name", list(W.SPATIAL_MESHES))
+def test_spatially_sharded_model_matches_jax(ranks, spatial_refs, mesh_name,
+                                             impl):
+    """Each rank's output slab against its rows of JAX's unsharded forward
+    (1e-4 / 1e-5), the reduced gradients against jax.grad (1e-3 / 1e-5)
+    and against the port's single process (1e-5): S = 2 and S = 4 pin the
+    two kinds of sum (a wrong one scales gradients by S)."""
+    jax_refs, one = spatial_refs
+    want_out, want_grads = jax_refs["fno2d" if impl == "fno2d"
+                                    else "spatial_ffno2d"]
+    axes = W.SPATIAL_MESHES[mesh_name]
+    n_data, n_sp = axes.get("data", 1), axes["spatial"]
+    b, h = want_out.shape[0] // n_data, want_out.shape[2] // n_sp
+    for r in range(WORLD):
+        got = _case(ranks, "spatial", r)[mesh_name, impl]
+        d, s = got["coords"]
+        np.testing.assert_allclose(
+            got["out"].numpy(), want_out[d * b:(d + 1) * b, :,
+                                         s * h:(s + 1) * h],
+            rtol=1e-4, atol=1e-5)
+        _close(got["grads"], want_grads, 1e-3, 1e-5)
+        for k, g in one[impl].items():
+            assert _rel(got["grads"][k], g) < 1e-5, k
+
+
+def _spatial_place(mesh):
+    return lambda a: jax.device_put(jnp.asarray(a),
+                                    jax_batch_sharding(mesh, 4,
+                                                       spatial_axis=2))
+
+
+def test_spatial_train_steps_match_jax_and_one_process(ranks, inputs):
+    """3 steps on data 2 x spatial 2 against JAX's Trainer with the batch
+    placed by batch_sharding(mesh, 4, spatial_axis=2) (1e-4) and against
+    one process (1e-5); 2 steps with a per-location y-normalizer (each
+    rank its rows of its statistics) against one process; FFNO1D
+    refused."""
+    x, y, sd = inputs["ffno2d"]
+    jm, jp = inputs["jax"]["ffno2d"]
+    mesh = jax_make_mesh({"data": 2, "spatial": 2},
+                         devices=jax.devices()[:WORLD])
+    want_losses, want = _jax_steps(jm, jp, x, y, mesh,
+                                   place=_spatial_place(mesh))
+    one_losses, one = _single(FFNO2D, W.FFNO2D_SMALL, sd, x, y, 3)
+    yn = UnitGaussianNormalizer.fit(torch.as_tensor(y))
+    norm_losses, norm = _single(FFNO2D, W.FFNO2D_SMALL, sd, x, y, 2,
+                                use_normalizer=True, y_normalizer=yn)
+    for r in range(WORLD):
+        out = _case(ranks, "spatial_train", r)
+        _held_to_jax(out, want_losses, want)
+        np.testing.assert_allclose(out["losses"], one_losses, rtol=1e-5)
+        for k, v in one.items():
+            assert _rel(out["params"][k], v) < 1e-5, k
+        np.testing.assert_allclose(out["norm_losses"], norm_losses,
+                                   rtol=1e-5)
+        for k, v in norm.items():
+            assert _rel(out["norm_params"][k], v) < 1e-5, k
+        assert out["refused"].startswith("ValueError: FFNO1D does not run")
+
+
+def test_multislice_mesh_rules_and_rows(ranks):
+    """dcn 2 x data 2: JAX's axis names and shape, a slice's ranks
+    together, the rows "dcn"-major; the defaults and the errors."""
+    for r in range(WORLD):
+        out = _case(ranks, "multislice", r)
+        assert out["shape"] == {"dcn": 2, "data": 2}
+        assert out["ranks"] == [[0, 1], [2, 3]]
+        whole = np.arange(16.0).reshape(8, 2)
+        np.testing.assert_array_equal(out["rows"].numpy(),
+                                      whole[2 * r:2 * r + 2])
+        assert out["default"] == out["inferred"] == {"dcn": 2, "data": 2}
+        assert "4 ranks not divisible by 3 slices" in out["slices"]
+        assert "!= 2 ranks a slice" in out["inner"]
+        assert "may not name 'dcn'" in out["dcn"]
+        assert out["dcn_spatial_shape"] == {"dcn": 2, "spatial": 2}
+
+
+def test_multislice_train_step_matches_jax_and_one_process(ranks, inputs):
+    """JAX's test_multislice_mesh_dp setup on dcn 2 x data 2 (FNO1d, the
+    batch over ("dcn", "data")) against JAX's step on the same mesh (1e-4)
+    and one process (2e-5 / 2e-6); FFNO2D on dcn 2 x spatial 2 against one
+    process (1e-5)."""
+    x1, y1, sd1 = inputs["fno1d"]
+    jm, jp = inputs["jax"]["fno1d"]
+    mesh = jax_make_multislice_mesh(2, {"data": 2},
+                                    devices=jax.devices()[:WORLD])
+    sharding = NamedSharding(mesh, PartitionSpec(("dcn", "data")))
+    want_losses, want = _jax_steps(
+        jm, jp, x1, y1, mesh, steps=1,
+        place=lambda a: jax.device_put(jnp.asarray(a), sharding),
+        bridge=jax_bridge.fno1d_state_dict)
+    one_losses, one = _single(FNO1d, W.FNO1D_SMALL, sd1, x1, y1, 1)
+    x, y, sd = inputs["ffno2d"]
+    sp_losses, sp = _single(FFNO2D, W.FFNO2D_SMALL, sd, x, y, 1)
+    for r in range(WORLD):
+        out = _case(ranks, "multislice", r)
+        _held_to_jax(out, want_losses, want)
+        np.testing.assert_allclose(out["losses"], one_losses, rtol=2e-5,
+                                   atol=2e-6)
+        _close(out["params"], one, 2e-5, 2e-6)
+        np.testing.assert_allclose(out["dcn_spatial_losses"], sp_losses,
+                                   rtol=1e-5)
+        for k, v in sp.items():
+            assert _rel(out["dcn_spatial_params"][k], v) < 1e-5, k
+
+
+def test_serving_over_data_matches_one_engine(ranks, inputs):
+    """ServingEngine(mesh=data 4): every rank returns the whole bucket's
+    predict (a 5-row request padded to it) and 2-step forecast, within
+    1e-6 of one engine; a bucket of 6 rows refused."""
+    xq, sd = inputs["serve"]
+    one = W._engine(sd)
+    one.warmup(spatial_shapes=[(16, 16)], batch_sizes=[8], rollout_steps=[2])
+    want = {"predict": one.predict(xq), "padded": one.predict(xq[:5]),
+            "forecast": one.forecast(xq, 2)}
+    for r in range(WORLD):
+        out = _case(ranks, "serve", r)
+        for k, v in want.items():
+            assert out[k].shape == v.shape, k
+            np.testing.assert_allclose(out[k], v, rtol=1e-6, atol=1e-6,
+                                       err_msg=k)
+        assert out["buckets"] == [("forecast", (16, 16), 1, 8, 2),
+                                  ("predict", (16, 16), 1, 8)]
+        assert "bucket of 6 rows does not divide over the data extent 4" \
+            in out["bad_bucket"]
 
 
 def test_shard_batch_without_a_group_raises_at_make_mesh():
@@ -488,6 +732,92 @@ def test_shard_batch_without_a_group_raises_at_make_mesh():
     assert tr.mesh is None
     with pytest.raises(RuntimeError, match="process group"):
         shard_batch((np.zeros((2, 1)),), make_mesh())
+
+
+# -- one process ----------------------------------------------------------
+class _SpatialStub:
+    """The mesh interface a step and shard_batch read, in one process: a
+    "spatial" axis of extent 2, this process at coordinate 1."""
+
+    mesh_dim_names = ("spatial",)
+
+    def size(self, dim):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 1
+
+
+def test_grid_channel_takes_the_global_rows():
+    """A slab's coordinate channel is its rows of the whole grid's
+    linspace, not a linspace over the slab."""
+    x = torch.randn(2, 16, 8, 3)
+    whole = concat_grid_2d(x)
+    with spatial.using(spatial.Shard(None, 2, 1)):
+        slab = concat_grid_2d(x[:, 8:])
+    torch.testing.assert_close(slab, whole[:, 8:], rtol=0, atol=0)
+    assert float(slab[0, 0, 0, 3]) == pytest.approx(8 / 15)
+
+
+def test_shard_batch_keeps_the_rows_of_the_spatial_axis():
+    x = np.arange(2 * 16 * 4, dtype=np.float32).reshape(2, 1, 16, 4)
+    (xl,), w = shard_batch((x,), _SpatialStub(), spatial_axis=2)
+    np.testing.assert_array_equal(xl, x[:, :, 8:])
+    assert w is None
+    (tl,), _ = shard_batch((torch.as_tensor(x),), _SpatialStub(),
+                           spatial_axis=2)
+    np.testing.assert_array_equal(tl.numpy(), x[:, :, 8:])
+    with pytest.raises(ValueError, match="does not divide over spatial=2"):
+        shard_batch((x[:, :, :15],), _SpatialStub(), spatial_axis=2)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: FFNO1D(**W.FFNO1D_SMALL), lambda: FNO1d(**W.FNO1D_SMALL),
+    lambda: CNO2d(1, 1, 32, **W.CNO_SMALL)], ids=["FFNO1D", "FNO1d",
+                                                 "CNO2d"])
+def test_models_without_spatial_sharding_are_refused(build):
+    model = build()
+    name = type(model).__name__
+    with pytest.raises(ValueError, match=f"{name} does not run with the "
+                       "grid sharded over 'spatial'"):
+        Trainer(model, device="cpu", mesh=_SpatialStub())
+    for ok in (FFNO2D(**W.SPATIAL_FFNO), FNO2d(**W.FNO2D_SMALL)):
+        assert Trainer(ok, device="cpu", mesh=_SpatialStub()).mesh is not None
+
+
+@pytest.fixture
+def world_of_one(tmp_path, monkeypatch):
+    import torch.distributed as dist
+
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME",
+                       os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_multislice_mesh_rules_in_one_process(world_of_one):
+    from resolution_pde_tpu_torch.parallel.mesh import (data_axis_size,
+                                                        data_rank)
+
+    def shape(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    m = make_multislice_mesh(1)
+    assert shape(m) == {"dcn": 1, "data": 1}
+    assert data_axis_size(m) == 1 and data_rank(m) == 0
+    assert shape(make_multislice_mesh(1, {"data": -1, "spatial": 1})) == {
+        "dcn": 1, "data": 1, "spatial": 1}
+    with pytest.raises(ValueError, match="1 ranks not divisible by 2 slices"):
+        make_multislice_mesh(2)
+    with pytest.raises(ValueError, match="at most one axis may be -1"):
+        make_multislice_mesh(1, {"data": -1, "spatial": -1})
+    with pytest.raises(ValueError, match="!= 1 ranks a slice"):
+        make_multislice_mesh(1, {"data": 2})
+    with pytest.raises(ValueError, match="may not name 'dcn'"):
+        make_multislice_mesh(1, {"dcn": 1})
 
 
 # -- main_2d over two ranks -----------------------------------------------

@@ -20,17 +20,25 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from resolution_pde_tpu_torch.deploy import ServingEngine  # noqa: E402
 from resolution_pde_tpu_torch.models.cno import CNO2d  # noqa: E402
 from resolution_pde_tpu_torch.models.ffno import FFNO1D, FFNO2D  # noqa: E402
+from resolution_pde_tpu_torch.models.fno import FNO1d, FNO2d  # noqa: E402
 from resolution_pde_tpu_torch.models.mgpt import MoEGPTNO  # noqa: E402
 from resolution_pde_tpu_torch.models.norms import sync_batch_stats  # noqa: E402
+from resolution_pde_tpu_torch.ops.losses import relative_l2  # noqa: E402
+from resolution_pde_tpu_torch.ops.normalizers import (  # noqa: E402
+    SimpleNormalizer, UnitGaussianNormalizer)
 from resolution_pde_tpu_torch.parallel import (  # noqa: E402
-    ffno_tp_specs, fsdp_specs, make_mesh, merge_specs, moe_ep_specs,
-    pipeline_apply, shard_batch, shard_module, shard_train_state,
+    data_axis_size, ffno_tp_specs, fsdp_specs, make_mesh,
+    make_multislice_mesh, merge_specs, moe_ep_specs, pipeline_apply,
+    shard_batch, shard_module, shard_train_state, sharded,
     stack_stage_params)
 from resolution_pde_tpu_torch.parallel.collectives import gather_tensor  # noqa: E402
+from resolution_pde_tpu_torch.parallel.mesh import (  # noqa: E402
+    axis_rank, data_rank)
 from resolution_pde_tpu_torch.parallel.shard import (  # noqa: E402
-    full_state_dict, grad_sq_norm, plan)
+    full_state_dict, grad_sq_norm, plan, reduce_gradients)
 from resolution_pde_tpu_torch.train import Trainer  # noqa: E402
 from resolution_pde_tpu_torch.train.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
@@ -43,6 +51,16 @@ FFNO2D_FSDP = dict(in_channels=1, out_channels=1, width=16, n_layers=2,
 FFNO1D_SMALL = dict(in_channels=1, out_channels=1, width=8, n_layers=1,
                     n_modes=4)
 CNO_SMALL = dict(N_layers=2, N_res=1, N_res_neck=1, channel_multiplier=4)
+# JAX's tests/test_spatial_sharding.py models
+SPATIAL_FFNO = dict(in_channels=1, out_channels=1, width=8, n_layers=2,
+                    n_modes=8)
+FNO2D_SMALL = dict(in_channels=1, out_channels=1, modes1=6, modes2=6,
+                   width=8, n_blocks=1)
+FNO1D_SMALL = dict(in_channels=1, out_channels=1, modes=4, width=8,
+                   n_blocks=1)
+SPATIAL_MESHES = {"data2_spatial2": {"data": 2, "spatial": 2},
+                  "spatial4": {"spatial": 4}}
+SPECTRAL_IMPLS = ("fft", "pallas", "pallas2")
 MGPT_SMALL = dict(trunk_size=2, branch_size=2, space_dim=2, output_size=3,
                   n_layers=2, n_hidden=16, n_experts=4,
                   expert_impl="stacked")
@@ -272,12 +290,112 @@ def case_ep(job, tmp):
             "w1": tuple(model.blocks[0].moe1.w1.shape)}
 
 
+def _sharded_grads(model, mesh, x, y):
+    """The model on this rank's slabs of (x, y): its output slab and the
+    gradients of the global batch's mean relative L2, reduced over the
+    mesh as the trainer reduces them."""
+    (xl, yl), _ = shard_batch((torch.as_tensor(x), torch.as_tensor(y)),
+                              mesh, spatial_axis=2)
+    with sharded(mesh):
+        out = model(xl)
+        (relative_l2(out, yl) / data_axis_size(mesh)).backward()
+    reduce_gradients(model.parameters(), mesh)
+    return {"out": out.detach(), "coords": (data_rank(mesh),
+                                            axis_rank(mesh, "spatial")),
+            "grads": {k: p.grad.clone() for k, p in
+                      model.named_parameters()}}
+
+
+def case_spatial(job, tmp):
+    """FFNO2D on each spectral route and FNO2d on the slabs of both
+    meshes: outputs and reduced gradients."""
+    x, y, sds = job["spatial"]
+    out = {}
+    for name, axes in SPATIAL_MESHES.items():
+        mesh = make_mesh(axes)
+        for impl in SPECTRAL_IMPLS:
+            model = _model(FFNO2D, dict(SPATIAL_FFNO, spectral_impl=impl),
+                           sds["ffno2d"])
+            out[name, impl] = _sharded_grads(model, mesh, x, y)
+        out[name, "fno2d"] = _sharded_grads(
+            _model(FNO2d, FNO2D_SMALL, sds["fno2d"]), mesh, x, y)
+    return out
+
+
+def case_spatial_train(job, tmp):
+    """3 Trainer steps on data 2 x spatial 2; 2 with a per-location
+    y-normalizer; a model that does not shard spatially refused."""
+    x, y, sd = job["ffno2d"]
+    mesh = make_mesh({"data": 2, "spatial": 2})
+    tr = Trainer(_model(FFNO2D, FFNO2D_SMALL, sd), learning_rate=1e-3,
+                 device="cpu", mesh=mesh)
+    state, losses = _steps(tr, x, y, 3)
+    params = {k: v.clone() for k, v in full_state_dict(state.model).items()}
+    yn = UnitGaussianNormalizer.fit(torch.as_tensor(y))
+    ntr = Trainer(_model(FFNO2D, FFNO2D_SMALL, sd), learning_rate=1e-3,
+                  device="cpu", mesh=mesh, use_normalizer=True,
+                  y_normalizer=yn)
+    nstate, nlosses = _steps(ntr, x, y, 2)
+    return {"losses": losses, "params": params, "norm_losses": nlosses,
+            "norm_params": full_state_dict(nstate.model),
+            "refused": _error(lambda: Trainer(
+                FFNO1D(**FFNO1D_SMALL), device="cpu", mesh=mesh))}
+
+
+def case_multislice(job, tmp):
+    """make_multislice_mesh's axes, rules and rows; a train step on dcn 2
+    x data 2 and on dcn 2 x spatial 2."""
+    m = make_multislice_mesh(2, {"data": 2})
+    (rows,), _ = shard_batch((torch.arange(16.0).reshape(8, 2),), m)
+
+    def shape(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out = {"shape": shape(m), "ranks": m.mesh.tolist(), "rows": rows,
+           "default": shape(make_multislice_mesh(2)),
+           "inferred": shape(make_multislice_mesh(2, {"data": -1})),
+           "slices": _error(lambda: make_multislice_mesh(3)),
+           "inner": _error(lambda: make_multislice_mesh(2, {"data": 4})),
+           "dcn": _error(lambda: make_multislice_mesh(2, {"dcn": 2}))}
+    x1, y1, sd1 = job["fno1d"]
+    tr = Trainer(_model(FNO1d, FNO1D_SMALL, sd1), learning_rate=1e-3,
+                 device="cpu", mesh=m)
+    state, out["losses"] = _steps(tr, x1, y1, 1)
+    out["params"] = full_state_dict(state.model)
+    x, y, sd = job["ffno2d"]
+    ms = make_multislice_mesh(2, {"spatial": 2})
+    tr2 = Trainer(_model(FFNO2D, FFNO2D_SMALL, sd), learning_rate=1e-3,
+                  device="cpu", mesh=ms)
+    state2, out["dcn_spatial_losses"] = _steps(tr2, x, y, 1)
+    out["dcn_spatial_shape"] = shape(ms)
+    out["dcn_spatial_params"] = full_state_dict(state2.model)
+    return out
+
+
+def _engine(sd, mesh=None):
+    return ServingEngine(_model(FFNO2D, FFNO2D_SMALL, sd),
+                         x_normalizer=SimpleNormalizer(0.1, 1.5),
+                         y_normalizer=SimpleNormalizer(-0.2, 0.8),
+                         device="cpu", mesh=mesh)
+
+
+def case_serve(job, tmp):
+    """ServingEngine over data 4: predict (and a padded request) and a
+    2-step forecast of an 8-row bucket; a bucket 4 does not divide."""
+    xq, sd = job["serve"]
+    eng = _engine(sd, make_mesh({"data": 4}))
+    eng.warmup(spatial_shapes=[(16, 16)], batch_sizes=[8],
+               rollout_steps=[2])
+    return {"predict": eng.predict(xq), "padded": eng.predict(xq[:5]),
+            "forecast": eng.forecast(xq, 2), "buckets": eng.buckets(),
+            "bad_bucket": _error(lambda: eng.compile_bucket((16, 16), 6))}
+
+
 def _mlp_stage(p, x):
     return x + torch.tanh(x @ p["w"] + p["b"])
 
 
 def case_pp(job, tmp):
-    per_stage, x = job["pp"]
+    per_stage, x, r = job["pp"]
     mesh = make_mesh({"stage": 4})
     stacked = stack_stage_params(per_stage)
     with torch.no_grad():
@@ -288,9 +406,10 @@ def case_pp(job, tmp):
             _mlp_stage, three, x, mesh))
         outs["indivisible"] = _error(lambda: pipeline_apply(
             _mlp_stage, stacked, x[:6], mesh))
-    outs["grad"] = _error(lambda: pipeline_apply(
-        _mlp_stage, {k: v.requires_grad_() for k, v in stacked.items()},
-        x, mesh))
+    leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    xg = x.clone().requires_grad_()
+    (pipeline_apply(_mlp_stage, leaves, xg, mesh) * r).sum().backward()
+    outs["grad"] = {"x": xg.grad, **{k: v.grad for k, v in leaves.items()}}
     return outs
 
 
