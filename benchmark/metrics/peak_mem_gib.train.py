@@ -1,0 +1,6 @@
+"""The allocator's peak over a training run, GiB."""
+from benchmark import readings
+
+
+def read(r):
+    return readings.peak_gib(r)

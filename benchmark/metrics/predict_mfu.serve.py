@@ -1,0 +1,6 @@
+"""A request's model operations a second over the chip's peak, %."""
+from benchmark import readings
+
+
+def read(r):
+    return readings.mfu(r)
