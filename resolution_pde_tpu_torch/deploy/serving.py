@@ -34,6 +34,25 @@ Counterpart of resolution_pde_tpu/deploy/serving.py ``ServingEngine``:
 The kernels' launch counters (``ops/kernels/*.launches``) count launches
 from the host, so a graph's kernels count once, at capture, and not at
 each replay.
+
+``stats()`` counts, as plain ints, the requests served and their rows,
+the rows padded up to a bucket and the bucket misses (a strict engine's
+refused request counts as a miss). Operators size the buckets from them:
+a non-strict engine warms a missed bucket inside the serving path, and a
+padded row is work thrown away.
+
+While a profiler records, each request opens these spans
+(``utils/tracing.py``; none otherwise), so that a profile of the engine
+puts the device's idle time and each kernel under the part of the request
+the host was in:
+  - ``rpde.serve.predict`` (``predict``, ``predict_device``) or
+    ``rpde.serve.forecast``, the whole request;
+  - inside it ``rpde.serve.warm`` (a bucket warmed on a miss),
+    ``rpde.serve.pad`` (padded to the bucket), ``rpde.serve.copy_in`` (into
+    the graph's static input, or to the device), ``rpde.serve.replay``
+    (``graph.replay()``, or the eager run), ``rpde.serve.gather`` (under a
+    mesh) and ``rpde.serve.copy_out`` (``.cpu().numpy()``, which waits for
+    the device).
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ from resolution_pde_tpu_torch.ops.kernels._cost import count_operations
 from resolution_pde_tpu_torch.parallel.collectives import gather_tensor
 from resolution_pde_tpu_torch.parallel.mesh import (data_axis_size,
                                                     data_group, data_rank)
+from resolution_pde_tpu_torch.utils.tracing import span
 
 
 def _as_shape_tuple(spatial) -> tuple:
@@ -112,6 +132,8 @@ class ServingEngine:
         self._use_graphs = device.type == "cuda"
         self._pool = None
         self._stream = None
+        self._stats = dict(requests=0, rows=0, padded_rows=0,
+                           bucket_misses=0)
 
     # -- the computation --------------------------------------------------
 
@@ -240,18 +262,29 @@ class ServingEngine:
         (valid until its next replay), or the eager result; under a mesh,
         this rank's rows run and the outputs are gathered (a new
         tensor)."""
-        xb = self._pad(x, key[3])
+        stats = self._stats
+        stats["requests"] += 1
+        stats["rows"] += x.shape[0]
+        stats["padded_rows"] += key[3] - x.shape[0]
+        with span("rpde.serve.pad"):
+            xb = self._pad(x, key[3])
         per = key[3] // self._n
         xb = xb[self._rank * per:(self._rank + 1) * per]
         if self._use_graphs:
             bg = self._programs[key]
-            bg.x.copy_(xb)
-            bg.graph.replay()
+            with span("rpde.serve.copy_in"):
+                bg.x.copy_(xb)
+            with span("rpde.serve.replay"):
+                bg.graph.replay()
             out = bg.out
         else:
-            out = self._fn(key)(xb.to(self.device))
+            with span("rpde.serve.copy_in"):
+                xb = xb.to(self.device)
+            with span("rpde.serve.replay"):
+                out = self._fn(key)(xb)
         if self._group is not None:
-            out = gather_tensor(out, self._group, 0)
+            with span("rpde.serve.gather"):
+                out = gather_tensor(out, self._group, 0)
         return out
 
     def _key(self, kind: str, x: np.ndarray, extra=()) -> tuple:
@@ -259,10 +292,12 @@ class ServingEngine:
         b, c, spatial = x.shape[0], x.shape[1], tuple(x.shape[2:])
         bucket = self._bucket_for(kind, spatial, c, b, extra)
         if bucket is None:
+            self._stats["bucket_misses"] += 1
             self._on_bucket_miss(kind, spatial, c, b)
             bucket = -(-b // self._n) * self._n  # a multiple of the extent
-            self.compile_bucket(spatial, bucket, in_channels=c,
-                                rollout_steps=extra)
+            with span("rpde.serve.warm"):
+                self.compile_bucket(spatial, bucket, in_channels=c,
+                                    rollout_steps=extra)
         return (kind, spatial, c, bucket) + tuple(extra)
 
     # -- serving ----------------------------------------------------------
@@ -271,25 +306,38 @@ class ServingEngine:
         """Like predict() but returns the bucket-padded f32 tensor on the
         device without waiting for it (a copy: a graph's output buffer is
         overwritten by its next replay); slice to the request's batch."""
-        x = np.asarray(x, np.float32)
-        out = self._run(self._key("predict", x), x)
-        return out.clone() if self._use_graphs and self._n == 1 else out
+        with span("rpde.serve.predict"):
+            x = np.asarray(x, np.float32)
+            out = self._run(self._key("predict", x), x)
+            return out.clone() if self._use_graphs and self._n == 1 else out
 
     def predict(self, x) -> np.ndarray:
         """x: raw (B, C, *spatial) float32. Returns the decoded predictions
         (B, C_out, *spatial) as float32 numpy."""
-        x = np.asarray(x, np.float32)
-        return self._run(self._key("predict", x), x)[:x.shape[0]].cpu().numpy()
+        with span("rpde.serve.predict"):
+            x = np.asarray(x, np.float32)
+            out = self._run(self._key("predict", x), x)[:x.shape[0]]
+            with span("rpde.serve.copy_out"):
+                return out.cpu().numpy()
 
     def forecast(self, x0, steps: int) -> np.ndarray:
         """Autoregressive rollout from raw x0 (B, C, *spatial). Returns the
         decoded (B, steps, C, *spatial) float32 numpy, with the normalizer
         round-trip between steps."""
-        x0 = np.asarray(x0, np.float32)
-        key = self._key("forecast", x0, (int(steps),))
-        return self._run(key, x0)[:x0.shape[0]].cpu().numpy()
+        with span("rpde.serve.forecast"):
+            x0 = np.asarray(x0, np.float32)
+            key = self._key("forecast", x0, (int(steps),))
+            out = self._run(key, x0)[:x0.shape[0]]
+            with span("rpde.serve.copy_out"):
+                return out.cpu().numpy()
 
     # -- introspection ----------------------------------------------------
+
+    def stats(self) -> dict:
+        """{"requests", "rows", "padded_rows", "bucket_misses"}, counted
+        since the engine was made: requests served and their rows, rows
+        padded up to a bucket, and requests no warmed bucket covered."""
+        return dict(self._stats)
 
     def buckets(self) -> list:
         """Warmed buckets: [(kind, spatial, in_channels, batch, *extra)]."""

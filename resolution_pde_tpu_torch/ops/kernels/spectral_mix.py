@@ -60,6 +60,7 @@ import torch
 from resolution_pde_tpu_torch.ops.kernels import _build, _cost
 from resolution_pde_tpu_torch.ops.spectral import _dft_matrices
 from resolution_pde_tpu_torch.parallel import spatial
+from resolution_pde_tpu_torch.utils.tracing import span
 
 # kernel launches in this process (the plain versions never count)
 launches = 0          # forward passes
@@ -449,14 +450,15 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
     dwpk[k] = z_k^T gs_k over the rows, summed and returned in f32. The
     operands hold values of at most f32 precision and are multiplied in
     IEEE f32 (TF32 off), so a bf16 product is exact and only the order of
-    the f32 sums differs from the TPU's."""
+    the f32 sums differs from the TPU's. It runs inside the span
+    ``rpde.spectral.weight_grad`` (``utils/tracing.py``)."""
     cd = compute_dtype
     m = f2.shape[1] // 2
     xr = x if axis == 2 else x.transpose(1, 2)
     gr = g if axis == 2 else g.transpose(1, 2)
     n, c, o = xr.shape[2], xr.shape[3], gr.shape[3]
     r = xr.shape[0] * xr.shape[1]
-    with _ieee_f32_matmul():
+    with span("rpde.spectral.weight_grad"), _ieee_f32_matmul():
         xt = xr.transpose(2, 3).reshape(r * c, n).float()
         z = xt @ f2.to(x.dtype).float()                    # (R*C, 2m)
         z = z.reshape(r, c, 2, m).permute(3, 0, 2, 1).reshape(m, r, 2 * c)

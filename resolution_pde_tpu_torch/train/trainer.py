@@ -39,7 +39,17 @@ the checkpoint saves. Batches are staged in pinned host memory and copied
 with ``non_blocking``, one batch ahead of the step that uses them.
 
 ``profile_step`` traces steps with ``torch.profiler`` where JAX uses
-``jax.profiler``.
+``jax.profiler``. While a profiler records, the trainer opens these spans
+(``utils/tracing.py``; none otherwise), which divide a profiled step and
+its device time into its phases:
+  - ``rpde.train.step``: each ``train_step`` (its stage inside it) and
+    each step of ``train_epoch`` (whose batches are staged one ahead);
+  - ``rpde.train.stage``: ``_stage`` of a training batch (in
+    ``train_step`` and ``train_epoch``'s prefetch, not evaluation's), the
+    rows taken, pinned and copied to the device without blocking;
+  - ``rpde.train.forward`` (model and loss), ``rpde.train.backward``
+    (``backward()``), one of each a microbatch, and
+    ``rpde.train.optimizer`` (gradient reduction, clip, ``opt.step()``).
 
 ``mesh`` (a DeviceMesh of parallel/mesh.py; inside an initialized process
 group ``None`` means ``make_mesh()``, every rank on "data", the JAX
@@ -74,6 +84,7 @@ multi-rank runs match the single process at dropout 0. Not ported:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -99,6 +110,7 @@ from resolution_pde_tpu_torch.parallel.shard import (grad_sq_norm, local_part,
                                                      shard_module,
                                                      split_dtensors)
 from resolution_pde_tpu_torch.train.schedules import ReduceLROnPlateau
+from resolution_pde_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -298,7 +310,10 @@ class Trainer:
         per-sample loss weights. Returns (state, loss) with the loss a
         0-dim tensor on the device. Under a mesh every rank passes the
         same global batch and takes its rows."""
-        return self._step(state, *self._stage(x, y, weights, train=True))
+        with span("rpde.train.step"):
+            with span("rpde.train.stage"):
+                staged = self._stage(x, y, weights, train=True)
+            return self._step(state, *staged)
 
     def _step(self, state, x, y, w, total, copies) -> tuple:
         """The step on ``_stage``'s output. accum_steps > 1: the rows in
@@ -315,9 +330,11 @@ class Trainer:
                 spatial.sharded(self.mesh) as shard:
             y_normalizer = self._local_normalizer(shard, y.shape[2:])
             if accum == 1:
-                loss = self._loss(model, x, y, w, total, copies,
-                                  y_normalizer)
-                loss.backward()
+                with span("rpde.train.forward"):
+                    loss = self._loss(model, x, y, w, total, copies,
+                                      y_normalizer)
+                with span("rpde.train.backward"):
+                    loss.backward()
                 loss = loss.detach()
             else:
                 rows = x.shape[0]
@@ -333,16 +350,19 @@ class Trainer:
                 loss = torch.zeros((), device=x.device)
                 for i in range(accum):
                     part = slice(i * mb, (i + 1) * mb)
-                    li = self._loss(model, x[part], y[part], w[part],
-                                    total, copies, y_normalizer)
-                    li.backward()
+                    with span("rpde.train.forward"):
+                        li = self._loss(model, x[part], y[part], w[part],
+                                        total, copies, y_normalizer)
+                    with span("rpde.train.backward"):
+                        li.backward()
                     loss = loss + li.detach()
-        reduce_gradients(model.parameters(), self.mesh)
-        if self._data_group is not None:
-            dist.all_reduce(loss, group=self._data_group)
-        if self.grad_clip:
-            self._clip_grads(model.parameters())
-        opt.step()
+        with span("rpde.train.optimizer"):
+            reduce_gradients(model.parameters(), self.mesh)
+            if self._data_group is not None:
+                dist.all_reduce(loss, group=self._data_group)
+            if self.grad_clip:
+                self._clip_grads(model.parameters())
+            opt.step()
         state.step += 1
         return state, loss
 
@@ -374,8 +394,8 @@ class Trainer:
                      n_steps: int = 5) -> tuple:
         """Trace ``n_steps`` train steps on (x, y), after one to warm up,
         with torch.profiler (CPU activity, and CUDA's on the card); the
-        Chrome trace goes into ``trace_dir``. Returns (state,
-        trace_dir)."""
+        Chrome trace, which holds the trainer's ``rpde.*`` spans, goes into
+        ``trace_dir``. Returns (state, trace_dir)."""
         state, loss = self.train_step(state, x, y)
         float(loss)
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -397,7 +417,10 @@ class Trainer:
         this rank's rows with their loss normalisation (``_stage``)."""
         pending = None
         for batch in loader:
-            nxt = self._stage(*batch[:3], straggler=straggler, train=train)
+            with (span("rpde.train.stage") if train
+                  else contextlib.nullcontext()):
+                nxt = self._stage(*batch[:3], straggler=straggler,
+                                  train=train)
             if pending is not None:
                 yield pending
             pending = nxt
@@ -409,7 +432,8 @@ class Trainer:
         Returns (state, mean batch loss as a float)."""
         losses = []
         for staged in self._prefetch(loader, train=True):
-            state, loss = self._step(state, *staged)
+            with span("rpde.train.step"):
+                state, loss = self._step(state, *staged)
             losses.append(loss)
         # one host sync per epoch, not per batch
         total = float(torch.stack(losses).sum()) if losses else 0.0
