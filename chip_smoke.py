@@ -69,7 +69,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      264; bf16 on the staged route at 128 -> 128 (W, and H with acc) and
      256 -> 256, timed, and at m = 72; the two-axis conv's input
      and weight gradients against the same on the CPU; in f32 the adjoint
-     and the weight gradient against autograd of the plain pass;
+     and the weight gradient against autograd of the plain pass; the bf16
+     weight gradient's kernels (rpde_spectral_wgrad) against their plain
+     mirror, two calls bit for bit, at the train shape along W and at the
+     train cell's shape (32 x 256² x 64) along W and along H, these timed
+     beside the plain torch products and the bound (its ragged shapes and
+     strided views are tests/test_torch_wgrad_cuda.py's);
   7. the serving slice: FFNO2D at the width of bench.py (random weights
      from a seed) behind ServingEngine on the GPU, one CUDA graph per
      bucket (8 x {64², 128², 256²} and a 4-step forecast, in bf16 and in
@@ -305,10 +310,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      x and of the stacked weights within 1e-5 (relative L2) of the layers
      applied in sequence in one process. Every kernel of each part
      launched on both ranks; phase 19 at most 60 s in the ranks.
-The line before the last is the kernels' JSON record (ten entries: K1f,
+The line before the last is the kernels' JSON record (eleven entries: K1f,
 K1b, the spectral pass and its adjoint each as a bf16 and an f32 entry,
 the bf16 ones on the staged route with its own byte floor beside the
-bound), each kernel with its time (the W pass's at the train shape, for
+bound, and the bf16 weight gradient with its route's floor), each kernel
+with its time (the W pass's at the train shape, for
 K2 and its adjoint), its plain version's, its launches on the main paths
 and its bound (the larger of its bytes over 3.35 TB/s and the operations
 its function needs over the peak rate of their type: for the spectral
@@ -1117,10 +1123,9 @@ def check_spectral_adjoint(gen) -> tuple:
                   route="staged")
     cuda = torch.device("cuda")
     f2, i2 = sm.packed_factors(RES, MODES, "ortho", cuda)
-    x = randn(train, gen, dtype=bf)
-    g = randn(train, gen, dtype=bf)
-    wg_ms = time_ms(lambda: sm.spectral_weight_grad(x, g, f2, i2, 2, bf))
-    log("K2adj", case="weight_grad_bf16", ms=f"{wg_ms:.4f}")
+    # bf16 x and g at the train shape for check_weight_grad (the shared
+    # generator's draws at this point of the phase)
+    cell = (randn(train, gen, dtype=bf), randn(train, gen, dtype=bf))
 
     # f32 at the train shape: the adjoint kernel and the weight gradient
     # against autograd of the plain pass (an independent derivation)
@@ -1129,15 +1134,16 @@ def check_spectral_adjoint(gen) -> tuple:
     g = randn((BATCH, RES, RES, WIDTH), gen)
     wab = sm.mix_blocks(randn((WIDTH, WIDTH, MODES, 2), gen, 0.1), m)
     xr = x.reshape(-1, RES, WIDTH).requires_grad_()
-    wr = sm.pack_blocks(wab).requires_grad_()
-    sm.spectral_pass_reference(xr, f2, i2, wr, torch.float32).backward(
+    wl = wab.detach().requires_grad_()
+    sm.spectral_pass_reference(xr, f2, i2, sm.pack_blocks(wl),
+                               torch.float32).backward(
         g.reshape(-1, RES, WIDTH))
     dx = sm.spectral_axis_adjoint(g, wab, 2, "ortho", torch.float32)
-    dw = sm.spectral_weight_grad(x, g, f2, i2, 2, torch.float32)
+    dw = sm.spectral_weight_grad(x, g, m, 2, "ortho", torch.float32)
     ex = rel_l2(dx.reshape(xr.shape), xr.grad)
-    ew = rel_l2(dw, wr.grad)
+    ew = rel_l2(dw, wl.grad)
     log("K2adj", case="f32_vs_autograd", dx_rel_l2=f"{ex:.3e}",
-        dwpk_rel_l2=f"{ew:.3e}", tol=1e-4)
+        dw_rel_l2=f"{ew:.3e}", tol=1e-4)
     require(ex <= 1e-4 and ew <= 1e-4, f"f32 adjoint vs autograd: {ex} {ew}")
 
     # both axes at 48 x 64 (m = 25 / 33) through the conv's autograd
@@ -1160,7 +1166,80 @@ def check_spectral_adjoint(gen) -> tuple:
             m="25/33", dx_rel_l2=f"{errs[0]:.3e}",
             dwy_rel_l2=f"{errs[1]:.3e}", dwx_rel_l2=f"{errs[2]:.3e}", tol=tol)
         require(max(errs) <= tol, f"conv gradients {dtype}: {errs}")
-    return _with_h(w16, h16), _with_h(k3, k3h), _with_h(wide, wide_h)
+    return _with_h(w16, h16), _with_h(k3, k3h), _with_h(wide, wide_h), cell
+
+
+def _wgrad_floor(rows, n, c, o, m, chunks) -> float:
+    """The bf16 weight gradient's route's own byte floor (ms): x and g read
+    once in bf16, both spectra, (m, rows, 2 C8) and (m, rows, 2 O8) in
+    bf16, and the chunks' f32 sums each written once and read once, the
+    gradient written once in f32."""
+    c8, o8 = -(-c // 8) * 8, -(-o // 8) * 8
+    nbytes = (rows * n * (c + o) * 2 + 2 * m * rows * 2 * (c8 + o8) * 2
+              + 2 * chunks * m * 4 * c8 * o8 * 4 + m * 2 * c * o * 4)
+    return nbytes / HBM_BYTES_S * 1e3
+
+
+def check_weight_grad(x8, g8) -> dict:
+    """The bf16 weight gradient's kernels (rpde_spectral_wgrad) against
+    their plain mirror (weight_grad_staged_plain) on the card, two calls
+    compared bit for bit: on x8 and g8, bf16 at the train shape (8 x 256² x
+    64, m = 64) along W; at the train cell's shape (32 x 256² x 64, drawn
+    from a generator of its own) along W and along H, each timed beside the
+    plain torch products (weight_grad_plain, the route they replace) and
+    the bound. Returns the cell's W entry with its H times beside it."""
+    from resolution_pde_tpu_torch.ops.kernels import _build
+    from resolution_pde_tpu_torch.ops.kernels import spectral_mix as sm
+
+    bf = torch.bfloat16
+
+    def case(x, g, axis, label, timed=True):
+        n, c, o = x.shape[axis], x.shape[3], g.shape[3]
+        m = min(MODES, n // 2 + 1)
+        rows = x.numel() // (n * c)
+        chunks = _build.library().rpde_spectral_wgrad_chunks(n, m, c, o, rows)
+        before = sm.wgrad_launches
+        got = sm.spectral_weight_grad(x, g, m, axis, "ortho", bf)
+        again = sm.spectral_weight_grad(x, g, m, axis, "ortho", bf)
+        a1x = sm.staged_factors(n, m, "ortho", x.device)[0]
+        a1g = sm.staged_factors(n, m, "ortho", x.device, adjoint=True)[0]
+        want = sm.weight_grad_staged_plain(x, g, a1x, a1g, m, axis)
+        torch.cuda.synchronize()
+        launched = sm.wgrad_launches - before
+        err, same = rel_l2(got, want), bool(torch.equal(got, again))
+        fields = dict(case=label, shape="x".join(map(str, x.shape)),
+                      axis=axis, C=c, O=o, m=m, chunks=chunks,
+                      rel_l2=f"{err:.3e}", tol=2e-3, same_bits=same,
+                      launches=launched)
+        res = dict(max_abs_err=max_abs(got, want))
+        if timed:
+            f2, i2 = sm.packed_factors(n, m, "ortho", x.device)
+            ms = time_ms(lambda: sm.spectral_weight_grad(x, g, m, axis,
+                                                         "ortho", bf))
+            plain = time_ms(lambda: sm.weight_grad_plain(x, g, f2, i2, axis,
+                                                         bf))
+            res.update(ms=ms, plain_ms=plain, **bound(
+                *sm.weight_grad_cost(rows, n, c, o, m, bf), PEAK_BF16),
+                route_floor_ms=_wgrad_floor(rows, n, c, o, m, chunks))
+            fields.update(ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                          bound_ms=f"{res['bound_ms']:.4f}",
+                          route_floor_ms=f"{res['route_floor_ms']:.4f}")
+        log("wgrad", **fields)
+        require(launched == 2 and same and err <= 2e-3
+                and bool(torch.isfinite(got).all()),
+                f"weight gradient {label}: {launched} launches, same bits "
+                f"{same}, rel_l2 {err}")
+        return res
+
+    case(x8, g8, 2, "train_w_8_rows", timed=False)
+    # the train cell's shape (benchmark/, ffno2d_ns256.train_b32): 32 rows
+    gen = torch.Generator().manual_seed(SEED + 4)
+    cell = (32, RES, RES, WIDTH)
+    x, g = randn(cell, gen, dtype=bf), randn(cell, gen, dtype=bf)
+    w = case(x, g, 2, "train_w")
+    h = case(x, g, 1, "train_h")
+    return dict(w, h_ms=h["ms"], h_plain_ms=h["plain_ms"],
+                h_bound_ms=h["bound_ms"], h_route_floor_ms=h["route_floor_ms"])
 
 
 def build_model(device, compute_dtype, spectral_impl, gen=None,
@@ -1442,18 +1521,21 @@ def run_train() -> dict:
         trainer = Trainer(model, learning_rate=1e-3, device="cuda")
         return trainer, trainer.init()
 
-    def step(trainer, state, xb, yb, what):
-        before = _counts()
+    def step(trainer, state, xb, yb, what, wgrad=2 * LAYERS):
+        before, w0 = _counts(), spectral_mix.wgrad_launches
         state, loss = trainer.train_step(state, xb, yb)
         d = [a - b for a, b in zip(_counts(), before)]
         require(d == per_step, f"{what}: a step launched (K1, K1b, K2, "
                 f"adjoint) {d}, expected {per_step}")
+        dw = spectral_mix.wgrad_launches - w0
+        require(dw == wgrad, f"{what}: {dw} weight gradients on the kernels, "
+                f"expected {wgrad}")
         return state, loss
 
     # the main path: every launch counted from here comes from train steps
     fused_ff.launches = fused_ff.bwd_launches = 0
     spectral_mix.launches = spectral_mix.adjoint_launches = 0
-    spectral_mix.wide_launches = 0
+    spectral_mix.wide_launches = spectral_mix.wgrad_launches = 0
     launched = {"bf16": [0, 0, 0, 0], "f32": [0, 0, 0, 0]}
 
     def tally(key, before):
@@ -1535,14 +1617,14 @@ def run_train() -> dict:
             "launches on the staged route")
     before = _counts()
     trainer, state = trainer_for(None, "pallas")
-    state, _ = step(trainer, state, x128, y128, "f32 gradient step")
+    state, _ = step(trainer, state, x128, y128, "f32 gradient step", 0)
     err32 = rel_l2(_flat_grads(state.model), ref)
     # the f32-exact step at the train shape: 2 warm steps, 3 timed
     trainer, state = trainer_for(None, "pallas")
     f32_ms, f32_losses = [], []
     for i in range(5):
         t = time.perf_counter()
-        state, loss = step(trainer, state, xd, yd, "f32 step")
+        state, loss = step(trainer, state, xd, yd, "f32 step", 0)
         torch.cuda.synchronize()
         f32_losses.append(float(loss))
         if i >= 2:
@@ -1560,8 +1642,10 @@ def run_train() -> dict:
     require(err16 <= 3e-2, f"bf16 gradients vs CPU f32: {err16}")
     require(err32 <= 1e-4, f"f32 gradients vs CPU f32: {err32}")
     log("train", launches_k1=_counts()[0], launches_k1b=_counts()[1],
-        launches_k2=_counts()[2], launches_adjoint=_counts()[3])
-    return dict(launched=launched, step_ms=step_ms)
+        launches_k2=_counts()[2], launches_adjoint=_counts()[3],
+        launches_wgrad=spectral_mix.wgrad_launches)
+    return dict(launched=launched, step_ms=step_ms,
+                wgrad=spectral_mix.wgrad_launches)
 
 
 def run_wide() -> dict:
@@ -4725,9 +4809,11 @@ def main() -> int:
     k1b, k1b32 = check_fused_ff_bwd(gen)
     check_planner_mirrors()
     k2, k3, k2wide = check_spectral(gen)
-    adj16, adj32, adjwide = check_spectral_adjoint(gen)
+    adj16, adj32, adjwide, cell = check_spectral_adjoint(gen)
+    wgrad = check_weight_grad(*cell)
     served = run_slice(gen)
-    trained = run_train()["launched"]
+    train = run_train()
+    trained = train["launched"]
     wide = run_wide()
     k4, k5 = check_s4_kernels(gen)
     s4_served = run_s4_slice()
@@ -4800,6 +4886,10 @@ def main() -> int:
              launches=trained["f32"][3] + par["f32"][3] + p19["f32"][3],
              parallel_launches=par["f32"][3],
              phase19_launches=p19["f32"][3], **adj32),
+        dict(name="spectral_weight_grad_bf16", route="cuda",
+             source=staged_src, replaces="none (XLA in "
+             "resolution_pde_tpu/ops/pallas/spectral_mix2.py:145 op_bwd)",
+             launches=train["wgrad"], **wgrad),
         dict(name="s4d_vandermonde", route="cuda",
              source="resolution_pde_tpu_torch/csrc/vandermonde.cu",
              replaces="resolution_pde_tpu/ops/pallas/vandermonde.py:46",

@@ -49,6 +49,10 @@
 // The launcher zero-pads the factors to whole tiles and each mode's blocks
 // to 8 channels; the sums over each contraction run in an order fixed by
 // the shapes, so two calls give the same bits.
+//
+// The gradient of the pass's weight (rpde_spectral_wgrad) reuses stage 1 for
+// the spectra of x and of the output's gradient and gemm_tile for their
+// per-mode product; its note is with its kernels below.
 
 #include <algorithm>
 #include <initializer_list>
@@ -155,8 +159,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // The block's tile of sums over a contraction of K: slice s of A (rows
 // m0.., columns s kBK..) and of B (rows s kBK.., columns n0..) copied into
 // ring stage s mod kRing by op.load_a / op.load_b (cp.async copies, or
-// plain stores, of this thread's pieces), kRing - 1 slices ahead.
-template <typename Op>
+// plain stores, of this thread's pieces), kRing - 1 slices ahead. With
+// kATrans, op.load_a stores A's slice transposed, as B's is stored: row
+// k of the slice holds A's columns m0.. (kBK x kATLd), and its fragments
+// are read with ldmatrix.trans.
+constexpr int kATLd = kBM + 8;
+static_assert(kBK * kATLd <= kAStage, "a transposed A slice fits its ring stage");
+template <bool kATrans = false, typename Op>
 __device__ __forceinline__ void gemm_tile(Op& op, int K, StagedAcc& acc) {
   bf16* sa = reinterpret_cast<bf16*>(staged_smem);
   bf16* sb = sa + kRing * kAStage;
@@ -194,7 +203,12 @@ __device__ __forceinline__ void gemm_tile(Op& op, int K, StagedAcc& acc) {
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t af[kMT][4], bfr[kNT][2];
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) frag_a(af[i], a, kALd, wm + 16 * i, kk);
+      for (int i = 0; i < kMT; ++i) {
+        if constexpr (kATrans)
+          frag_a_trans(af[i], a, kATLd, wm + 16 * i, kk);
+        else
+          frag_a(af[i], a, kALd, wm + 16 * i, kk);
+      }
 #pragma unroll
       for (int j = 0; j < kNT; j += 2) {
         frag_b2_trans(bfr[j], bfr[j + 1], b, kBLd, kk, wn + 8 * j);
@@ -621,6 +635,219 @@ bool staged_fits(int n, int m, int c, int o) {
   return n_pad * m2_pad < limit && 2 * c8 * o8 < limit;
 }
 
+// ---------------------------------------------------------------------------
+// The packed weight's gradient of a bf16 pass: dwpk_k (2 C8 x 2 O8) = Z_k^T @
+// GS_k over the rows, Z = f2^T x and GS = i2 g the spectra of the pass's
+// input and of its output's gradient, each rounded to bf16, and the gradient
+// of the blocks a | b taken from it (a = d[:C, :O] + d[C8:, O8:], b =
+// d[:C, O8:] - d[C8:, :O]).
+//
+// Replaces no TPU kernel: the JAX package leaves this product to XLA inside
+// its VJP (ops/pallas/spectral_mix2.py `op_bwd`), and the port had it as
+// torch transposes, casts and IEEE-f32 GEMMs (spectral_mix.py
+// `weight_grad_plain`), 9.6 ms a call at 32 x 256^2 x 64, m = 64 on an
+// H100. Its bound is bytes: it reads x and g once (268 MB each there),
+// writes and reads the two bf16 spectra once (134 MB each), 1.07 GB, or
+// 0.32 ms at 3.35 TB/s, against 86 GFLOP (0.087 ms at 989 TFLOP/s).
+// Three launches:
+//   1. wgrad_spectra_kernel: both spectra, Z (m, R, 2 C8) and GS (m, R, 2 O8),
+//      by stage 1 of the pass (ForwardOp, run_tile) on x with the pass's a1
+//      and on g with the adjoint's a1 (= i2), both read in place through
+//      their strides; one launch, x's tiles first;
+//   2. wgrad_product_kernel: per mode and tile of (2 C8 x 2 O8), Z_k^T @ GS_k
+//      over one chunk of rows, on gemm_tile's ring with A read transposed
+//      (Z_k's rows are the contraction), f32 sums of bf16 products stored
+//      per chunk. One tile a mode at C = O = 64 makes 64 blocks for 132 SMs,
+//      so the rows are split into chunks (wgrad_chunk_rows) until the blocks
+//      fill about two a SM;
+//   3. wgrad_reduce_kernel: the chunks' sums added in chunk order, a thread
+//      an output element, and the blocks' gradient (m, 2, C, O) in f32.
+// No atomics: the chunks follow from the shapes alone, so two calls give the
+// same bits.
+
+// the blocks of the product that a launch aims at: 132 SMs of an H100, two
+// blocks of gemm_tile's shared memory each
+constexpr long long kWgSlots = 264;
+
+struct WgradParams {
+  int m, c, o, c8, o8;
+  int m_tiles, n_tiles;  // tiles of a mode's 2 C8 rows and 2 O8 columns
+  int chunks;
+  long long rows, chunk;  // rows, and rows a chunk (a multiple of kBK)
+};
+
+// rows a chunk of the product: the rows split so that the blocks (each
+// mode's tiles times the chunks) reach kWgSlots, a chunk a whole number of
+// slices
+long long wgrad_chunk_rows(long long rows, int m, int c, int o) {
+  const long long c8 = ceil_div(c, 8) * 8, o8 = ceil_div(o, 8) * 8;
+  const long long tiles = m * ceil_div(2 * c8, kBM) * ceil_div(2 * o8, kBN);
+  const long long want = std::max(1LL, kWgSlots / tiles);
+  return ceil_div(ceil_div(rows, want), kBK) * kBK;
+}
+
+// the product's chunks for a pass of n points, m modes, c channels in and o
+// out over `rows` rows, or 0 where the kernels do not take the shape (the
+// staged route's fit; rows, and stage 1's columns rows x C8 or O8, 32-bit)
+int wgrad_chunks(int n, int m, int c, int o, long long rows) {
+  if (!staged_fits(n, m, c, o) || rows < 1 || rows >= (1LL << 31) ||
+      rows * ((std::max(c, o) + 7) / 8 * 8) >= (1LL << 31))
+    return 0;
+  return static_cast<int>(ceil_div(rows, wgrad_chunk_rows(rows, m, c, o)));
+}
+
+// Stage 1 of the pass on one tile: the spectrum of x (or g) with the factor
+// a1, tile b of its (2m x R C8) product.
+__device__ __forceinline__ void spectra_tile(const StagedParams& p, const bf16* x, const bf16* a1,
+                                             bf16* z, unsigned b) {
+  const int m_tiles = (2 * p.m + kBM - 1) / kBM;
+  const int m0 = static_cast<int>(b % m_tiles) * kBM, n0 = static_cast<int>(b / m_tiles) * kBN;
+  ForwardOp<bf16> op(p, x, a1, z, m0, n0);
+  run_tile(op, p.n, m0, n0);
+}
+
+__global__ void __launch_bounds__(kSgThreads, 2)
+wgrad_spectra_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                     const bf16* __restrict__ a1x, const bf16* __restrict__ a1g,
+                     bf16* __restrict__ zx, bf16* __restrict__ zg, StagedParams px,
+                     StagedParams pg, unsigned x_blocks) {
+  if (blockIdx.x < x_blocks)
+    spectra_tile(px, x, a1x, zx, blockIdx.x);
+  else
+    spectra_tile(pg, g, a1g, zg, blockIdx.x - x_blocks);
+}
+
+// The product of mode k over rows r0 .. r1 - 1: A = Z_k^T, whose slice s is
+// rows r0 + s kBK.. of Z_k's (R x 2 C8) slab, copied as they lie, columns
+// m0.. (gemm_tile<true> reads it transposed); B = GS_k's rows, columns n0...
+// Both zero-filled past r1 and past their widths. A thread copies the same
+// column piece of every slice row it copies.
+struct WgradOp {
+  const bf16* __restrict__ zk;
+  const bf16* __restrict__ gk;
+  long long r0, r1;
+  int ldz, ldg;  // 2 C8, 2 O8
+  int za, ga;    // the thread's column piece of A and of B, or -1 past the width
+  __device__ WgradOp(const WgradParams& p, const bf16* zk_, const bf16* gk_, long long r0_,
+                     int m0, int n0)
+      : zk(zk_), gk(gk_), r0(r0_), r1(min(r0_ + p.chunk, p.rows)), ldz(2 * p.c8),
+        ldg(2 * p.o8) {
+    const int q = 8 * (threadIdx.x % kBPerRow);
+    za = m0 + q < ldz ? m0 + q : -1;
+    ga = n0 + q < ldg ? n0 + q : -1;
+  }
+  __device__ void load(bf16* st, int ld, const bf16* src, int lds, int col, int k0) const {
+    const int q = threadIdx.x % kBPerRow;
+#pragma unroll
+    for (int u = 0; u < kBPer; ++u) {
+      const int kr = threadIdx.x / kBPerRow + u * kBRowStep;
+      const long long r = r0 + k0 + kr;
+      const bool in = col >= 0 && r < r1;
+      cp_async_16_zfill(st + kr * ld + q * 8, in ? src + r * lds + col : src, in);
+    }
+  }
+  __device__ void load_a(bf16* st, int k0) const { load(st, kATLd, zk, ldz, za, k0); }
+  __device__ void load_b(bf16* st, int k0) const { load(st, kBLd, gk, ldg, ga, k0); }
+  __device__ void fix_b(uint32_t (&)[2], int, int) const {}
+};
+static_assert(kBM == kBN, "A's and B's slices of the product share one piece map");
+
+__global__ void __launch_bounds__(kSgThreads, 2)
+wgrad_product_kernel(const bf16* __restrict__ z, const bf16* __restrict__ gs,
+                     float* __restrict__ part, WgradParams p) {
+  const int k = blockIdx.y;
+  const int tiles = p.m_tiles * p.n_tiles;
+  const int q = static_cast<int>(blockIdx.x) / tiles, t = static_cast<int>(blockIdx.x) % tiles;
+  const int m0 = (t % p.m_tiles) * kBM, n0 = (t / p.m_tiles) * kBN;
+  WgradOp op(p, z + static_cast<long long>(k) * p.rows * 2 * p.c8,
+             gs + static_cast<long long>(k) * p.rows * 2 * p.o8, q * p.chunk, m0, n0);
+  StagedAcc acc;
+  gemm_tile<true>(op, static_cast<int>(op.r1 - op.r0), acc);
+  // the tile's f32 sums into chunk q's (2 C8 x 2 O8) of mode k
+  const int ldd = 2 * p.o8;
+  float* d = part + (static_cast<long long>(q) * p.m + k) * (2LL * p.c8) * ldd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = m0 + (warp / kWarpsN) * kWM, wn = n0 + (warp % kWarpsN) * kWN;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = wn + 8 * j + 2 * (lane % 4);
+    if (col >= ldd) continue;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm + 16 * i + lane / 4 + 8 * h;
+        if (row < 2 * p.c8)
+          *reinterpret_cast<float2*>(d + static_cast<long long>(row) * ldd + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  }
+}
+
+// dW (m, 2, C, O): a thread an element (k, c, o) of both blocks, each of the
+// four sums over the chunks in chunk order, then a = d[c][o] + d[C8 + c][O8
+// + o] and b = d[c][O8 + o] - d[C8 + c][o].
+constexpr int kWgReduceThreads = 256;
+
+__global__ void __launch_bounds__(kWgReduceThreads)
+wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, WgradParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kWgReduceThreads + threadIdx.x;
+  if (i >= static_cast<long long>(p.m) * p.c * p.o) return;
+  const int o = static_cast<int>(i % p.o);
+  const long long kc = i / p.o;
+  const int c = static_cast<int>(kc % p.c), k = static_cast<int>(kc / p.c);
+  const long long ld = 2 * p.o8, mode = 2LL * p.c8 * ld;
+  const float* d = part + k * mode;
+  const long long lo = c * ld + o, hi = (p.c8 + c) * ld + o;
+  float s00 = 0.f, s11 = 0.f, s01 = 0.f, s10 = 0.f;
+  for (int q = 0; q < p.chunks; ++q, d += p.m * mode) {
+    s00 += d[lo];
+    s11 += d[hi + p.o8];
+    s01 += d[lo + p.o8];
+    s10 += d[hi];
+  }
+  dw[(2LL * k * p.c + c) * p.o + o] = s00 + s11;
+  dw[((2LL * k + 1) * p.c + c) * p.o + o] = s01 - s10;
+}
+
+cudaError_t launch_wgrad(const bf16* x, const bf16* g, const bf16* a1x, const bf16* a1g, bf16* zx,
+                         bf16* zg, float* part, float* dw, StagedParams& px, StagedParams& pg,
+                         const WgradParams& w, cudaStream_t stream) {
+  const auto aligned = [](const void* q, uintptr_t to) {
+    return (reinterpret_cast<uintptr_t>(q) & (to - 1)) == 0;
+  };
+  if (!aligned(a1x, 16) || !aligned(a1g, 16) || !aligned(zx, 16) || !aligned(zg, 16) ||
+      !aligned(part, 8) || !aligned(dw, 4))
+    return cudaErrorMisalignedAddress;
+  for (auto* pp : {&px, &pg}) {
+    const void* src = pp == &px ? static_cast<const void*>(x) : static_cast<const void*>(g);
+    pp->x_async = pp->c % 8 == 0 && pp->x_ax % 8 == 0 && pp->x_hi % 8 == 0 &&
+                  pp->x_lo % 8 == 0 && aligned(src, 16);
+  }
+  cudaError_t err;
+  for (const void* k : {reinterpret_cast<const void*>(wgrad_spectra_kernel),
+                        reinterpret_cast<const void*>(wgrad_product_kernel)})
+    if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(kSgSmem))) != cudaSuccess)
+      return err;
+  const long long x_blocks = ceil_div(2 * px.m, kBM) * ceil_div(px.rows * px.c8, kBN);
+  const long long g_blocks = ceil_div(2 * pg.m, kBM) * ceil_div(pg.rows * pg.c8, kBN);
+  const long long reduce_blocks = ceil_div(static_cast<long long>(w.m) * w.c * w.o,
+                                           kWgReduceThreads);
+  if (x_blocks + g_blocks >= (1LL << 31) || reduce_blocks >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  wgrad_spectra_kernel<<<static_cast<unsigned>(x_blocks + g_blocks), kSgThreads, kSgSmem,
+                         stream>>>(x, g, a1x, a1g, zx, zg, px, pg,
+                                   static_cast<unsigned>(x_blocks));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wgrad_product_kernel<<<dim3(static_cast<unsigned>(w.m_tiles * w.n_tiles * w.chunks), w.m),
+                         kSgThreads, kSgSmem, stream>>>(zx, zg, part, w);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wgrad_reduce_kernel<<<static_cast<unsigned>(reduce_blocks), kWgReduceThreads, 0, stream>>>(
+      part, dw, w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace rpde
 
@@ -680,4 +907,66 @@ extern "C" int rpde_spectral_staged(int io_bf16, const void* x, const void* a1, 
 // checked against it.
 extern "C" int rpde_spectral_staged_fits(int n, int m, int c, int o) {
   return rpde::staged_fits(n, m, c, o) ? 1 : 0;
+}
+
+// The gradient of a bf16 pass's weight blocks a | b: x (rows of n points,
+// c channels, strides x_*, as rpde_spectral_staged takes them) and g (the
+// gradient of the pass's output, o channels, strides g_*), both bf16 ->
+// dw (m, 2, c, o) f32, contiguous.
+//   a1x: the pass's a1 (f2^T), a1g: its adjoint's a1 (i2), each (2m
+//       rounded up to 128, n rounded up to 64) bf16, row-major, zeros in the
+//       padding (rpde_spectral_staged's a1);
+//   zx, zg: bf16 scratch of m * rows * 2 c8 and m * rows * 2 o8 elements;
+//   part: f32 scratch of chunks * m * 2 c8 * 2 o8 elements, chunks as
+//       rpde_spectral_wgrad_chunks gives them (a call with another count
+//       is refused);
+// all 16-byte aligned. Returns a cudaError_t.
+extern "C" int rpde_spectral_wgrad(const void* x, const void* g, const void* a1x, const void* a1g,
+                                   void* zx, void* zg, void* part, void* dw, int n, int m, int c,
+                                   int o, long long rows, long long rows_lo, long long x_hi,
+                                   long long x_lo, long long x_ax, long long g_hi, long long g_lo,
+                                   long long g_ax, int chunks, void* stream) {
+  using namespace rpde;
+  if (rows_lo < 1 || chunks < 1 || chunks != wgrad_chunks(n, m, c, o, rows))
+    return cudaErrorInvalidValue;
+  StagedParams px{};
+  px.n = n;
+  px.m = m;
+  px.c = c;
+  px.c8 = (c + 7) / 8 * 8;
+  px.a1_ld = static_cast<int>(ceil_div(n, 64) * 64);
+  px.rows = rows;
+  px.rows_lo = rows_lo;
+  px.x_hi = x_hi;
+  px.x_lo = x_lo;
+  px.x_ax = x_ax;
+  StagedParams pg = px;
+  pg.c = o;
+  pg.c8 = (o + 7) / 8 * 8;
+  pg.x_hi = g_hi;
+  pg.x_lo = g_lo;
+  pg.x_ax = g_ax;
+  WgradParams w{};
+  w.m = m;
+  w.c = c;
+  w.o = o;
+  w.c8 = px.c8;
+  w.o8 = pg.c8;
+  w.m_tiles = static_cast<int>(ceil_div(2 * w.c8, kBM));
+  w.n_tiles = static_cast<int>(ceil_div(2 * w.o8, kBN));
+  w.chunks = chunks;
+  w.rows = rows;
+  w.chunk = wgrad_chunk_rows(rows, m, c, o);
+  return launch_wgrad(static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+                      static_cast<const bf16*>(a1x), static_cast<const bf16*>(a1g),
+                      static_cast<bf16*>(zx), static_cast<bf16*>(zg), static_cast<float*>(part),
+                      static_cast<float*>(dw), px, pg, w, static_cast<cudaStream_t>(stream));
+}
+
+// The weight gradient's row chunks for a pass of n points, m modes, c
+// channels in and o out over `rows` rows, or 0 where its kernels do not take
+// the shape: the launcher asks for them before each call of
+// rpde_spectral_wgrad and refuses a shape that has none.
+extern "C" int rpde_spectral_wgrad_chunks(int n, int m, int c, int o, long long rows) {
+  return rpde::wgrad_chunks(n, m, c, o, rows);
 }

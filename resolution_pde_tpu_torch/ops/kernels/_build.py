@@ -39,6 +39,8 @@ _SIGNATURES = {
                            _L, _L, _L, _L, _L, _I, _P],
     "rpde_spectral_staged": [_I, *[_P] * 7, _I, _I, _I, _I, *[_L] * 8, _I, _P],
     "rpde_spectral_staged_fits": [_I, _I, _I, _I],
+    "rpde_spectral_wgrad": [*[_P] * 8, _I, _I, _I, _I, *[_L] * 8, _I, _P],
+    "rpde_spectral_wgrad_chunks": [_I, _I, _I, _I, _L],
     "rpde_vandermonde": [*[_P] * 5, _I, _I, _I, _P],
     "rpde_s4d_kernel": [*[_P] * 4, _I, _I, _I, _I, _P],
     "rpde_cauchy": [*[_P] * 8, _I, _I, _I, _P],

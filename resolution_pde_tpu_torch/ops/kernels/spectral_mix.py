@@ -34,9 +34,12 @@ alone; what no route takes raises a ValueError before any launch.
 The op is linear in x, so its adjoint is the same pass with transposed
 factors (f2' = i2^T, i2' = f2^T) and each mode's weight conjugated and
 transposed (``adjoint_blocks``), launched through the same kernels
-(``spectral_axis_adjoint``); the packed weight's gradient is two DFT
-products and a batched contraction, left to torch matmuls as the JAX
-package leaves it to XLA. ``SpectralConv2d`` wires both into one
+(``spectral_axis_adjoint``). The weight's gradient is two DFT products and
+a per-mode contraction over the rows (``spectral_weight_grad``), which the
+JAX package leaves to XLA: in bf16 it runs on kernels of the staged route
+(stage 1 for both spectra, then the per-mode product), elsewhere as the
+plain torch products (``weight_grad_plain``). ``SpectralConv2d`` wires both
+into one
 ``torch.autograd.Function`` around the two-axis conv; ``SpectralAxis`` is
 one axis pass and its backward, from which
 ``factorized_spectral_conv_2d_pallas2_slabs`` builds the conv on the
@@ -67,6 +70,7 @@ launches = 0          # forward passes
 adjoint_launches = 0  # adjoint passes (the same kernel, transposed factors)
 wide_launches = 0     # of those, bf16 passes and adjoints (the staged route)
 k3_launches = 0       # launches of the f32 kernel, one a chunk of a pass
+wgrad_launches = 0    # bf16 weight gradients on the staged route's kernels
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -440,9 +444,9 @@ def _ieee_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
-    """Gradient of one axis pass with respect to its packed weight:
-    x (B, H, W, C), g (B, H, W, O) -> dwpk (m, 2C, 2O) in f32.
+def weight_grad_plain(x, g, f2, i2, axis: int, compute_dtype):
+    """Plain PyTorch gradient of one axis pass with respect to its packed
+    weight: x (B, H, W, C), g (B, H, W, O) -> dwpk (m, 2C, 2O) in f32.
 
     As the JAX package's VJP (XLA there, torch matmuls here): the spectra
     z = x^T f2 and gs = g^T i2^T with each factor rounded to its operand's
@@ -450,15 +454,14 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
     dwpk[k] = z_k^T gs_k over the rows, summed and returned in f32. The
     operands hold values of at most f32 precision and are multiplied in
     IEEE f32 (TF32 off), so a bf16 product is exact and only the order of
-    the f32 sums differs from the TPU's. It runs inside the span
-    ``rpde.spectral.weight_grad`` (``utils/tracing.py``)."""
+    the f32 sums differs from the TPU's."""
     cd = compute_dtype
     m = f2.shape[1] // 2
     xr = x if axis == 2 else x.transpose(1, 2)
     gr = g if axis == 2 else g.transpose(1, 2)
     n, c, o = xr.shape[2], xr.shape[3], gr.shape[3]
     r = xr.shape[0] * xr.shape[1]
-    with span("rpde.spectral.weight_grad"), _ieee_f32_matmul():
+    with _ieee_f32_matmul():
         xt = xr.transpose(2, 3).reshape(r * c, n).float()
         z = xt @ f2.to(x.dtype).float()                    # (R*C, 2m)
         z = z.reshape(r, c, 2, m).permute(3, 0, 2, 1).reshape(m, r, 2 * c)
@@ -467,6 +470,123 @@ def spectral_weight_grad(x, g, f2, i2, axis: int, compute_dtype):
         gs = gs.reshape(r, o, 2, m).permute(3, 0, 2, 1).reshape(m, r, 2 * o)
         return torch.bmm(z.to(cd).float().transpose(1, 2),
                          gs.to(cd).float())                # (m, 2C, 2O)
+
+
+def weight_grad_cost(rows, n, c, o, m, io) -> tuple:
+    """(operations, bytes) of one weight gradient over ``rows`` rows of n
+    points, c channels in and o out. Operations: the two spectra as dense
+    products, 4 n m a channel, and the per-mode product, 8 c o a row and
+    mode, as both versions compute them. Bytes: x and g read once in
+    ``io``, the blocks' gradient (m, 2, C, O) written once in f32."""
+    e = torch.finfo(io).bits // 8
+    return (rows * (4.0 * n * m * (c + o) + 8.0 * m * c * o),
+            rows * n * (c + o) * e + m * 2 * c * o * 4)
+
+
+def _axis_rows(t, axis):
+    """(rows, rows_lo) of a (B, H, W, C) tensor's rows along ``axis``: B H
+    rows of W points (rows_lo H) for axis 2, B W of H (rows_lo W) for 1."""
+    b, h, w, _ = t.shape
+    return (b * h, h) if axis == 2 else (b * w, w)
+
+
+def weight_grad_staged_plain(x, g, a1x, a1g, m: int, axis: int):
+    """The bf16 weight gradient's kernels written plainly on their own
+    operands: x (B, H, W, C) and g (B, H, W, O) in bf16, a1x and a1g the
+    pass's and its adjoint's padded a1 (``staged_factors``) -> the blocks'
+    gradient (m, 2, C, O) in f32. Each tensor's rows along ``axis`` are
+    read through its strides (``_axis_strides``), as the kernel reads them;
+    the spectra Z = f2^T x and GS = i2 g, (m, R, 2 C8) and (m, R, 2 O8)
+    mode-major with zeros in the padded channels, are summed in f32 from
+    bf16 products and rounded to bf16; per mode dwpk_k = Z_k^T GS_k in f32,
+    and the blocks' gradient taken from it (``_blocks_grad`` on the padded
+    halves)."""
+    n, c, o = x.shape[axis], x.shape[3], g.shape[3]
+    rows, rows_lo = _axis_rows(x, axis)
+
+    def spectrum(t, a1):
+        hi, lo, ax = _axis_strides(t, axis)
+        ch = t.shape[3]
+        c8 = _round_up(ch, 8)
+        tr = torch.as_strided(t, (rows // rows_lo, rows_lo, n, ch),
+                              (hi, lo, ax, t.stride(3)), t.storage_offset())
+        tp = torch.zeros((rows, n, c8), dtype=torch.float32, device=t.device)
+        tp[:, :, :ch] = tr.reshape(rows, n, ch).float()
+        with _ieee_f32_matmul():
+            z = torch.einsum("jt,rtc->jrc", a1[:2 * m, :n].float(), tp)
+        z = z.view(2, m, rows, c8).permute(1, 2, 0, 3).reshape(m, rows, 2 * c8)
+        return z.to(torch.bfloat16).float()
+
+    zx, zg = spectrum(x, a1x), spectrum(g, a1g)
+    with _ieee_f32_matmul():
+        d = torch.bmm(zx.transpose(1, 2), zg)          # (m, 2 C8, 2 O8)
+    c8, o8 = zx.shape[2] // 2, zg.shape[2] // 2
+    return torch.stack([d[:, :c, :o] + d[:, c8:c8 + c, o8:o8 + o],
+                        d[:, :c, o8:o8 + o] - d[:, c8:c8 + c, :o]], dim=1)
+
+
+def spectral_weight_grad(x, g, m: int, axis: int, norm: str, compute_dtype):
+    """Gradient of one axis pass along ``axis`` (m modes, ``norm``) with
+    respect to its weight's blocks: x (B, H, W, C), g (B, H, W, O) -> the
+    gradient of ``mix_blocks``' (m, 2, C, O) in f32.
+
+    Chosen by device and dtype, as ``spectral_route`` chooses: CUDA
+    tensors with x, g and ``compute_dtype`` in bf16 run the staged route's
+    kernels (csrc/spectral_staged.cu ``rpde_spectral_wgrad``: both spectra
+    by the pass's stage 1, x and g read in place, then the per-mode product
+    on the tensor cores, ``weight_grad_staged_plain`` written plainly),
+    which raise a ValueError for a shape they do not take; CPU tensors and
+    the f32-exact mode (f32 x or compute dtype, whose operands a bf16 stage
+    would round) run the plain torch products (``weight_grad_plain``) and
+    the gradient of their packing. Both round where the JAX package's VJP
+    rounds. It runs inside the span ``rpde.spectral.weight_grad``
+    (``utils/tracing.py``)."""
+    with span("rpde.spectral.weight_grad"):
+        if (x.device.type == "cuda" and x.dtype == g.dtype == compute_dtype
+                == torch.bfloat16):
+            return _launch_wgrad(x, g, m, axis, norm)
+        f2, i2 = packed_factors(x.shape[axis], m, norm, x.device)
+        return _blocks_grad(weight_grad_plain(x, g, f2, i2, axis,
+                                              compute_dtype))
+
+
+def _launch_wgrad(x, g, m, axis, norm):
+    """``rpde_spectral_wgrad`` on bf16 x and g along ``axis``: its row
+    chunks (``rpde_spectral_wgrad_chunks``), its scratch (both spectra in
+    bf16, the chunks' f32 sums) and its output."""
+    global wgrad_launches
+    if x.shape[:3] != g.shape[:3] or x.stride(3) != 1 or g.stride(3) != 1:
+        raise ValueError(f"spectral_weight_grad kernel needs x and g over one "
+                         f"(B, H, W) grid with unit channel stride, got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    n, c, o = x.shape[axis], x.shape[3], g.shape[3]
+    rows, rows_lo = _axis_rows(x, axis)
+    chunks = _build.library().rpde_spectral_wgrad_chunks(n, m, c, o, rows)
+    if not chunks:
+        raise ValueError(f"spectral_weight_grad bf16: no kernel takes n={n}, "
+                         f"m={m}, C={c}, O={o} over {rows} rows (the staged "
+                         f"route takes at most {_STAGED_MAX_MODES} modes, and "
+                         f"rows and rows x max(C, O) rounded up to 8 below "
+                         f"2^31)")
+    c8, o8 = _round_up(c, 8), _round_up(o, 8)
+    a1x = staged_factors(n, m, norm, x.device)[0]
+    a1g = staged_factors(n, m, norm, x.device, adjoint=True)[0]
+    zx = torch.empty(m * rows * 2 * c8, dtype=torch.bfloat16, device=x.device)
+    zg = torch.empty(m * rows * 2 * o8, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(chunks * m * 4 * c8 * o8, dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((m, 2, c, o), dtype=torch.float32, device=x.device)
+    _cost.add(lambda: weight_grad_cost(rows, n, c, o, m, x.dtype)[0])
+    with torch.cuda.device(x.device):
+        err = _build.library().rpde_spectral_wgrad(
+            x.data_ptr(), g.data_ptr(), a1x.data_ptr(), a1g.data_ptr(),
+            zx.data_ptr(), zg.data_ptr(), part.data_ptr(), dw.data_ptr(), n,
+            m, c, o, rows, rows_lo, *_axis_strides(x, axis),
+            *_axis_strides(g, axis), chunks,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rpde_spectral_wgrad")
+    wgrad_launches += 1
+    return dw
 
 
 def _launch(x, wab, axis, norm, adjoint, cd, acc):
@@ -498,7 +618,7 @@ def _launch(x, wab, axis, norm, adjoint, cd, acc):
         out = acc
     if out.numel() == 0:
         return out
-    rows, rows_lo = b * (h * w // n), h if axis == 2 else w
+    rows, rows_lo = _axis_rows(x, axis)
     _cost.add(lambda: pass_cost(rows, n, c, o, m, x.dtype, cd,
                                 acc is not None)[0])
     with torch.cuda.device(x.device):
@@ -591,19 +711,16 @@ class SpectralConv2d(torch.autograd.Function):
     def backward(ctx, g):
         norm, cd = ctx.opts
         x, wab_y, wab_x = ctx.saved_tensors
-        _, h, w, _ = x.shape
         g = g.contiguous()
         dx = dwy = dwx = None
         if ctx.needs_input_grad[1]:
             dx = spectral_axis_adjoint(g, wab_y, 2, norm, cd)
             spectral_axis_adjoint(g, wab_x, 1, norm, cd, acc=dx)
         if ctx.needs_input_grad[2]:
-            f2, i2 = packed_factors(w, wab_y.shape[0], norm, x.device)
-            dwy = _blocks_grad(spectral_weight_grad(x, g, f2, i2, 2, cd))
+            dwy = spectral_weight_grad(x, g, wab_y.shape[0], 2, norm, cd)
             dwy = dwy.to(wab_y.dtype)
         if ctx.needs_input_grad[3]:
-            f2, i2 = packed_factors(h, wab_x.shape[0], norm, x.device)
-            dwx = _blocks_grad(spectral_weight_grad(x, g, f2, i2, 1, cd))
+            dwx = spectral_weight_grad(x, g, wab_x.shape[0], 1, norm, cd)
             dwx = dwx.to(wab_x.dtype)
         return None, dx, dwy, dwx
 
@@ -629,9 +746,7 @@ class SpectralAxis(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dx = spectral_axis_adjoint(g, wab, axis, norm, cd)
         if ctx.needs_input_grad[2]:
-            f2, i2 = packed_factors(x.shape[axis], wab.shape[0], norm,
-                                    x.device)
-            dw = _blocks_grad(spectral_weight_grad(x, g, f2, i2, axis, cd))
+            dw = spectral_weight_grad(x, g, wab.shape[0], axis, norm, cd)
             dw = dw.to(wab.dtype)
         return None, dx, dw
 

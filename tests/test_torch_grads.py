@@ -224,8 +224,8 @@ ADJOINT_CASES = [(16, 5, 4, 3), (16, 12, 4, 3), (15, 10, 4, 3),
     ids=[f"{n}-{k}" if (c, o) == (4, 3) else f"{n}-{k}-{c}-{o}"
          for n, k, c, o in ADJOINT_CASES])
 def test_axis_adjoint_and_weight_grad_match_jax_vjp(n, n_modes, c, o):
-    """One axis pass: the plain adjoint and the packed weight's gradient
-    (carried to the (C, O, modes, 2) weight by pack_mix_weight's autograd)
+    """One axis pass: the plain adjoint and the weight blocks' gradient
+    (carried to the (C, O, modes, 2) weight by mix_blocks' autograd)
     against jax.vjp of both JAX kernels (packed K2 in f32, unpacked K3)."""
     rng = np.random.default_rng(n * 7 + n_modes)
     rows = 5
@@ -234,16 +234,15 @@ def test_axis_adjoint_and_weight_grad_match_jax_vjp(n, n_modes, c, o):
     g = rng.standard_normal((rows, n, o)).astype(np.float32)
     m = min(n_modes, n // 2 + 1)
     cpu = torch.device("cpu")
-    f2, i2 = tmix.packed_factors(n, m, "ortho", cpu)
     tw = torch.from_numpy(w).requires_grad_()
     wpk = tmix.pack_mix_weight(tw, m)
     dx = tmix.spectral_adjoint_reference(
         torch.from_numpy(g), *tmix.adjoint_factors(n, m, "ortho", cpu),
         wpk.detach(), torch.float32)
-    dwpk = tmix.spectral_weight_grad(
-        torch.from_numpy(x)[None], torch.from_numpy(g)[None], f2, i2, 2,
+    dwab = tmix.spectral_weight_grad(
+        torch.from_numpy(x)[None], torch.from_numpy(g)[None], m, 2, "ortho",
         torch.float32)
-    wpk.backward(dwpk)
+    tmix.mix_blocks(tw, m).backward(dwab)
     for op in (lambda a, b: jmix2.packed_spectral_mix_1d(
                    a, b, n_modes, interpret=True, compute_dtype=jnp.float32),
                lambda a, b: jmix.truncated_spectral_mix_1d(

@@ -576,3 +576,81 @@ def test_kernel_factors_f32_of_a_mode_range(adjoint):
     assert torch.equal(f2p[:n, :32], f2[:, cols])
     assert torch.equal(i2p[:32, :n], i2[cols])
     assert not f2p[:, 32:].any() and not i2p[32:].any()
+
+
+# -- the bf16 weight gradient's kernels, written plainly -------------------
+
+# (B, H, W, C, O, n_modes): ragged shapes of the weight gradient's kernels,
+# n no multiple of 64, m odd along both axes (17 along W = 40 and 11 along
+# H = 20; 7 along W = 15 and H = 24) and C, O no multiple of 8
+WGRAD_CASES = [(2, 20, 40, 5, 3, 17), (1, 24, 15, 12, 20, 7),
+               (1, 6, 40, 24, 40, 17)]
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("b,h,w,c,o,n_modes", WGRAD_CASES,
+                         ids=["-".join(map(str, k)) for k in WGRAD_CASES])
+def test_weight_grad_staged_plain_matches_jax(b, h, w, c, o, n_modes, axis):
+    """``weight_grad_staged_plain``, the bf16 weight gradient's kernels
+    written plainly on their operands (the two padded a1 factors, rows read
+    through the strides, spectra rounded to bf16, the per-mode product in
+    f32), against ``spectral_weight_grad`` on the CPU (the plain torch
+    products, the same rounding points: rounding flips only) and against
+    jax.vjp of the JAX package's pallas2 kernel in bf16 (interpret mode)
+    with respect to its weight, within relative L2 2e-2 as the other bf16
+    comparisons with JAX. On the CPU no kernel runs."""
+    rng = np.random.default_rng(b * h * w + c + o + axis)
+    n = (h, w)[axis - 1]
+    m = min(n_modes, n // 2 + 1)
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    g = rng.standard_normal((b, h, w, o)).astype(np.float32)
+    wt = _weight(rng, c, o, n_modes) * c ** -0.5
+    cpu = torch.device("cpu")
+    xt, gt = torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16()
+    a1x = tmix.staged_factors(n, m, "ortho", cpu)[0]
+    a1g = tmix.staged_factors(n, m, "ortho", cpu, adjoint=True)[0]
+    launches = tmix.wgrad_launches
+    got = tmix.weight_grad_staged_plain(xt, gt, a1x, a1g, m, axis)
+    plain = tmix.spectral_weight_grad(xt, gt, m, axis, "ortho",
+                                      torch.bfloat16)
+    assert tmix.wgrad_launches == launches
+    assert got.dtype == plain.dtype == torch.float32
+    assert got.shape == plain.shape == (m, 2, c, o)
+    assert _rel(got.numpy(), plain.numpy()) <= 1e-3
+
+    def rows(a):  # (R, n, channels) along the axis, as the JAX kernel takes
+        a = a if axis == 2 else np.swapaxes(a, 1, 2)
+        return jnp.asarray(a.reshape(-1, n, a.shape[3])).astype(jnp.bfloat16)
+
+    def op(wj):
+        return jmix2.packed_spectral_mix_1d(rows(x), wj, n_modes,
+                                            interpret=True,
+                                            compute_dtype=jnp.bfloat16)
+    jdw = jax.vjp(op, jnp.asarray(wt))[1](rows(g))[0]
+    want = tmix.mix_blocks(torch.from_numpy(np.array(jdw)), m)
+    assert _rel(got.numpy(), want.numpy()) <= 2e-2
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("view", ["pencil", "sliced_channels", "transposed"])
+def test_weight_grad_staged_plain_reads_strided_views(view, axis):
+    """``weight_grad_staged_plain`` reads x's rows along the axis through
+    its strides, as the kernels read them in place: on a view (columns
+    8..23 of a wider grid, 5 channels sliced from 8, or H and W swapped by
+    a transpose) it gives the bits it gives on the view's contiguous
+    copy."""
+    gen = torch.Generator().manual_seed(axis)
+    grid = torch.randn((2, 24, 32, 8), generator=gen).bfloat16()
+    x = {"pencil": grid[:, :, 8:24], "sliced_channels": grid[..., 1:6],
+         "transposed": grid.transpose(1, 2)}[view]
+    assert not x.is_contiguous()
+    g = torch.randn(tuple(x.shape[:3]) + (12,), generator=gen).bfloat16()
+    n = x.shape[axis]
+    m = min(7, n // 2 + 1)
+    cpu = torch.device("cpu")
+    a1x = tmix.staged_factors(n, m, "ortho", cpu)[0]
+    a1g = tmix.staged_factors(n, m, "ortho", cpu, adjoint=True)[0]
+    got = tmix.weight_grad_staged_plain(x, g, a1x, a1g, m, axis)
+    want = tmix.weight_grad_staged_plain(x.contiguous(), g, a1x, a1g, m, axis)
+    assert got.shape == (m, 2, x.shape[3], 12)
+    assert torch.equal(got, want)

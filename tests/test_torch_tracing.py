@@ -20,7 +20,6 @@ CFG = dict(in_channels=1, out_channels=1, width=6, n_layers=2, n_modes=5,
            factor=2, ff_weight_norm=True, n_ff_layers=2, layer_norm=True,
            dropout=0.0, spectral_impl="pallas2", ff_impl="fused")
 GRID = (12, 16)
-CPU = torch.device("cpu")
 
 
 def _model(seed: int = 0) -> FFNO2D:
@@ -35,11 +34,11 @@ def _batch(rows: int = 3, seed: int = 1):
 
 
 def _weight_grad_inputs():
+    """x, g and the modes of a weight gradient along W."""
     g = torch.Generator().manual_seed(2)
     x = torch.randn(2, *GRID, 4, generator=g)
     gy = torch.randn(2, *GRID, 3, generator=g)
-    f2, i2 = spectral_mix.packed_factors(GRID[1], 5, "ortho", CPU)
-    return x, gy, f2, i2
+    return x, gy, 5
 
 
 def _profiled(fn):
@@ -73,7 +72,7 @@ def _run_predict(model):
 
 def _run_weight_grad(_model_unused):
     return [spectral_mix.spectral_weight_grad(*_weight_grad_inputs(), 2,
-                                              torch.float32)]
+                                              "ortho", torch.float32)]
 
 
 RUNS = {"train_step": _run_train_step, "predict": _run_predict,
@@ -198,7 +197,7 @@ def test_predict_device_opens_its_span():
 def test_spectral_weight_grad_emits_its_span():
     args = _weight_grad_inputs()
     _, spans = _profiled(lambda: spectral_mix.spectral_weight_grad(
-        *args, 2, torch.float32))
+        *args, 2, "ortho", torch.float32))
     assert [n for n, _, _ in spans] == ["rpde.spectral.weight_grad"]
 
 
